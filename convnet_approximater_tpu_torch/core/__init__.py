@@ -1,0 +1,3 @@
+from .approximater import APP, Approximater, build_app
+from .msca_rep import (MscaProfile, MscaRep, MscaRepProfile, get_equivalent_kernel,
+                       merge_res, sum_bias)

@@ -1,0 +1,98 @@
+"""Multi-Scale Conv Attention (port of ``convnet_approximater_tpu/layers/msca.py``).
+
+``conv0`` (k1 x k1 depthwise) -> ``sd_convs`` (strip-conv bank at k in
+{7, 11, 21} + identity, or what MscaRep made of it) -> ``channel_mix`` (1x1)
+-> gate ``x * attn``.  An eval-mode forward whose structure the fused kernel
+can express runs as one :func:`~convnet_approximater_tpu_torch.ops.msca_fused.msca_fused`
+call (the CUDA kernel on the card, its plain version on the CPU), at every
+map size; a training forward takes the module path, since the kernel has no
+backward.
+"""
+
+from __future__ import annotations
+
+from torch import nn
+from torch.profiler import record_function
+
+from convnet_approximater_tpu_torch.nn import Conv2d, Identity
+from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+from .depth_separable_conv import CascadeConv, FixPaddingBias, ParallelConv
+from .substitution import LAYER
+
+
+@LAYER.register_module()
+class MSCA(nn.Module):
+    def __init__(self, num_channel: int, k1_size: int, k_sizes):
+        super().__init__()
+        self.num_channel = num_channel
+        self.k1_size = k1_size
+        self.k_sizes = tuple(k_sizes)
+        self.conv0 = Conv2d(num_channel, num_channel, k1_size, padding=k1_size // 2,
+                            groups=num_channel)
+        self.sd_convs = ParallelConv(num_channel, list(self.k_sizes),
+                                     [k // 2 for k in self.k_sizes], len(self.k_sizes),
+                                     all_bias=True, identity=True)
+        self.channel_mix = Conv2d(num_channel, num_channel, 1)
+
+    def _fuse_parts(self):
+        """``(bank, fix or None)`` when the fused kernel can express
+        ``sd_convs``, else None."""
+        sd = self.sd_convs
+        fix = None
+        if isinstance(sd, nn.Sequential) and len(sd) == 2 and isinstance(sd[1], FixPaddingBias):
+            sd, fix = sd[0], sd[1]
+        if isinstance(sd, (ParallelConv, CascadeConv)):
+            return sd, fix
+        return None
+
+    def can_fuse(self) -> bool:
+        return (not self.training and isinstance(self.conv0, Conv2d)
+                and self._fuse_parts() is not None)
+
+    def _fused_forward(self, x):
+        bank, fix = self._fuse_parts()
+        if isinstance(bank, CascadeConv):
+            cascades, identity = [bank], False
+        else:
+            cascades = [m for m in bank.branches if isinstance(m, CascadeConv)]
+            identity = any(isinstance(m, Identity) for m in bank.branches)
+        w1, b1, w2, b2, ks = fused_ops.pack_cascade_weights(
+            [c.conv1.weight[:, 0, 0, :].t() for c in cascades],
+            [c.conv1.bias for c in cascades],
+            [c.conv2.weight[:, 0, :, 0].t() for c in cascades],
+            [c.conv2.bias for c in cascades],
+        )
+        res, fix_p = None, 0
+        if fix is not None:
+            res, fix_p = fix.res.transpose(1, 2).contiguous(), fix.p  # (2, p, C)
+        y = fused_ops.msca_fused(
+            x.permute(0, 2, 3, 1).contiguous(),  # a view when x is channels_last
+            self.conv0.weight[:, 0].permute(1, 2, 0).contiguous(),
+            self.conv0.bias,
+            w1, b1, w2, b2,
+            self.channel_mix.weight[:, :, 0, 0].t().contiguous(),
+            self.channel_mix.bias,
+            res, ks=ks, identity=identity, fix_p=fix_p,
+        )
+        return y.permute(0, 3, 1, 2)
+
+    def forward(self, x):
+        if self.can_fuse():
+            return self._fused_forward(x)
+        attn = self.channel_mix(self.sd_convs(self.conv0(x)))
+        return x * attn
+
+
+@LAYER.register_module()
+class MSCAProfile(MSCA):
+    """MSCA on the module path, its three stages named for ``torch.profiler``."""
+
+    def forward(self, x):
+        with record_function("CONV0"):
+            attn = self.conv0(x)
+        with record_function("SD_CONVS"):
+            attn = self.sd_convs(attn)
+        with record_function("CHANNEL_MIX"):
+            attn = self.channel_mix(attn)
+        return attn * x

@@ -1,0 +1,2 @@
+from .mscan import MSCAN, MSCAN_Classifier
+from .switchable import MODEL, SwitchableModel, build_model

@@ -1,0 +1,116 @@
+"""The 4-phase approximation pipeline: Register -> Initialize -> Optimize ->
+PostProcess, with hook dispatch between phases (port of
+``convnet_approximater_tpu/runner/runner.py``).
+
+The runner owns the model, its device and the generator its random weights
+come from.  No phase trains, so the model stays in eval mode throughout.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import torch
+
+from convnet_approximater_tpu_torch.core import build_app
+from convnet_approximater_tpu_torch.hooks import Hook, build_hook
+from convnet_approximater_tpu_torch.models import build_model
+from convnet_approximater_tpu_torch.nn import init_weights
+from convnet_approximater_tpu_torch.utils import (get_cfg, get_logger, get_rank, print_cfg,
+                                                  save_cfg)
+
+
+def _overrides(method: str, base: type, obj) -> bool:
+    return getattr(type(obj), method) is not getattr(base, method)
+
+
+class Runner:
+    def __init__(self, device="cuda", generator: Optional[torch.Generator] = None):
+        cfg = get_cfg()
+        if cfg.filters:
+            raise NotImplementedError(
+                f"filters are not ported to the PyTorch port yet; the config sets {cfg.filters}")
+        if cfg.structure_passes:
+            raise NotImplementedError(
+                f"structure_passes are not ported to the PyTorch port yet; the config sets "
+                f"{cfg.structure_passes}")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.generator = (generator if generator is not None
+                          else torch.Generator().manual_seed(cfg.seed or 0))
+        self.model = build_model(cfg.model)
+        self.app = build_app(cfg.app)
+        self.hooks: List[Hook] = []
+        self.output_path = None
+        if get_rank() == 0 and cfg.work_dir:
+            os.makedirs(cfg.work_dir, exist_ok=True)
+            print_cfg()
+            save_cfg(os.path.join(cfg.work_dir, "cfg.json"))
+            name = cfg.config_name or cfg.name or "model"
+            self.output_path = os.path.join(cfg.work_dir, name + ".pt")
+        for h_cfg in cfg.hooks or []:
+            self.register_hook(h_cfg)
+        if self.hooks:
+            get_logger().info(self.hook_info())
+
+    # -- phases ----------------------------------------------------------
+    def run(self):
+        logger = get_logger()
+        model, app = self.model, self.app
+        self.call_hook("before_run")
+
+        logger.info("Register...")
+        model.register_switchable(app.src_type, [], verbose=True)
+        logger.info(f"{model.length_switchable} switchable submodules: {model.switchable_names}")
+        self.call_hook("after_register")
+
+        logger.info("Initialize...")
+        init_weights(model, self.generator)
+        model.load_init_cfg()
+        model.to(self.device, memory_format=torch.channels_last).eval()
+        for idx in range(model.length_switchable):
+            sub = app.initialize(model.get_switchable_module(idx), self.generator)
+            model.set_switchable_module(idx, sub.eval())
+        self.call_hook("after_initialize")
+
+        logger.info("Optimize...")
+        for idx in range(model.length_switchable):
+            app.optimize(model.get_switchable_module(idx))
+        self.call_hook("after_optimize")
+
+        logger.info("PostProcess...")
+        for idx in range(model.length_switchable):
+            model.set_switchable_module(idx, app.postprocess(model.get_switchable_module(idx)))
+        model.to(memory_format=torch.channels_last)
+
+        if self.output_path:
+            torch.save(model.state_dict(), self.output_path)
+            logger.info(f"saved model to {self.output_path}")
+        self.call_hook("after_run")
+
+    # -- hook machinery --------------------------------------------------
+    def register_hook(self, hook_cfg):
+        hook = build_hook(hook_cfg, runner=self)
+        idx = 0
+        for h in self.hooks:
+            if hook.priority < h.priority:
+                break
+            idx += 1
+        self.hooks.insert(idx, hook)
+
+    def call_hook(self, stage: str):
+        for h in self.hooks:
+            getattr(h, stage)()
+
+    def hook_info(self) -> str:
+        lines = ["\n"]
+        for stage in Hook.stages:
+            lines.append(f"Stage {stage}:")
+            lines.append(f"{'Name':^24}|{'Prio':^8}")
+            lines.append("-" * 33)
+            for h in self.hooks:
+                if _overrides(stage, Hook, h):
+                    lines.append(f"{h.name:^24}|{h.priority:^8}")
+            lines.append("-" * 33)
+        return "\n".join(lines)

@@ -31,8 +31,10 @@ setup(
     extras_require={
         "plots": ["matplotlib>=3.7"],
         "torch-convert": ["torch>=2.0"],  # ckpt_converter/torch_to_tpu.py
+        "torch": ["torch>=2.4", "numpy>=1.24"],  # convnet_approximater_tpu_torch (nvcc builds its kernels)
     },
     include_package_data=True,
-    package_data={"convnet_approximater_tpu.data": ["_native/*.cpp"]},
+    package_data={"convnet_approximater_tpu.data": ["_native/*.cpp"],
+                  "convnet_approximater_tpu_torch": ["csrc/*.cu"]},
     zip_safe=False,
 )
