@@ -1,3 +1,4 @@
 from .approximater import APP, Approximater, build_app
+from .low_rank_exp import LowRankExpV1
 from .msca_rep import (MscaProfile, MscaRep, MscaRepProfile, get_equivalent_kernel,
                        merge_res, sum_bias)

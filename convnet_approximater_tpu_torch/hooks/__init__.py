@@ -1,3 +1,5 @@
 from .hook import HOOK, Hook, build_hook
 from .inference_time_hook import InferenceTimeHook, time_forward
+from .low_rank_exp_v1_decomp import LowRankExpV1Decomp
+from .model_analysis import ModelAnalysis, count_macs, count_params
 from .priority import Priority, get_priority

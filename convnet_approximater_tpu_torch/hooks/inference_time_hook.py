@@ -2,7 +2,7 @@
 
 The forward time is the median over ``num_iters`` forwards after ``warmup``
 ones, each bracketed by CUDA events on the card, or by the host clock on the
-CPU.  The cost-analysis line of the JAX hook waits for a ``ModelAnalysis`` port.
+CPU.  The JAX hook's cost-analysis line is left to ``ModelAnalysis``.
 """
 
 from __future__ import annotations

@@ -1,4 +1,5 @@
 from .depth_separable_conv import CascadeConv, FixPaddingBias, ParallelConv
 from .drop import DropPath, drop_path
+from .low_rank_conv import LowRankExpConvV1, SeparableConv
 from .msca import MSCA, MSCAProfile
 from .substitution import LAYER, Substitution, build_layer

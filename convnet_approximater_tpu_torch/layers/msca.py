@@ -77,6 +77,16 @@ class MSCA(nn.Module):
         )
         return y.permute(0, 3, 1, 2)
 
+    def macs(self, x_shape) -> int:
+        """Multiply-accumulates of the fused forward on an NCHW input of ``x_shape``."""
+        bank, _ = self._fuse_parts()
+        cascades = [bank] if isinstance(bank, CascadeConv) else [
+            m for m in bank.branches if isinstance(m, CascadeConv)]
+        taps = self.conv0.weight[0].numel() + sum(
+            c.conv1.weight[0].numel() + c.conv2.weight[0].numel() for c in cascades)
+        B, C, H, W = x_shape
+        return B * H * W * C * (taps + C)
+
     def forward(self, x):
         if self.can_fuse():
             return self._fused_forward(x)

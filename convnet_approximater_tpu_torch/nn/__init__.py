@@ -1,4 +1,4 @@
 """Leaf layers of the port; containers are ``torch.nn``'s own."""
 
-from .layers import (GELU, BatchNorm2d, Conv2d, Dropout, Identity, LayerNorm, Linear,
-                     gelu, init_weights)
+from .layers import (GELU, AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Dropout, Identity,
+                     LayerNorm, Linear, MaxPool2d, ReLU, flatten_hwc, gelu, init_weights)

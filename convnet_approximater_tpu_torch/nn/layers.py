@@ -1,7 +1,8 @@
 """Leaf layers (port of ``convnet_approximater_tpu/nn/layers.py``).
 
-``Conv2d``, ``Linear``, ``Dropout`` and ``Identity`` are torch's own.  The
-layers below differ from torch's defaults where the JAX package does:
+``Conv2d``, ``Linear``, ``Dropout``, ``Identity``, ``ReLU`` and the pools are
+torch's own: the JAX pools (``ops/conv.py``) use torch's bin edges and floor
+mode.  The layers below differ from torch's defaults where the JAX package does:
 
 * ``BatchNorm2d`` has no ``num_batches_tracked`` counter (the momentum is
   fixed, so the counter is never read), so its ``state_dict`` maps one to one
@@ -25,6 +26,15 @@ Conv2d = nn.Conv2d
 Linear = nn.Linear
 Dropout = nn.Dropout
 Identity = nn.Identity
+ReLU = nn.ReLU
+MaxPool2d = nn.MaxPool2d
+AdaptiveAvgPool2d = nn.AdaptiveAvgPool2d
+
+
+def flatten_hwc(x):
+    """Flatten an NCHW map per sample in (h, w, c) order, as the JAX package
+    flattens its NHWC maps; a view when ``x`` is ``channels_last``."""
+    return x.permute(0, 2, 3, 1).flatten(1)
 
 
 class BatchNorm2d(nn.Module):

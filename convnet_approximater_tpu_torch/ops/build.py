@@ -1,9 +1,10 @@
-"""Build a CUDA source of ``csrc/`` with nvcc and load it with ctypes.
+"""Build CUDA sources of ``csrc/`` with nvcc and load them with ctypes.
 
 Each source compiles on its own into a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds).  The library lands in
 ``build/torch_kernels/`` at the repository root, named by a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is reused.
+:func:`build_all` starts one nvcc per source, all at once.
 """
 
 from __future__ import annotations
@@ -13,7 +14,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
+from typing import Dict, Sequence
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -34,29 +37,54 @@ def find_nvcc() -> str:
                        "to build the CUDA kernels")
 
 
-def build(source: str) -> Path:
-    """Compile ``csrc/<source>`` (if not built yet) and return the library path.
-
-    The compiler's output, ptxas register and spill counts included, is kept
-    beside the library as ``<name>.log``.
-    """
+def library_path(source: str) -> Path:
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{src.stem}-{digest}.so"
-    if lib.exists():
-        return lib
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
+
+
+def build_all(sources: Sequence[str]) -> Dict[str, float]:
+    """Compile the ``csrc/`` sources that are not built yet, one nvcc process
+    each, all started together; return each source's build seconds (0.0 for a
+    library that was built already).
+
+    The compiler's output, ptxas register and spill counts included, is kept
+    beside each library as ``<name>.log``.
+    """
+    seconds = {source: 0.0 for source in sources}
+    todo = [source for source in sources if not library_path(source).exists()]
+    if not todo:
+        return seconds
+    nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n"
-                           f"{proc.stderr[-4000:]}")
-    os.replace(tmp, lib)
-    return lib
+    jobs = {}
+    t0 = time.perf_counter()
+    for source in todo:
+        lib = library_path(source)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        log = open(lib.with_suffix(".log"), "w")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / source)]
+        jobs[source] = (lib, tmp, log, subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT))
+    failed = []
+    while jobs:
+        for source, (lib, tmp, log, proc) in list(jobs.items()):
+            if proc.poll() is None:
+                continue
+            seconds[source] = time.perf_counter() - t0
+            log.close()
+            del jobs[source]
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {source} ({proc.returncode}):\n"
+                              f"{lib.with_suffix('.log').read_text()[-4000:]}")
+            else:
+                os.replace(tmp, lib)
+        time.sleep(0.02)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
 
 
 def load(source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` if needed and load it."""
-    return ctypes.CDLL(str(build(source)))
+    build_all([source])
+    return ctypes.CDLL(str(library_path(source)))

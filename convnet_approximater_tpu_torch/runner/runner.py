@@ -14,6 +14,7 @@ from typing import List, Optional
 import torch
 
 from convnet_approximater_tpu_torch.core import build_app
+from convnet_approximater_tpu_torch.filters import build_filter
 from convnet_approximater_tpu_torch.hooks import Hook, build_hook
 from convnet_approximater_tpu_torch.models import build_model
 from convnet_approximater_tpu_torch.nn import init_weights
@@ -28,9 +29,6 @@ def _overrides(method: str, base: type, obj) -> bool:
 class Runner:
     def __init__(self, device="cuda", generator: Optional[torch.Generator] = None):
         cfg = get_cfg()
-        if cfg.filters:
-            raise NotImplementedError(
-                f"filters are not ported to the PyTorch port yet; the config sets {cfg.filters}")
         if cfg.structure_passes:
             raise NotImplementedError(
                 f"structure_passes are not ported to the PyTorch port yet; the config sets "
@@ -41,6 +39,7 @@ class Runner:
                           else torch.Generator().manual_seed(cfg.seed or 0))
         self.model = build_model(cfg.model)
         self.app = build_app(cfg.app)
+        self.filters = [build_filter(f_cfg) for f_cfg in cfg.filters or []]
         self.hooks: List[Hook] = []
         self.output_path = None
         if get_rank() == 0 and cfg.work_dir:
@@ -61,7 +60,7 @@ class Runner:
         self.call_hook("before_run")
 
         logger.info("Register...")
-        model.register_switchable(app.src_type, [], verbose=True)
+        model.register_switchable(app.src_type, self.filters, verbose=True)
         logger.info(f"{model.length_switchable} switchable submodules: {model.switchable_names}")
         self.call_hook("after_register")
 
