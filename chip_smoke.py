@@ -6,15 +6,20 @@
 From the root of a checkout, with no arguments:
 
 1. checks for a CUDA device and prints the card's name and power limit;
-2. builds the port's CUDA kernels (``msca_fused``, ``lowrank_conv``) from the
-   sources in the checkout, one nvcc each, started together;
+2. builds the port's CUDA kernels (``msca_fused``, ``lowrank_conv``,
+   ``parallel_cascade``, ``qmatmul``) from the sources in the checkout, one nvcc
+   each, started together;
 3. holds each kernel against its plain PyTorch version, in float32 with TF32
    off, at the shapes its main path gives it at batch 64 and 224^2, and prints
    errors, median CUDA-event times and each call's bound (the larger of its
-   bytes over 3.35 TB/s and its FLOP over the 67 TFLOP/s float32 peak):
-   ``msca_fused`` at the four stage shapes of MSCAN-t in the dense-bank and the
-   MscaRep d1+fix forms; ``lowrank_conv`` at AlexNet's convs 2-5 in the
-   separable and the full-bases forms;
+   bytes over 3.35 TB/s and its operations over the peak of their type: 67
+   TFLOP/s float32, 1,979 TOP/s int8): ``msca_fused`` at the four stage shapes
+   of MSCAN-t in the dense-bank and the MscaRep d1+fix forms; ``lowrank_conv``
+   at AlexNet's convs 2-5 in the separable and the full-bases forms;
+   ``parallel_cascade`` at ConvNeXt-T's four stage shapes with one and two
+   7-tap cascades and in MSCA's dense-bank form, with cuDNN's depthwise conv of
+   the merged kernel timed beside it; ``qmatmul`` at the 13 shapes of int8
+   ConvNeXt-T, with ``torch._int_mm`` on the quantized operands timed beside it;
 4. drives the port's MSCAN main path once, through its CLI entry point: the
    Runner on ``configs/msca-rep/msca-rep_d1_fix_mscan-t.py`` at full width (13
    MSCA blocks swapped for MscaRep(1, fix), the SVD solved on the card, the
@@ -31,7 +36,24 @@ From the root of a checkout, with no arguments:
    plain version in place and the dense AlexNet, and profiles the low-rank
    forward; then runs the non-decomposed config once, so that the full-bases
    body runs on a real path;
-6. prints one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+6. drives the ConvNeXt-T serving path: the Runner on
+   ``configs/convnext/dw-sep-rep_r1_convnext-t.py`` (18 block dwconvs swapped for
+   rank-1 cascades, ModelAnalysis and InferenceTimeHook), checks that every
+   forward launched ``parallel_cascade`` 18 times, sets every layer scale
+   ``gamma`` to 1 (at its 1e-6 init the blocks would hide under any tolerance)
+   and holds the logits against the plain version and the module path; times
+   the plain version in place and the dense ConvNeXt-T, profiles the forward;
+   then ``deploy.quantize_int8`` on two calibration batches (41 modules), checks
+   41 ``qmatmul`` and 18 ``parallel_cascade`` launches per int8 forward, holds
+   the int8 logits against the same model through the plain versions and
+   against the float32 model, times and profiles the int8 forward; then runs
+   the rank-2 config once (two cascades per block on a real path);
+7. drives MSCAN-t with MscaRep(1, fix, decomp_conv0) through the CLI: 13 blocks
+   whose conv0 is a cascade, 26 ``parallel_cascade`` launches and no
+   ``msca_fused`` launch per forward, logits against the plain version and the
+   module path, timed; for it and for d1+fix, the host time to enqueue one
+   forward is printed beside the device time;
+8. prints one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Every failed check exits non-zero without the result lines, as does a run
 without a CUDA device or outside a checkout of the repository.  Random weights
@@ -51,12 +73,28 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 PACKAGE = "convnet_approximater_tpu_torch"
-SOURCES = ("msca_fused.cu", "lowrank_conv.cu")
+SOURCES = ("msca_fused.cu", "lowrank_conv.cu", "parallel_cascade.cu", "qmatmul.cu")
 CONFIG = os.path.join(REPO, "configs", "msca-rep", "msca-rep_d1_fix_mscan-t.py")
 ALEX_DODECOMP = os.path.join(REPO, "configs", "low-rank-exp",
                              "low-rank-exp-v1_l2345_svd_dodecomp_alexnet.py")
 ALEX_SVD = os.path.join(REPO, "configs", "low-rank-exp", "low-rank-exp-v1_l2345_svd_alexnet.py")
 ALEX_NAMES = ["features.3", "features.6", "features.8", "features.10"]
+CONVNEXT_R1 = os.path.join(REPO, "configs", "convnext", "dw-sep-rep_r1_convnext-t.py")
+CONVNEXT_R2 = os.path.join(REPO, "configs", "convnext", "dw-sep-rep_r2_convnext-t.py")
+MSCAN_DCONV0 = os.path.join(REPO, "configs", "msca-rep", "msca-rep_d1_fix_dconv0_mscan-t.py")
+# ConvNeXt-T at 224^2: (H = W, C, blocks) of its four stages
+CONVNEXT_STAGES = [(56, 96, 3), (28, 192, 3), (14, 384, 9), (7, 768, 3)]
+# int8 ConvNeXt-T at b=64: (M, K, N) of each qmatmul call and its calls per forward
+QMM_SHAPES = [((200704, 48, 96), 1), ((50176, 384, 192), 1), ((12544, 768, 384), 1),
+              ((3136, 1536, 768), 1),
+              ((200704, 96, 384), 3), ((50176, 192, 768), 3), ((12544, 384, 1536), 9),
+              ((3136, 768, 3072), 3),
+              ((200704, 384, 96), 3), ((50176, 768, 192), 3), ((12544, 1536, 384), 9),
+              ((3136, 3072, 768), 3),
+              ((64, 768, 1000), 1)]
+QMM_TOL = 1e-6      # relative error of qmatmul against its plain version (the sums are exact)
+INT8_TOL = 1e-3     # int8 logits against the same int8 model through the plain versions
+INT8_F32_TOL = 0.12  # int8 against float32 logits, max-abs relative (tests/test_quant.py's bound)
 KERNEL_TOL = 1e-5   # relative (norm) error of a kernel against its plain version
 LOGITS_TOL = 1e-4   # relative error of the logits, through the whole network
 STAGES = [(56, 32, 3), (28, 64, 3), (14, 160, 5), (7, 256, 2)]  # (H = W, C, blocks) at 224^2
@@ -66,6 +104,7 @@ ALEX_CONVS = [(27, 64, 5, 2, 8, 192), (13, 192, 3, 1, 8, 384), (13, 384, 3, 1, 6
 BATCH = 64
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
+PEAK_INT8 = 1979e12   # H100 SXM int8 tensor cores, dense, OP/s
 
 
 def fail(msg: str):
@@ -77,9 +116,9 @@ def rel_err(a, b) -> float:
     return float((a - b).norm() / b.norm())
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_F32):
     """(ms, "bytes" or "operations"): the least time the card could take."""
-    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / PEAK_F32 * 1e3
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -105,6 +144,22 @@ def lowrank_cost(H, C, k, pad, M, N, form):
     flops = 2 * P * C * M * taps + 2 * P * M * C * N + P * N
     weights = M * taps + M * C * N + N
     return 4 * (BATCH * H * H * C + P * N + weights), flops
+
+
+def cascade_cost(H, C, ks, identity):
+    """(bytes, FLOP) of one parallel_cascade call at batch BATCH: x read and out
+    written once, the packed taps and biases read once; per element each
+    branch's horizontal and vertical taps with their biases, and the identity."""
+    n = BATCH * H * H * C
+    flops = n * (sum(4 * k + 2 for k in ks) + int(identity))
+    return 4 * (2 * n + len(ks) * (2 * max(ks) + 2) * C), flops
+
+
+def qmm_cost(M, K, N):
+    """(bytes, int8 operations) of one qmatmul call: x (float32) read and y
+    (float32) written once, the int8 weight, its scales and the bias read once;
+    2 M N K operations of the product."""
+    return 4 * M * K + K * N + 4 * (2 * N + 1) + 4 * M * N, 2 * M * N * K
 
 
 def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
@@ -222,12 +277,122 @@ def check_lowrank_kernel(gen):
     return rows
 
 
+def library_time(fn) -> float:
+    """Median ms of the yardstick library call, in two turns."""
+    return float(np.median([cuda_ms(fn) for _ in range(2)]))
+
+
+def check_cascade_kernel(gen):
+    """parallel_cascade against parallel_cascade_ref at ConvNeXt-T's stage shapes
+    with one and two 7-tap cascades (DwSepRep r1/r2: no first bias, the second
+    bias on the last branch), and in MSCA's dense-bank form (7/11/21 with every
+    bias and the identity) at MSCAN-t's first stage.  Beside it, cuDNN's
+    depthwise conv of the merged k x k kernel sum_j v_j (x) h_j, the same
+    function where b1 = 0 (the DwSepRep forms)."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.ops.msca_fused import pack_cascade_weights
+
+    def u(*shape, scale=1.0):
+        return (torch.rand(*shape, generator=gen) * 2 - 1) * scale
+
+    cases = [(f"r{nb}", H, C, (7,) * nb, blocks) for nb in (1, 2)
+             for H, C, blocks in CONVNEXT_STAGES]
+    cases.append(("msca", STAGES[0][0], STAGES[0][1], (7, 11, 21), STAGES[0][2]))
+    rows = []
+    for form, H, C, ks, blocks in cases:
+        dense = form == "msca"
+        w1, b1, w2, b2, ks = pack_cascade_weights(
+            [u(k, C, scale=k ** -0.5) for k in ks],
+            [u(C, scale=0.2) if dense else None for _ in ks],
+            [u(k, C, scale=k ** -0.5) for k in ks],
+            [u(C, scale=0.2) if dense or i == len(ks) - 1 else None for i in range(len(ks))])
+        w1, b1, w2, b2 = (t.cuda() for t in (w1, b1, w2, b2))
+        x = u(BATCH, H, H, C).cuda()
+        kw = dict(ks=ks, identity=dense)
+        y = cascade_ops.parallel_cascade(x, w1, b1, w2, b2, **kw)
+        y_ref = cascade_ops.parallel_cascade_ref(x, w1, b1, w2, b2, **kw)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
+        if not torch.isfinite(y).all() or err > KERNEL_TOL:
+            fail(f"parallel_cascade {form} {(BATCH, H, H, C)}: rel err {err:.3e} > {KERNEL_TOL}")
+        ms, plain_ms = time_pair(lambda: cascade_ops.parallel_cascade(x, w1, b1, w2, b2, **kw),
+                                 lambda: cascade_ops.parallel_cascade_ref(x, w1, b1, w2, b2, **kw))
+        lib_ms = None
+        if not dense:
+            merged = torch.einsum("bic,bjc->cij", w2, w1)[:, None]  # (C, 1, k, k)
+            xc, bias = x.permute(0, 3, 1, 2), b2.sum(0)  # xc: an NCHW view, channels_last
+            y_lib = F.conv2d(xc, merged, bias, padding=max(ks) // 2, groups=C)
+            lib_err = rel_err(y_lib.permute(0, 2, 3, 1), y_ref)
+            lib_ms = library_time(lambda: F.conv2d(xc, merged, bias, padding=max(ks) // 2,
+                                                   groups=C))
+        nbytes, flops = cascade_cost(H, C, ks, dense)
+        b_ms, b_by = bound(nbytes, flops)
+        rows.append(dict(form=form, shape=(BATCH, H, H, C), blocks=blocks, rel_err=err,
+                         max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bytes=nbytes, flops=flops, bound_ms=b_ms))
+        lib = (f"cuDNN merged {lib_ms:.4f} ms (rel diff {lib_err:.1e})" if lib_ms is not None
+               else "no single library call (b1 and the identity)")
+        print(f"parallel_cascade {form:4s} x{rows[-1]['shape']} ks={ks}: rel err {err:.3e} "
+              f"(bound {KERNEL_TOL}), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, {lib}; bound {b_ms:.4f} ms by {b_by} "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), roofline share {b_ms / ms:.1%}")
+        del x, y, y_ref
+    return rows
+
+
+def check_qmatmul_kernel(gen):
+    """qmatmul against qmatmul_ref at the 13 shapes of int8 ConvNeXt-T at b=64;
+    beside it ``torch._int_mm`` on the already-quantized operands (the int8
+    product alone: a lower bar than the whole function)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    rows = []
+    for (M, K, N), calls in QMM_SHAPES:
+        x = torch.randn(M, K, generator=gen).cuda()
+        w_q = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).cuda()
+        w = qmatmul_ops.pack_qweight(w_q)
+        a = torch.tensor(float(x.abs().max()) / 127.0, device="cuda")
+        s = (torch.rand(N, generator=gen) * 0.01).cuda()
+        b = torch.randn(N, generator=gen).cuda()
+        y = qmatmul_ops.qmatmul(x, w, a, s, b)
+        y_ref = qmatmul_ops.qmatmul_ref(x, w, a, s, b)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
+        if not torch.isfinite(y).all() or err > QMM_TOL:
+            fail(f"qmatmul {(M, K, N)}: rel err {err:.3e} > {QMM_TOL}")
+        ms, plain_ms = time_pair(lambda: qmatmul_ops.qmatmul(x, w, a, s, b),
+                                 lambda: qmatmul_ops.qmatmul_ref(x, w, a, s, b))
+        x_q, w_t = qmatmul_ops.quantize_activation(x, a), w_q.t().contiguous()
+        lib_ms = library_time(lambda: torch._int_mm(x_q, w_t))
+        nbytes, ops = qmm_cost(M, K, N)
+        b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
+        rows.append(dict(shape=(M, K, N), calls=calls, rel_err=err, max_abs_err=abs_err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=ops,
+                         bound_ms=b_ms))
+        print(f"qmatmul (M, K, N)={(M, K, N)} x{calls}/forward: rel err {err:.3e} (bound "
+              f"{QMM_TOL}), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, torch._int_mm {lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
+              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int8 ops), roofline share "
+              f"{b_ms / ms:.1%}")
+        del x, y, y_ref, x_q
+    return rows
+
+
 def reset_counts():
     from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
     from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
 
     fused_ops.msca_fused.launches = 0
     lowrank_ops.lowrank_conv.launches = 0
+    cascade_ops.parallel_cascade.launches = 0
+    qmatmul_ops.qmatmul.launches = 0
 
 
 def run_cli(config, work_dir):
@@ -253,6 +418,19 @@ def images(gen, size=224):
 
     return torch.randn(2, 3, size, size, generator=gen).cuda().contiguous(
         memory_format=torch.channels_last)
+
+
+def check_logits(name, y, against, tol, classes: int = 1000):
+    """Shape, finiteness and relative error of the logits against each plain run."""
+    import torch
+
+    if tuple(y.shape) != (2, classes) or not torch.isfinite(y).all():
+        fail(f"{name}: logits of shape {tuple(y.shape)} or not finite")
+    errs = {k: rel_err(y, v) for k, v in against.items()}
+    print(f"{name} logits (2, {classes}): " + ", ".join(
+        f"rel err {e:.3e} against {k}" for k, e in errs.items()) + f" (bound {tol})")
+    if any(e > tol for e in errs.values()):
+        fail(f"{name}: logits disagree with the plain versions")
 
 
 def run_mscan(gen):
@@ -293,14 +471,8 @@ def run_mscan(gen):
         y_module = model(x)
         for m in mscas:
             m.eval()
-    torch.cuda.synchronize()
-    if tuple(y.shape) != (2, 1000) or not torch.isfinite(y).all():
-        fail(f"logits of shape {tuple(y.shape)} or not finite")
-    err_plain, err_module = rel_err(y, y_plain), rel_err(y, y_module)
-    print(f"d1+fix logits (2, 1000): rel err {err_plain:.3e} against msca_fused_ref, "
-          f"{err_module:.3e} against the module path (bound {LOGITS_TOL})")
-    if err_plain > LOGITS_TOL or err_module > LOGITS_TOL:
-        fail("d1+fix logits disagree with the plain versions")
+    check_logits("d1+fix", y, {"msca_fused_ref": y_plain, "the module path": y_module},
+                 LOGITS_TOL)
 
     dense = MSCAN_Classifier(num_classes=1000)
     init_weights(dense, torch.Generator().manual_seed(0))
@@ -316,10 +488,31 @@ def run_mscan(gen):
           f"{plain_ms:.3f} ms")
     print(f"MSCAN-t dense forward (64, 224, 224, 3) f32: median {dense_ms:.3f} ms "
           f"({b / dense_ms * 1e3:.1f} img/s); dense / d1+fix = {dense_ms / d1_ms:.4f}")
+    print(f"MSCAN-t d1+fix forward: {host_enqueue_ms(model, hook.input_size):.3f} ms of host "
+          f"time to enqueue it")
     profile_forward("MSCAN-t d1+fix", model, hook.input_size)
     del runner, model, dense
     torch.cuda.empty_cache()
     return launches
+
+
+def host_enqueue_ms(model, input_size, n: int = 10) -> float:
+    """Median host milliseconds to enqueue one forward on an idle card (no sync
+    inside it).  Where this nears the forward's device time, the host bounds it."""
+    import torch
+
+    B, H, W, C = input_size
+    x = torch.zeros(B, C, H, W, device="cuda").contiguous(memory_format=torch.channels_last)
+    times = []
+    with torch.no_grad():
+        for i in range(n + 3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            if i >= 3:
+                times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return float(np.median(times))
 
 
 def profile_forward(name, model, input_size, n: int = 3):
@@ -408,14 +601,8 @@ def run_alexnet(gen, config, separable: bool, work_dir: str, extras: bool):
         y_module = model(x)
         for m in layers:
             m.eval()
-    torch.cuda.synchronize()
-    if tuple(y.shape) != (2, 10) or not torch.isfinite(y).all():
-        fail(f"{name}: logits of shape {tuple(y.shape)} or not finite")
-    err_plain, err_module = rel_err(y, y_plain), rel_err(y, y_module)
-    print(f"{name} logits (2, 10): rel err {err_plain:.3e} against lowrank_conv_ref, "
-          f"{err_module:.3e} against the module path (bound {LOGITS_TOL})")
-    if err_plain > LOGITS_TOL or err_module > LOGITS_TOL:
-        fail(f"{name}: logits disagree with the plain versions")
+    check_logits(name, y, {"lowrank_conv_ref": y_plain, "the module path": y_module},
+                 LOGITS_TOL, classes=10)
     b = hook.input_size[0]
     print(f"AlexNet low-rank forward {tuple(hook.input_size)} f32 ({name}): median "
           f"{low_ms:.3f} ms ({b / low_ms * 1e3:.1f} img/s)")
@@ -436,14 +623,212 @@ def run_alexnet(gen, config, separable: bool, work_dir: str, extras: bool):
     return launches
 
 
-def per_forward(rows, weight, kernel):
+def set_gamma(model, value: float = 1.0):
+    """Every ConvNeXt layer scale to ``value``: at its 1e-6 init each block adds
+    about 1e-6 of its output to the residual stream, below any logits tolerance."""
+    import torch
+
+    from convnet_approximater_tpu_torch.models import LayerScale
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LayerScale):
+                m.gamma.fill_(value)
+
+
+def through_plain(model, x):
+    """``model(x)`` with parallel_cascade and qmatmul swapped for their plain versions."""
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    with mock.patch.object(cascade_ops, "parallel_cascade", cascade_ops.parallel_cascade_ref), \
+            mock.patch.object(qmatmul_ops, "qmatmul", qmatmul_ops.qmatmul_ref):
+        return model(x)
+
+
+def module_path(model, types, x):
+    """``model(x)`` with the modules of ``types`` in training mode (their module path)."""
+    mods = [m for m in model.modules() if isinstance(m, types)]
+    for m in mods:
+        m.train()
+    try:
+        return model(x)
+    finally:
+        for m in mods:
+            m.eval()
+
+
+def drive_convnext(gen, config, nb):
+    """The Runner on a ConvNeXt-T DwSepRep config: 18 banks of ``nb`` cascades, 18
+    parallel_cascade launches per forward, the logits (gamma = 1) against the
+    plain version and the module path.  Returns (model, hook, launches)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.hooks import InferenceTimeHook
+    from convnet_approximater_tpu_torch.layers import CascadeConv, ParallelConv
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+
+    name = os.path.relpath(config, REPO)
+    work_dir = os.path.join(REPO, "build", f"chip_smoke_convnext_r{nb}")
+    reset_counts()
+    runner, run_s = run_cli(config, work_dir)
+    launches = cascade_ops.parallel_cascade.launches
+    model, forwards = runner.model, forwards_of(runner)
+    hook = next(h for h in runner.hooks if isinstance(h, InferenceTimeHook))
+    kind = CascadeConv if nb == 1 else ParallelConv
+    banks = [model.get_switchable_module(i) for i in range(model.length_switchable)]
+    if model.length_switchable != 18 or not all(type(b) is kind for b in banks):
+        fail(f"{name}: expected 18 {kind.__name__} blocks, registered {model.length_switchable}")
+    if not all(b.uses_kernel() and len(b.bank()[0]) == nb for b in banks):
+        fail(f"{name}: a strip bank does not dispatch to parallel_cascade")
+    if launches != 18 * forwards or launches == 0:
+        fail(f"{name}: parallel_cascade launched {launches} times in {forwards} forwards, "
+             f"expected {18 * forwards}")
+    with open(os.path.join(work_dir, "run.log")) as f:
+        macs_line = [ln.strip() for ln in f if "Model MACs: " in ln]
+    if not macs_line:
+        fail(f"{name}: ModelAnalysis logged no 'Model MACs' line")
+    ms = hook.result["median_ms"]
+    print(f"main path: Runner on {name} in {run_s:.2f} s; {forwards} forwards launched "
+          f"parallel_cascade {launches} times (18 per forward); {macs_line[0].split(' - ')[-1]}")
+    print(f"ConvNeXt-T DwSepRep r{nb} forward {tuple(hook.input_size)} f32: median {ms:.3f} ms "
+          f"({hook.input_size[0] / ms * 1e3:.1f} img/s)")
+    set_gamma(model)
+    x = images(gen)
+    with torch.no_grad():
+        check_logits(f"ConvNeXt-T r{nb} (gamma = 1)", model(x), {
+            "parallel_cascade_ref": through_plain(model, x),
+            "the module path": module_path(model, (CascadeConv, ParallelConv), x)}, LOGITS_TOL)
+    return model, hook, launches
+
+
+def run_convnext(gen):
+    """The ConvNeXt-T DwSepRep r1 path and its int8 serving form, then the r2
+    config.  Returns the launch counts of parallel_cascade (r1 CLI run) and
+    qmatmul (int8 forwards)."""
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.hooks import time_forward
+    from convnet_approximater_tpu_torch.layers import QuantConv2d, QuantLinear
+    from convnet_approximater_tpu_torch.models import ConvNeXt
+    from convnet_approximater_tpu_torch.nn import init_weights
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    model, hook, launches = drive_convnext(gen, CONVNEXT_R1, 1)
+    ms, b = hook.result["median_ms"], hook.input_size[0]
+    with torch.no_grad(), mock.patch.object(cascade_ops, "parallel_cascade",
+                                            cascade_ops.parallel_cascade_ref):
+        plain_ms = float(np.median(time_forward(model, hook.input_size, "cuda", hook.num_iters,
+                                                hook.warmup)))
+    dense = ConvNeXt(num_classes=1000)
+    init_weights(dense, torch.Generator().manual_seed(0))
+    dense = dense.cuda().to(memory_format=torch.channels_last).eval()
+    dense_ms = float(np.median(time_forward(dense, hook.input_size, "cuda", hook.num_iters,
+                                            hook.warmup)))
+    del dense
+    print(f"ConvNeXt-T r1 forward with parallel_cascade_ref in place of the kernel: median "
+          f"{plain_ms:.3f} ms")
+    print(f"ConvNeXt-T dense forward {tuple(hook.input_size)} f32: median {dense_ms:.3f} ms "
+          f"({b / dense_ms * 1e3:.1f} img/s); dense / r1 = {dense_ms / ms:.4f}")
+    profile_forward("ConvNeXt-T DwSepRep r1", model, hook.input_size)
+
+    # int8 serving: calibrate on two normal batches, quantize every dense conv and Linear
+    calib_gen = torch.Generator().manual_seed(7)
+    calib = [torch.randn(b, 3, 224, 224, generator=calib_gen).cuda()
+             .contiguous(memory_format=torch.channels_last) for _ in range(2)]
+    x = images(gen)
+    with torch.no_grad():
+        y_f32 = model(x)
+    t0 = time.perf_counter()
+    n = deploy.quantize_int8(model, calib)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    quantized = [m for m in model.modules() if isinstance(m, (QuantConv2d, QuantLinear))]
+    if n != 41 or len(quantized) != 41:
+        fail(f"quantize_int8 quantized {n} modules ({len(quantized)} found), expected 41")
+    reset_counts()
+    int8_times = time_forward(model, hook.input_size, "cuda", hook.num_iters, hook.warmup)
+    forwards = hook.num_iters + hook.warmup
+    q_launches = qmatmul_ops.qmatmul.launches
+    c_launches = cascade_ops.parallel_cascade.launches
+    if q_launches != 41 * forwards or c_launches != 18 * forwards:
+        fail(f"int8 forwards launched qmatmul {q_launches} and parallel_cascade {c_launches} "
+             f"times in {forwards} forwards, expected 41 and 18 per forward")
+    int8_ms = float(np.median(int8_times))
+    print(f"int8: quantize_int8 quantized {n} modules in {quant_s:.2f} s (2 calibration "
+          f"batches); {forwards} forwards launched qmatmul {q_launches} and "
+          f"parallel_cascade {c_launches} times (41 and 18 per forward)")
+    with torch.no_grad():
+        y_q = model(x)
+        check_logits("int8 ConvNeXt-T r1 (gamma = 1)", y_q,
+                     {"qmatmul_ref and parallel_cascade_ref": through_plain(model, x)}, INT8_TOL)
+    int8_err = float((y_q - y_f32).abs().max() / y_f32.abs().max())
+    print(f"int8 against float32 logits: max abs relative {int8_err:.4f} (bound {INT8_F32_TOL})")
+    if not int8_err <= INT8_F32_TOL:
+        fail("int8 logits drift too far from the float32 model's")
+    print(f"ConvNeXt-T DwSepRep r1 int8 forward {tuple(hook.input_size)}: median {int8_ms:.3f} ms "
+          f"({b / int8_ms * 1e3:.1f} img/s); float32 r1 / int8 = {ms / int8_ms:.4f}, "
+          f"dense / int8 = {dense_ms / int8_ms:.4f}")
+    profile_forward("int8 ConvNeXt-T DwSepRep r1", model, hook.input_size)
+    del model, calib
+    torch.cuda.empty_cache()
+
+    drive_convnext(gen, CONVNEXT_R2, 2)
+    torch.cuda.empty_cache()
+    return launches, q_launches
+
+
+def run_mscan_dconv0(gen):
+    """MSCAN-t with MscaRep(1, fix, decomp_conv0): conv0 and the bank of every
+    block are cascades on the module path, two parallel_cascade calls per block."""
+    import torch
+
+    from convnet_approximater_tpu_torch.hooks import InferenceTimeHook
+    from convnet_approximater_tpu_torch.layers import MSCA, CascadeConv
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+
+    name = os.path.relpath(MSCAN_DCONV0, REPO)
+    reset_counts()
+    runner, run_s = run_cli(MSCAN_DCONV0, os.path.join(REPO, "build", "chip_smoke_dconv0"))
+    launches, fused = cascade_ops.parallel_cascade.launches, fused_ops.msca_fused.launches
+    model, forwards = runner.model, forwards_of(runner)
+    hook = next(h for h in runner.hooks if isinstance(h, InferenceTimeHook))
+    mscas = [m for m in model.modules() if isinstance(m, MSCA)]
+    if len(mscas) != 13 or not all(isinstance(m.conv0, CascadeConv) and not m.can_fuse()
+                                   and m.conv0.uses_kernel() for m in mscas):
+        fail(f"{name}: expected 13 MSCA blocks with a cascade conv0 on the module path")
+    if launches != 26 * forwards or launches == 0 or fused != 0:
+        fail(f"{name}: parallel_cascade launched {launches} times and msca_fused {fused} times "
+             f"in {forwards} forwards, expected 26 and 0 per forward")
+    ms = hook.result["median_ms"]
+    print(f"main path: Runner on {name} in {run_s:.2f} s; {forwards} forwards launched "
+          f"parallel_cascade {launches} times (26 per forward), msca_fused {fused} times")
+    x = images(gen)
+    with torch.no_grad():
+        check_logits("MSCAN-t d1+fix+dconv0", model(x), {
+            "parallel_cascade_ref": through_plain(model, x),
+            "the module path": module_path(model, MSCA, x)}, LOGITS_TOL)
+    print(f"MSCAN-t d1+fix+dconv0 forward {tuple(hook.input_size)} f32: median {ms:.3f} ms "
+          f"({hook.input_size[0] / ms * 1e3:.1f} img/s); "
+          f"{host_enqueue_ms(model, hook.input_size):.3f} ms of host time to enqueue it")
+    del runner, model
+    torch.cuda.empty_cache()
+
+
+def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
     """The kernels-line entry of one forward: rows weighted by calls per forward."""
     nbytes = sum(r["bytes"] * weight(r) for r in rows)
     flops = sum(r["flops"] * weight(r) for r in rows)
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, flops, peak)
+    library = [r.get("library_ms") for r in rows]
     return dict(kernel, ms=sum(r["ms"] * weight(r) for r in rows),
                 plain_ms=sum(r["plain_ms"] * weight(r) for r in rows),
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=(None if None in library
+                            else sum(t * weight(r) for t, r in zip(library, rows))))
 
 
 def main():
@@ -472,11 +857,13 @@ def main():
     from convnet_approximater_tpu_torch.ops import build as build_ops
     from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
     from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
 
     t0 = time.perf_counter()
     seconds = build_ops.build_all(SOURCES)
-    fused_ops.build()
-    lowrank_ops.build()
+    for ops in (fused_ops, lowrank_ops, cascade_ops, qmatmul_ops):
+        ops.build()
     print(f"built {', '.join(f'{s} in {t:.2f} s' for s, t in seconds.items())} "
           f"(one nvcc each, in parallel; {time.perf_counter() - t0:.2f} s in all)")
 
@@ -484,16 +871,21 @@ def main():
     gen = torch.Generator().manual_seed(0)
     msca_rows = check_kernel(gen)
     lowrank_rows = check_lowrank_kernel(gen)
+    cascade_rows = check_cascade_kernel(gen)
+    qmm_rows = check_qmatmul_kernel(gen)
 
-    # -- 4./5. the main paths ---------------------------------------------
+    # -- 4.-7. the main paths ---------------------------------------------
     msca_launches = run_mscan(gen)
     lowrank_launches = run_alexnet(gen, ALEX_DODECOMP, True,
                                    os.path.join(REPO, "build", "chip_smoke_alexnet"), extras=True)
     run_alexnet(gen, ALEX_SVD, False, os.path.join(REPO, "build", "chip_smoke_alexnet_full"),
                 extras=False)
+    cascade_launches, qmm_launches = run_convnext(gen)
+    run_mscan_dconv0(gen)
 
-    # -- 6. results -------------------------------------------------------
+    # -- 8. results -------------------------------------------------------
     # each entry is one forward at b=64, 224^2: the time per call times the calls per forward
+    # (parallel_cascade: the DwSepRep r1 forward of ConvNeXt-T; qmatmul: its int8 forward)
     blocks = {H: n for H, _, n in STAGES}
     kernels = [
         per_forward([r for r in msca_rows if r["form"] == "d1fix"],
@@ -507,6 +899,15 @@ def main():
             replaces="convnet_approximater_tpu/ops/pallas/lowrank_kernels.py:123",
             launches=lowrank_launches,
             max_abs_err=max(r["max_abs_err"] for r in lowrank_rows))),
+        per_forward([r for r in cascade_rows if r["form"] == "r1"], lambda r: r["blocks"], dict(
+            name="parallel_cascade", route="cuda", source=f"{PACKAGE}/csrc/parallel_cascade.cu",
+            replaces="convnet_approximater_tpu/ops/pallas/msca_kernels.py:173",
+            launches=cascade_launches,
+            max_abs_err=max(r["max_abs_err"] for r in cascade_rows))),
+        per_forward(qmm_rows, lambda r: r["calls"], dict(
+            name="qmatmul", route="cuda", source=f"{PACKAGE}/csrc/qmatmul.cu",
+            replaces="scripts/exp_pallas_qmatmul.py:61", launches=qmm_launches,
+            max_abs_err=max(r["max_abs_err"] for r in qmm_rows)), peak=PEAK_INT8),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,11 +6,15 @@ and its ``.npz`` checkpoints write them) into a ``state_dict`` of the port,
 whose dotted names equal the JAX param paths.  The layouts differ only at the
 leaves:
 
-* conv weight HWIO ``(kh, kw, in/groups, out)`` -> OIHW;
-* ``Linear`` weight ``(in, out)`` -> ``(out, in)``;
+* conv weight HWIO ``(kh, kw, in/groups, out)`` -> OIHW, and so the int8
+  ``weight_q`` of ``QuantConv2d``;
+* ``Linear`` weight ``(in, out)`` -> ``(out, in)``, and so ``QuantLinear``'s
+  ``weight_q``;
 * BatchNorm/LayerNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
 * BatchNorm state ``mean``/``var`` -> ``running_mean``/``running_var``;
-* everything else (``FixPaddingBias.res`` (2, C, p), ``layer_scale_*``) as is.
+* everything else (``FixPaddingBias.res`` (2, C, p), ``layer_scale_*``,
+  ConvNeXt's ``gamma``, the quantized modules' ``w_scale`` and 0-d
+  ``act_scale``) as is.
 
 This is the inverse direction of ``scripts/ckpt_converter/torch_to_tpu.py``'s
 ``convert_conv``/``convert_linear``.
@@ -29,9 +33,9 @@ _STATE_NAMES = {"mean": "running_mean", "var": "running_var"}
 def _leaf(collection: str, name: str, v: np.ndarray):
     if collection == "state":
         return _STATE_NAMES.get(name, name), v
-    if name == "weight" and v.ndim == 4:
+    if name in ("weight", "weight_q") and v.ndim == 4:
         return name, np.transpose(v, (3, 2, 0, 1))
-    if name == "weight" and v.ndim == 2:
+    if name in ("weight", "weight_q") and v.ndim == 2:
         return name, np.transpose(v, (1, 0))
     if name == "scale":
         return "weight", v

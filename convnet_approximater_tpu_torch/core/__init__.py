@@ -1,4 +1,5 @@
 from .approximater import APP, Approximater, build_app
+from .dw_sep_rep import DwSepRep
 from .low_rank_exp import LowRankExpV1
 from .msca_rep import (MscaProfile, MscaRep, MscaRepProfile, get_equivalent_kernel,
                        merge_res, sum_bias)

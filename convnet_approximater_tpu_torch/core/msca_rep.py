@@ -105,11 +105,11 @@ class MscaRep(Approximater):
     def __init__(self, decomp: int, fix: bool, decomp_conv0: bool = False):
         if not 0 <= decomp <= 4:
             raise ValueError(f"decomp must be in 0..4, got {decomp}")
-        if decomp_conv0:
-            raise NotImplementedError("MscaRep(decomp_conv0=True) is not ported to the "
-                                      "PyTorch port yet")
         self.decomp = decomp
         self.fix = fix
+        # also split conv0's k1 x k1 kernel into a rank-1 (1, k1) / (k1, 1)
+        # cascade by SVD (lossy: logs the retained PC energy)
+        self.decomp_conv0 = decomp_conv0
 
     def _get_tgt_args(self, src: MSCA) -> Dict:
         return dict(num_channel=src.num_channel, k1_size=src.k1_size, k_sizes=src.k_sizes)
@@ -131,6 +131,10 @@ class MscaRep(Approximater):
                                    identity=False)
         tgt.sd_convs = nn.Sequential(sd_conv, FixPaddingBias(C, padding)) if self.fix else sd_conv
         init_weights(tgt.sd_convs, generator)
+        if self.decomp_conv0:
+            k1 = src.k1_size
+            tgt.conv0 = CascadeConv(C, k1, k1 // 2, bias=True, first_bias=False)
+            init_weights(tgt.conv0, generator)
 
     @torch.no_grad()
     def optimize(self, sub: Substitution):
@@ -155,6 +159,14 @@ class MscaRep(Approximater):
             get_logger().info(f"PC energy retained: {float(m_pce)}")
         if self.fix:
             tgt.sd_convs[1].res.copy_(res)
+        if self.decomp_conv0:
+            u, s, vh = torch.linalg.svd(src.conv0.weight, full_matrices=False)  # (C, 1, k1, k1)
+            tgt.conv0.conv1.weight.copy_(vh[..., 0, :][..., None, :])
+            tgt.conv0.conv2.weight.copy_((u[..., 0] * s[..., 0][..., None])[..., None])
+            tgt.conv0.conv2.bias.copy_(src.conv0.bias)
+            lbd = s ** 2
+            pce = torch.mean(lbd[..., 0] / lbd.sum(-1))
+            get_logger().info(f"conv0 rank-1 PC energy: {float(pce)}")
 
     def _postprocess(self, sub: Substitution):
         pass

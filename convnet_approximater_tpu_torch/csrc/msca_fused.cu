@@ -16,13 +16,9 @@
 //   3. vpass_kernel  attn = [a0] + sum_b (vconv_k(t[b]) + b2[b]) + fix
 //   4. mix_kernel    out  = x * (attn . Wm + bm)                 (tiled C x C product)
 //
-// Each depthwise launch is one thread per output element with channels fastest, so
-// a warp reads 32 neighbouring channels of one pixel (coalesced); the halo taps are
-// re-read through L1/L2.  Zero padding is a bounds test per tap, which also gives the
-// border semantics MscaRep's algebra relies on: b1 is added after the horizontal pass
-// and before the zero-padded vertical pass, so rows outside the map hold 0, not b1.
-// Each branch loops over its own k taps only; shorter branches are zero-embedded at
-// the centre of k_max in the packed (nb, k_max, C) tap arrays.
+// Launches 2 and 3 are the strip bank of strip_bank.cuh, shared with parallel_cascade.cu
+// (its notes give the thread layout and the border semantics); conv0 is laid out the
+// same way, one thread per output element with channels fastest.
 //
 // What bounds it on the H100: bytes.  The depthwise work is 2 * (k0^2 + 2 sum k)
 // FLOP per element against 4-byte reads and writes, far below the ~20 FLOP/byte at
@@ -34,21 +30,9 @@
 // The C entry point launches on the caller's stream, does not synchronise, allocates
 // nothing and returns cudaGetLastError() of the first failing launch (0 on success).
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "strip_bank.cuh"
 
 namespace {
-
-constexpr int kMaxBranches = 8;
-constexpr int kThreads = 256;
-constexpr int64_t kMaxBlocks = 1 << 20;
-
-struct BankShape {
-  int nb;
-  int k_max;
-  int ks[kMaxBranches];
-};
 
 __global__ void __launch_bounds__(kThreads)
 conv0_kernel(const float* __restrict__ x, const float* __restrict__ w0,
@@ -77,68 +61,6 @@ conv0_kernel(const float* __restrict__ x, const float* __restrict__ w0,
       }
     }
     a0[idx] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-hpass_kernel(const float* __restrict__ a0, const float* __restrict__ w1,
-             const float* __restrict__ b1, float* __restrict__ t,
-             int B, int H, int W, int C, BankShape bank) {
-  const int64_t n = (int64_t)B * H * W * C;
-  const int ph = bank.k_max / 2;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < bank.nb * n;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const int br = (int)(idx / n);
-    const int64_t e = idx - br * n;
-    const int c = (int)(e % C);
-    const int w = (int)((e / C) % W);
-    const int k = bank.ks[br];
-    const int off = (bank.k_max - k) / 2;
-    const float* row = a0 + (e - (int64_t)w * C);  // (b, h, 0, c)
-    const float* taps = w1 + (int64_t)br * bank.k_max * C + c;
-    float acc = b1[br * C + c];
-    for (int j = off; j < off + k; ++j) {
-      const int ww = w + j - ph;
-      if (ww < 0 || ww >= W) continue;
-      acc += taps[(int64_t)j * C] * row[(int64_t)ww * C];
-    }
-    t[idx] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-vpass_kernel(const float* __restrict__ a0, const float* __restrict__ t,
-             const float* __restrict__ w2, const float* __restrict__ b2,
-             const float* __restrict__ res, float* __restrict__ attn,
-             int B, int H, int W, int C, BankShape bank, int identity, int fix_p) {
-  const int64_t n = (int64_t)B * H * W * C;
-  const int pv = bank.k_max / 2;
-  const int p2 = fix_p < H ? fix_p : H;
-  const int64_t row_stride = (int64_t)W * C;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const int c = (int)(idx % C);
-    const int h = (int)((idx / row_stride) % H);
-    float acc = identity ? a0[idx] : 0.f;
-    for (int br = 0; br < bank.nb; ++br) {
-      const int k = bank.ks[br];
-      const int off = (bank.k_max - k) / 2;
-      const float* col = t + br * n + (idx - h * row_stride);  // (br, b, 0, w, c)
-      const float* taps = w2 + (int64_t)br * bank.k_max * C + c;
-      float s = b2[br * C + c];
-      for (int i = off; i < off + k; ++i) {
-        const int hh = h + i - pv;
-        if (hh < 0 || hh >= H) continue;
-        s += taps[(int64_t)i * C] * col[hh * row_stride];
-      }
-      acc += s;
-    }
-    if (fix_p > 0) {
-      // res is (2, fix_p, C): top strip from row 0 down, bottom strip ending at row H-1
-      if (h < p2) acc += res[(int64_t)h * C + c];
-      if (h >= H - p2) acc += res[(int64_t)(2 * fix_p - H + h) * C + c];
-    }
-    attn[idx] = acc;
   }
 }
 
@@ -215,11 +137,6 @@ mix_kernel(const float* __restrict__ attn, const float* __restrict__ wm,
   }
 }
 
-int grid_for(int64_t work) {
-  const int64_t blocks = (work + kThreads - 1) / kThreads;
-  return (int)(blocks < kMaxBlocks ? blocks : kMaxBlocks);
-}
-
 }  // namespace
 
 extern "C" int msca_fused_f32(const float* x, const float* w0, const float* b0,
@@ -229,11 +146,8 @@ extern "C" int msca_fused_f32(const float* x, const float* w0, const float* b0,
                               float* out, int B, int H, int W, int C, int k0, int nb,
                               int k_max, const int* ks, int identity, int fix_p,
                               void* stream_handle) {
-  if (nb < 1 || nb > kMaxBranches) return (int)cudaErrorInvalidValue;
   BankShape bank;
-  bank.nb = nb;
-  bank.k_max = k_max;
-  for (int i = 0; i < kMaxBranches; ++i) bank.ks[i] = i < nb ? ks[i] : 0;
+  if (!make_bank(nb, k_max, ks, &bank)) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const int64_t n = (int64_t)B * H * W * C;
   cudaError_t err;

@@ -2,8 +2,9 @@
 
 The JAX hook logs XLA's post-fusion FLOP count of the compiled forward.  This
 one counts multiply-accumulates of ``Conv2d`` and ``Linear`` from the shapes
-of one eval forward.  A module that may run a fused kernel instead of its
-children (``LowRankExpConvV1``, ``MSCA``) gives its own count through
+of one eval forward.  A module that may run a kernel instead of its children
+(``LowRankExpConvV1``, ``MSCA``, ``CascadeConv``, ``ParallelConv``) or has
+none (``QuantConv2d``, ``QuantLinear``) gives its own count through
 ``macs(x_shape)`` whenever none of its children ran; ``torch.utils.flop_counter``
 would not see a kernel launched through ctypes at all.
 """

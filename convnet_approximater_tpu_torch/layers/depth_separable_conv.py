@@ -3,18 +3,95 @@
 
 ``CascadeConv`` applies a horizontal (1, k) depthwise conv, then a vertical
 (k, 1) one; the order matters to MscaRep's border algebra.
+
+An eval-mode forward of a ``CascadeConv`` or ``ParallelConv`` whose structure
+the kernel expresses (depthwise, stride 1, odd k padded by k // 2, float32,
+at most ``MAX_BRANCHES`` cascades plus an optional identity) runs as one
+:func:`~convnet_approximater_tpu_torch.ops.parallel_cascade.parallel_cascade`
+call (the CUDA kernel on the card, its plain version on the CPU); any other
+structure, and a training forward (the kernel has no backward), takes the
+module path.  The taps are packed once per change of the weights, keyed on
+the parameters' version counters.
 """
 
 from __future__ import annotations
 
+from typing import List, Optional, Tuple
+
 import torch
 from torch import nn
 
-from convnet_approximater_tpu_torch.nn import Conv2d, Identity
-from convnet_approximater_tpu_torch.ops.msca_fused import fix_strip
+from convnet_approximater_tpu_torch.nn import Conv2d, Identity, params_key
+from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+from convnet_approximater_tpu_torch.ops.msca_fused import (MAX_BRANCHES, fix_strip,
+                                                           pack_cascade_weights)
 
 
-class CascadeConv(nn.Module):
+def _strip_fits(conv: nn.Conv2d, k: int, vertical: bool) -> bool:
+    """Whether ``conv`` is the depthwise (1, k) or (k, 1) strip the kernel runs."""
+    p = k // 2
+    return (conv.groups == conv.in_channels == conv.out_channels
+            and conv.kernel_size == ((k, 1) if vertical else (1, k))
+            and conv.padding == ((p, 0) if vertical else (0, p))
+            and conv.stride == (1, 1) and conv.dilation == (1, 1)
+            and conv.padding_mode == "zeros"
+            and all(t.dtype == torch.float32 for t in conv.parameters()))
+
+
+class _StripBank(nn.Module):
+    """Dispatch of a strip bank to ``parallel_cascade`` in eval mode."""
+
+    def bank(self) -> Tuple[List["CascadeConv"], bool]:
+        """The cascades and whether an identity branch is added."""
+        raise NotImplementedError
+
+    def _module_forward(self, x):
+        raise NotImplementedError
+
+    def _weights_key(self):
+        cascades, identity = self.bank()
+        return (tuple(id(c) for c in cascades), identity) + params_key(self)
+
+    @torch.no_grad()
+    def packed(self) -> Optional[dict]:
+        """The kernel's arguments, or None when the structure does not fit it;
+        packed again only after the weights changed."""
+        key = self._weights_key()
+        if key != getattr(self, "_pack_key", None):
+            cascades, identity = self.bank()
+            fits = (0 < len(cascades) <= MAX_BRANCHES
+                    and all(c.kernel_size % 2 == 1 and _strip_fits(c.conv1, c.kernel_size, False)
+                            and _strip_fits(c.conv2, c.kernel_size, True) for c in cascades))
+            self._pack = None
+            if fits:
+                w1, b1, w2, b2, ks = pack_cascade_weights(
+                    [c.conv1.weight[:, 0, 0, :].t() for c in cascades],
+                    [c.conv1.bias for c in cascades],
+                    [c.conv2.weight[:, 0, :, 0].t() for c in cascades],
+                    [c.conv2.bias for c in cascades])
+                self._pack = dict(w1=w1, b1=b1, w2=w2, b2=b2, ks=ks, identity=identity)
+            self._pack_key = key
+        return self._pack
+
+    def uses_kernel(self) -> bool:
+        return not self.training and self.packed() is not None
+
+    def forward(self, x):
+        packed = None if self.training else self.packed()
+        if packed is None:
+            return self._module_forward(x)
+        y = cascade_ops.parallel_cascade(
+            x.permute(0, 2, 3, 1).contiguous(),  # a view when x is channels_last
+            **packed)
+        return y.permute(0, 3, 1, 2)
+
+    def macs(self, x_shape) -> int:
+        """Multiply-accumulates of one forward on an NCHW input of ``x_shape``."""
+        B, C, H, W = x_shape
+        return B * C * H * W * sum(2 * c.kernel_size for c in self.bank()[0])
+
+
+class CascadeConv(_StripBank):
     """Depthwise (1, k) then (k, 1).  ``bias`` is the second conv's bias flag,
     ``first_bias`` the first's."""
 
@@ -28,11 +105,14 @@ class CascadeConv(nn.Module):
         self.conv2 = Conv2d(dim, dim, (kernel_size, 1), padding=(padding, 0), groups=dim,
                             bias=bias)
 
-    def forward(self, x):
+    def bank(self):
+        return [self], False
+
+    def _module_forward(self, x):
         return self.conv2(self.conv1(x))
 
 
-class ParallelConv(nn.Module):
+class ParallelConv(_StripBank):
     """Sum of :class:`CascadeConv` branches (+ optional identity branch).
 
     ``all_bias=True`` gives every conv a bias; otherwise only the last
@@ -59,7 +139,14 @@ class ParallelConv(nn.Module):
         if identity:
             self.branches.append(Identity())
 
-    def forward(self, x):
+    def bank(self):
+        cascades = [m for m in self.branches if isinstance(m, CascadeConv)]
+        others = [m for m in self.branches if not isinstance(m, CascadeConv)]
+        if any(not isinstance(m, Identity) for m in others) or len(others) > 1:
+            return [], False  # not a bank the kernel expresses
+        return cascades, bool(others)
+
+    def _module_forward(self, x):
         out = None
         for branch in self.branches:
             y = branch(x)

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 from torch.nn.modules.utils import _pair
 
-from convnet_approximater_tpu_torch.nn import Conv2d
+from convnet_approximater_tpu_torch.nn import Conv2d, params_key
 from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
 from convnet_approximater_tpu_torch.utils.logger import get_logger
 
@@ -77,8 +77,7 @@ class LowRankExpConvV1(nn.Module):
 
     # -- dispatch --------------------------------------------------------
     def _weights_key(self):
-        return (id(self.s_conv),) + tuple((p.data_ptr(), p._version, tuple(p.shape))
-                                          for p in self.parameters())
+        return (id(self.s_conv),) + params_key(self)
 
     @torch.no_grad()
     def bases_shared(self) -> bool:

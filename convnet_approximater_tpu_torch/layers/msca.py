@@ -6,7 +6,9 @@
 can express runs as one :func:`~convnet_approximater_tpu_torch.ops.msca_fused.msca_fused`
 call (the CUDA kernel on the card, its plain version on the CPU), at every
 map size; a training forward takes the module path, since the kernel has no
-backward.
+backward.  A block whose conv0 is a cascade (``MscaRep(decomp_conv0=True)``)
+takes the module path too, where conv0 and the bank each run
+:func:`~convnet_approximater_tpu_torch.ops.parallel_cascade.parallel_cascade`.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 from torch import nn
 from torch.profiler import record_function
 
-from convnet_approximater_tpu_torch.nn import Conv2d, Identity
+from convnet_approximater_tpu_torch.nn import Conv2d
 from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
 
 from .depth_separable_conv import CascadeConv, FixPaddingBias, ParallelConv
@@ -42,7 +44,7 @@ class MSCA(nn.Module):
         fix = None
         if isinstance(sd, nn.Sequential) and len(sd) == 2 and isinstance(sd[1], FixPaddingBias):
             sd, fix = sd[0], sd[1]
-        if isinstance(sd, (ParallelConv, CascadeConv)):
+        if isinstance(sd, (ParallelConv, CascadeConv)) and sd.packed() is not None:
             return sd, fix
         return None
 
@@ -52,17 +54,7 @@ class MSCA(nn.Module):
 
     def _fused_forward(self, x):
         bank, fix = self._fuse_parts()
-        if isinstance(bank, CascadeConv):
-            cascades, identity = [bank], False
-        else:
-            cascades = [m for m in bank.branches if isinstance(m, CascadeConv)]
-            identity = any(isinstance(m, Identity) for m in bank.branches)
-        w1, b1, w2, b2, ks = fused_ops.pack_cascade_weights(
-            [c.conv1.weight[:, 0, 0, :].t() for c in cascades],
-            [c.conv1.bias for c in cascades],
-            [c.conv2.weight[:, 0, :, 0].t() for c in cascades],
-            [c.conv2.bias for c in cascades],
-        )
+        packed = bank.packed()  # the taps, cached per weight version
         res, fix_p = None, 0
         if fix is not None:
             res, fix_p = fix.res.transpose(1, 2).contiguous(), fix.p  # (2, p, C)
@@ -70,18 +62,17 @@ class MSCA(nn.Module):
             x.permute(0, 2, 3, 1).contiguous(),  # a view when x is channels_last
             self.conv0.weight[:, 0].permute(1, 2, 0).contiguous(),
             self.conv0.bias,
-            w1, b1, w2, b2,
+            packed["w1"], packed["b1"], packed["w2"], packed["b2"],
             self.channel_mix.weight[:, :, 0, 0].t().contiguous(),
             self.channel_mix.bias,
-            res, ks=ks, identity=identity, fix_p=fix_p,
+            res, ks=packed["ks"], identity=packed["identity"], fix_p=fix_p,
         )
         return y.permute(0, 3, 1, 2)
 
     def macs(self, x_shape) -> int:
         """Multiply-accumulates of the fused forward on an NCHW input of ``x_shape``."""
         bank, _ = self._fuse_parts()
-        cascades = [bank] if isinstance(bank, CascadeConv) else [
-            m for m in bank.branches if isinstance(m, CascadeConv)]
+        cascades, _ = bank.bank()
         taps = self.conv0.weight[0].numel() + sum(
             c.conv1.weight[0].numel() + c.conv2.weight[0].numel() for c in cascades)
         B, C, H, W = x_shape

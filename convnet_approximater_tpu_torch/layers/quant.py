@@ -1,0 +1,188 @@
+"""int8 post-training quantization for serving (port of the PTQ half of
+``convnet_approximater_tpu/layers/quant.py``).
+
+Weights are symmetric per-output-channel int8 (scale = absmax / 127 over the
+rest of the weight), quantized once by ``deploy.quantize_int8``; activations
+are symmetric per-tensor int8 with a static scale calibrated from sample
+batches.  Both modules run :func:`~convnet_approximater_tpu_torch.ops.qmatmul.qmatmul`
+(the CUDA kernel on the card, its plain version on the CPU): ``QuantLinear``
+on its flattened (M, K) input, ``QuantConv2d`` through im2col.  They are
+inference-only and raise in training mode.
+
+Layouts are torch's: ``weight_q`` is (out, in) for ``QuantLinear`` and OIHW
+for ``QuantConv2d``; ``convert.params_from_jax`` transposes the JAX package's
+(in, out) and HWIO.  The packed weight of the kernel is made once per change
+of the parameters, keyed on their version counters.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.nn.modules.utils import _pair
+
+from convnet_approximater_tpu_torch.nn import params_key
+from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+from convnet_approximater_tpu_torch.ops.qmatmul import (INT8_MAX,  # noqa: F401
+                                                        quantize_activation)
+
+
+def _quantize_rows(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row (output channel first) symmetric int8 of a weight."""
+    w32 = w.detach().float()
+    absmax = w32.abs().flatten(1).amax(dim=1)
+    scale = absmax.clamp_min(1e-12) / INT8_MAX
+    shape = (-1,) + (1,) * (w.dim() - 1)
+    w_q = torch.clamp(torch.round(w32 / scale.reshape(shape)), -INT8_MAX, INT8_MAX)
+    return w_q.to(torch.int8), scale
+
+
+def quantize_weight_per_channel(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """OIHW conv weight -> (int8 OIHW weight, float32 per-out-channel scale)."""
+    return _quantize_rows(w)
+
+
+def quantize_linear_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, in) Linear weight -> (int8 weight, float32 per-out-feature scale)."""
+    return _quantize_rows(w)
+
+
+class _QuantBase(nn.Module):
+    """``weight_q``, ``w_scale``, ``act_scale`` and an optional ``bias``, held as
+    parameters that take no gradient (so they count as the JAX params do)."""
+
+    def _init_params(self, w_shape, out: int, bias: bool):
+        def frozen(t):
+            return nn.Parameter(t, requires_grad=False)
+
+        self.weight_q = frozen(torch.zeros(w_shape, dtype=torch.int8))
+        self.w_scale = frozen(torch.ones(out))
+        self.act_scale = frozen(torch.ones(()))
+        self.register_parameter("bias", frozen(torch.zeros(out)) if bias else None)
+        self._pack_key = None
+        self._packed: Optional[torch.Tensor] = None
+
+    def _flat_weight(self) -> torch.Tensor:
+        """``weight_q`` as the (N, K) matrix in the order of this layer's im2col."""
+        raise NotImplementedError
+
+    def packed(self) -> torch.Tensor:
+        """The kernel's weight, packed again only after the parameters changed."""
+        key = params_key(self)
+        if key != self._pack_key:
+            self._packed = qmatmul_ops.pack_qweight(self._flat_weight().detach())
+            self._pack_key = key
+        return self._packed
+
+    def _matmul(self, x2d: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise RuntimeError(f"{type(self).__name__} is inference-only (serving PTQ)")
+        return qmatmul_ops.qmatmul(x2d.contiguous(), self.packed(), self.act_scale,
+                                   self.w_scale, self.bias)
+
+
+class QuantLinear(_QuantBase):
+    """Serving-form int8 Linear: per-out-feature int8 weights, a calibrated static
+    per-tensor input scale, an exact integer sum and a dequant + bias epilogue."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self._init_params((out_features, in_features), out_features, bias)
+
+    @classmethod
+    @torch.no_grad()
+    def from_linear(cls, lin: nn.Linear, act_scale: float) -> "QuantLinear":
+        mod = cls(lin.in_features, lin.out_features, bias=lin.bias is not None)
+        w_q, w_scale = quantize_linear_weight(lin.weight)
+        mod.weight_q.data, mod.w_scale.data = w_q, w_scale
+        mod.act_scale.data = torch.tensor(act_scale, dtype=torch.float32, device=w_q.device)
+        if lin.bias is not None:
+            mod.bias.data = lin.bias.detach().float().clone()
+        return mod.eval()
+
+    def _flat_weight(self):
+        return self.weight_q
+
+    def forward(self, x):
+        y = self._matmul(x.reshape(-1, self.in_features))
+        return y.reshape(*x.shape[:-1], self.out_features)
+
+    def macs(self, x_shape) -> int:
+        return math.prod(x_shape[:-1]) * self.in_features * self.out_features
+
+
+class QuantConv2d(_QuantBase):
+    """Serving-form int8 conv (``groups == 1``) on NCHW maps, as one ``qmatmul``
+    over im2col rows.  When the stride equals the kernel and there is no
+    padding (patchify: ConvNeXt's stem and downsamples), im2col is a reshape of
+    the NHWC view in (kh, kw, C) order; any other conv unfolds in (C, kh, kw)
+    order.  The packed weight follows the same order."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1,
+                 padding=0, dilation=1, bias: bool = True):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.dilation = _pair(dilation)
+        self._init_params((out_channels, in_channels) + self.kernel_size, out_channels, bias)
+
+    @classmethod
+    @torch.no_grad()
+    def from_conv(cls, conv: nn.Conv2d, act_scale: float) -> "QuantConv2d":
+        if conv.groups != 1 or conv.padding_mode != "zeros" or isinstance(conv.padding, str):
+            raise ValueError("only dense zero-padded convs quantize")
+        mod = cls(conv.in_channels, conv.out_channels, conv.kernel_size, stride=conv.stride,
+                  padding=conv.padding, dilation=conv.dilation, bias=conv.bias is not None)
+        w_q, w_scale = quantize_weight_per_channel(conv.weight)
+        mod.weight_q.data, mod.w_scale.data = w_q, w_scale
+        mod.act_scale.data = torch.tensor(act_scale, dtype=torch.float32, device=w_q.device)
+        if conv.bias is not None:
+            mod.bias.data = conv.bias.detach().float().clone()
+        return mod.eval()
+
+    @property
+    def patchify(self) -> bool:
+        return (self.stride == self.kernel_size and self.padding == (0, 0)
+                and self.dilation == (1, 1))
+
+    def _flat_weight(self):
+        w = self.weight_q
+        if self.patchify:
+            w = w.permute(0, 2, 3, 1)  # (N, kh, kw, C)
+        return w.reshape(self.out_channels, -1)
+
+    def out_size(self, H: int, W: int) -> Tuple[int, int]:
+        (kh, kw), (sh, sw) = self.kernel_size, self.stride
+        (ph, pw), (dh, dw) = self.padding, self.dilation
+        return ((H + 2 * ph - dh * (kh - 1) - 1) // sh + 1,
+                (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        Ho, Wo = self.out_size(H, W)
+        kh, kw = self.kernel_size
+        if self.patchify:
+            cols = x.permute(0, 2, 3, 1)[:, :Ho * kh, :Wo * kw]  # NHWC view
+            cols = cols.reshape(B, Ho, kh, Wo, kw, C).permute(0, 1, 3, 2, 4, 5)
+            cols = cols.reshape(B * Ho * Wo, kh * kw * C)
+        else:
+            cols = F.unfold(x, self.kernel_size, dilation=self.dilation, padding=self.padding,
+                            stride=self.stride)  # (B, C kh kw, L)
+            cols = cols.transpose(1, 2).reshape(B * Ho * Wo, -1)
+        y = self._matmul(cols).reshape(B, Ho, Wo, self.out_channels)
+        return y.permute(0, 3, 1, 2)  # NCHW, channels_last in memory
+
+    def macs(self, x_shape) -> int:
+        B, C, H, W = x_shape
+        Ho, Wo = self.out_size(H, W)
+        kh, kw = self.kernel_size
+        return B * Ho * Wo * self.out_channels * C * kh * kw

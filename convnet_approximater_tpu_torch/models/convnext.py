@@ -1,0 +1,99 @@
+"""ConvNeXt (port of ``convnet_approximater_tpu/models/convnext.py``).
+
+A block is dwconv 7x7 -> LayerNorm -> Linear (4x) -> GELU -> Linear ->
+``gamma`` layer scale -> drop path + residual.  The model runs in
+``torch.channels_last``: the block's dwconv (or the strip cascades DwSepRep
+made of it) takes the NCHW view, and ``permute(0, 2, 3, 1)`` of its output is
+then a contiguous NHWC tensor for the norm, the two Linears and ``gamma``,
+as the JAX package runs them.  Parameter names equal the JAX param paths
+(``downsample_layers.{0..3}.{0,1}``, ``stages.{s}.{i}.dwconv/norm/pwconv1/
+pwconv2/gamma.gamma``, ``norm``, ``head``), so ``convert.params_from_jax``
+carries the weights across.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from convnet_approximater_tpu_torch.layers import DropPath
+from convnet_approximater_tpu_torch.nn import GELU, Conv2d, LayerNorm, Linear
+
+from .switchable import MODEL, SwitchableModel
+
+EPS = 1e-6  # the official ConvNeXt LayerNorms' eps
+
+
+class LayerScale(nn.Module):
+    """Per-channel learnable scale (the block's ``gamma``) on the last axis."""
+
+    def __init__(self, dim: int, init_value: float = 1e-6):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_value)))
+
+    def forward(self, x):
+        return x * self.gamma
+
+
+class ConvNeXtBlock(nn.Module):
+    def __init__(self, dim: int, drop_path: float = 0.0, layer_scale: float = 1e-6):
+        super().__init__()
+        self.dim = dim
+        self.dwconv = Conv2d(dim, dim, 7, padding=3, groups=dim)
+        self.norm = nn.LayerNorm(dim, eps=EPS)
+        self.pwconv1 = Linear(dim, 4 * dim)
+        self.act = GELU()
+        self.pwconv2 = Linear(4 * dim, dim)
+        self.gamma = LayerScale(dim, layer_scale)
+        self.drop_path = DropPath(drop_path)
+
+    def forward(self, x):
+        y = self.dwconv(x).permute(0, 2, 3, 1)  # NHWC, contiguous when x is channels_last
+        y = self.gamma(self.pwconv2(self.act(self.pwconv1(self.norm(y)))))
+        return x + self.drop_path(y.permute(0, 3, 1, 2))
+
+
+_ARCHS = {
+    "tiny": ((3, 3, 9, 3), (96, 192, 384, 768)),
+    "small": ((3, 3, 27, 3), (96, 192, 384, 768)),
+    "base": ((3, 3, 27, 3), (128, 256, 512, 1024)),
+}
+
+
+@MODEL.register_module()
+class ConvNeXt(SwitchableModel):
+    """Takes NCHW images, best in ``torch.channels_last``."""
+
+    def __init__(self, arch: str = "tiny", num_classes: int = 1000,
+                 drop_path_rate: float = 0.0, layer_scale: float = 1e-6,
+                 depths=None, dims=None, init_cfg=None):
+        super().__init__(init_cfg=init_cfg)
+        if depths is None or dims is None:
+            depths, dims = _ARCHS[arch]
+        self.depths, self.dims = tuple(depths), tuple(dims)
+        downs = [nn.Sequential(Conv2d(3, dims[0], 4, stride=4), LayerNorm(dims[0], eps=EPS))]
+        for i in range(3):
+            downs.append(nn.Sequential(LayerNorm(dims[i], eps=EPS),
+                                       Conv2d(dims[i], dims[i + 1], 2, stride=2)))
+        self.downsample_layers = nn.ModuleList(downs)
+        total = sum(depths)
+        rates = [drop_path_rate * j / max(total - 1, 1) for j in range(total)]
+        stages, k = [], 0
+        for i in range(4):
+            stages.append(nn.Sequential(*[ConvNeXtBlock(dims[i], rates[k + j], layer_scale)
+                                          for j in range(depths[i])]))
+            k += depths[i]
+        self.stages = nn.ModuleList(stages)
+        self.norm = nn.LayerNorm(dims[-1], eps=EPS)
+        self.head = Linear(dims[-1], num_classes)
+
+    def forward(self, x):
+        for down, stage in zip(self.downsample_layers, self.stages):
+            x = stage(down(x))
+        return self.head(self.norm(x.mean(dim=(2, 3))))
+
+
+@MODEL.register_module()
+class ConvNeXtTiny(ConvNeXt):
+    def __init__(self, num_classes: int = 1000, drop_path_rate: float = 0.0, init_cfg=None):
+        super().__init__("tiny", num_classes, drop_path_rate, init_cfg=init_cfg)

@@ -1,4 +1,5 @@
 """Leaf layers of the port; containers are ``torch.nn``'s own."""
 
 from .layers import (GELU, AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Dropout, Identity,
-                     LayerNorm, Linear, MaxPool2d, ReLU, flatten_hwc, gelu, init_weights)
+                     LayerNorm, Linear, MaxPool2d, ReLU, flatten_hwc, gelu, init_weights,
+                     params_key)

@@ -86,6 +86,14 @@ class GELU(nn.Module):
         return gelu(x, self.approximate)
 
 
+def params_key(module: nn.Module) -> tuple:
+    """Address, version counter, shape and type of every parameter of ``module``:
+    a cache key that changes whenever a parameter is replaced, moved or
+    modified in place."""
+    return tuple((p.data_ptr(), p._version, tuple(p.shape), p.dtype)
+                 for p in module.parameters())
+
+
 def init_weights(module: nn.Module, generator: torch.Generator):
     """Draw the weights of ``module`` from ``generator``, with the JAX package's
     distributions: conv and linear weights and biases uniform in

@@ -38,9 +38,13 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library of ``csrc/<source>``, named by a hash of the source, the
+    ``csrc/`` headers it may include, and the flags."""
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(sources: Sequence[str]) -> Dict[str, float]:

@@ -83,6 +83,37 @@ def test_params_from_jax_maps_mscan_state_dict(rep):
         np.transpose(flat["params/" + key.replace(".", "/")], (3, 2, 0, 1)))
 
 
+def test_params_from_jax_carries_int8_and_gamma_leaves():
+    """QuantConv2d's HWIO and QuantLinear's (in, out) int8 ``weight_q`` are
+    transposed to OIHW and (out, in); ``w_scale``, the 0-d ``act_scale`` and
+    ConvNeXt's ``gamma`` go across as they are."""
+    from convnet_approximater_tpu.layers import quant as jquant
+    from convnet_approximater_tpu.nn import Conv2d as JConv2d
+    from convnet_approximater_tpu.nn import Linear as JLinear
+    from convnet_approximater_tpu_torch.layers import QuantConv2d, QuantLinear
+    from convnet_approximater_tpu_torch.models import ConvNeXt
+
+    conv, lin = JConv2d(3, 8, 4, stride=4), JLinear(8, 5)
+    _, qc = jquant.QuantConv2d.from_conv(conv, conv.init(jax.random.key(1)), 0.03)
+    _, ql = jquant.QuantLinear.from_linear(lin, lin.init(jax.random.key(2)), 0.5)
+    flat = {k: np.asarray(v) for k, v in jser.flatten_tree({"params": {"c": qc, "l": ql}}).items()}
+    state = params_from_jax(flat)
+    assert state["c.weight_q"].dtype == torch.int8 and state["c.act_scale"].shape == ()
+    np.testing.assert_array_equal(state["c.weight_q"].numpy(),
+                                  flat["params/c/weight_q"].transpose(3, 2, 0, 1))
+    np.testing.assert_array_equal(state["l.weight_q"].numpy(), flat["params/l/weight_q"].T)
+    model = torch.nn.ModuleDict({"c": QuantConv2d(3, 8, 4, stride=4), "l": QuantLinear(8, 5)})
+    model.load_state_dict(state)  # strict
+    assert float(model["l"].act_scale) == 0.5
+
+    gamma = np.full(8, 0.25, np.float32)  # ConvNeXt's LayerScale leaf
+    converted = params_from_jax({"params/stages/3/0/gamma/gamma": gamma})
+    np.testing.assert_array_equal(converted["stages.3.0.gamma.gamma"].numpy(), gamma)
+    model = ConvNeXt(depths=(1, 1, 1, 1), dims=(8, 8, 8, 8), num_classes=4)
+    model.load_state_dict(converted, strict=False)
+    assert float(model.stages[3][0].gamma.gamma.detach()[0]) == 0.25
+
+
 def test_params_from_jax_rejects_foreign_keys():
     with pytest.raises(ValueError, match="params"):
         params_from_jax({"opt_state/mu": np.zeros(3)})

@@ -23,8 +23,8 @@ from convnet_approximater_tpu.utils.serialize import flatten_tree  # noqa: E402
 from convnet_approximater_tpu_torch.convert import params_from_jax  # noqa: E402
 from convnet_approximater_tpu_torch.core import (MscaProfile, MscaRep,  # noqa: E402
                                                  get_equivalent_kernel, merge_res, sum_bias)
-from convnet_approximater_tpu_torch.layers import (MSCA, FixPaddingBias,  # noqa: E402
-                                                   MSCAProfile, ParallelConv)
+from convnet_approximater_tpu_torch.layers import (MSCA, CascadeConv,  # noqa: E402
+                                                   FixPaddingBias, MSCAProfile, ParallelConv)
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -72,17 +72,17 @@ def test_get_equivalent_kernel_matches_jax():
         assert rel(a.numpy(), b) < RTOL
 
 
-def _rep_pair(decomp, fix, seed):
+def _rep_pair(decomp, fix, seed, decomp_conv0=False):
     """The same MSCA through JAX's and the port's MscaRep; returns both targets."""
     C = 8
     jm = JMSCA(C, 5, (7, 11, 21))
     params = jm.init(jax.random.key(seed))
-    japp = JMscaRep(decomp=decomp, fix=fix)
+    japp = JMscaRep(decomp=decomp, fix=fix, decomp_conv0=decomp_conv0)
     jsub, sparams = japp.initialize(jm, params, jax.random.key(seed + 1))
     japp.optimize(jsub, sparams)
     jtgt, jparams = japp.postprocess(jsub, sparams)
 
-    app = MscaRep(decomp=decomp, fix=fix)
+    app = MscaRep(decomp=decomp, fix=fix, decomp_conv0=decomp_conv0)
     sub = app.initialize(load(MSCA(C, 5, (7, 11, 21)), params), torch.Generator().manual_seed(0))
     app.optimize(sub)
     return jtgt, jparams, app.postprocess(sub).eval()
@@ -110,8 +110,32 @@ def test_msca_rep_keeps_conv0_and_channel_mix():
 
 
 def test_msca_rep_decomp_conv0_is_not_ported():
-    with pytest.raises(NotImplementedError, match="decomp_conv0"):
-        MscaRep(decomp=1, fix=True, decomp_conv0=True)
+    """decomp_conv0 is ported: conv0 becomes a rank-1 (1, 5) / (5, 1) cascade
+    with conv0's bias on its second conv, so the block leaves msca_fused for
+    the module path, whose two cascades dispatch to parallel_cascade."""
+    _, jparams, ttgt = _rep_pair(1, True, seed=8, decomp_conv0=True)
+    c0 = ttgt.conv0
+    assert isinstance(c0, CascadeConv) and c0.kernel_size == 5 and c0.conv1.bias is None
+    assert not ttgt.can_fuse() and c0.uses_kernel() and ttgt.sd_convs[0].uses_kernel()
+    np.testing.assert_array_equal(c0.conv2.bias.detach().numpy(),
+                                  np.asarray(jparams["conv0"]["conv2"]["bias"]))
+    w = (c0.conv2.weight[:, 0, :, 0, None] * c0.conv1.weight[:, 0, 0, None, :]).detach().numpy()
+    jw = (np.asarray(jparams["conv0"]["conv2"]["weight"])[:, 0, 0, :].T[:, :, None]
+          * np.asarray(jparams["conv0"]["conv1"]["weight"])[0, :, 0, :].T[:, None, :])
+    assert rel(w, jw) < RTOL  # the rank-1 products (an SVD may flip both signs)
+
+
+@pytest.mark.parametrize("decomp,fix", [(1, True), (2, False)])
+def test_msca_rep_decomp_conv0_outputs_match_jax(decomp, fix):
+    jtgt, jparams, ttgt = _rep_pair(decomp, fix, seed=9, decomp_conv0=True)
+    x = np.random.RandomState(10).randn(2, 14, 17, 8).astype(np.float32)
+    y_j = np.asarray(jtgt.apply(jparams, jnp.asarray(x))[0])
+    with torch.no_grad():
+        y_t = ttgt(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).numpy()
+    assert rel(y_t, y_j) < RTOL
+    ttgt.train()  # the module path gives the same
+    y_m = ttgt(torch.from_numpy(x).permute(0, 3, 1, 2)).permute(0, 2, 3, 1).detach().numpy()
+    assert rel(y_m, y_j) < RTOL
 
 
 def test_msca_profile_copies_weights_and_matches():
