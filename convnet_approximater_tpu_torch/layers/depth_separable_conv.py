@@ -6,7 +6,8 @@
 
 An eval-mode forward of a ``CascadeConv`` or ``ParallelConv`` whose structure
 the kernel expresses (depthwise, stride 1, odd k padded by k // 2, float32,
-at most ``MAX_BRANCHES`` cascades plus an optional identity) runs as one
+at most ``MAX_BRANCHES`` cascades, with branches times the largest k at most
+``MAX_BANK_ROWS``, plus an optional identity) runs as one
 :func:`~convnet_approximater_tpu_torch.ops.parallel_cascade.parallel_cascade`
 call (the CUDA kernel on the card, its plain version on the CPU); any other
 structure, and a training forward (the kernel has no backward), takes the
@@ -60,6 +61,8 @@ class _StripBank(nn.Module):
         if key != getattr(self, "_pack_key", None):
             cascades, identity = self.bank()
             fits = (0 < len(cascades) <= MAX_BRANCHES
+                    and len(cascades) * max(c.kernel_size for c in cascades)
+                    <= cascade_ops.MAX_BANK_ROWS
                     and all(c.kernel_size % 2 == 1 and _strip_fits(c.conv1, c.kernel_size, False)
                             and _strip_fits(c.conv2, c.kernel_size, True) for c in cascades))
             self._pack = None

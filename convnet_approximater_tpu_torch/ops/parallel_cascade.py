@@ -6,6 +6,13 @@ an NHWC map, as the JAX package's Pallas kernel of the same name does
 by :func:`~convnet_approximater_tpu_torch.ops.msca_fused.pack_cascade_weights`.
 On a CUDA tensor it launches ``csrc/parallel_cascade.cu`` (built with nvcc at
 first use) or raises; on a CPU tensor it runs :func:`parallel_cascade_ref`.
+
+The kernel is one launch per call that keeps the horizontal result on chip
+(in registers when every branch has k = k_max, else in a ring of k_max rows
+per branch in shared memory), so the wrapper allocates only the output.  The
+ring sets the ceiling ``nb * k_max <= MAX_BANK_ROWS``: :func:`parallel_cascade`
+raises beyond it, on every device, and the strip-bank layers send such a bank
+to their module path.
 """
 
 from __future__ import annotations
@@ -19,6 +26,8 @@ import torch.nn.functional as F
 
 from .build import load
 from .msca_fused import MAX_BRANCHES
+
+MAX_BANK_ROWS = 128  # kMaxBankRows in csrc/parallel_cascade.cu: nb * k_max
 
 
 def parallel_cascade_ref(x, w1, b1, w2, b2, *, ks: Sequence[int], identity: bool):
@@ -69,6 +78,9 @@ def _check(x, w1, b1, w2, b2, ks):
     if not 1 <= nb <= MAX_BRANCHES or len(ks) != nb:
         raise ValueError(f"parallel_cascade: need 1..{MAX_BRANCHES} branches and one k each, "
                          f"got nb={nb}, ks={tuple(ks)}")
+    if nb * k_max > MAX_BANK_ROWS:
+        raise ValueError(f"parallel_cascade: nb * k_max = {nb} * {k_max} exceeds the kernel's "
+                         f"ring of {MAX_BANK_ROWS} rows")
     for k in ks:
         if k % 2 == 0 or not 1 <= k <= k_max or (k_max - k) % 2:
             raise ValueError(f"parallel_cascade: branch size {k} must be odd and <= {k_max}, "
@@ -79,7 +91,7 @@ def _check(x, w1, b1, w2, b2, ks):
 def _library() -> ctypes.CDLL:
     lib = load("parallel_cascade.cu")
     fn = lib.parallel_cascade_f32
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
         ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
@@ -106,13 +118,12 @@ def parallel_cascade(x, w1, b1, w2, b2, *, ks: Sequence[int], identity: bool):
     B, H, W, C = x.shape
     nb, k_max = w1.shape[0], w1.shape[1]
     out = torch.empty_like(x)
-    t = x.new_empty((nb, B, H, W, C))
     ks_arr = (ctypes.c_int * nb)(*ks)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().parallel_cascade_f32(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            t.data_ptr(), out.data_ptr(), B, H, W, C, nb, k_max, ks_arr, int(identity), stream)
+            out.data_ptr(), B, H, W, C, nb, k_max, ks_arr, int(identity), stream)
     if err != 0:
         raise RuntimeError(f"parallel_cascade: CUDA launch failed with error {err}")
     parallel_cascade.launches += 1

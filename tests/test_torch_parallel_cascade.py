@@ -6,8 +6,10 @@ CUDA kernel is checked against on the card) is held against JAX's Pallas
 ``CascadeConv`` / ``ParallelConv``, which dispatch to it in eval mode, against
 the JAX modules.  Both bank forms: MSCA's (branches 3/5/7 with every bias and
 an identity) and DwSepRep's (one or two 7-tap cascades, no first bias, the
-second bias on the last branch only).  Tolerance: 1e-5 relative, the JAX
-kernel tests' bound.
+second bias on the last branch only), and MscaRep(1, fix, decomp_conv0)'s
+single cascades (the 21-tap bank and the 5-tap conv0), whose halo is wider
+than the 9 x 11 test maps.  Tolerance: 1e-5 relative, the JAX kernel tests'
+bound.
 """
 
 import numpy as np
@@ -38,6 +40,8 @@ FORMS = {
                                               identity=True),
     "dwsep_r1": lambda mod: mod.CascadeConv(C, 7, 3, bias=True, first_bias=False),
     "dwsep_r2": lambda mod: mod.ParallelConv(C, 7, 3, 2, all_bias=False, identity=False),
+    "dconv0_k21": lambda mod: mod.CascadeConv(C, 21, 10, bias=True, first_bias=False),
+    "dconv0_k5": lambda mod: mod.CascadeConv(C, 5, 2, bias=True, first_bias=False),
 }
 
 
@@ -133,7 +137,8 @@ def test_training_mode_takes_the_module_path(form, calls):
 
 
 def test_unexpressible_structure_takes_the_module_path(calls):
-    """Padding other than k // 2, or an even k: the kernel does not express it."""
+    """Padding other than k // 2, an even k, or more branches times k_max than
+    the kernel's ring holds: the kernel does not express it."""
     for m in (CascadeConv(C, 7, 2, bias=True, first_bias=False),
               ParallelConv(C, [4, 6], [2, 3], 2, all_bias=True, identity=False)):
         m.eval()
@@ -142,6 +147,17 @@ def test_unexpressible_structure_takes_the_module_path(calls):
             y = m(to_nchw(images(6)))
         assert torch.isfinite(y).all()
     assert calls == []
+    # seven 21-tap branches exceed the ring: the bank takes its module path, on
+    # which each branch, a cascade the kernel expresses, is a call of its own
+    assert 7 * 21 > cascade_ops.MAX_BANK_ROWS
+    wide = ParallelConv(C, 21, 10, 7, all_bias=False, identity=False).eval()
+    assert wide.packed() is None and not wide.uses_kernel()
+    x = to_nchw(images(6))
+    with torch.no_grad():
+        y = wide(x)
+    assert calls == [(21,)] * 7
+    wide.train()
+    assert rel(y.numpy(), wide(x).detach().numpy()) < RTOL
 
 
 def test_packing_is_cached_per_weight_version(monkeypatch):
@@ -187,3 +203,7 @@ def test_wrapper_checks_its_arguments():
         cascade_ops.parallel_cascade(x[..., :4].contiguous(), **p)
     with pytest.raises(ValueError, match="branch"):
         cascade_ops.parallel_cascade(x, **dict(p, ks=(6,)))
+    k = cascade_ops.MAX_BANK_ROWS + 1  # one branch of k_max = 129: beyond the ring
+    wide = torch.zeros(1, k, C)
+    with pytest.raises(ValueError, match="ring"):
+        cascade_ops.parallel_cascade(x, **dict(p, w1=wide, w2=wide, ks=(k,)))
