@@ -20,9 +20,11 @@ From the root of a checkout, with no arguments:
    and two 7-tap cascades, at MSCAN-t's four stage shapes as the 5-tap conv0 and
    the 21-tap bank cascade of dconv0, and in MSCA's dense-bank form, with cuDNN's
    depthwise conv of the merged kernel timed beside it and the sums per r1, r2
-   and dconv0 forward; ``qmatmul`` at the 13 shapes of int8 ConvNeXt-T, with
-   ``torch._int_mm`` on the quantized operands timed beside it (kernel times are
-   device times: a sleep kernel holds the stream while the host enqueues);
+   and dconv0 forward; ``qmatmul`` bit for bit at the 13 shapes of int8
+   ConvNeXt-T, with ``torch._int_mm`` on the quantized operands timed beside it,
+   and at three ragged shapes (M off every tile, K off 32 and off 4, odd N)
+   (kernel times are device times: a sleep kernel holds the stream while the
+   host enqueues);
 4. drives the port's MSCAN main path once, through its CLI entry point: the
    Runner on ``configs/msca-rep/msca-rep_d1_fix_mscan-t.py`` at full width (13
    MSCA blocks swapped for MscaRep(1, fix), the SVD solved on the card, the
@@ -56,7 +58,11 @@ From the root of a checkout, with no arguments:
    ``msca_fused`` launch per forward, logits against the plain version and the
    module path, timed and profiled; for it and for d1+fix, the host time to
    enqueue one forward is printed beside the device time;
-8. prints one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+8. runs one eval-mode backward through a ``CascadeConv``, an ``MSCA`` (MscaRep
+   d1+fix) and a ``LowRankExpConvV1`` on the card: their input and parameter
+   gradients against the module path's, no kernel launched under autograd,
+   one launch each under ``torch.no_grad()``;
+9. prints one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Every failed check exits non-zero without the result lines, as does a run
 without a CUDA device or outside a checkout of the repository.  Random weights
@@ -95,7 +101,9 @@ QMM_SHAPES = [((200704, 48, 96), 1), ((50176, 384, 192), 1), ((12544, 768, 384),
               ((200704, 384, 96), 3), ((50176, 768, 192), 3), ((12544, 1536, 384), 9),
               ((3136, 3072, 768), 3),
               ((64, 768, 1000), 1)]
-QMM_TOL = 1e-6      # relative error of qmatmul against its plain version (the sums are exact)
+# shapes that no tile divides: M off 64 and 128, K off 32 (and off 4: the wrapper pads it), odd N
+QMM_RAGGED = [(1000, 100, 250), (130, 33, 7), (4097, 776, 130)]
+GRAD_TOL = 1e-6     # eval-mode gradients against the module path's: the same ops, deterministic
 INT8_TOL = 1e-3     # int8 logits against the same int8 model through the plain versions
 INT8_F32_TOL = 0.12  # int8 against float32 logits, max-abs relative (tests/test_quant.py's bound)
 KERNEL_TOL = 1e-5   # relative (norm) error of a kernel against its plain version
@@ -373,13 +381,55 @@ def check_cascade_kernel(gen):
 
 
 def check_qmatmul_kernel(gen):
-    """qmatmul against qmatmul_ref at the 13 shapes of int8 ConvNeXt-T at b=64;
+    """qmatmul against qmatmul_ref, bit for bit, at the 13 shapes of int8
+    ConvNeXt-T at b=64 and at the ragged shapes (with and without a bias);
     beside it ``torch._int_mm`` on the already-quantized operands (the int8
-    product alone: a lower bar than the whole function)."""
+    product alone: a lower bar than the whole function).  Returns the rows of
+    the 13 shapes."""
     import torch
 
     from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
 
+    # quotients within a few ulps of every half integer in [-130.5, 130.5], and values
+    # beyond the kernel's branch-free range (inf, 1e30), through an identity weight:
+    # y = q(x) a, so any rounding difference of the quantizer shows in y
+    a = np.float32(0.0123)
+    half = (np.arange(-131, 131, dtype=np.float64) + 0.5) * np.float64(a)
+    cols = [half.astype(np.float32)]
+    for step in (1, 2):
+        for d in (np.inf, -np.inf):
+            v = cols[0]
+            for _ in range(step):
+                v = np.nextafter(v, np.float32(d))
+            cols.append(v)
+    x = np.resize(np.concatenate(cols), (64, 256)).astype(np.float32)
+    x[0, :4] = [np.inf, -np.inf, 1e30, -1e30]
+    x = torch.from_numpy(x).cuda()
+    w, s = qmatmul_ops.pack_qweight(torch.eye(256, dtype=torch.int8).cuda()), torch.ones(256).cuda()
+    a = torch.tensor(float(a), device="cuda")
+    y, y_ref = qmatmul_ops.qmatmul(x, w, a, s), qmatmul_ops.qmatmul_ref(x, w, a, s)
+    torch.cuda.synchronize()
+    if not torch.equal(y, y_ref):
+        fail(f"qmatmul near-tie quotients: {int((y != y_ref).sum())} of {y.numel()} outputs "
+             f"differ from qmatmul_ref")
+    print(f"qmatmul near-tie quotients (64, 256) through an identity weight: bit for bit")
+    for M, K, N in QMM_RAGGED:
+        x = torch.randn(M, K, generator=gen).cuda()
+        w = qmatmul_ops.pack_qweight(
+            torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).cuda())
+        a = torch.tensor(float(x.abs().max()) / 127.0, device="cuda")
+        s, b = (torch.rand(N, generator=gen) * 0.01).cuda(), torch.randn(N, generator=gen).cuda()
+        for bias in (b, None):
+            y = qmatmul_ops.qmatmul(x, w, a, s, bias)
+            y_ref = qmatmul_ops.qmatmul_ref(x, w, a, s, bias)
+            torch.cuda.synchronize()
+            if not torch.equal(y, y_ref):
+                fail(f"qmatmul ragged {(M, K, N)} (bias {bias is not None}): max abs err "
+                     f"{float((y - y_ref).abs().max()):.3e}; the kernel must give "
+                     f"qmatmul_ref's bits")
+        p = qmatmul_ops.plan(M, K, N)
+        print(f"qmatmul ragged (M, K, N)={(M, K, N)}: bit for bit with and without a bias "
+              f"(plan BM {p.bm}, BN {p.bn}, grid {p.grid})")
     rows = []
     for (M, K, N), calls in QMM_SHAPES:
         x = torch.randn(M, K, generator=gen).cuda()
@@ -392,24 +442,99 @@ def check_qmatmul_kernel(gen):
         y_ref = qmatmul_ops.qmatmul_ref(x, w, a, s, b)
         torch.cuda.synchronize()
         err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
-        if not torch.isfinite(y).all() or err > QMM_TOL:
-            fail(f"qmatmul {(M, K, N)}: rel err {err:.3e} > {QMM_TOL}")
+        if not torch.isfinite(y).all() or not torch.equal(y, y_ref):
+            fail(f"qmatmul {(M, K, N)}: rel err {err:.3e}, max abs err {abs_err:.3e}; the "
+                 f"kernel must give qmatmul_ref's bits")
         ms, plain_ms = time_pair(lambda: qmatmul_ops.qmatmul(x, w, a, s, b),
                                  lambda: qmatmul_ops.qmatmul_ref(x, w, a, s, b))
         x_q, w_t = qmatmul_ops.quantize_activation(x, a), w_q.t().contiguous()
         lib_ms = library_time(lambda: torch._int_mm(x_q, w_t))
         nbytes, ops = qmm_cost(M, K, N)
         b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
+        p = qmatmul_ops.plan(M, K, N)
+        if qmatmul_ops._library().qmatmul_smem_bytes(p.bm, p.bnw, p.ra, p.sx, p.sb) != p.smem:
+            fail(f"qmatmul {(M, K, N)}: the planner's shared memory differs from the kernel's")
         rows.append(dict(shape=(M, K, N), calls=calls, rel_err=err, max_abs_err=abs_err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=ops,
                          bound_ms=b_ms))
-        print(f"qmatmul (M, K, N)={(M, K, N)} x{calls}/forward: rel err {err:.3e} (bound "
-              f"{QMM_TOL}), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-              f"ms, torch._int_mm {lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} "
-              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int8 ops), roofline share "
-              f"{b_ms / ms:.1%}")
+        print(f"qmatmul (M, K, N)={(M, K, N)} x{calls}/forward: rel err {err:.3e} (bound 0: "
+              f"bit for bit), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
+              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+              f"{ops / 1e9:.3f} G int8 ops), roofline share {b_ms / ms:.1%}; plan BM {p.bm}, "
+              f"BN {p.bn}, {p.ntpb} column tiles per block, grid {p.grid}, {p.smem} B of "
+              f"shared memory")
         del x, y, y_ref, x_q
+    for name, key in (("kernel", "ms"), ("plain", "plain_ms"), ("torch._int_mm", "library_ms"),
+                      ("bound", "bound_ms")):
+        print(f"qmatmul per int8 ConvNeXt-T forward ({sum(r['calls'] for r in rows)} calls): "
+              f"{name} {sum(r[key] * r['calls'] for r in rows):.4f} ms")
     return rows
+
+
+def check_eval_grad(gen):
+    """One eval-mode backward on the card through a CascadeConv (ConvNeXt-T's
+    stage-1 bank), an MSCA made by MscaRep(1, fix) (MSCAN-t's stage 1) and a
+    separable LowRankExpConvV1 (AlexNet's conv2): under autograd each takes its
+    module path (no kernel launch), and its input and parameter gradients equal
+    those of the module path in training mode; under torch.no_grad() each
+    launches its kernel once."""
+    import torch
+
+    from convnet_approximater_tpu_torch.core import MscaRep
+    from convnet_approximater_tpu_torch.layers import MSCA, CascadeConv, LowRankExpConvV1
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+
+    torch.manual_seed(0)
+    lowrank = LowRankExpConvV1(64, 192, 5, 1, 2, 8, decomp=True)
+    with torch.no_grad():  # bases shared by every input channel: the kernel's form
+        v, h = torch.randn(8, 5, generator=gen), torch.randn(8, 5, generator=gen)
+        lowrank.s_conv.v_conv.weight.copy_(v.repeat(64, 1)[:, None, :, None])
+        lowrank.s_conv.h_conv.weight.copy_(h.repeat(64, 1)[:, None, None, :])
+    cases = [("CascadeConv", CascadeConv(96, 7, 3, bias=True, first_bias=False), (8, 96, 56),
+              cascade_ops.parallel_cascade),
+             ("MSCA d1+fix", MscaRep(decomp=1, fix=True).initialize(MSCA(32, 5, (7, 11, 21)))
+              .new_module, (8, 32, 56), fused_ops.msca_fused),
+             ("LowRankExpConvV1", lowrank, (8, 64, 27), lowrank_ops.lowrank_conv)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, layer, (B, C, H), kernel in cases:
+            layer = layer.cuda().eval()
+            x = torch.randn(B, C, H, H, generator=gen).cuda().contiguous(
+                memory_format=torch.channels_last)
+
+            def grads():
+                layer.zero_grad(set_to_none=True)
+                xg = x.clone().requires_grad_(True)
+                y = layer(xg)
+                y.backward(torch.ones_like(y))
+                return [xg.grad] + [p.grad for p in layer.parameters()], y.detach()
+
+            reset_counts()
+            eval_grads, y = grads()
+            if kernel.launches != 0 or any(g is None for g in eval_grads):
+                fail(f"eval-mode backward through {name}: {kernel.launches} kernel launches "
+                     f"under autograd, or a gradient is missing")
+            with torch.no_grad():
+                y_kernel = layer(x)
+            if kernel.launches != 1:
+                fail(f"{name} under torch.no_grad() launched its kernel {kernel.launches} times")
+            layer.train()
+            module_grads, y_module = grads()
+            layer.eval()
+            errs = [rel_err(g, m) for g, m in zip(eval_grads, module_grads)]
+            kernel_err = rel_err(y_kernel, y)
+            print(f"eval-mode backward through {name} {(B, H, H, C)}: {len(errs)} gradients "
+                  f"(input and parameters), max rel err {max(errs):.3e} against the module path "
+                  f"(bound {GRAD_TOL}); no kernel launch under autograd, one under no_grad "
+                  f"(forward rel err {kernel_err:.3e} against the autograd forward)")
+            if max(errs) > GRAD_TOL or rel_err(y, y_module) > GRAD_TOL or kernel_err > KERNEL_TOL:
+                fail(f"eval-mode gradients through {name} differ from the module path's")
+            del layer, x
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
 
 
 def reset_counts():
@@ -479,7 +604,9 @@ def run_mscan(gen):
     mscas = [m for m in model.modules() if isinstance(m, MSCA)]
     if model.length_switchable != 13 or len(mscas) != 13:
         fail(f"expected 13 MSCA blocks, registered {model.length_switchable}, found {len(mscas)}")
-    if not all(m.can_fuse() for m in mscas):
+    with torch.no_grad():  # the kernel route: no gradient can be asked
+        fusable = all(m.can_fuse() for m in mscas)
+    if not fusable:
         fail("an MscaRep'd MSCA block cannot take the fused kernel")
     if launches != 13 * hook.forwards or launches == 0:
         fail(f"msca_fused launched {launches} times in {hook.forwards} forwards, "
@@ -602,7 +729,9 @@ def run_alexnet(gen, config, separable: bool, work_dir: str, extras: bool):
     layers = [m for m in model.modules() if isinstance(m, LowRankExpConvV1)]
     if model.switchable_names != ALEX_NAMES or len(layers) != 4:
         fail(f"{name}: registered {model.switchable_names}, expected {ALEX_NAMES}")
-    if not all(m.uses_kernel() for m in layers):
+    with torch.no_grad():  # the kernel route: no gradient can be asked
+        dispatched = all(m.uses_kernel() for m in layers)
+    if not dispatched:
         fail(f"{name}: a LowRankExpConvV1 layer does not dispatch to lowrank_conv")
     if not all(hasattr(m.s_conv, "v_conv") == separable for m in layers):
         fail(f"{name}: expected {'separable' if separable else 'full'} bases in every layer")
@@ -708,7 +837,9 @@ def drive_convnext(gen, config, nb):
     banks = [model.get_switchable_module(i) for i in range(model.length_switchable)]
     if model.length_switchable != 18 or not all(type(b) is kind for b in banks):
         fail(f"{name}: expected 18 {kind.__name__} blocks, registered {model.length_switchable}")
-    if not all(b.uses_kernel() and len(b.bank()[0]) == nb for b in banks):
+    with torch.no_grad():  # the kernel route: no gradient can be asked
+        dispatched = all(b.uses_kernel() and len(b.bank()[0]) == nb for b in banks)
+    if not dispatched:
         fail(f"{name}: a strip bank does not dispatch to parallel_cascade")
     if launches != 18 * forwards or launches == 0:
         fail(f"{name}: parallel_cascade launched {launches} times in {forwards} forwards, "
@@ -826,8 +957,10 @@ def run_mscan_dconv0(gen):
     model, forwards = runner.model, forwards_of(runner)
     hook = next(h for h in runner.hooks if isinstance(h, InferenceTimeHook))
     mscas = [m for m in model.modules() if isinstance(m, MSCA)]
-    if len(mscas) != 13 or not all(isinstance(m.conv0, CascadeConv) and not m.can_fuse()
-                                   and m.conv0.uses_kernel() for m in mscas):
+    with torch.no_grad():  # the kernel route: no gradient can be asked
+        routed = len(mscas) == 13 and all(isinstance(m.conv0, CascadeConv) and not m.can_fuse()
+                                          and m.conv0.uses_kernel() for m in mscas)
+    if not routed:
         fail(f"{name}: expected 13 MSCA blocks with a cascade conv0 on the module path")
     if launches != 26 * forwards or launches == 0 or fused != 0:
         fail(f"{name}: parallel_cascade launched {launches} times and msca_fused {fused} times "
@@ -913,7 +1046,10 @@ def main():
     cascade_launches, qmm_launches = run_convnext(gen)
     run_mscan_dconv0(gen)
 
-    # -- 8. results -------------------------------------------------------
+    # -- 8. gradients through eval-mode kernel layers ---------------------
+    check_eval_grad(gen)
+
+    # -- 9. results -------------------------------------------------------
     # each entry is one forward at b=64, 224^2: the time per call times the calls per forward
     # (parallel_cascade: the DwSepRep r1 forward of ConvNeXt-T; qmatmul: its int8 forward)
     blocks = {H: n for H, _, n in STAGES}

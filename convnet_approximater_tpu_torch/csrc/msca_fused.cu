@@ -16,7 +16,7 @@
 //   3. vpass_kernel  attn = [a0] + sum_b (vconv_k(t[b]) + b2[b]) + fix
 //   4. mix_kernel    out  = x * (attn . Wm + bm)                 (tiled C x C product)
 //
-// Launches 2 and 3 are the strip bank of strip_bank.cuh, shared with parallel_cascade.cu
+// Launches 2 and 3 are the strip bank of strip_bank.cuh, which only this file includes
 // (its notes give the thread layout and the border semantics); conv0 is laid out the
 // same way, one thread per output element with channels fastest.
 //

@@ -3,206 +3,558 @@
 //   y[m, n] = f32(sum_k q(x[m, k]) w[n, k]) * (a * w_scale[n]) + bias[n]
 //   q(v)    = clip(rint(v / a), -127, 127) as int8,  a = *a_scale
 //
-// x is (M, K) float32, w the int8 weight packed as (N, Kp) with K zero-padded to Kp, a
-// multiple of 32; the sums are exact in int32.  Replaces the Pallas TPU kernel
-// `pallas_qmatmul` / `_qmm_kernel` in scripts/exp_pallas_qmatmul.py, the fused form of
-// the JAX package's QuantLinear (layers/quant.py).  Like it, this kernel quantizes x on
-// its way into the product, so the float32 activation is read once and no int8 copy of
-// it is written.
+// x is (M, Kx) float32 (Kx a multiple of 4, 16-byte aligned rows: the wrapper pads a ragged
+// K), w the int8 weight packed as (N, Kp), K zero-padded to Kp, a multiple of 32; the sums
+// are exact in int32.  Replaces the Pallas TPU kernel `pallas_qmatmul` / `_qmm_kernel` in
+// scripts/exp_pallas_qmatmul.py, the fused form of the JAX package's QuantLinear
+// (layers/quant.py).  Like it, this kernel quantizes x on its way into the product, so the
+// float32 activation is read once and no int8 copy of it reaches device memory.
 //
-// Layout: a 128 x 128 output tile per block of 8 warps (4 along M x 2 along N, 32 x 64
-// each), K staged through shared memory 32 at a time.  Each step reads a 128 x 32 float32
-// tile of x (one float4 per thread and pass, 8 threads per row: coalesced), quantizes it
-// in registers and stores it as int8; the weight tile is one 16-byte load per thread.  The
-// next step's loads are issued before this step's products, so they are in flight while
-// the tensor cores run.  Products are mma.sync m16n8k32 s8 x s8 -> s32 (row-major A,
-// column-major B: w's (N, Kp) rows are B's columns).  Shared rows are padded to 48 bytes,
-// which makes the fragment loads free of bank conflicts.
+// What bounds it on the H100: bytes.  At the 13 shapes of int8 ConvNeXt-T, reading 4 M K
+// bytes of x and writing 4 M N bytes of y at 3.35 TB/s takes 2x (stage 4) to 15x (stage 1)
+// longer than the 2 M N K int8 operations at 1,979 TOP/s.  So the design keeps many bytes
+// in flight and touches x once:
 //
-// Numbers: the division is IEEE (__fdiv_rn) and rint rounds half to even, as jnp.round
-// and torch.round do; the epilogue converts the int32 sum once (round to nearest), then
-// multiplies by the f32 product a * w_scale[n] and adds the bias, each step rounded on its
-// own (__fmul_rn / __fadd_rn: no contraction into an FMA), so the result equals the plain
-// version's bit for bit.
+// - A block owns a BM-row tile (BM = 128 where x is wide against N and M is large, else 64)
+//   and a run of `ntpb` BN-column tiles.  Its 256 consumer threads (two warpgroups) quantize
+//   the x tile once into an int8 panel in shared memory and walk the column tiles against
+//   it.  Where a block takes a single column tile (N split over blocks to fill 132 SMs, as
+//   at M = 3136 and M = 64, each split quantizing its own copy), or the panel would not fit
+//   beside the rings, it keeps a ring of `ra` 128-byte K chunks instead.
+// - One producer thread keeps TMA copies in flight through two mbarrier rings: `sx` stages
+//   of float32 x boxes (BM rows x 32 floats) and `sb` stages of int8 weight boxes (BN rows
+//   x 128 bytes, 128-byte swizzled by the copy, so that the packed (N, Kp) layout stays
+//   row-major and qmatmul_ref reads it as it is).
+// - The products are wgmma.mma_async m64nBNWk32 s8 x s8 -> s32, both operands K-major from
+//   shared memory through 128-byte-swizzle descriptors; the consumers write the quantized
+//   panel through the generic proxy, so fence.proxy.async and a barrier precede the wgmma
+//   that reads it.  With BM = 128 each warpgroup takes 64 rows and all BN columns; with
+//   BM = 64 both take the same rows and half the columns each.
+// - The epilogue stages each warp's 16 x 32 tile in shared memory and writes y in whole
+//   128-byte lines (float4 per thread).
+// Per-shape choices (BM, BNW, ntpb, ra, sx, sb) come from the planner in ops/qmatmul.py.
 //
-// What bounds it on the H100: bytes, at the shapes of int8 ConvNeXt-T.  2 M N K int8
-// operations at 1,979 TOP/s take a fraction of the time that reading 4 M K bytes and
-// writing 4 M N bytes of float32 take at 3.35 TB/s (about 15x at pwconv1 of stage 1).  The
-// design reads x once per 128 output columns (L2 catches the re-reads of a row tile, whose
-// column blocks run next to each other) and writes y once, straight from the accumulator
-// fragments.  wgmma with a TMA-fed pipeline, and an int8 or bf16 output, are later steps.
+// Numbers: the division gives IEEE's bits (__fdiv_rn, or a branch-free path with the same
+// bits: see quant4) and rint rounds half to even, as torch.round does; the epilogue
+// converts the int32 sum once (round to nearest), then multiplies by the f32 product
+// a * w_scale[n] and adds the bias, each step rounded on its own (__fmul_rn / __fadd_rn: no
+// contraction into an FMA), so the result equals the plain version's bits.
 //
 // The C entry point launches on the caller's stream, does not synchronise, allocates
-// nothing and returns cudaGetLastError() of the launch (0 on success).
+// nothing and returns cudaGetLastError() of the launch (0 on success).  The tensor maps
+// are encoded on the host through the driver entry point, so the library needs no -lcuda.
+// A wait on an mbarrier that does not complete within about 10 s traps instead of hanging.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kRow = kBK + 16;  // shared row stride in bytes: conflict-free fragment loads
-constexpr int kThreads = 256;
+constexpr int kConsumers = 256;            // two warpgroups
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kChunk = 128;                // K bytes of a panel chunk / weight box row
+constexpr int kXCols = 32;                 // floats of an x box row: one wgmma k-step
+constexpr int kStageLd = 40;               // epilogue staging row stride in floats
+constexpr int kStageBytes = 8 * 16 * kStageLd * 4;
+constexpr int kSmemMax = 232448;           // dynamic shared memory a block may use
 
-__device__ __forceinline__ int quant4(float4 v, float a) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  while (true) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 34)) {
+      __trap();
+    }
+  }
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma descriptor of a K-major operand in 128-byte-swizzled rows of 128 bytes: 8-row
+// groups 1024 bytes apart (SBO = 64 x 16 B), the leading offset unused (1), layout B128.
+__device__ __forceinline__ uint64_t desc_b128(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<8> {
+  static __device__ __forceinline__ void mma(int* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+        "%0, %1, %2, %3"
+        "}, %4, %5, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(int* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(int* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+        "}, %16, %17, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(int* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<96> {
+  static __device__ __forceinline__ void mma(int* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+        "}, %48, %49, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void mma(int* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p;\n}\n"
+        : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+          "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+          "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+          "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+          "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+          "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+          "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+          "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+        : "l"(da), "l"(db), "r"(acc));
+  }
+};
+
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// q(v) = clip(rint(v / a), -127, 127) of four values, as int8 bytes packed low to high.
+//
+// __fdiv_rn expands to a branch per element (its slow path), which keeps the compiler from
+// interleaving the divisions of a thread; the quantize then bounds the kernel.  So `fast`
+// takes a branch-free path where it is exact: r = 1/a correctly rounded (__frcp_rn, once
+// per thread), q0 = v r, then two residual corrections q' = q + (v - a q) r with the
+// residual exact in an FMA.  After the first correction q is within one ulp of v / a, and
+// by Markstein's theorem the second gives the correctly rounded quotient, __fdiv_rn's
+// bits, as long as nothing overflows or underflows: the caller asks for it only when
+// 2^-60 <= a <= 2^60 and every |v| <= 2^60 (a tiny quotient rounds to 0 either way).
+// Anything else (NaN, inf, huge values) takes __fdiv_rn.  The clamp comes before the
+// rounding (the same integers), and adding 1.5 * 2^23 rounds to nearest even and leaves
+// the integer's two's-complement byte in the low bits.
+__device__ __forceinline__ uint32_t to_byte(float q) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(q, -127.f), 127.f), 12582912.f));
+}
+
+__device__ __forceinline__ int quant4(float4 v, float a, float r, bool fast) {
   const float f[4] = {v.x, v.y, v.z, v.w};
-  uint32_t packed = 0;
+  uint32_t b[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    float q = rintf(__fdiv_rn(f[i], a));
-    q = fminf(fmaxf(q, -127.f), 127.f);
-    packed |= (uint32_t)(uint8_t)(int8_t)__float2int_rn(q) << (8 * i);
+    if (fast) {
+      float q = __fmul_rn(f[i], r);
+      q = __fmaf_rn(__fmaf_rn(-a, q, f[i]), r, q);
+      q = __fmaf_rn(__fmaf_rn(-a, q, f[i]), r, q);
+      b[i] = to_byte(q);
+    } else {
+      b[i] = to_byte(rintf(__fdiv_rn(f[i], a)));
+    }
   }
-  return (int)packed;
+  return static_cast<int>(
+      __byte_perm(__byte_perm(b[0], b[1], 0x0040), __byte_perm(b[2], b[3], 0x0040), 0x5410));
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], const int (&a)[4], const int (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+__device__ __forceinline__ bool in_fast_range(float4 v) {
+  return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))) <= 0x1p60f;
 }
 
-// The float32 x tile and the int8 w tile of step k0 into registers: x pass p covers
-// rows p*32 .. p*32+31, thread -> (row xr, k xk .. xk+3); w thread -> (row wr, k wk .. wk+15).
-__device__ __forceinline__ void load_tiles(float4 (&xv)[4], int4& wv, const float* x,
-                                           const int8_t* w, int64_t m0, int n0, int k0,
-                                           int64_t M, int K, int Kp, int N, int vec, int xr,
-                                           int xk, int wr, int wk) {
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int64_t m = m0 + p * 32 + xr;
-    const int k = k0 + xk;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (m < M) {
-      const float* src = x + m * K + k;
-      if (vec && k + 3 < K) {
-        v = *reinterpret_cast<const float4*>(src);
-      } else {
-        if (k < K) v.x = src[0];
-        if (k + 1 < K) v.y = src[1];
-        if (k + 2 < K) v.z = src[2];
-        if (k + 3 < K) v.w = src[3];
+// The byte offset of (row r, byte kb of the chunk) in a 128-byte-swizzled panel chunk.
+__device__ __forceinline__ int swz(int r, int kb) {
+  return r * kChunk + ((((kb >> 4) ^ (r & 7)) << 4) | (kb & 15));
+}
+
+template <int BM, int BNW>
+__global__ void __launch_bounds__(kThreads, 1)
+qmatmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
+               const float* __restrict__ a_scale, const float* __restrict__ w_scale,
+               const float* __restrict__ bias, float* __restrict__ y, int M, int N, int Kx,
+               int Kp, int n_tiles, int ntpb, int ra, int sx, int sb) {
+  constexpr int BN = BM == 128 ? BNW : 2 * BNW;
+  constexpr int kSlot = BM * kChunk;
+  constexpr int kBStage = BN * kChunk;
+  constexpr int kXStage = BM * kXCols * 4;
+  constexpr int kXVecs = BM * kXCols / 4 / kConsumers;  // float4 of an x box per thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* A = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* B = A + ra * kSlot;
+  uint8_t* U = B + sb * kBStage;  // the x ring, then the epilogue staging
+  const int u_bytes = sx * kXStage > kStageBytes ? sx * kXStage : kStageBytes;
+  const uint32_t xf = smem_u32(U + u_bytes), xe = xf + 8 * sx, bf = xe + 8 * sx,
+                 be = bf + 8 * sb;
+
+  const int tid = threadIdx.x;
+  const int Kc = (Kp + kChunk - 1) / kChunk;
+  const int nt0 = blockIdx.x * ntpb;
+  const int nt_count = min(ntpb, n_tiles - nt0);
+  const int m0 = blockIdx.y * BM;
+  if (tid == 0) {
+    for (int i = 0; i < sx; ++i) {
+      mbar_init(xf + 8 * i, 1);
+      mbar_init(xe + 8 * i, kConsumers / 32);
+    }
+    for (int i = 0; i < sb; ++i) {
+      mbar_init(bf + 8 * i, 1);
+      mbar_init(be + 8 * i, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // the producer: TMA copies in the order the consumers take them
+    if (tid == kConsumers) {
+      int xi = 0, bi = 0;
+      for (int t = 0; t < nt_count; ++t) {
+        for (int kc = 0; kc < Kc; ++kc) {
+          const int steps = min(4, (Kp - kc * kChunk) / 32);
+          for (int s = 0; t == 0 && s < steps; ++s) {
+            const int k = kc * kChunk + s * kXCols;
+            if (k >= Kx) break;  // the consumers zero the rest of the chunk
+            const int st = xi % sx;
+            mbar_wait(xe + 8 * st, ((xi / sx) & 1) ^ 1);
+            mbar_expect_tx(xf + 8 * st, kXStage);
+            tma_load_2d(smem_u32(U + st * kXStage), &xmap, xf + 8 * st, k, m0);
+            ++xi;
+          }
+          const int st = bi % sb;
+          mbar_wait(be + 8 * st, ((bi / sb) & 1) ^ 1);
+          mbar_expect_tx(bf + 8 * st, kBStage);
+          tma_load_2d(smem_u32(B + st * kBStage), &wmap, bf + 8 * st, kc * kChunk,
+                      (nt0 + t) * BN);
+          ++bi;
+        }
       }
     }
-    xv[p] = v;
+    return;
   }
-  const int n = n0 + wr;
-  wv = n < N ? *reinterpret_cast<const int4*>(w + (int64_t)n * Kp + k0 + wk)
-             : make_int4(0, 0, 0, 0);
-}
 
-__global__ void __launch_bounds__(kThreads)
-qmatmul_kernel(const float* __restrict__ x, const int8_t* __restrict__ w,
-               const float* __restrict__ a_scale, const float* __restrict__ w_scale,
-               const float* __restrict__ bias, float* __restrict__ y,
-               int64_t M, int K, int Kp, int N, int vec) {
-  __shared__ __align__(16) int8_t As[kBM * kRow];
-  __shared__ __align__(16) int8_t Bs[kBN * kRow];
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t4 = lane % 4;  // mma fragment row group and thread in group
-  const int wm = warp % 4, wn = warp / 4;
-  const int n0 = blockIdx.x * kBN;
-  const int64_t m0 = (int64_t)blockIdx.y * kBM;
   const float a = *a_scale;
-
-  const int xr = tid / 8, xk = (tid % 8) * 4;  // this thread's x and w tile places
-  const int wr = tid / 2, wk = (tid % 2) * 16;
-
-  float4 xv[4];
-  int4 wv;
-  int acc[2][8][4];
+  const float r = __frcp_rn(a);
+  const bool a_fast = a >= 0x1p-60f && a <= 0x1p60f;
+  const int warp = tid / 32, lane = tid % 32, wg = tid / 128;
+  const int row_off = BM == 128 ? 64 * wg : 0;   // this warpgroup's rows of the tile
+  const int col_off = BM == 128 ? 0 : BNW * wg;  // and its columns
+  int acc[BNW / 2];
+  int xi = 0, bi = 0;
+  for (int t = 0; t < nt_count; ++t) {
+    for (int kc = 0; kc < Kc; ++kc) {
+      const int steps = min(4, (Kp - kc * kChunk) / 32);
+      uint8_t* slot = A + (kc % ra) * kSlot;
+      if (t == 0) {  // quantize the x chunk into the panel (or the ring's slot)
+        for (int s = 0; s < steps; ++s) {
+          const int k = kc * kChunk + s * kXCols;
+          if (k < Kx) {
+            const int st = xi % sx;
+            mbar_wait(xf + 8 * st, (xi / sx) & 1);
+            const float4* xs = reinterpret_cast<const float4*>(U + st * kXStage);
+            float4 xv[kXVecs];
+            bool fast = a_fast;
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+            for (int i = 0; i < kXVecs; ++i) {
+              xv[i] = xs[tid + kConsumers * i];
+              fast = fast && in_fast_range(xv[i]);
+            }
+            int words[kXVecs];
+            if (fast) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+              for (int i = 0; i < kXVecs; ++i) words[i] = quant4(xv[i], a, r, true);
+            } else {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) acc[i][j][r] = 0;
-
-  load_tiles(xv, wv, x, w, m0, n0, 0, M, K, Kp, N, vec, xr, xk, wr, wk);
-  for (int k0 = 0; k0 < Kp; k0 += kBK) {
+              for (int i = 0; i < kXVecs; ++i) words[i] = quant4(xv[i], a, r, false);
+            }
+            __syncwarp();
+            if (lane == 0) mbar_arrive(xe + 8 * st);
+            ++xi;
 #pragma unroll
-    for (int p = 0; p < 4; ++p)
-      *reinterpret_cast<int*>(&As[(p * 32 + xr) * kRow + xk]) = quant4(xv[p], a);
-    *reinterpret_cast<int4*>(&Bs[wr * kRow + wk]) = wv;
-    __syncthreads();
-    if (k0 + kBK < Kp)
-      load_tiles(xv, wv, x, w, m0, n0, k0 + kBK, M, K, Kp, N, vec, xr, xk, wr, wk);
-
-    int af[2][4], bf[8][2];
+            for (int i = 0; i < kXVecs; ++i) {
+              const int idx = tid + kConsumers * i;
+              *reinterpret_cast<int*>(slot + swz(idx >> 3, s * kXCols + (idx & 7) * 4)) =
+                  words[i];
+            }
+          } else {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int8_t* r0 = &As[(wm * 32 + i * 16 + g) * kRow + t4 * 4];
-      const int8_t* r1 = r0 + 8 * kRow;
-      af[i][0] = *reinterpret_cast<const int*>(r0);
-      af[i][1] = *reinterpret_cast<const int*>(r1);
-      af[i][2] = *reinterpret_cast<const int*>(r0 + 16);
-      af[i][3] = *reinterpret_cast<const int*>(r1 + 16);
+            for (int i = 0; i < kXVecs; ++i) {
+              const int idx = tid + kConsumers * i;
+              *reinterpret_cast<int*>(slot + swz(idx >> 3, s * kXCols + (idx & 7) * 4)) = 0;
+            }
+          }
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+      }
+      const int st = bi % sb;
+      mbar_wait(bf + 8 * st, (bi / sb) & 1);
+      const uint32_t a_base = smem_u32(slot) + row_off * kChunk;
+      const uint32_t b_base = smem_u32(B + st * kBStage) + col_off * kChunk;
+      fence_regs(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      for (int s = 0; s < steps; ++s)
+        Wgmma<BNW>::mma(acc, desc_b128(a_base + 32 * s), desc_b128(b_base + 32 * s),
+                        (kc | s) != 0);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+      fence_regs(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(be + 8 * st);
+      ++bi;
     }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int8_t* r = &Bs[(wn * 64 + j * 8 + g) * kRow + t4 * 4];
-      bf[j][0] = *reinterpret_cast<const int*>(r);
-      bf[j][1] = *reinterpret_cast<const int*>(r + 16);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mma_s8(acc[i][j], af[i], bf[j]);
-    __syncthreads();
-  }
 
-  // epilogue: c0, c1 at (row g, cols 2 t4, 2 t4 + 1); c2, c3 at row g + 8
+    // epilogue: d[4j + 2h + e] is (row lane / 4 + 8 h, column 8 j + 2 (lane % 4) + e) of
+    // this warp's 16 rows; each 16 x CW block goes through shared memory to whole lines
+    constexpr int CW = BNW < 32 ? BNW : 32;
+    float* stage = reinterpret_cast<float*>(U) + warp * 16 * kStageLd;
+    const int64_t m_base = static_cast<int64_t>(m0) + row_off + (warp % 4) * 16;
+    const int n_base = (nt0 + t) * BN + col_off;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int n = n0 + wn * 64 + j * 8 + t4 * 2;
-    float sc[2], bi[2];
+    for (int cc = 0; cc < BNW / CW; ++cc) {
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool ok = n + e < N;
-      sc[e] = ok ? __fmul_rn(a, w_scale[n + e]) : 0.f;
-      bi[e] = ok && bias != nullptr ? bias[n + e] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int64_t m = m0 + wm * 32 + i * 16 + g + 8 * h;
-        if (m >= M) continue;
-        float v[2];
+      for (int j = 0; j < CW / 8; ++j) {
+        const int cl = j * 8 + (lane & 3) * 2;
+        const int n = n_base + cc * CW + cl;
+        float sc[2], bs[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          v[e] = __fmul_rn(__int2float_rn(acc[i][j][2 * h + e]), sc[e]);
-          if (bias != nullptr) v[e] = __fadd_rn(v[e], bi[e]);
+          const bool ok = n + e < N;
+          sc[e] = ok ? __fmul_rn(a, w_scale[n + e]) : 0.f;
+          bs[e] = ok && bias != nullptr ? bias[n + e] : 0.f;
         }
-        float* dst = y + m * N + n;
-        if (n + 1 < N && (N % 2) == 0) {
-          *reinterpret_cast<float2*>(dst) = make_float2(v[0], v[1]);
-        } else {
-          if (n < N) dst[0] = v[0];
-          if (n + 1 < N) dst[1] = v[1];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int d = (cc * (CW / 8) + j) * 4 + 2 * h;
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            v[e] = __fmul_rn(__int2float_rn(acc[d + e]), sc[e]);
+            if (bias != nullptr) v[e] = __fadd_rn(v[e], bs[e]);
+          }
+          *reinterpret_cast<float2*>(&stage[((lane >> 2) + 8 * h) * kStageLd + cl]) =
+              make_float2(v[0], v[1]);
         }
       }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < 16 * CW / 4 / 32; ++i) {
+        const int idx = lane + 32 * i;
+        const int r = idx / (CW / 4), c = (idx % (CW / 4)) * 4;
+        const int64_t m = m_base + r;
+        const int n = n_base + cc * CW + c;
+        if (m < M && n < N) {
+          const float4 v = *reinterpret_cast<const float4*>(&stage[r * kStageLd + c]);
+          float* dst = y + m * N + n;
+          if ((N & 3) == 0) {
+            *reinterpret_cast<float4*>(dst) = v;
+          } else {
+            dst[0] = v.x;
+            if (n + 1 < N) dst[1] = v.y;
+            if (n + 2 < N) dst[2] = v.z;
+            if (n + 3 < N) dst[3] = v.w;
+          }
+        }
+      }
+      __syncwarp();
     }
   }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-d row-major (rows, cols) tensor map with boxes of (box_rows, box_cols).
+bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int elem_bytes,
+              uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+              CUtensorMapSwizzle swizzle) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * elem_bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int smem_bytes(int bm, int bn, int ra, int sx, int sb) {
+  const int x_ring = sx * bm * kXCols * 4;
+  return 1024 + ra * bm * kChunk + sb * bn * kChunk +
+         (x_ring > kStageBytes ? x_ring : kStageBytes) + 16 * (sx + sb);
+}
+
+template <int BM, int BNW>
+int launch(const CUtensorMap& xmap, const CUtensorMap& wmap, const float* a_scale,
+           const float* w_scale, const float* bias, float* y, int M, int N, int Kx, int Kp,
+           int ntpb, int ra, int sx, int sb, cudaStream_t stream) {
+  constexpr int BN = BM == 128 ? BNW : 2 * BNW;
+  const int n_tiles = (N + BN - 1) / BN;
+  const int smem = smem_bytes(BM, BN, ra, sx, sb);
+  cudaError_t err = cudaFuncSetAttribute(qmatmul_kernel<BM, BNW>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((n_tiles + ntpb - 1) / ntpb, (M + BM - 1) / BM);
+  qmatmul_kernel<BM, BNW><<<grid, kThreads, smem, stream>>>(
+      xmap, wmap, a_scale, w_scale, bias, y, M, N, Kx, Kp, n_tiles, ntpb, ra, sx, sb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The shared memory (bytes) a launch with this plan asks for; the planner's check.
+extern "C" int qmatmul_smem_bytes(int bm, int bnw, int ra, int sx, int sb) {
+  return smem_bytes(bm, bm == 128 ? bnw : 2 * bnw, ra, sx, sb);
+}
+
 extern "C" int qmatmul_f32(const float* x, const int8_t* w, const float* a_scale,
-                           const float* w_scale, const float* bias, float* y, int64_t M, int K,
-                           int Kp, int N, int vec, void* stream_handle) {
-  if (Kp % kBK != 0 || Kp < K) return (int)cudaErrorInvalidValue;
-  const int64_t m_blocks = (M + kBM - 1) / kBM;
-  if (m_blocks > 65535) return (int)cudaErrorInvalidConfiguration;
+                           const float* w_scale, const float* bias, float* y, int M, int Kx,
+                           int Kp, int N, int bm, int bnw, int ntpb, int ra, int sx, int sb,
+                           void* stream_handle) {
+  const int bn = bm == 128 ? bnw : 2 * bnw;
+  const int Kc = (Kp + kChunk - 1) / kChunk;
+  if (Kp % 32 != 0 || Kp < Kx || Kx % 4 != 0 || M < 1 || N < 1 || ntpb < 1 || sx < 1 ||
+      sb < 1 || ra < 1 || ra > Kc || (ra < Kc && (ra < 2 || ntpb != 1)) ||
+      smem_bytes(bm, bn, ra, sx, sb) > kSmemMax ||
+      (M + bm - 1) / bm > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, 4, M, Kx, bm, kXCols,
+                CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 1, N, Kp, bn, kChunk,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const dim3 grid((unsigned)((N + kBN - 1) / kBN), (unsigned)m_blocks);
-  qmatmul_kernel<<<grid, kThreads, 0, stream>>>(x, w, a_scale, w_scale, bias, y, M, K, Kp, N,
-                                                vec);
-  return (int)cudaGetLastError();
+#define QMM_LAUNCH(BM_, BNW_)                                                                \
+  if (bm == BM_ && bnw == BNW_)                                                              \
+    return launch<BM_, BNW_>(xmap, wmap, a_scale, w_scale, bias, y, M, N, Kx, Kp, ntpb, ra, \
+                             sx, sb, stream);
+  QMM_LAUNCH(128, 128)
+  QMM_LAUNCH(128, 96)
+  QMM_LAUNCH(128, 64)
+  QMM_LAUNCH(64, 128)
+  QMM_LAUNCH(64, 96)
+  QMM_LAUNCH(64, 64)
+  QMM_LAUNCH(64, 32)
+  QMM_LAUNCH(64, 16)
+  QMM_LAUNCH(64, 8)
+#undef QMM_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }

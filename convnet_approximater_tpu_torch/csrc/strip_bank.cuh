@@ -1,4 +1,5 @@
-// The strip-conv bank on NHWC float32, shared by msca_fused.cu and parallel_cascade.cu:
+// The strip-conv bank on NHWC float32, the two middle launches of msca_fused.cu (its only
+// includer; parallel_cascade.cu runs its bank in one launch of its own):
 //
 //   bank(a) = sum_br [vconv_k(hconv_k(a) + b1) + b2]  (+ a when `identity`)
 //

@@ -9,10 +9,12 @@ the kernel expresses (depthwise, stride 1, odd k padded by k // 2, float32,
 at most ``MAX_BRANCHES`` cascades, with branches times the largest k at most
 ``MAX_BANK_ROWS``, plus an optional identity) runs as one
 :func:`~convnet_approximater_tpu_torch.ops.parallel_cascade.parallel_cascade`
-call (the CUDA kernel on the card, its plain version on the CPU); any other
-structure, and a training forward (the kernel has no backward), takes the
-module path.  The taps are packed once per change of the weights, keyed on
-the parameters' version counters.
+call (the CUDA kernel on the card, its plain version on the CPU) when no
+gradient can be asked of it (eval mode under ``torch.no_grad()`` or
+``torch.inference_mode()``); any other structure, a training forward and an
+eval forward under autograd (the kernel has no backward) take the module path.
+The taps are packed once per change of the weights, keyed on the parameters'
+version counters.
 """
 
 from __future__ import annotations
@@ -28,6 +30,12 @@ from convnet_approximater_tpu_torch.ops.msca_fused import (MAX_BRANCHES, fix_str
                                                            pack_cascade_weights)
 
 
+def no_grad_eval(module: nn.Module) -> bool:
+    """Whether no gradient can be asked of ``module``'s forward: eval mode with
+    autograd off.  Only then may a layer take a kernel that has no backward."""
+    return not module.training and not torch.is_grad_enabled()
+
+
 def _strip_fits(conv: nn.Conv2d, k: int, vertical: bool) -> bool:
     """Whether ``conv`` is the depthwise (1, k) or (k, 1) strip the kernel runs."""
     p = k // 2
@@ -40,7 +48,7 @@ def _strip_fits(conv: nn.Conv2d, k: int, vertical: bool) -> bool:
 
 
 class _StripBank(nn.Module):
-    """Dispatch of a strip bank to ``parallel_cascade`` in eval mode."""
+    """Dispatch of a strip bank to ``parallel_cascade`` in eval mode without autograd."""
 
     def bank(self) -> Tuple[List["CascadeConv"], bool]:
         """The cascades and whether an identity branch is added."""
@@ -77,10 +85,10 @@ class _StripBank(nn.Module):
         return self._pack
 
     def uses_kernel(self) -> bool:
-        return not self.training and self.packed() is not None
+        return no_grad_eval(self) and self.packed() is not None
 
     def forward(self, x):
-        packed = None if self.training else self.packed()
+        packed = self.packed() if no_grad_eval(self) else None
         if packed is None:
             return self._module_forward(x)
         y = cascade_ops.parallel_cascade(

@@ -6,14 +6,14 @@ output channel ``c*M + m`` applies basis m to input channel c) and a 1x1
 mixing conv ``d_conv`` that carries the bias; ``decomp()`` splits every basis
 into a rank-1 vertical/horizontal pair (:class:`SeparableConv`).
 
-An eval-mode forward runs as one
+An eval-mode forward with autograd off runs as one
 :func:`~convnet_approximater_tpu_torch.ops.lowrank_conv.lowrank_conv` call (the
 CUDA kernel on the card, its plain version on the CPU), at every shape.  The
 kernel reads the bases of input channel 0 only, so the weights are packed,
 and checked to be shared by all C channels, once per change of the weights:
 a layer whose bases are per-channel (after fine-tuning) takes the module path
-and logs that once.  A training forward takes the module path, since the
-kernel has no backward.
+and logs that once.  A training forward and an eval forward under autograd
+take the module path, since the kernel has no backward.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from convnet_approximater_tpu_torch.nn import Conv2d, params_key
 from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
 from convnet_approximater_tpu_torch.utils.logger import get_logger
 
+from .depth_separable_conv import no_grad_eval
 from .substitution import LAYER
 
 # the tolerance of the JAX package's own check (``_taps_channel_shared``)
@@ -111,10 +112,10 @@ class LowRankExpConvV1(nn.Module):
         return self._pack
 
     def uses_kernel(self) -> bool:
-        return not self.training and self.packed() is not None
+        return no_grad_eval(self) and self.packed() is not None
 
     def forward(self, x):
-        packed = None if self.training else self.packed()
+        packed = self.packed() if no_grad_eval(self) else None
         if packed is None:
             return self.d_conv(self.s_conv(x))
         kw = dict(packed)

@@ -5,8 +5,9 @@
 -> gate ``x * attn``.  An eval-mode forward whose structure the fused kernel
 can express runs as one :func:`~convnet_approximater_tpu_torch.ops.msca_fused.msca_fused`
 call (the CUDA kernel on the card, its plain version on the CPU), at every
-map size; a training forward takes the module path, since the kernel has no
-backward.  A block whose conv0 is a cascade (``MscaRep(decomp_conv0=True)``)
+map size, when no gradient can be asked of it (eval mode, autograd off); a
+training forward and an eval forward under autograd take the module path,
+since the kernel has no backward.  A block whose conv0 is a cascade (``MscaRep(decomp_conv0=True)``)
 takes the module path too, where conv0 and the bank each run
 :func:`~convnet_approximater_tpu_torch.ops.parallel_cascade.parallel_cascade`.
 """
@@ -19,7 +20,7 @@ from torch.profiler import record_function
 from convnet_approximater_tpu_torch.nn import Conv2d
 from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
 
-from .depth_separable_conv import CascadeConv, FixPaddingBias, ParallelConv
+from .depth_separable_conv import CascadeConv, FixPaddingBias, ParallelConv, no_grad_eval
 from .substitution import LAYER
 
 
@@ -49,7 +50,7 @@ class MSCA(nn.Module):
         return None
 
     def can_fuse(self) -> bool:
-        return (not self.training and isinstance(self.conv0, Conv2d)
+        return (no_grad_eval(self) and isinstance(self.conv0, Conv2d)
                 and self._fuse_parts() is not None)
 
     def _fused_forward(self, x):

@@ -7,14 +7,15 @@ exact integer sum, the int8 ``QuantLinear`` of the JAX package
 (``convnet_approximater_tpu/layers/quant.py``) and its fused Pallas probe
 ``pallas_qmatmul`` (``scripts/exp_pallas_qmatmul.py``).  On a CUDA tensor it
 launches ``csrc/qmatmul.cu`` (built with nvcc at first use) or raises; on a
-CPU tensor it runs :func:`qmatmul_ref`.
+CPU tensor it runs :func:`qmatmul_ref`.  :func:`plan` chooses the kernel's
+tiles and rings for each shape, in plain Python, so the CPU tests reach it.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,7 +23,94 @@ import torch.nn.functional as F
 from .build import load
 
 INT8_MAX = 127.0
-K_ALIGN = 32  # the kernel's K step; the packed weight's rows are padded to it
+K_ALIGN = 32  # the kernel's K step (one wgmma k32); the packed weight's rows are padded to it
+
+# the kernel's shared-memory plan (csrc/qmatmul.cu: smem_bytes) and the card's
+SMS = 132               # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232_448      # dynamic shared memory one block may use
+CHUNK = 128             # K bytes of a panel chunk and of a weight box row
+X_COLS = 32             # floats of an x box row
+STAGE_BYTES = 8 * 16 * 40 * 4  # the epilogue's staging, 16 x 40 floats per consumer warp
+# the kernel's instantiations: per row tile BM, each warpgroup's width BNW
+BNWS = {128: (128, 96, 64), 64: (128, 96, 64, 32, 16, 8)}
+
+
+class QmmPlan(NamedTuple):
+    """One launch's tiles: BM-row tiles, BN = BNW (BM = 128) or 2 BNW (BM = 64)
+    column tiles, ``ntpb`` column tiles per block; ``ra`` K chunks of the int8
+    panel held (all ``Kc`` of them, or a ring of ``ra`` when the block takes one
+    column tile); ``sx`` x and ``sb`` weight stages in flight."""
+    bm: int
+    bnw: int
+    bn: int
+    m_tiles: int
+    n_tiles: int
+    ntpb: int
+    groups: int
+    kc: int
+    ra: int
+    sx: int
+    sb: int
+    smem: int
+
+    @property
+    def grid(self) -> int:
+        return self.m_tiles * self.groups
+
+
+def smem_bytes(bm: int, bn: int, ra: int, sx: int, sb: int) -> int:
+    """Dynamic shared memory of one block: the 1024-byte alignment slack, the
+    panel (or ring) of int8 x chunks, the weight ring, the x ring (which the
+    epilogue's staging reuses) and the mbarriers."""
+    return (1024 + ra * bm * CHUNK + sb * bn * CHUNK + max(sx * bm * X_COLS * 4, STAGE_BYTES)
+            + 16 * (sx + sb))
+
+
+@functools.lru_cache(maxsize=None)
+def plan(M: int, K: int, N: int) -> QmmPlan:
+    """The kernel's plan for an (M, K) x (K, N) call (the rules below come from
+    a sweep of plans on an H100 at the 13 shapes of int8 ConvNeXt-T; PERF.md).
+
+    - BM = 128 where x is wide against N (K >= 4 N) and the 128-row tiles alone
+      fill the card: the two warpgroups share each weight tile.  Else BM = 64.
+    - With 4 x 132 or more 64-row tiles, BNW = 32: small tiles, low registers
+      and shared memory, two blocks per SM.  Otherwise the widest column tile
+      of least padding among those whose grid can reach ``min(132, row tiles x
+      column tiles at the narrowest width)`` blocks.
+    - N is split over blocks only as far as the grid needs to reach 132
+      blocks, or 264 (two waves) where each block then still walks two or more
+      column tiles against its panel.  A block holds its whole int8 panel when
+      it walks several column tiles; otherwise (or where the panel does not
+      fit) a ring of 4 chunks.
+    - Rings of 4 x and 3 weight stages, else 3 and 3.
+    """
+    Kp = -(-K // K_ALIGN) * K_ALIGN
+    kc = -(-Kp // CHUNK)
+    bm = 128 if K >= 4 * N and -(-M // 128) >= SMS else 64
+    m_tiles = -(-M // bm)
+
+    def width(bnw):
+        return bnw if bm == 128 else 2 * bnw
+
+    if bm == 64 and m_tiles >= 4 * SMS:
+        bnw = 32
+    else:
+        target = min(SMS, m_tiles * -(-N // width(min(BNWS[bm]))))
+        reach = [b for b in BNWS[bm] if m_tiles * -(-N // width(b)) >= target]
+        bnw = min(reach, key=lambda b: (-(-N // width(b)) * width(b), -b))
+    bn = width(bnw)
+    n_tiles = -(-N // bn)
+    ntpb = n_tiles // -(-2 * SMS // m_tiles)
+    if ntpb < 2:
+        ntpb = max(1, n_tiles // -(-SMS // m_tiles))
+    for per_block in dict.fromkeys((ntpb, 1)):
+        ra = kc if per_block > 1 else min(kc, 4)
+        for sx, sb in ((4, 3), (3, 3)):
+            smem = smem_bytes(bm, bn, ra, sx, sb)
+            if smem <= SMEM_MAX:
+                return QmmPlan(bm, bnw, bn, m_tiles, n_tiles, per_block,
+                               -(-n_tiles // per_block), kc, ra, sx, sb, smem)
+    raise ValueError(f"qmatmul: no shared-memory plan for (M, K, N) = {(M, K, N)}")
 
 
 def pack_qweight(w_q: torch.Tensor) -> torch.Tensor:
@@ -79,9 +167,10 @@ def _check(x, w_packed, a_scale, w_scale, bias):
 def _library() -> ctypes.CDLL:
     lib = load("qmatmul.cu")
     fn = lib.qmatmul_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64] + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.qmatmul_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.qmatmul_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -106,14 +195,16 @@ def qmatmul(x, w_packed, a_scale, w_scale, bias: Optional[torch.Tensor] = None):
     N, Kp = w_packed.shape
     if w_packed.data_ptr() % 16:
         raise ValueError("qmatmul: the packed weight must be 16-byte aligned")
-    vec = int(K % 4 == 0 and x.data_ptr() % 16 == 0)
+    if K % 4 or x.data_ptr() % 16:  # the x tensor map needs 16-byte rows: a padded copy
+        x = F.pad(x, (0, -K % 4)) if K % 4 else x.clone()
+    p = plan(M, K, N)
     y = x.new_empty((M, N))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().qmatmul_f32(
             x.data_ptr(), w_packed.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
-            bias.data_ptr() if bias is not None else None, y.data_ptr(), M, K, Kp, N, vec,
-            stream)
+            bias.data_ptr() if bias is not None else None, y.data_ptr(), M, x.shape[1], Kp, N,
+            p.bm, p.bnw, p.ntpb, p.ra, p.sx, p.sb, stream)
     if err != 0:
         raise RuntimeError(f"qmatmul: CUDA launch failed with error {err}")
     qmatmul.launches += 1

@@ -110,7 +110,8 @@ def test_layer_matches_jax_module(do_decomp, stride, kw, shape):
     x = nhwc(*shape, seed=3)
     y_j = np.asarray(jmod.apply(params, jax.numpy.asarray(x))[0])
     mod = torch_layer(jmod, params)
-    assert mod.uses_kernel()
+    with torch.no_grad():  # the kernel route: no gradient can be asked
+        assert mod.uses_kernel()
     before = lowrank_ops.lowrank_conv.launches
     assert rel(run_torch(mod, x), y_j) < RTOL  # eval: lowrank_conv -> lowrank_conv_ref on the CPU
     assert lowrank_ops.lowrank_conv.launches == before  # the CPU path launches nothing
@@ -162,7 +163,8 @@ def test_decomp_matches_jax_decomp():
     jdec, dparams = jax_layer(True)
     mod = torch_layer(*jax_layer(False))
     mod.decomp()
-    assert hasattr(mod.s_conv, "v_conv") and mod.uses_kernel()
+    with torch.no_grad():
+        assert hasattr(mod.s_conv, "v_conv") and mod.uses_kernel()
     x = nhwc(2, 12, 12, 6, seed=6)
     assert rel(run_torch(mod, x), np.asarray(jdec.apply(dparams, jax.numpy.asarray(x))[0])) < RTOL
 

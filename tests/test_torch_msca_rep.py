@@ -116,7 +116,8 @@ def test_msca_rep_decomp_conv0_is_not_ported():
     _, jparams, ttgt = _rep_pair(1, True, seed=8, decomp_conv0=True)
     c0 = ttgt.conv0
     assert isinstance(c0, CascadeConv) and c0.kernel_size == 5 and c0.conv1.bias is None
-    assert not ttgt.can_fuse() and c0.uses_kernel() and ttgt.sd_convs[0].uses_kernel()
+    with torch.no_grad():  # the kernel route: no gradient can be asked
+        assert not ttgt.can_fuse() and c0.uses_kernel() and ttgt.sd_convs[0].uses_kernel()
     np.testing.assert_array_equal(c0.conv2.bias.detach().numpy(),
                                   np.asarray(jparams["conv0"]["conv2"]["bias"]))
     w = (c0.conv2.weight[:, 0, :, 0, None] * c0.conv1.weight[:, 0, 0, None, :]).detach().numpy()

@@ -115,7 +115,8 @@ def test_layers_dispatch_in_eval_and_match_jax_modules(form, calls):
     jm, params, tm = pair(form, seed=2)
     x = images(3)
     y_j = np.asarray(jm.apply(params, jnp.asarray(x))[0])
-    assert tm.uses_kernel()
+    with torch.no_grad():  # the kernel route: no gradient can be asked
+        assert tm.uses_kernel()
     y = run(tm, x)
     assert len(calls) == 1  # one parallel_cascade call for the whole bank
     assert rel(y, y_j) < RTOL

@@ -187,6 +187,46 @@ def test_qmatmul_checks_its_arguments():
         qmatmul_ops.qmatmul(torch.randn(40, 4).t(), w, a, s, b)
 
 
+
+# the (M, K, N) of int8 ConvNeXt-T's 13 qmatmul calls at b=64, 224^2, and ragged shapes
+QMM_PLAN_SHAPES = [(200704, 48, 96), (50176, 384, 192), (12544, 768, 384), (3136, 1536, 768),
+                   (200704, 96, 384), (50176, 192, 768), (12544, 384, 1536), (3136, 768, 3072),
+                   (200704, 384, 96), (50176, 768, 192), (12544, 1536, 384), (3136, 3072, 768),
+                   (64, 768, 1000), (1000, 100, 250), (130, 33, 7), (4097, 776, 130)]
+
+
+@pytest.mark.parametrize("M,K,N", QMM_PLAN_SHAPES)
+def test_qmatmul_plan_fits_shared_memory_and_fills_the_card(M, K, N):
+    """The kernel's plan: within 227 KB of shared memory, every column covered,
+    a whole panel wherever a block walks several column tiles, and a grid of at
+    least 132 blocks wherever the row tiles times N over the narrowest column
+    tile (16 at BM = 64: two warpgroups of 8) allow it."""
+    p = qmatmul_ops.plan(M, K, N)
+    Kp = qmatmul_ops.pack_qweight(torch.zeros(1, K, dtype=torch.int8)).shape[1]
+    assert p.smem == qmatmul_ops.smem_bytes(p.bm, p.bn, p.ra, p.sx, p.sb) <= 232_448
+    assert p.kc == -(-Kp // qmatmul_ops.CHUNK)
+    assert p.bn == (p.bnw if p.bm == 128 else 2 * p.bnw) and p.bnw in qmatmul_ops.BNWS[p.bm]
+    assert p.m_tiles * p.bm >= M > (p.m_tiles - 1) * p.bm
+    assert p.n_tiles * p.bn >= N and p.groups * p.ntpb >= p.n_tiles > (p.groups - 1) * p.ntpb
+    assert p.ra == p.kc if p.ntpb > 1 else 2 <= p.ra <= p.kc or p.ra == p.kc == 1
+    assert min(p.sx, p.sb) >= 2
+    assert p.grid >= min(qmatmul_ops.SMS, p.m_tiles * -(-N // 16))
+
+
+def test_pack_qweight_pads_k_to_the_kernel_step():
+    """K is zero-padded to K_ALIGN (one wgmma k32 step), and the wrapper takes
+    only a weight packed for its K."""
+    assert qmatmul_ops.K_ALIGN == 32
+    w_q = torch.randint(-127, 128, (7, 33), generator=torch.Generator().manual_seed(0),
+                        dtype=torch.int8)
+    w = qmatmul_ops.pack_qweight(w_q)
+    assert w.shape == (7, 64) and torch.equal(w[:, :33], w_q) and not w[:, 33:].any()
+    x, a, s = torch.randn(5, 33), torch.tensor(0.05), torch.rand(7)
+    assert torch.equal(qmatmul_ops.qmatmul(x, w, a, s), qmatmul_ops.qmatmul_ref(x, w, a, s))
+    with pytest.raises(ValueError, match="pack_qweight"):
+        qmatmul_ops.qmatmul(x, torch.nn.functional.pad(w, (0, 32)), a, s)
+
+
 # -- quantize_int8 on a tiny DwSepRep ConvNeXt ----------------------------------
 
 @pytest.fixture(scope="module")
