@@ -14,7 +14,10 @@ From the root of a checkout, with no arguments:
    errors, median CUDA-event times and each call's bound (the larger of its
    bytes over 3.35 TB/s and its operations over the peak of their type: 67
    TFLOP/s float32, 1,979 TOP/s int8): ``msca_fused`` at the four stage shapes
-   of MSCAN-t in the dense-bank and the MscaRep d1+fix forms; ``lowrank_conv``
+   of MSCAN-t in the dense-bank and the MscaRep d1+fix forms, with the sums per
+   forward of both, and at five ragged shapes (H != W, C = 40, fix_p > H, k0 = 3
+   with two k, k_max > 31), its planner's shared memory against the kernel's;
+   ``lowrank_conv``
    at AlexNet's convs 2-5 in the separable and the full-bases forms;
    ``parallel_cascade`` bit for bit at ConvNeXt-T's four stage shapes with one
    and two 7-tap cascades, at MSCAN-t's four stage shapes as the 5-tap conv0 and
@@ -31,7 +34,9 @@ From the root of a checkout, with no arguments:
    forward timed at (64, 224, 224, 3) by InferenceTimeHook), checks that every
    forward launched ``msca_fused`` once per MSCA block, and holds the logits
    against the same model run through the plain version; times the dense
-   MSCAN-t the same way and profiles the d1+fix forward;
+   MSCAN-t the same way, checks that one cached MSCA block launches the two
+   kernels of ``msca_fused`` and nothing else, and profiles the d1+fix and the
+   dense forwards;
 5. drives the AlexNet main path the same way: the Runner on
    ``configs/low-rank-exp/low-rank-exp-v1_l2345_svd_dodecomp_alexnet.py`` (convs
    2-5 swapped for separable LowRankExpConvV1 with 8/8/6/4 bases, the SVDs on the
@@ -109,6 +114,18 @@ INT8_F32_TOL = 0.12  # int8 against float32 logits, max-abs relative (tests/test
 KERNEL_TOL = 1e-5   # relative (norm) error of a kernel against its plain version
 LOGITS_TOL = 1e-4   # relative error of the logits, through the whole network
 STAGES = [(56, 32, 3), (28, 64, 3), (14, 160, 5), (7, 256, 2)]  # (H = W, C, blocks) at 224^2
+MSCA_KERNELS = ("march_kernel<", "mix_kernel<")  # msca_fused's two kernels, by name
+# msca_fused off MSCAN-t's shapes: (B, H, W, C, k0, ks, identity, fix_p); the first three take
+# march_kernel<21, 5, 4>, the rest march_any_kernel (the widest bank, the most branches, the
+# largest conv0 that MSCA fuses)
+MSCA_RAGGED = {"H != W": (4, 20, 37, 32, 5, (21,), False, 10),
+               "C = 40": (4, 12, 12, 40, 5, (7, 11, 21), True, 0),
+               "fix_p > H": (4, 6, 9, 32, 5, (21,), False, 10),
+               "k0 = 3, two k": (4, 16, 17, 32, 3, (9, 13), False, 4),
+               "k0 = 7, k_max = 45": (2, 12, 20, 40, 7, (33, 45), True, 3),
+               "k_max = 127": (2, 9, 70, 32, 5, (127,), False, 4),
+               "eight branches": (2, 10, 11, 40, 5, (3, 5, 7, 9, 11, 13, 15, 15), True, 0),
+               "k0 = 31": (2, 12, 12, 32, 31, (7,), True, 0)}
 # AlexNet's convs 2-5 at 224^2: (H = W, C, k, padding, M bases of the config, N)
 ALEX_CONVS = [(27, 64, 5, 2, 8, 192), (13, 192, 3, 1, 8, 384), (13, 384, 3, 1, 6, 256),
               (13, 256, 3, 1, 4, 256)]
@@ -233,7 +250,41 @@ def kernel_inputs(form: str, H: int, C: int, gen):
     return args, dict(ks=ks, identity=form == "dense", fix_p=fix_p)
 
 
+def msca_inputs(B, H, W, C, k0, ks, fix_p, gen):
+    """Random inputs of an msca_fused call with every bias, packed as the kernel takes them."""
+    import torch
+
+    from convnet_approximater_tpu_torch.ops.msca_fused import pack_cascade_weights
+
+    def u(*shape, scale=1.0):
+        return (torch.rand(*shape, generator=gen) * 2 - 1) * scale
+
+    w1, b1, w2, b2, ks = pack_cascade_weights(
+        [u(k, C, scale=k ** -0.5) for k in ks], [u(C, scale=0.2) for _ in ks],
+        [u(k, C, scale=k ** -0.5) for k in ks], [u(C, scale=0.2) for _ in ks])
+    args = [u(B, H, W, C), u(k0, k0, C, scale=0.2), u(C, scale=0.2), w1, b1, w2, b2,
+            u(C, C, scale=C ** -0.5), u(C, scale=0.2), u(2, fix_p, C) if fix_p else None]
+    return [a.cuda() if a is not None else None for a in args], ks
+
+
+def check_msca_plan(x, w0, w1, ks):
+    """The planner's shared memory against the kernel's for this call; returns the plan."""
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    B, H, W, C = x.shape
+    p = fused_ops.plan(B, H, W, C, w0.shape[0], tuple(ks))
+    smem = fused_ops._library().msca_fused_smem_bytes(p.K, w0.shape[0], w1.shape[0], p.g, p.warps,
+                                                      p.tw)
+    if smem != p.smem:
+        fail(f"msca_fused {(B, H, W, C)}: the planner's shared memory {p.smem} differs from "
+             f"the kernel's {smem}")
+    return p
+
+
 def check_kernel(gen):
+    """msca_fused against msca_fused_ref at MSCAN-t's eight block shapes (the dense
+    7/11/21 bank with identity and the d1+fix 21-tap cascade with fix_p = 10) and
+    at ragged shapes; per-forward sums of both forms."""
     import torch
 
     from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
@@ -248,6 +299,7 @@ def check_kernel(gen):
             err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
             if not torch.isfinite(y).all() or err > KERNEL_TOL:
                 fail(f"msca_fused {form} {(BATCH, H, H, C)}: rel err {err:.3e} > {KERNEL_TOL}")
+            p = check_msca_plan(args[0], args[1], args[3], kw["ks"])
             ms, plain_ms = time_pair(lambda: fused_ops.msca_fused(*args, **kw),
                                      lambda: fused_ops.msca_fused_ref(*args, **kw))
             nbytes, flops = msca_cost(H, C, kw["ks"], kw["identity"], kw["fix_p"])
@@ -259,8 +311,32 @@ def check_kernel(gen):
                   f"{KERNEL_TOL}), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms (median of 25 CUDA-event runs, x2); bound {b_ms:.4f} ms "
                   f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
-                  f"roofline share {b_ms / ms:.1%}")
+                  f"roofline share {b_ms / ms:.1%}; plan G {p.g}, {p.ntiles} tiles of {p.tw}, "
+                  f"{p.bands} bands, {p.blocks} blocks, {p.smem} B, {p.launches} launches")
             del args, y, y_ref
+    for form in ("dense", "d1fix"):
+        sel = [r for r in rows if r["form"] == form]
+        total = {k: sum(r[k] * r["blocks"] for r in sel) for k in ("ms", "plain_ms", "bound_ms")}
+        print(f"msca_fused per {form} MSCAN-t forward ({sum(r['blocks'] for r in sel)} calls): "
+              f"kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, bound "
+              f"{total['bound_ms']:.4f} ms")
+    ragged_gen = torch.Generator().manual_seed(1)  # leaves the later phases' draws as they were
+    for name, (B, H, W, C, k0, ks, identity, fix_p) in MSCA_RAGGED.items():
+        args, ks = msca_inputs(B, H, W, C, k0, ks, fix_p, ragged_gen)
+        kw = dict(ks=ks, identity=identity, fix_p=fix_p)
+        y = fused_ops.msca_fused(*args, **kw)
+        y_ref = fused_ops.msca_fused_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = rel_err(y, y_ref)
+        if not torch.isfinite(y).all() or err > KERNEL_TOL:
+            fail(f"msca_fused ragged {name} {(B, H, W, C)} k0={k0} ks={ks}: rel err {err:.3e} "
+                 f"> {KERNEL_TOL}")
+        p = check_msca_plan(args[0], args[1], args[3], ks)
+        print(f"msca_fused ragged ({name}) x{(B, H, W, C)} k0={k0} ks={ks} identity={identity} "
+              f"fix_p={fix_p}: rel err {err:.3e} (bound {KERNEL_TOL}); "
+              f"{'march_kernel' if p.g == fused_ops.FAST_G else 'march_any_kernel'}, K {p.K}, "
+              f"{p.ntiles} tiles of {p.tw}, {p.bands} bands of {p.rows}")
+        del args, y, y_ref
     return rows
 
 
@@ -646,10 +722,36 @@ def run_mscan(gen):
           f"({b / dense_ms * 1e3:.1f} img/s); dense / d1+fix = {dense_ms / d1_ms:.4f}")
     print(f"MSCAN-t d1+fix forward: {host_enqueue_ms(model, hook.input_size):.3f} ms of host "
           f"time to enqueue it")
-    profile_forward("MSCAN-t d1+fix", model, hook.input_size)
+    check_block_launches(mscas[0], gen)
+    profile_forward("MSCAN-t d1+fix", model, hook.input_size, keep=MSCA_KERNELS)
+    profile_forward("MSCAN-t dense", dense, hook.input_size, keep=MSCA_KERNELS)
     del runner, model, dense
     torch.cuda.empty_cache()
     return launches
+
+
+def check_block_launches(msca, gen):
+    """One eval-mode MSCA block forward under torch.profiler, its weight layouts
+    cached by a first forward: exactly the two msca_fused kernels (the march and
+    the mix) reach the card, and no copy of a weight layout."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    C = msca.num_channel
+    x = torch.randn(BATCH, C, 56, 56, generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        msca(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            msca(x)
+            torch.cuda.synchronize()
+    kernels = sorted(e.name for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    print(f"one cached d1+fix MSCA block forward {(BATCH, C, 56, 56)}: {len(kernels)} kernels "
+          f"on the card: {', '.join(k.split('::')[-1].split('(')[0] for k in kernels)}")
+    if len(kernels) != 2 or not ("march_kernel" in kernels[0] and "mix_kernel" in kernels[1]):
+        fail("an MSCA block forward must launch the march and the mix kernels and nothing else")
 
 
 def host_enqueue_ms(model, input_size, n: int = 10) -> float:
@@ -671,8 +773,9 @@ def host_enqueue_ms(model, input_size, n: int = 10) -> float:
     return float(np.median(times))
 
 
-def profile_forward(name, model, input_size, n: int = 3):
-    """Device time per forward by kernel, from torch.profiler over ``n`` forwards."""
+def profile_forward(name, model, input_size, n: int = 3, keep=()):
+    """Device time per forward by kernel, from torch.profiler over ``n`` forwards:
+    the 12 largest rows, and every row whose name holds one of ``keep``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -703,8 +806,9 @@ def profile_forward(name, model, input_size, n: int = 3):
     print(f"profile of the {name} forward {tuple(input_size)} (torch.profiler, {n} "
           f"forwards): device time {total:.3f} ms per forward, wall {wall_ms:.3f} ms under the "
           f"profiler; by kernel (ms per forward, launches per forward):")
-    for ms, count, name in rows[:12]:
-        print(f"  {ms:8.4f} ms  x{count:<3d} {name[:100]}")
+    for i, (ms, count, name) in enumerate(rows):
+        if i < 12 or any(k in name for k in keep):
+            print(f"  {ms:8.4f} ms  x{count:<3d} {name[:100]}")
 
 
 def run_alexnet(gen, config, separable: bool, work_dir: str, extras: bool):

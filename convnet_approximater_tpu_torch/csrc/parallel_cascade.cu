@@ -51,15 +51,12 @@
 // and returns cudaGetLastError() after the launch (0 on success), or cudaErrorInvalidValue
 // for a bank it does not take.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "row_march.cuh"
 
 namespace {
 
 constexpr int kMaxBranches = 8;
 constexpr int kMaxBankRows = 128;    // nb * k_max; MAX_BANK_ROWS in ops/parallel_cascade.py
-constexpr int kLanes = 32;           // channels per block, one per lane
 constexpr int kStages = 3;           // staged input rows
 constexpr int kMaxWarps = 8;         // columns per tile <= kMaxWarps * G
 constexpr int kTargetBlocks = 512;   // split the rows into bands up to this many blocks
@@ -69,43 +66,6 @@ struct Bank {
   int k_max;
   int ks[kMaxBranches];
 };
-
-// What a block owns: image b, rows [h0, h1), columns from w0, channel c = c0 + lane.
-struct Tile {
-  int64_t image;  // b * H
-  int h0, h1, w0, c;
-  bool c_ok;
-};
-
-__device__ __forceinline__ Tile tile_of(int H, int C, int tw, int rows, int bands, int ntiles,
-                                        int nchunks) {
-  int blk = blockIdx.x;  // band fastest, then column tile, channel chunk, image
-  const int band = blk % bands;
-  blk /= bands;
-  const int tile = blk % ntiles;
-  blk /= ntiles;
-  const int chunk = blk % nchunks;
-  Tile t;
-  t.image = (int64_t)(blk / nchunks) * H;
-  t.h0 = band * rows;
-  t.h1 = min(H, t.h0 + rows);
-  t.w0 = tile * tw;
-  t.c = chunk * kLanes + (threadIdx.x & 31);
-  t.c_ok = t.c < C;
-  return t;
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 // Stage input row r, columns w0 - P .. w0 - P + xw - 1 (zeros outside the map), into the
 // buffer `dst` ([xw][32]); a row outside the map stages nothing.  One cp.async group.
@@ -294,8 +254,6 @@ ring_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     out[(t.image + o) * W * C + ww * C + t.c] = y;
   }
 }
-
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 struct Grid {
   int tw, warps, ntiles, nchunks, rows, bands;

@@ -4,8 +4,9 @@
 {7, 11, 21} + identity, or what MscaRep made of it) -> ``channel_mix`` (1x1)
 -> gate ``x * attn``.  An eval-mode forward whose structure the fused kernel
 can express runs as one :func:`~convnet_approximater_tpu_torch.ops.msca_fused.msca_fused`
-call (the CUDA kernel on the card, its plain version on the CPU), at every
-map size, when no gradient can be asked of it (eval mode, autograd off); a
+call (the CUDA kernel on the card, its plain version on the CPU), with the
+kernel's weight layouts built once per weight version, at every map size, when
+no gradient can be asked of it (eval mode, autograd off); a
 training forward and an eval forward under autograd take the module path,
 since the kernel has no backward.  A block whose conv0 is a cascade (``MscaRep(decomp_conv0=True)``)
 takes the module path too, where conv0 and the bank each run
@@ -14,10 +15,11 @@ takes the module path too, where conv0 and the bank each run
 
 from __future__ import annotations
 
+import torch
 from torch import nn
 from torch.profiler import record_function
 
-from convnet_approximater_tpu_torch.nn import Conv2d
+from convnet_approximater_tpu_torch.nn import Conv2d, params_key
 from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
 
 from .depth_separable_conv import CascadeConv, FixPaddingBias, ParallelConv, no_grad_eval
@@ -53,21 +55,30 @@ class MSCA(nn.Module):
         return (no_grad_eval(self) and isinstance(self.conv0, Conv2d)
                 and self._fuse_parts() is not None)
 
+    @torch.no_grad()
+    def _kernel_weights(self) -> dict:
+        """The kernel's weight layouts, built again only after a weight changed
+        (keyed on every parameter's version counter, as ``bank.packed()`` is)."""
+        key = params_key(self)
+        if key != getattr(self, "_kernel_key", None):
+            bank, fix = self._fuse_parts()
+            packed = bank.packed()
+            res, fix_p = None, 0
+            if fix is not None:
+                res, fix_p = fix.res.transpose(1, 2).contiguous(), fix.p  # (2, p, C)
+            self._kernel_args = dict(
+                w0=self.conv0.weight[:, 0].permute(1, 2, 0).contiguous(),  # (k0, k0, C)
+                b0=self.conv0.bias,
+                w1=packed["w1"], b1=packed["b1"], w2=packed["w2"], b2=packed["b2"],
+                wm=self.channel_mix.weight[:, :, 0, 0].t().contiguous(),  # (C in, C out)
+                bm=self.channel_mix.bias, res=res,
+                ks=packed["ks"], identity=packed["identity"], fix_p=fix_p)
+            self._kernel_key = key
+        return self._kernel_args
+
     def _fused_forward(self, x):
-        bank, fix = self._fuse_parts()
-        packed = bank.packed()  # the taps, cached per weight version
-        res, fix_p = None, 0
-        if fix is not None:
-            res, fix_p = fix.res.transpose(1, 2).contiguous(), fix.p  # (2, p, C)
-        y = fused_ops.msca_fused(
-            x.permute(0, 2, 3, 1).contiguous(),  # a view when x is channels_last
-            self.conv0.weight[:, 0].permute(1, 2, 0).contiguous(),
-            self.conv0.bias,
-            packed["w1"], packed["b1"], packed["w2"], packed["b2"],
-            self.channel_mix.weight[:, :, 0, 0].t().contiguous(),
-            self.channel_mix.bias,
-            res, ks=packed["ks"], identity=packed["identity"], fix_p=fix_p,
-        )
+        y = fused_ops.msca_fused(x.permute(0, 2, 3, 1).contiguous(),  # a view when channels_last
+                                 **self._kernel_weights())
         return y.permute(0, 3, 1, 2)
 
     def macs(self, x_shape) -> int:

@@ -5,7 +5,11 @@ the tap packing they share.
 map, the whole MSCA block of the JAX package's Pallas kernel of the same name
 (``convnet_approximater_tpu/ops/pallas/msca_kernels.py``).  On a CUDA tensor it
 launches ``csrc/msca_fused.cu`` (built with nvcc at first use) or raises; on a
-CPU tensor it runs :func:`msca_fused_ref`.
+CPU tensor it runs :func:`msca_fused_ref`.  The kernel is two launches: a row
+march that keeps conv0's output and the strip bank's horizontal pass on chip and
+writes the block's attention map, then the channel mix with the gate.
+:func:`plan` chooses the march's tiles and bands for each shape, in plain
+Python, so the CPU tests reach it.
 
 The border fix follows ``FixPaddingBias`` (the module's semantics): the top
 strip is added to rows ``[0, min(H, p))`` and the bottom strip, aligned to the
@@ -18,7 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +30,105 @@ import torch.nn.functional as F
 from .build import load
 
 MAX_BRANCHES = 8  # kMaxBranches in csrc/msca_fused.cu
+
+# the march kernels' shared-memory plans (csrc/msca_fused.cu: smem_bytes) and the card's
+SMS = 132               # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232_448      # dynamic shared memory one block may use
+LANES = 32              # channels per block, one per lane
+MAX_WARPS = 8           # kMaxWarps
+RUN = 8                 # kRun: conv0 columns per thread and run
+AHEAD = 4               # kAhead: x rows in flight
+# march_kernel<21, 5, 4> (K, k0, G: output columns per thread) takes MSCAN-t's blocks, conv0 of
+# 5 taps and banks of 21; march_any_kernel every other odd k0 and bank (K = k_max, G = 1, at
+# most ANY_COLS columns per tile)
+FAST_K, FAST_K0, FAST_G = 21, 5, 4
+ANY_COLS = 32
+
+
+class MscaPlan(NamedTuple):
+    """One call's tiling: the march runs ``blocks`` = B x ``nchunks`` (32
+    channels each) x ``ntiles`` (``tw`` columns each, ``warps`` warps) x
+    ``bands`` (``rows`` rows each) blocks at K taps, ``g`` columns per thread
+    (``FAST_G``: march_kernel; 1: march_any_kernel); ``halo`` rows (and
+    columns) of x beyond its band each block reads; ``smem`` bytes of shared
+    memory per block; the mix takes 128 pixels x ``mix_tn`` output channels per
+    block."""
+    K: int
+    g: int
+    warps: int
+    tw: int
+    ntiles: int
+    nchunks: int
+    rows: int
+    bands: int
+    blocks: int
+    halo: int
+    smem: int
+    mix_tn: int
+    launches: int = 2
+
+
+def smem_bytes(K: int, k0: int, nb: int, g: int, warps: int, tw: int) -> int:
+    """Shared memory of one march block, each row 32 channels wide.
+    march_kernel: the taps (wh, wv, b1, w0), one a0 row and a ring of k0 + AHEAD
+    x rows; march_any_kernel: the taps (wh, wv, b1), one a0 row and K rows of
+    running sums."""
+    if g == FAST_G:
+        aw = -(-(warps * g + K - 1) // RUN) * RUN
+        return 4 * LANES * (2 * nb * K + nb + k0 * k0 + aw + (k0 + AHEAD) * (aw + k0 - 1))
+    return 4 * LANES * (2 * nb * K + nb + tw + K - 1 + K * tw)
+
+
+def _tiles(B: int, H: int, W: int, C: int, k0: int, ks: tuple, fast: bool,
+           bands: Optional[int] = None) -> Optional[MscaPlan]:
+    """The plan of march_kernel (``fast``) or march_any_kernel for one call, at
+    ``bands`` bands or the rule's (see :func:`plan`); None where it does not fit."""
+    nb = len(ks)
+    if fast:
+        K, g = FAST_K, FAST_G
+        ntiles = -(-W // (MAX_WARPS * g))
+        tw = -(-W // ntiles)
+        warps = -(-tw // g)
+    else:
+        K, g = max(ks), 1
+        cols = min(ANY_COLS, (SMEM_MAX // (4 * LANES) - 2 * nb * K - nb - K + 1) // (K + 1))
+        if cols < 1:
+            return None
+        ntiles = -(-W // cols)
+        tw = -(-W // ntiles)
+        warps = min(MAX_WARPS, tw)
+    nchunks = -(-C // LANES)
+    smem = smem_bytes(K, k0, nb, g, warps, tw)
+    if smem > SMEM_MAX:
+        return None
+    base = B * nchunks * ntiles
+    if bands is None:
+        bands = 1
+        while base * bands < SMS // 2 and -(-H // (bands + 1)) >= K // 2:
+            bands += 1
+    rows = -(-H // bands)
+    bands = -(-H // rows)
+    return MscaPlan(K, g, warps, tw, ntiles, nchunks, rows, bands, base * bands,
+                    K // 2 + k0 // 2, smem, 64 if C % 64 == 0 else 32)
+
+
+@functools.lru_cache(maxsize=None)
+def plan(B: int, H: int, W: int, C: int, k0: int, ks: tuple) -> Optional[MscaPlan]:
+    """The kernel's plan for one call, or None where no shared-memory plan takes
+    the bank (none that ``packed()`` admits: nb <= 8, nb k_max <= 128).
+
+    The rules come from ``ops/msca_fused_sweep.py`` on an H100 at MSCAN-t's
+    shapes (PERF.md):
+    - Kernel: march_kernel<21, 5, 4> where k0 = 5 and k_max = 21 (MSCAN-t's
+      banks), else march_any_kernel.
+    - Columns: tiles of at most 8 G columns (march_kernel) or ANY_COLS columns
+      within shared memory (march_any_kernel), split evenly over W.
+    - Bands: one, unless the grid is short of SMS // 2 blocks (a small
+      batch): then the rows split while it stays short and a band keeps K // 2
+      rows.  A band recomputes up to K // 2 + k0 // 2 rows of halo at each
+      edge; at b=64 one band was the fastest at every shape.
+    """
+    return _tiles(B, H, W, C, k0, tuple(ks), k0 == FAST_K0 and max(ks) == FAST_K)
 
 
 def pack_cascade_weights(w1_list, b1_list, w2_list, b2_list):
@@ -123,9 +226,10 @@ def _check(x, w0, b0, w1, b1, w2, b2, wm, bm, res, ks, fix_p):
 def _library() -> ctypes.CDLL:
     lib = load("msca_fused.cu")
     fn = lib.msca_fused_f32
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.msca_fused_smem_bytes.argtypes = [ctypes.c_int] * 6
+    lib.msca_fused_smem_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -152,20 +256,20 @@ def msca_fused(x, w0, b0, w1, b1, w2, b2, wm, bm, res=None, *,
     if x.device.type != "cuda":
         raise ValueError(f"msca_fused: unsupported device {x.device}")
     B, H, W, C = x.shape
-    nb, k_max = w1.shape[0], w1.shape[1]
+    k0, nb, k_max = w0.shape[0], w1.shape[0], w1.shape[1]
+    p = plan(B, H, W, C, k0, tuple(ks))
+    if p is None:
+        raise ValueError(f"msca_fused: no kernel plan for k0={k0}, ks={tuple(ks)}")
     out = torch.empty_like(x)
-    a0 = torch.empty_like(x)
-    attn = torch.empty_like(x)
-    t = x.new_empty((nb, B, H, W, C))
-    ks_arr = (ctypes.c_int * nb)(*ks)
+    attn = torch.empty_like(x)  # the march's output, the mix's input
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().msca_fused_f32(
             x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), wm.data_ptr(), bm.data_ptr(),
-            res.data_ptr() if fix_p > 0 else None,
-            a0.data_ptr(), t.data_ptr(), attn.data_ptr(), out.data_ptr(),
-            B, H, W, C, w0.shape[0], nb, k_max, ks_arr, int(identity), int(fix_p), stream)
+            res.data_ptr() if fix_p > 0 else None, attn.data_ptr(), out.data_ptr(),
+            B, H, W, C, k0, nb, k_max, int(identity), int(fix_p),
+            p.K, p.g, p.warps, p.tw, p.ntiles, p.rows, p.bands, p.mix_tn, stream)
     if err != 0:
         raise RuntimeError(f"msca_fused: CUDA launch failed with error {err}")
     msca_fused.launches += 1
