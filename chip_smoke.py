@@ -8,7 +8,8 @@ From the root of a checkout, with no arguments:
 1. checks for a CUDA device and prints the card's name and power limit;
 2. builds the port's CUDA kernels (``msca_fused``, ``lowrank_conv``,
    ``parallel_cascade``, ``qmatmul``) from the sources in the checkout, one nvcc
-   each, started together;
+   each, started together, and prints ptxas's registers and spills of
+   ``lowrank_conv``'s kernels;
 3. holds each kernel against its plain PyTorch version, in float32 with TF32
    off, at the shapes its main path gives it at batch 64 and 224^2, and prints
    errors, median CUDA-event times and each call's bound (the larger of its
@@ -17,8 +18,13 @@ From the root of a checkout, with no arguments:
    of MSCAN-t in the dense-bank and the MscaRep d1+fix forms, with the sums per
    forward of both, and at five ragged shapes (H != W, C = 40, fix_p > H, k0 = 3
    with two k, k_max > 31), its planner's shared memory against the kernel's;
-   ``lowrank_conv``
-   at AlexNet's convs 2-5 in the separable and the full-bases forms;
+   ``lowrank_conv`` at AlexNet's convs 2-5 in the separable and the full-bases
+   forms, the weights packed once as the layer caches them, with cuDNN's dense
+   conv of the merged weight W_eff timed beside it, each bound on the kernel's
+   3xTF32 route (the mix's three TF32 products at 495 TFLOP/s) and in float32,
+   the sums per forward of both forms, and at six ragged shapes in both forms
+   (stride 2, H != W, kh != kw, C = 6, N = 10, M = 10, every P off the
+   128-pixel tile), its planner's shared memory against the kernel's;
    ``parallel_cascade`` bit for bit at ConvNeXt-T's four stage shapes with one
    and two 7-tap cascades, at MSCAN-t's four stage shapes as the 5-tap conv0 and
    the 21-tap bank cascade of dconv0, and in MSCA's dense-bank form, with cuDNN's
@@ -45,7 +51,8 @@ From the root of a checkout, with no arguments:
    against the plain version and the module path; times the forward with the
    plain version in place and the dense AlexNet, and profiles the low-rank
    forward; then runs the non-decomposed config once, so that the full-bases
-   body runs on a real path;
+   body runs on a real path; then checks that one cached LowRankExpConvV1
+   forward puts exactly one kernel, ``lowrank_conv``'s, on the card;
 6. drives the ConvNeXt-T serving path: the Runner on
    ``configs/convnext/dw-sep-rep_r1_convnext-t.py`` (18 block dwconvs swapped for
    rank-1 cascades, ModelAnalysis and InferenceTimeHook), checks that every
@@ -129,9 +136,18 @@ MSCA_RAGGED = {"H != W": (4, 20, 37, 32, 5, (21,), False, 10),
 # AlexNet's convs 2-5 at 224^2: (H = W, C, k, padding, M bases of the config, N)
 ALEX_CONVS = [(27, 64, 5, 2, 8, 192), (13, 192, 3, 1, 8, 384), (13, 384, 3, 1, 6, 256),
               (13, 256, 3, 1, 4, 256)]
+# lowrank_conv off AlexNet's shapes: (B, H, W, C, M, N, (kh, kw), (sh, sw), (ph, pw)); every
+# one has P = B Ho Wo off the 128-pixel tile, all but the 1 x 1 one tiles that cross images
+LOWRANK_RAGGED = {"stride 2, C = 6, N = 10": (8, 13, 13, 6, 4, 10, (5, 5), (2, 2), (2, 2)),
+                  "H != W": (4, 9, 11, 16, 8, 96, (3, 3), (1, 1), (1, 1)),
+                  "kh != kw, stride (1, 2), odd M": (3, 10, 7, 9, 3, 17, (3, 5), (1, 2), (1, 2)),
+                  "M = 10 (two slabs)": (2, 6, 5, 20, 10, 40, (3, 3), (1, 1), (1, 1)),
+                  "1 x 1 basis, N = 200": (1, 40, 41, 8, 2, 200, (1, 1), (1, 1), (0, 0)),
+                  "conv2 at b=5": (5, 27, 27, 64, 8, 192, (5, 5), (1, 1), (2, 2))}
 BATCH = 64
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
+PEAK_TF32 = 495e12    # H100 SXM TF32 tensor cores, dense, FLOP/s
 PEAK_INT8 = 1979e12   # H100 SXM int8 tensor cores, dense, OP/s
 
 
@@ -162,16 +178,25 @@ def msca_cost(H, C, ks, identity, fix_p, k0=5):
     return 4 * (2 * n + weights), flops
 
 
-def lowrank_cost(H, C, k, pad, M, N, form):
-    """(bytes, FLOP) of one lowrank_conv call at batch BATCH (stride 1): x read
-    and y written once, the weights read once; the basis passes (kh + kw taps
-    per basis and element when separable, kh kw when full) and the mix with its bias."""
-    Ho = H + 2 * pad - k + 1
-    P = BATCH * Ho * Ho
-    taps = 2 * k if form == "sep" else k * k
-    flops = 2 * P * C * M * taps + 2 * P * M * C * N + P * N
+def lowrank_cost(B, H, W, C, M, N, kernel_size, stride, padding, form):
+    """(bytes, basis FLOP, mix FLOP) of one lowrank_conv call: x read and y
+    written once, the weights read once; the basis passes (kh + kw taps per
+    basis and element when separable, kh kw when full) and the mix with its bias."""
+    (kh, kw), (sh, sw), (ph, pw) = kernel_size, stride, padding
+    Ho, Wo = (H + 2 * ph - kh) // sh + 1, (W + 2 * pw - kw) // sw + 1
+    P = B * Ho * Wo
+    taps = kh + kw if form == "sep" else kh * kw
     weights = M * taps + M * C * N + N
-    return 4 * (BATCH * H * H * C + P * N + weights), flops
+    return 4 * (B * H * W * C + P * N + weights), 2 * P * C * M * taps, 2 * P * M * C * N + P * N
+
+
+def lowrank_bound(nbytes: float, basis_flops: float, mix_flops: float):
+    """(ms, "bytes" or "operations") of lowrank_conv on its route: the mix as
+    3xTF32, three TF32 products per float32 product at 495 TFLOP/s, the basis
+    passes in float32 at 67 TFLOP/s."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (basis_flops / PEAK_F32 + 3 * mix_flops / PEAK_TF32) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def cascade_cost(H, C, ks, identity):
@@ -340,40 +365,171 @@ def check_kernel(gen):
     return rows
 
 
-def check_lowrank_kernel(gen):
+def lowrank_inputs(B, H, W, C, M, N, kernel_size, form, gen):
+    """Random inputs of a lowrank_conv call: x, A_mc, b and the bases (v, h or bases)."""
     import torch
-
-    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
 
     def r(*shape, scale=1.0):
         return (torch.randn(*shape, generator=gen) * scale).cuda()
 
+    kh, kw = kernel_size
+    taps = dict(v=r(M, kh), h=r(M, kw)) if form == "sep" else dict(bases=r(M, kh, kw))
+    return r(B, H, W, C), r(M * C, N, scale=(M * C) ** -0.5), r(N, scale=0.1), taps
+
+
+def check_lowrank_plan(B, H, W, C, M, N, kernel_size, stride, padding):
+    """The planner's shared memory against the kernel's for this call; returns the plan."""
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
+    p = lowrank_ops.plan(B, H, W, C, M, N, kernel_size, stride, padding)
+    smem = lowrank_ops._library().lowrank_conv_smem_bytes(
+        p.ms, p.bn, p.stages, p.qpg, p.rw, p.wv, kernel_size[0] * kernel_size[1],
+        p.ms * p.slabs)
+    if smem != p.smem:
+        fail(f"lowrank_conv {(B, H, W, C)}: the planner's shared memory {p.smem} differs from "
+             f"the kernel's {smem}")
+    return p
+
+
+def check_lowrank_kernel(gen):
+    """lowrank_conv against lowrank_conv_ref at AlexNet's convs 2-5 in the
+    separable and the full-bases forms, the weights packed once as the layer
+    caches them; beside it cuDNN's dense conv of the merged weight W_eff[n, c]
+    = sum_m A_mc[m C + c, n] basis_m, the same function as one library call;
+    then the ragged shapes in both forms, the first with no packed weights (the
+    wrapper packs them), the others packed."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
     rows = []
     for H, C, k, pad, M, N in ALEX_CONVS:
         for form in ("sep", "full"):
-            taps = dict(v=r(M, k), h=r(M, k)) if form == "sep" else dict(bases=r(M, k, k))
-            x, A, b = r(BATCH, H, H, C), r(M * C, N, scale=(M * C) ** -0.5), r(N, scale=0.1)
+            x, A, b, taps = lowrank_inputs(BATCH, H, H, C, M, N, (k, k), form, gen)
             kw = dict(kernel_size=(k, k), stride=(1, 1), padding=(pad, pad), **taps)
-            y = lowrank_ops.lowrank_conv(x, A, b, **kw)
+            packed = lowrank_ops.pack_kernel_weights(A, **taps)
+            y = lowrank_ops.lowrank_conv(x, A, b, packed=packed, **kw)
             y_ref = lowrank_ops.lowrank_conv_ref(x, A, b, **kw)
             torch.cuda.synchronize()
             err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
             if not torch.isfinite(y).all() or err > KERNEL_TOL:
                 fail(f"lowrank_conv {form} {(BATCH, H, H, C)} M={M} N={N}: rel err {err:.3e} "
                      f"> {KERNEL_TOL}")
-            ms, plain_ms = time_pair(lambda: lowrank_ops.lowrank_conv(x, A, b, **kw),
+            p = check_lowrank_plan(BATCH, H, H, C, M, N, (k, k), (1, 1), (pad, pad))
+            ms, plain_ms = time_pair(lambda: lowrank_ops.lowrank_conv(x, A, b, packed=packed, **kw),
                                      lambda: lowrank_ops.lowrank_conv_ref(x, A, b, **kw))
-            nbytes, flops = lowrank_cost(H, C, k, pad, M, N, form)
-            b_ms, b_by = bound(nbytes, flops)
+            basis = taps["bases"] if form == "full" else taps["v"][:, :, None] * taps["h"][:, None]
+            w_eff = torch.einsum("mcn,mij->ncij", A.reshape(M, C, N), basis).contiguous()
+            xc = x.permute(0, 3, 1, 2)  # an NCHW view of x, channels_last
+            y_lib = F.conv2d(xc, w_eff, b, padding=pad).permute(0, 2, 3, 1)
+            lib_err = rel_err(y_lib, y_ref)
+            lib_ms = library_time(lambda: F.conv2d(xc, w_eff, b, padding=pad))
+            nbytes, basis_flops, mix_flops = lowrank_cost(BATCH, H, H, C, M, N, (k, k), (1, 1),
+                                                          (pad, pad), form)
+            b_ms, b_by = lowrank_bound(nbytes, basis_flops, mix_flops)
+            f32_ms, _ = bound(nbytes, basis_flops + mix_flops)
             rows.append(dict(form=form, shape=(BATCH, H, H, C), rel_err=err, max_abs_err=abs_err,
-                             ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops, bound_ms=b_ms))
+                             ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes,
+                             basis_flops=basis_flops, mix_flops=mix_flops, bound_ms=b_ms,
+                             f32_bound_ms=f32_ms))
             print(f"lowrank_conv {form:4s} x{(BATCH, H, H, C)} k={k} M={M} N={N}: rel err "
                   f"{err:.3e} (bound {KERNEL_TOL}), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms (median of 25 CUDA-event runs, x2); bound "
-                  f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
-                  f"roofline share {b_ms / ms:.1%}")
-            del x, A, b, taps, y, y_ref
+                  f"plain {plain_ms:.4f} ms (median of 25 CUDA-event runs, x2), cuDNN conv of "
+                  f"W_eff {lib_ms:.4f} ms (rel diff {lib_err:.1e}); bound {b_ms:.4f} ms by {b_by} "
+                  f"on the 3xTF32 route ({nbytes / 1e6:.1f} MB, {basis_flops / 1e9:.3f} + "
+                  f"{mix_flops / 1e9:.3f} GFLOP), {f32_ms:.4f} ms in float32 at 67 TFLOP/s; "
+                  f"roofline share {b_ms / ms:.1%} (f32 {f32_ms / ms:.1%}); plan BN {p.bn}, "
+                  f"MS {p.ms} x {p.slabs}, {p.qpg} quads x {p.rw} x {p.wv} window, "
+                  f"{p.stages} stages, {p.row_tiles} x {p.col_tiles} blocks, {p.smem} B")
+            del x, A, b, taps, packed, y, y_ref, y_lib, w_eff, xc
+    for form in ("sep", "full"):
+        sel = [r for r in rows if r["form"] == form]
+        total = {k: sum(r[k] for r in sel)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "f32_bound_ms")}
+        print(f"lowrank_conv per {'dodecomp' if form == 'sep' else 'full-bases'} AlexNet forward "
+              f"(4 calls): kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, cuDNN "
+              f"conv of W_eff {total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms "
+              f"(3xTF32 route), {total['f32_bound_ms']:.4f} ms (float32)")
+    ragged_gen = torch.Generator().manual_seed(2)  # leaves the later phases' draws as they were
+    for i, (name, (B, H, W, C, M, N, ks, st, pad)) in enumerate(LOWRANK_RAGGED.items()):
+        for form in ("sep", "full"):
+            x, A, b, taps = lowrank_inputs(B, H, W, C, M, N, ks, form, ragged_gen)
+            kw = dict(kernel_size=ks, stride=st, padding=pad, **taps)
+            packed = None if i == 0 else lowrank_ops.pack_kernel_weights(A, **taps)
+            y = lowrank_ops.lowrank_conv(x, A, b, packed=packed, **kw)
+            y_ref = lowrank_ops.lowrank_conv_ref(x, A, b, **kw)
+            torch.cuda.synchronize()
+            err = rel_err(y, y_ref)
+            if not torch.isfinite(y).all() or err > KERNEL_TOL:
+                fail(f"lowrank_conv ragged {name} {form} {(B, H, W, C)} M={M} N={N}: rel err "
+                     f"{err:.3e} > {KERNEL_TOL}")
+            p = check_lowrank_plan(B, H, W, C, M, N, ks, st, pad)
+            print(f"lowrank_conv ragged ({name}) {form:4s} x{(B, H, W, C)} M={M} N={N} "
+                  f"k={ks} stride={st} pad={pad}: rel err {err:.3e} (bound {KERNEL_TOL}); "
+                  f"plan BN {p.bn}, MS {p.ms} x {p.slabs}, {p.qpg} quads x {p.rw} x {p.wv} "
+                  f"window, {p.row_tiles} x {p.col_tiles} blocks")
+            del x, A, b, taps, packed, y, y_ref
     return rows
+
+
+def check_lowrank_launches(gen):
+    """One eval-mode separable LowRankExpConvV1 forward (AlexNet's conv2) under
+    torch.profiler, its packing cached by a first forward: exactly one kernel,
+    lowrank_conv's, reaches the card.  A sleep kernel opens the profiled window
+    and is not counted: a profiler session after the first in a process may not
+    record its first kernel."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from convnet_approximater_tpu_torch.layers import LowRankExpConvV1
+
+    layer = LowRankExpConvV1(64, 192, 5, 1, 2, 8, decomp=True)
+    with torch.no_grad():  # bases shared by every input channel: the kernel's form
+        v, h = torch.randn(8, 5, generator=gen), torch.randn(8, 5, generator=gen)
+        layer.s_conv.v_conv.weight.copy_(v.repeat(64, 1)[:, None, :, None])
+        layer.s_conv.h_conv.weight.copy_(h.repeat(64, 1)[:, None, None, :])
+    layer = layer.cuda().eval()
+    x = torch.randn(BATCH, 64, 27, 27, generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad():
+        layer(x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            layer(x)
+            torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+               and "sleep" not in e.name.lower() and "spin" not in e.name.lower()]
+    names = [m.group(0) if (m := re.search(r"lowrank_kernel<[^>]*>", k)) else k[:60] for k in kernels]
+    print(f"one cached LowRankExpConvV1 forward {(BATCH, 64, 27, 27)}: {len(kernels)} kernels on "
+          f"the card: {', '.join(names)}")
+    if len(kernels) != 1 or "lowrank_kernel" not in kernels[0]:
+        fail("a LowRankExpConvV1 forward must launch lowrank_conv's kernel and nothing else")
+
+
+def ptxas_summary(source: str, name: str) -> str:
+    """Registers and spills of each ``name<...>`` entry function in the build log."""
+    import re
+
+    from convnet_approximater_tpu_torch.ops import build as build_ops
+
+    log = build_ops.library_path(source).with_suffix(".log")
+    if not log.exists():
+        return "not measured (no build log)"
+    stats, entry = {}, None
+    for line in log.read_text().splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(name + r"I((?:Li\d+E)+)E", line)
+            entry = f"{name}<{', '.join(re.findall(r'Li(\d+)E', m.group(1)))}>" if m else None
+        elif entry and "spill stores" in line:
+            stats.setdefault(entry, []).append(line.strip().replace("bytes ", ""))
+        elif entry and "Used" in line and "registers" in line:
+            stats.setdefault(entry, []).insert(0, line.split("Used")[1].split(",")[0].strip())
+    return "; ".join(f"{k}: {', '.join(v)}" for k, v in stats.items()) or "not measured"
 
 
 def library_time(fn) -> float:
@@ -853,7 +1009,8 @@ def run_alexnet(gen, config, separable: bool, work_dir: str, extras: bool):
     x = images(gen)
     with torch.no_grad():
         y = model(x)
-        with mock.patch.object(lowrank_ops, "lowrank_conv", lowrank_ops.lowrank_conv_ref):
+        with mock.patch.object(lowrank_ops, "lowrank_conv",
+                               lambda *a, packed=None, **k: lowrank_ops.lowrank_conv_ref(*a, **k)):
             y_plain = model(x)
             if extras:
                 plain_ms = float(np.median(time_forward(model, hook.input_size, "cuda",
@@ -1088,8 +1245,11 @@ def run_mscan_dconv0(gen):
 def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
     """The kernels-line entry of one forward: rows weighted by calls per forward."""
     nbytes = sum(r["bytes"] * weight(r) for r in rows)
-    flops = sum(r["flops"] * weight(r) for r in rows)
-    b_ms, b_by = bound(nbytes, flops, peak)
+    if "mix_flops" in rows[0]:  # lowrank_conv: the mix on its 3xTF32 route
+        b_ms, b_by = lowrank_bound(nbytes, sum(r["basis_flops"] * weight(r) for r in rows),
+                                   sum(r["mix_flops"] * weight(r) for r in rows))
+    else:
+        b_ms, b_by = bound(nbytes, sum(r["flops"] * weight(r) for r in rows), peak)
     library = [r.get("library_ms") for r in rows]
     return dict(kernel, ms=sum(r["ms"] * weight(r) for r in rows),
                 plain_ms=sum(r["plain_ms"] * weight(r) for r in rows),
@@ -1133,6 +1293,7 @@ def main():
         ops.build()
     print(f"built {', '.join(f'{s} in {t:.2f} s' for s, t in seconds.items())} "
           f"(one nvcc each, in parallel; {time.perf_counter() - t0:.2f} s in all)")
+    print(f"ptxas, lowrank_conv.cu: {ptxas_summary('lowrank_conv.cu', 'lowrank_kernel')}")
 
     # -- 3. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)
@@ -1147,6 +1308,7 @@ def main():
                                    os.path.join(REPO, "build", "chip_smoke_alexnet"), extras=True)
     run_alexnet(gen, ALEX_SVD, False, os.path.join(REPO, "build", "chip_smoke_alexnet_full"),
                 extras=False)
+    check_lowrank_launches(torch.Generator().manual_seed(3))
     cascade_launches, qmm_launches = run_convnext(gen)
     run_mscan_dconv0(gen)
 

@@ -44,11 +44,14 @@
 // nothing and returns cudaGetLastError() of the launch (0 on success).  The tensor maps
 // are encoded on the host through the driver entry point, so the library needs no -lcuda.
 // A wait on an mbarrier that does not complete within about 10 s traps instead of hanging.
+// The mbarrier, TMA, descriptor and tensor-map helpers live in tma_ring.cuh.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "tma_ring.cuh"
 
 namespace {
 
@@ -59,59 +62,6 @@ constexpr int kXCols = 32;                 // floats of an x box row: one wgmma 
 constexpr int kStageLd = 40;               // epilogue staging row stride in floats
 constexpr int kStageBytes = 8 * 16 * kStageLd * 4;
 constexpr int kSmemMax = 232448;           // dynamic shared memory a block may use
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  long long t0 = 0;
-  while (true) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > (1ll << 34)) {
-      __trap();
-    }
-  }
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// wgmma descriptor of a K-major operand in 128-byte-swizzled rows of 128 bytes: 8-row
-// groups 1024 bytes apart (SBO = 64 x 16 B), the leading offset unused (1), layout B128.
-__device__ __forceinline__ uint64_t desc_b128(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) |
-         (1ull << 62);
-}
 
 template <int N>
 struct Wgmma;
@@ -215,12 +165,6 @@ struct Wgmma<128> {
         : "l"(da), "l"(db), "r"(acc));
   }
 };
-
-template <int R>
-__device__ __forceinline__ void fence_regs(int (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
-}
 
 // q(v) = clip(rint(v / a), -127, 127) of four values, as int8 bytes packed low to high.
 //
@@ -456,43 +400,6 @@ qmatmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
       __syncwarp();
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &q);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-d row-major (rows, cols) tensor map with boxes of (box_rows, box_cols).
-bool make_map(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int elem_bytes,
-              uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols,
-              CUtensorMapSwizzle swizzle) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * elem_bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem_strides[2] = {1, 1};
-  return encode(map, type, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 int smem_bytes(int bm, int bn, int ra, int sx, int sb) {

@@ -9,8 +9,9 @@ into a rank-1 vertical/horizontal pair (:class:`SeparableConv`).
 An eval-mode forward with autograd off runs as one
 :func:`~convnet_approximater_tpu_torch.ops.lowrank_conv.lowrank_conv` call (the
 CUDA kernel on the card, its plain version on the CPU), at every shape.  The
-kernel reads the bases of input channel 0 only, so the weights are packed,
-and checked to be shared by all C channels, once per change of the weights:
+kernel reads the bases of input channel 0 only, so the weights are packed
+(with the kernel's layout beside them), and checked to be shared by all C
+channels, once per change of the weights:
 a layer whose bases are per-channel (after fine-tuning) takes the module path
 and logs that once.  A training forward and an eval forward under autograd
 take the module path, since the kernel has no backward.
@@ -96,9 +97,11 @@ class LowRankExpConvV1(nn.Module):
                                    atol=SHARED_ATOL))
 
     def packed(self) -> Optional[dict]:
-        """The kernel's weights (:func:`lowrank_params_from_module`), or None
-        when the bases are per-channel; packed and checked again only after
-        the weights changed."""
+        """The kernel's weights (:func:`lowrank_params_from_module`, and under
+        ``"kernel"`` their layout for the CUDA kernel,
+        :func:`~convnet_approximater_tpu_torch.ops.lowrank_conv.pack_kernel_weights`),
+        or None when the bases are per-channel; packed and checked again only
+        after the weights changed."""
         key = self._weights_key()
         if key != self._pack_key:
             shared = self.bases_shared()
@@ -107,7 +110,12 @@ class LowRankExpConvV1(nn.Module):
                     "LowRankExpConvV1: the bases differ between input channels "
                     "(fine-tuned?); this layer runs the module path, not lowrank_conv")
                 self._warned_per_channel = True
-            self._pack = lowrank_ops.lowrank_params_from_module(self) if shared else None
+            self._pack = None
+            if shared:
+                params = lowrank_ops.lowrank_params_from_module(self)
+                taps = {k: params[k] for k in ("v", "h", "bases") if k in params}
+                params["kernel"] = lowrank_ops.pack_kernel_weights(params["A_mc"], **taps)
+                self._pack = params
             self._pack_key = key
         return self._pack
 
@@ -122,7 +130,7 @@ class LowRankExpConvV1(nn.Module):
         y = lowrank_ops.lowrank_conv(
             x.permute(0, 2, 3, 1).contiguous(),  # a view when x is channels_last
             kw.pop("A_mc"), kw.pop("b"), kernel_size=self.kernel_size, stride=self.stride,
-            padding=self.padding, **kw)
+            padding=self.padding, packed=kw.pop("kernel"), **kw)
         return y.permute(0, 3, 1, 2)
 
     # -- post-hoc spatial factorization ----------------------------------

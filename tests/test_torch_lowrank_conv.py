@@ -248,3 +248,199 @@ def test_build_all_reports_a_failed_source(tmp_path, monkeypatch):
         build.build_all(["msca_fused.cu", "lowrank_conv.cu"])
     assert build.library_path("msca_fused.cu").exists()  # the other build finished
     assert not build.library_path("lowrank_conv.cu").exists()
+
+
+# -- the CUDA kernel's layout and planner, checked on the CPU ------------------------------
+
+ALEX_SHAPES = [  # AlexNet's convs 2-5 at b=64, 224^2: x (B, H, W, C), M, N, k, padding
+    ((64, 27, 27, 64), 8, 192, 5, 2), ((64, 13, 13, 192), 8, 384, 3, 1),
+    ((64, 13, 13, 384), 6, 256, 3, 1), ((64, 13, 13, 256), 4, 256, 3, 1)]
+RAGGED = [  # x, M, N, (kh, kw), stride, padding: every tile of P ragged, C = 6, N = 10, ...
+    ((2, 13, 13, 6), 4, 10, (5, 5), (2, 2), (2, 2)),   # stride 2, tiles straddle images
+    ((1, 9, 11, 6), 4, 10, (3, 3), (1, 1), (1, 1)),    # H != W
+    ((3, 10, 7, 9), 3, 17, (3, 5), (1, 2), (1, 2)),    # kh != kw, odd M, mixed stride
+    ((2, 6, 5, 20), 10, 40, (3, 3), (1, 1), (1, 1)),   # two slabs of bases, 30 pixels an image
+    ((1, 40, 40, 8), 2, 200, (1, 1), (1, 1), (0, 0)),  # a 1 x 1 basis, N over two tiles
+]
+
+
+def _plan_cases():
+    cases = [(x, M, N, (k, k), (1, 1), (p, p)) for x, M, N, k, p in ALEX_SHAPES]
+    return cases + RAGGED
+
+
+def _weights(M, C, N, kernel_size, form, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    kh, kw = kernel_size
+    taps = dict(v=r(M, kh), h=r(M, kw)) if form == "sep" else dict(bases=r(M, kh, kw))
+    return r(M * C, N) * (M * C) ** -0.5, r(N) * 0.1, taps
+
+
+def emulate_kernel(x, b, packed, kernel_size, stride, padding, M, N):
+    """The CUDA kernel's dataflow in torch: per tile of BM pixels, the x window
+    (rows of x's stack of B H rows from the tile's first pixel's first tap row,
+    columns from -pw, zero outside x), each pixel's taps read at its window
+    cell or, for a tap row in its image's vertical padding, as zeros; Z in the
+    kernel's K' order (lowrank_ops.kernel_order), then the 3xTF32 product with
+    the packed weight and the bias.  Asserts that the window holds every tap."""
+    B, H, W, C = x.shape
+    (kh, kw), (sh, sw), (ph, pw) = kernel_size, stride, padding
+    p = lowrank_ops.plan(B, H, W, C, M, N, kernel_size, stride, padding)
+    Ho, Wo = lowrank_ops.out_size(H, W, kernel_size, stride, padding)
+    P = B * Ho * Wo
+    quads = -(-C // 4)
+    xs = torch.nn.functional.pad(x, (0, 4 * quads - C)).reshape(B * H, W, 4 * quads)
+    c_of, m_of = lowrank_ops.kernel_order(C, M)
+    taps = packed["taps"]  # (kh kw, Mp)
+    y = torch.empty(P, N, dtype=torch.float64)
+    i, j = torch.arange(kh).repeat_interleave(kw), torch.arange(kw).repeat(kh)
+    for t in range(p.row_tiles):
+        rows = torch.arange(t * lowrank_ops.BM, (t + 1) * lowrank_ops.BM)
+        pix = rows.clamp(max=P - 1)
+        vbase = int(lowrank_ops.window_row(pix[:1], Ho, Wo, H, sh, ph))
+        v = vbase + torch.arange(p.rw)
+        col = torch.arange(p.wv) - pw
+        ok = ((v >= 0) & (v < B * H))[:, None] & ((col >= 0) & (col < W))[None, :]
+        window = torch.where(ok[..., None], xs[v.clamp(0, B * H - 1)[:, None],
+                                                col.clamp(0, W - 1)[None, :]], 0.0)
+        vrow = lowrank_ops.window_row(pix, Ho, Wo, H, sh, ph) - vbase
+        vcol = (pix % (Ho * Wo)) % Wo * sw
+        assert int(vrow.min()) >= 0 and int(vrow.max()) + kh <= p.rw  # every tap in the window
+        assert int(vcol.max()) + kw <= p.wv
+        h0 = (pix % (Ho * Wo)) // Wo * sh - ph
+        in_image = ((h0[:, None] + i[None]) >= 0) & ((h0[:, None] + i[None]) < H)
+        xt = window[vrow[:, None] + i[None], vcol[:, None] + j[None]]  # (BM, kh kw, 4 quads)
+        xt = torch.where(in_image[..., None], xt, 0.0)
+        z = torch.einsum("ptc,tm->pcm", xt, taps)  # (BM, C', Mp): float32 sums
+        zk = z[:, c_of, m_of]  # the K' columns, zero where c >= C or m >= M
+        zh = lowrank_ops.tf32_round(zk)
+        zl = zk - zh  # the kernel's low part: wgmma reads its top 19 bits
+        wh, wl = packed["w"].double()
+        acc = zl.double() @ wh.t() + zh.double() @ wl.t() + zh.double() @ wh.t()
+        keep = rows < P
+        y[rows[keep]] = acc[keep] + b.double()
+    return y.float().reshape(B, Ho, Wo, N)
+
+
+@pytest.mark.parametrize("case", range(len(ALEX_SHAPES) + len(RAGGED)))
+def test_plan_tiles_cover_every_output_once(case):
+    (B, H, W, C), M, N, ks, st, pad = _plan_cases()[case]
+    p = lowrank_ops.plan(B, H, W, C, M, N, ks, st, pad)
+    Ho, Wo = lowrank_ops.out_size(H, W, ks, st, pad)
+    P = B * Ho * Wo
+    count = torch.zeros(P, N, dtype=torch.int32)
+    for rt in range(p.row_tiles):  # a block writes its rows < P and columns < N
+        for ct in range(p.col_tiles):
+            count[rt * lowrank_ops.BM:min(P, (rt + 1) * lowrank_ops.BM),
+                  ct * p.bn:min(N, (ct + 1) * p.bn)] += 1
+    assert bool((count == 1).all())
+    assert p.bn in lowrank_ops.BNS and (p.ms, p.slabs) == lowrank_ops.basis_slabs(M)
+    assert p.ms * p.slabs >= M and p.ms in lowrank_ops.SLABS and p.stages in (2, 3, 4)
+
+
+@pytest.mark.parametrize("case", range(len(ALEX_SHAPES) + len(RAGGED)))
+def test_plan_window_holds_every_tap(case):
+    """Each tile's window (rw rows of x's stack of B H rows from the tile's
+    first pixel's first tap row) holds every tap row of every pixel of the
+    tile that lies in the pixel's image, across image boundaries, at the right
+    row of x; the others are the image's vertical padding."""
+    (B, H, W, C), M, N, (kh, kw), (sh, sw), (ph, pw) = _plan_cases()[case]
+    p = lowrank_ops.plan(B, H, W, C, M, N, (kh, kw), (sh, sw), (ph, pw))
+    Ho, Wo = lowrank_ops.out_size(H, W, (kh, kw), (sh, sw), (ph, pw))
+    P = B * Ho * Wo
+    pix = torch.arange(P)
+    first = (pix // lowrank_ops.BM) * lowrank_ops.BM
+    base = lowrank_ops.window_row(first, Ho, Wo, H, sh, ph)
+    vrow = lowrank_ops.window_row(pix, Ho, Wo, H, sh, ph) - base
+    assert int(vrow.min()) >= 0 and int((vrow + kh).max()) <= p.rw
+    b, ho, wo = pix // (Ho * Wo), (pix % (Ho * Wo)) // Wo, pix % Wo
+    for i in range(kh):  # window row vrow + i is row ho sh - ph + i of image b where that is in it
+        hin = ho * sh - ph + i
+        inside = (hin >= 0) & (hin < H)
+        assert torch.equal((base + vrow + i)[inside], (b * H + hin)[inside])
+    assert int((wo * sw + kw).max()) <= p.wv == (Wo - 1) * sw + kw
+    if B > 1 and Ho * Wo % lowrank_ops.BM:  # some tile then crosses an image boundary
+        assert bool((b[first] != b[torch.clamp(first + lowrank_ops.BM, max=P) - 1]).any())
+
+
+@pytest.mark.parametrize("case", range(len(ALEX_SHAPES) + len(RAGGED)))
+def test_plan_shared_memory_fits(case):
+    (B, H, W, C), M, N, ks, st, pad = _plan_cases()[case]
+    p = lowrank_ops.plan(B, H, W, C, M, N, ks, st, pad)
+    assert p.smem == lowrank_ops.smem_bytes(p.ms, p.bn, p.stages, p.qpg, p.rw, p.wv,
+                                            ks[0] * ks[1], p.ms * p.slabs)
+    assert p.smem <= lowrank_ops.SMEM_MAX
+    assert p.stages * lowrank_ops.stage_bytes(p.ms, p.bn) >= lowrank_ops.STAGE_BYTES  # epilogue
+
+
+@pytest.mark.parametrize("form", ["sep", "full"])
+@pytest.mark.parametrize("M,C", [(8, 64), (6, 7), (3, 5), (10, 4)])
+def test_packed_layout_reconstructs_A(form, M, C):
+    N = 13
+    A, _, taps = _weights(M, C, N, (3, 5), form)
+    packed = lowrank_ops.pack_kernel_weights(A, **taps)
+    w = packed["w"]
+    ms, slabs = lowrank_ops.basis_slabs(M)
+    Kp = 4 * -(-C // 4) * ms * slabs
+    assert w.shape == (2, N, Kp) and w.is_contiguous()
+    for part in w:  # both parts are TF32: 13 low mantissa bits zero
+        assert int((part.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    c, m = lowrank_ops.kernel_order(C, M)
+    valid = (c < C) & (m < M)
+    assert sorted((m[valid] * C + c[valid]).tolist()) == list(range(M * C))  # each row once
+    rebuilt = torch.zeros(M * C, N, dtype=torch.float64)
+    rebuilt[m[valid] * C + c[valid]] = (w[0] + w[1]).double().t()[valid]
+    assert float((rebuilt - A.double()).abs().max()) <= 2 ** -21 * float(A.abs().max())
+    assert bool((w[:, :, ~valid] == 0).all())  # the padding is zero
+    basis = taps["bases"] if form == "full" else taps["v"][:, :, None] * taps["h"][:, None, :]
+    assert torch.equal(packed["taps"][:, :M], basis.reshape(M, 15).t())
+    assert bool((packed["taps"][:, M:] == 0).all())
+
+
+def test_tf32_round_is_round_to_nearest_away():
+    ulp = 2.0 ** -10  # TF32's ulp at 1.0
+    x = torch.tensor([1.0 + ulp / 2, 1.0 + ulp / 2 - 2 ** -23, -(1.0 + ulp / 2), 1.0 + ulp * 1.5,
+                      float("inf"), 3.0e38])
+    r = lowrank_ops.tf32_round(x)
+    assert r[:4].tolist() == [1.0 + ulp, 1.0, -(1.0 + ulp), 1.0 + 2 * ulp]  # ties away from 0
+    assert r[4] == float("inf") and bool(torch.isfinite(r[5]))
+
+
+def test_3xtf32_product_keeps_float32_accuracy():
+    """The kernel's mix, Z_lo A_hi + Z_hi A_lo + Z_hi A_hi on TF32 parts, is
+    within 1e-6 relative of the exact product at conv4's K = 6 x 384 = 2304
+    (one TF32 product alone is not: about 1e-4)."""
+    g = np.random.RandomState(7)
+    z = torch.from_numpy(g.randn(256, 2304).astype(np.float32))
+    a = torch.from_numpy((g.randn(2304, 64) / 48).astype(np.float32))
+    exact = z.double() @ a.double()
+    zh, ah = lowrank_ops.tf32_round(z), lowrank_ops.tf32_round(a)
+    zl, al = lowrank_ops.tf32_round(z - zh), lowrank_ops.tf32_round(a - ah)
+    three = zl @ ah + zh @ al + zh @ ah  # float32 sums, as the tensor cores accumulate
+    assert rel(three.double().numpy(), exact.numpy()) < 1e-6
+    assert rel((zh @ ah).double().numpy(), exact.numpy()) > 1e-5
+
+
+@pytest.mark.parametrize("form", ["sep", "full"])
+@pytest.mark.parametrize("case", range(len(RAGGED)))
+def test_kernel_emulation_matches_ref(form, case):
+    """The kernel's index arithmetic (tiles across image boundaries, the
+    window, the K' order, the padding of C, M and N) in torch, against
+    lowrank_conv_ref: 1e-5 relative, the kernel's gate on the card."""
+    (B, H, W, C), M, N, ks, st, pad = RAGGED[case]
+    A, b, taps = _weights(M, C, N, ks, form, seed=case)
+    x = torch.from_numpy(nhwc(B, H, W, C, seed=case))
+    packed = lowrank_ops.pack_kernel_weights(A, **taps)
+    y = emulate_kernel(x, b, packed, ks, st, pad, M, N)
+    y_ref = lowrank_ops.lowrank_conv_ref(x, A, b, kernel_size=ks, stride=st, padding=pad, **taps)
+    assert y.shape == y_ref.shape
+    assert rel(y.numpy(), y_ref.numpy()) < RTOL
+
+
+@pytest.mark.parametrize("case,bn", [(0, 96), (1, 128), (2, 96), (3, 96)])
+def test_plan_picks_the_measured_tiles(case, bn):
+    """At AlexNet's convs 2-5 the planner picks the output tile that
+    ops/lowrank_conv_sweep.py measured fastest on an H100 (PERF.md)."""
+    (B, H, W, C), M, N, ks, st, pad = _plan_cases()[case]
+    assert lowrank_ops.plan(B, H, W, C, M, N, ks, st, pad).bn == bn
