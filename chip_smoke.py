@@ -49,8 +49,10 @@ From the root of a checkout, with no arguments:
    card, ModelAnalysis and InferenceTimeHook), checks the 4 registered layers,
    that every forward launched ``lowrank_conv`` once per layer, and the logits
    against the plain version and the module path; times the forward with the
-   plain version in place and the dense AlexNet, and profiles the low-rank
-   forward; then runs the non-decomposed config once, so that the full-bases
+   plain version in place and the dense AlexNet, profiles the low-rank
+   forward, and captures it with ``deploy.compile_serving`` (a CUDA graph: the
+   replay's logits against the eager ones, 4 ``lowrank_conv`` kernels in one
+   replay, timed); then runs the non-decomposed config once, so that the full-bases
    body runs on a real path; then checks that one cached LowRankExpConvV1
    forward puts exactly one kernel, ``lowrank_conv``'s, on the card;
 6. drives the ConvNeXt-T serving path: the Runner on
@@ -63,18 +65,38 @@ From the root of a checkout, with no arguments:
    then ``deploy.quantize_int8`` on two calibration batches (41 modules), checks
    41 ``qmatmul`` and 18 ``parallel_cascade`` launches per int8 forward, holds
    the int8 logits against the same model through the plain versions and
-   against the float32 model, times and profiles the int8 forward; then runs
-   the rank-2 config once (two cascades per block on a real path);
+   against the float32 model, times and profiles the int8 forward and captures
+   it as a CUDA graph (41 ``qmatmul`` and 18 ``parallel_cascade`` kernels in one
+   replay); then runs the rank-2 config once (two cascades per block on a real
+   path);
 7. drives MSCAN-t with MscaRep(1, fix, decomp_conv0) through the CLI: 13 blocks
    whose conv0 is a cascade, 26 ``parallel_cascade`` launches and no
    ``msca_fused`` launch per forward, logits against the plain version and the
    module path, timed and profiled; for it and for d1+fix, the host time to
    enqueue one forward is printed beside the device time;
-8. runs one eval-mode backward through a ``CascadeConv``, an ``MSCA`` (MscaRep
+8. builds the MSCAN-t headline serving surface of bench.py:161-204 through the
+   port's entry points (``apply_app`` of MscaRep(1, fix), then of FfnRep(fix) on
+   FFNs 1-6, ``fold_batchnorm``, ``enable_pw_matmul``: 13, 6, 5 and 59 sites)
+   beside plain d1+fix from the same seed-0 weights, and gates it: max-abs
+   below 5e-3 against plain d1+fix at the init layer scales (bench.py's
+   exact-rewrite gate); with layer scales 1 and random BN, logits within 1e-4
+   of plain d1+fix and of the surface through ``msca_fused_ref``; 13
+   ``msca_fused`` launches per eager forward and no 1x1 conv through
+   ``aten::convolution``; a ``deploy.compile_serving`` CUDA graph whose replay
+   runs 26 ``msca_fused`` kernels and no transpose the eager forward does not,
+   with logits within 1e-6 of eager; 8 seeded batches of 64 served through
+   it, against eager.  Prints every 1x1 shape's cuDNN conv against the
+   matmul with its bound, FfnRep's merged convs against the fc1 + dconv they
+   replace, profiles of the eager forward and the replay, and the eager,
+   graph and back-to-back times of dense MSCAN-t, plain d1+fix (both captured
+   too), the surface and the dconv0 surface (MscaRep with ``decomp_conv0``:
+   26 ``parallel_cascade`` kernels per forward and per replay, gated and
+   served the same way);
+9. runs one eval-mode backward through a ``CascadeConv``, an ``MSCA`` (MscaRep
    d1+fix) and a ``LowRankExpConvV1`` on the card: their input and parameter
    gradients against the module path's, no kernel launched under autograd,
    one launch each under ``torch.no_grad()``;
-9. prints one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+10. prints one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Every failed check exits non-zero without the result lines, as does a run
 without a CUDA device or outside a checkout of the repository.  Random weights
@@ -145,6 +167,20 @@ LOWRANK_RAGGED = {"stride 2, C = 6, N = 10": (8, 13, 13, 6, 4, 10, (5, 5), (2, 2
                   "1 x 1 basis, N = 200": (1, 40, 41, 8, 2, 200, (1, 1), (1, 1), (0, 0)),
                   "conv2 at b=5": (5, 27, 27, 64, 8, 192, (5, 5), (1, 1), (2, 2))}
 BATCH = 64
+EXP_RATIOS = (8, 8, 4, 4)  # MSCAN-t's FFN hidden width over C, per stage
+# pointwise convs of the headline MSCAN-t: proj_1, proj_2, channel_mix and fc2 of 13 blocks and
+# fc1 of the 7 blocks FfnRep leaves (JAX's enable_pw_matmul on the same structure:
+# tests/test_torch_deploy.py)
+HEADLINE_PW = 59
+EXACT_TOL = 5e-3    # the exact-rewrite gate of bench.py:199-202: max-abs on the logits
+REPLAY_TOL = 1e-6   # a graph replay against the eager forward: the same kernels on the same inputs
+SERVE_BATCHES = 8
+# the port's kernels as torch.profiler names them
+KERNEL_NAMES = {"msca_fused march": ("march_kernel<", "march_any_kernel"),
+                "msca_fused mix": ("mix_kernel<",),
+                "parallel_cascade": ("uniform_kernel<", "ring_kernel"),
+                "lowrank_conv": ("lowrank_kernel<",),
+                "qmatmul": ("qmatmul_kernel<",)}
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_TF32 = 495e12    # H100 SXM TF32 tensor cores, dense, FLOP/s
@@ -917,14 +953,21 @@ def host_enqueue_ms(model, input_size, n: int = 10) -> float:
 
     B, H, W, C = input_size
     x = torch.zeros(B, C, H, W, device="cuda").contiguous(memory_format=torch.channels_last)
-    times = []
     with torch.no_grad():
-        for i in range(n + 3):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model(x)
-            if i >= 3:
-                times.append((time.perf_counter() - t0) * 1e3)
+        return host_ms(lambda: model(x), n)
+
+
+def host_ms(fn, n: int = 10) -> float:
+    """Median host milliseconds of ``fn()`` on an idle card, after 3 calls."""
+    import torch
+
+    times = []
+    for i in range(n + 3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        if i >= 3:
+            times.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
     return float(np.median(times))
 
@@ -933,19 +976,29 @@ def profile_forward(name, model, input_size, n: int = 3, keep=()):
     """Device time per forward by kernel, from torch.profiler over ``n`` forwards:
     the 12 largest rows, and every row whose name holds one of ``keep``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     B, H, W, C = input_size
     x = torch.zeros(B, C, H, W, device="cuda").contiguous(memory_format=torch.channels_last)
     with torch.no_grad():
-        model(x)
+        profile_calls(f"{name} forward {tuple(input_size)}", lambda: model(x), n, keep)
+
+
+def profile_calls(name, fn, n: int = 3, keep=()):
+    """Device time per call of ``fn()`` by kernel, from torch.profiler over ``n``
+    calls after one: the 12 largest rows, and every row whose name holds one of
+    ``keep``.  Returns the device ms per call (None when the profiler recorded
+    no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                model(x)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows = []
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -958,13 +1011,14 @@ def profile_forward(name, model, input_size, n: int = 3, keep=()):
     total = sum(r[0] for r in rows)
     if not rows:
         print("profile: torch.profiler recorded no device time (not measured)")
-        return
-    print(f"profile of the {name} forward {tuple(input_size)} (torch.profiler, {n} "
-          f"forwards): device time {total:.3f} ms per forward, wall {wall_ms:.3f} ms under the "
-          f"profiler; by kernel (ms per forward, launches per forward):")
-    for i, (ms, count, name) in enumerate(rows):
-        if i < 12 or any(k in name for k in keep):
-            print(f"  {ms:8.4f} ms  x{count:<3d} {name[:100]}")
+        return None
+    print(f"profile of the {name} (torch.profiler, {n} calls): device time {total:.3f} ms per "
+          f"call, wall {wall_ms:.3f} ms under the profiler; by kernel (ms per call, launches "
+          f"per call):")
+    for i, (ms, count, kname) in enumerate(rows):
+        if i < 12 or any(k in kname for k in keep):
+            print(f"  {ms:8.4f} ms  x{count:<3d} {kname[:100]}")
+    return total
 
 
 def run_alexnet(gen, config, separable: bool, work_dir: str, extras: bool):
@@ -1037,6 +1091,14 @@ def run_alexnet(gen, config, separable: bool, work_dir: str, extras: bool):
               f"({b / dense_ms * 1e3:.1f} img/s); dense / low-rank = {dense_ms / low_ms:.4f}")
         del dense
         profile_forward("low-rank AlexNet", model, hook.input_size)
+        compiled, put = check_graph(f"{name} graph", model, {"lowrank_conv": 4}, 30)[:2]
+        paced = pace(model, compiled, seeded_batch(30))
+        print(f"AlexNet low-rank forward as a graph: median "
+              f"{time_graph(compiled, put, hook.input_size):.3f} ms; back to back "
+              f"{paced[0]:.3f} ms eager, {paced[1]:.3f} ms graph; host time to enqueue one "
+              f"replay {host_ms(compiled):.3f} ms, one eager forward "
+              f"{host_enqueue_ms(model, hook.input_size):.3f} ms")
+        del compiled, put
     del runner, model
     torch.cuda.empty_cache()
     return launches
@@ -1193,7 +1255,15 @@ def run_convnext(gen):
           f"({b / int8_ms * 1e3:.1f} img/s); float32 r1 / int8 = {ms / int8_ms:.4f}, "
           f"dense / int8 = {dense_ms / int8_ms:.4f}")
     profile_forward("int8 ConvNeXt-T DwSepRep r1", model, hook.input_size)
-    del model, calib
+    compiled, put = check_graph("int8 ConvNeXt-T r1 graph", model,
+                                {"qmatmul": 41, "parallel_cascade": 18}, 31)[:2]
+    paced = pace(model, compiled, seeded_batch(31))
+    print(f"int8 ConvNeXt-T r1 forward as a graph: median "
+          f"{time_graph(compiled, put, hook.input_size):.3f} ms; back to back "
+          f"{paced[0]:.3f} ms eager, {paced[1]:.3f} ms graph; host time to enqueue one "
+          f"replay {host_ms(compiled):.3f} ms, one eager forward "
+          f"{host_enqueue_ms(model, hook.input_size):.3f} ms")
+    del model, calib, compiled, put
     torch.cuda.empty_cache()
 
     drive_convnext(gen, CONVNEXT_R2, 2)
@@ -1240,6 +1310,439 @@ def run_mscan_dconv0(gen):
     profile_forward("MSCAN-t d1+fix+dconv0", model, hook.input_size)
     del runner, model
     torch.cuda.empty_cache()
+
+
+def seeded_batch(seed: int, batch: int = BATCH, device="cuda"):
+    """A (batch, 3, 224, 224) channels_last batch of normal values from ``seed``."""
+    import torch
+
+    x = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(seed))
+    return x.to(device).contiguous(memory_format=torch.channels_last)
+
+
+def kernels_of(fn):
+    """The kernels one call of ``fn`` (after one more) puts on the card, by
+    name, from torch.profiler.  A sleep kernel opens the window and is not
+    counted, as in check_lowrank_launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and "sleep" not in e.name.lower() and "spin" not in e.name.lower()]
+
+
+def count_kernels(names, labels):
+    """How many of ``names`` match each label of KERNEL_NAMES in ``labels``."""
+    return {label: sum(any(k in n for k in KERNEL_NAMES[label]) for n in names)
+            for label in labels}
+
+
+def check_graph(name, model, expect: dict, seed: int):
+    """``deploy.compile_serving`` of ``model`` at b=64, 224^2: the replay's
+    logits against the eager forward's on a seeded batch (relative error <=
+    REPLAY_TOL), and ``expect``'s kernels in one replay.  Returns (compiled,
+    put, kernel names of one replay)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.deploy import compile_serving
+
+    x = seeded_batch(seed)
+    t0 = time.perf_counter()
+    compiled, put = compile_serving(model, x)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    with torch.no_grad():
+        y_eager = model(x)
+    y = compiled(*put(x))
+    err = rel_err(y, y_eager)
+    names = kernels_of(compiled)  # a replay and the copy of its logits
+    counts = count_kernels(names, expect)
+    print(f"{name}: compile_serving (warm-up and capture) in {capture_s:.2f} s; replay against "
+          f"eager logits {tuple(y.shape)}: rel err {err:.3e} (bound {REPLAY_TOL}), "
+          f"{'bit-equal' if torch.equal(y, y_eager) else 'not bit-equal'}; one replay put "
+          f"{len(names)} kernels on the card: " + ", ".join(
+              f"{k} {v} (expected {expect[k]})" for k, v in counts.items()))
+    if not torch.isfinite(y).all() or err > REPLAY_TOL:
+        fail(f"{name}: the graph replay disagrees with the eager forward")
+    if counts != expect:
+        fail(f"{name}: one replay did not run the expected kernels")
+    return compiled, put, names
+
+
+def time_graph(compiled, put, input_size, num_iters: int = 10, warmup: int = 3):
+    """Median ms of ``compiled()`` (a replay and the copy of its logits) over
+    ``num_iters`` CUDA-event-timed calls after ``warmup``, on an input of ones,
+    as ``time_forward`` times the eager forward."""
+    import torch
+
+    B, H, W, C = input_size
+    put(torch.ones(B, C, H, W, device="cuda").contiguous(memory_format=torch.channels_last))
+    for _ in range(warmup):
+        compiled()
+    times = []
+    for _ in range(num_iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        compiled()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def back_to_back_ms(fn, n: int = 10) -> float:
+    """Milliseconds per call of ``n`` calls of ``fn`` enqueued back to back
+    between two CUDA events, after 3: the pace of a serving loop, where the
+    host enqueues a call while the card runs the one before."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def mscan_base(random_norms: bool):
+    """MSCAN-t (1000 classes) with seed-0 weights on the card, channels_last, eval.
+    With ``random_norms`` every layer scale is 1 and every BN's affine and running
+    stats come from a seeded generator: at the 1e-2 init scales and identity
+    stats a wrong fold or border fix would hide under the tolerance."""
+    import torch
+
+    from convnet_approximater_tpu_torch.models import MSCAN_Classifier
+    from convnet_approximater_tpu_torch.nn import BatchNorm2d, channels_last, init_weights
+
+    model = MSCAN_Classifier(num_classes=1000)
+    init_weights(model, torch.Generator().manual_seed(0))
+    if random_norms:
+        g = torch.Generator().manual_seed(5)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if "layer_scale" in name:
+                    p.fill_(1.0)
+            for m in model.modules():
+                if isinstance(m, BatchNorm2d):
+                    C = m.num_features
+                    m.weight.copy_(torch.rand(C, generator=g) + 0.5)
+                    m.bias.copy_(torch.randn(C, generator=g) * 0.3)
+                    m.running_mean.copy_(torch.randn(C, generator=g) * 0.5)
+                    m.running_var.copy_(torch.rand(C, generator=g) * 1.5 + 0.5)
+    return channels_last(model.cuda()).eval()
+
+
+def serving_surface(base, decomp_conv0: bool):
+    """(plain, surface) from ``base`` through the port's entry points: plain is
+    ``apply_app(MscaRep(1, fix[, decomp_conv0]))``; surface is the same, then
+    ``apply_app(FfnRep(fix), [IndicesFilter((1, ..., 6))])``, ``fold_batchnorm``
+    and ``enable_pw_matmul``, the rewrites of bench.py:177-189.  Checks the
+    counts of sites."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.core import FfnRep, MscaRep
+    from convnet_approximater_tpu_torch.deploy import enable_pw_matmul, fold_batchnorm
+    from convnet_approximater_tpu_torch.deploy_planner import apply_app
+    from convnet_approximater_tpu_torch.filters import IndicesFilter
+
+    plain = copy.deepcopy(base)
+    n_msca = apply_app(plain, MscaRep(decomp=1, fix=True, decomp_conv0=decomp_conv0), [],
+                       torch.Generator().manual_seed(0))
+    surface = copy.deepcopy(plain)
+    counts = (n_msca,
+              apply_app(surface, FfnRep(fix=True), [IndicesFilter((1, 2, 3, 4, 5, 6))],
+                        torch.Generator().manual_seed(1)),
+              fold_batchnorm(surface), enable_pw_matmul(surface))
+    print(f"serving surface{' (dconv0)' if decomp_conv0 else ''}: {counts[0]} MSCA sites "
+          f"(MscaRep), {counts[1]} FfnRep sites, {counts[2]} BN folds, {counts[3]} pointwise "
+          f"convs as matmuls (expected 13, 6, 5, {HEADLINE_PW})")
+    if counts != (13, 6, 5, HEADLINE_PW):
+        fail("the serving surface's rewrites found other sites than the JAX package's")
+    return plain, surface
+
+
+def count_pw_convs(model, x):
+    """(1x1 convs run by aten::convolution, aten::linear calls) in one eager
+    forward, from the op shapes torch.profiler records."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        model(x)
+    convs = [e for e in prof.events() if e.name == "aten::convolution"]
+    pw = sum(1 for e in convs if len(e.input_shapes) > 1 and len(e.input_shapes[1]) == 4
+             and e.input_shapes[1][2:] == [1, 1])
+    return pw, sum(1 for e in prof.events() if e.name == "aten::linear")
+
+
+def pw_table(gen):
+    """Every 1x1 conv shape of the headline MSCAN-t at b=64, 224^2: cuDNN's conv
+    on the channels_last map against the matmul over its NHWC view, in turns
+    (conv, matmul, matmul, conv), with each shape's bound; the sums per headline
+    forward, by the calls each shape makes there (proj_1 and proj_2 in 13
+    blocks, fc1 in the 7 FfnRep leaves, fc2 in 13).  Returns the rows."""
+    import torch
+
+    from convnet_approximater_tpu_torch.nn import Conv2d, init_weights
+
+    rows = []
+    for stage, ((H, C, blocks), ratio) in enumerate(zip(STAGES, EXP_RATIOS)):
+        hidden = C * ratio
+        merged = sum(1 for b in range(sum(s[2] for s in STAGES[:stage]),
+                                      sum(s[2] for s in STAGES[:stage + 1])) if b < 6)
+        for cin, cout, calls in ((C, C, 2 * blocks), (C, hidden, blocks - merged),
+                                 (hidden, C, blocks)):
+            conv = Conv2d(cin, cout, 1)
+            init_weights(conv, gen)
+            conv = conv.cuda().eval()
+            x = torch.randn(BATCH, cin, H, H, generator=gen).cuda().contiguous(
+                memory_format=torch.channels_last)
+            with torch.no_grad():
+                y_conv = conv(x)
+                conv.pw_matmul = True
+                y_mm = conv(x)
+
+                def run(mm):
+                    conv.pw_matmul = mm
+                    return conv(x)
+
+                mm_ms, conv_ms = time_pair(lambda: run(True), lambda: run(False))
+            nbytes = 4 * (BATCH * H * H * (cin + cout) + cin * cout + cout)
+            flops = 2 * BATCH * H * H * cin * cout
+            b_ms, b_by = bound(nbytes, flops)
+            rows.append(dict(shape=(BATCH, H, H, cin, cout), calls=calls, conv_ms=conv_ms,
+                             mm_ms=mm_ms, bound_ms=b_ms, rel_err=rel_err(y_mm, y_conv)))
+            print(f"1x1 ({cin} -> {cout}) at (64, {H}, {H}) x{calls}/headline forward: cuDNN "
+                  f"conv {conv_ms:.4f} ms, matmul {mm_ms:.4f} ms ({conv_ms / mm_ms:.2f}x), "
+                  f"bound {b_ms:.4f} ms by {b_by}; matmul against conv rel diff "
+                  f"{rows[-1]['rel_err']:.1e}")
+            del conv, x, y_conv, y_mm
+    total = {k: sum(r[k] * r["calls"] for r in rows) for k in ("conv_ms", "mm_ms", "bound_ms")}
+    losers = [r["shape"] for r in rows if r["mm_ms"] > r["conv_ms"]]
+    print(f"1x1 convs per headline forward ({sum(r['calls'] for r in rows)} calls): cuDNN "
+          f"{total['conv_ms']:.4f} ms, matmul {total['mm_ms']:.4f} ms, bound "
+          f"{total['bound_ms']:.4f} ms; the matmul loses at {losers or 'no shape'}")
+    return rows
+
+
+def ffn_rep_cost(plain, surface, gen):
+    """Device ms of FFNs 1-6: the merged conv with its border fix in the surface
+    against fc1 + dconv in plain d1+fix (fc1 as cuDNN's conv, and as the matmul),
+    with the bound of each."""
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import MergedFFN
+    from convnet_approximater_tpu_torch.models.mscan import FFN
+
+    ffns = [m for m in plain.modules() if isinstance(m, FFN)][:6]
+    merged = [m for m in surface.modules() if isinstance(m, MergedFFN)]
+    if len(merged) != 6:
+        fail(f"expected 6 MergedFFN blocks, found {len(merged)}")
+    total = np.zeros(5)
+    for i, (f, m) in enumerate(zip(ffns, merged)):
+        H = STAGES[0][0] if i < 3 else STAGES[1][0]
+        C, M, P = f.num_channel, f.hidden_channel, BATCH * H * H
+        x = torch.randn(BATCH, C, H, H, generator=gen).cuda().contiguous(
+            memory_format=torch.channels_last)
+
+        def fc1_dconv(mm):
+            f.fc1.pw_matmul = mm
+            return f.dconv(f.fc1(x))
+
+        with torch.no_grad():
+            merged_ms, cudnn_ms = time_pair(lambda: m.fix(m.conv(x)), lambda: fc1_dconv(False))
+            mm_ms = cuda_ms(lambda: fc1_dconv(True))
+        f.fc1.pw_matmul = False
+        merged_bound = bound(4 * (P * (C + M) + 9 * C * M), 2 * 9 * P * C * M)[0]
+        plain_bound = bound(4 * (P * (C + M) + C * M + 9 * M), 2 * P * M * (C + 9))[0]
+        total += (merged_ms, cudnn_ms, mm_ms, merged_bound, plain_bound)
+        print(f"FFN {i + 1} (64, {H}, {H}, {C} -> {M}): merged 3x3 conv + fix {merged_ms:.4f} ms "
+              f"(bound {merged_bound:.4f}); fc1 + dconv in plain d1+fix {cudnn_ms:.4f} ms, with "
+              f"fc1 as the matmul {mm_ms:.4f} ms (bound {plain_bound:.4f})")
+    print(f"FfnRep on FFNs 1-6: merged convs {total[0]:.4f} ms per forward (bound {total[3]:.4f}) "
+          f"against fc1 + dconv {total[1]:.4f} ms, {total[2]:.4f} ms with fc1 as the matmul "
+          f"(bound {total[4]:.4f})")
+
+
+def serve(name, model, compiled, put, seed: int):
+    """Eight seeded batches of 64 from the host through ``put``/``compiled``; the
+    loop's img/s, each batch's host-to-device copy included; the argmax and
+    the logits of each batch against the eager forward."""
+    import torch
+
+    batches = [seeded_batch(seed + i, device="cpu") for i in range(SERVE_BATCHES)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = [compiled(*put(x)) for x in batches]
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    errs, argmax_ok = [], True
+    with torch.no_grad():
+        for x, y in zip(batches, served):
+            y_eager = model(x.cuda().contiguous(memory_format=torch.channels_last))
+            errs.append(rel_err(y, y_eager))
+            argmax_ok &= torch.equal(y.argmax(1), y_eager.argmax(1))
+    n = SERVE_BATCHES * BATCH
+    print(f"{name}: served {SERVE_BATCHES} batches of {BATCH} in {loop_s * 1e3:.3f} ms = "
+          f"{n / loop_s:.1f} img/s (host-to-device copies included); argmax "
+          f"{'equal to' if argmax_ok else 'DIFFERENT from'} eager's, max logits rel err "
+          f"{max(errs):.3e} (bound {REPLAY_TOL})")
+    if not argmax_ok or max(errs) > REPLAY_TOL:
+        fail(f"{name}: served logits disagree with the eager forward")
+
+
+def pace(model, compiled, x):
+    """(eager, graph) milliseconds per forward of ``model`` on ``x`` back to back."""
+    import torch
+
+    with torch.no_grad():
+        return back_to_back_ms(lambda: model(x)), back_to_back_ms(compiled)
+
+
+def run_headline():
+    """The MSCAN-t headline serving surface (bench.py:161-204) and its dconv0
+    form, built through the port's entry points, gated, captured with
+    deploy.compile_serving, served and timed eager and as graphs."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.deploy import enable_pw_matmul, fold_batchnorm
+    from convnet_approximater_tpu_torch.hooks import time_forward
+    from convnet_approximater_tpu_torch.layers import MSCA
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+
+    gen = torch.Generator().manual_seed(11)
+    size = (BATCH, 224, 224, 3)
+    x2 = seeded_batch(20, batch=2)
+
+    # gate 1, the exact-rewrite gate of bench.py:199-202, at the init layer scales
+    plain, surface = serving_surface(mscan_base(random_norms=False), decomp_conv0=False)
+    with torch.no_grad():
+        err = float((surface(x2) - plain(x2)).abs().max())
+    print(f"exact-rewrite gate: max|dy| of the headline surface against plain d1+fix "
+          f"{err:.3e} (bound {EXACT_TOL})")
+    if not err < EXACT_TOL:
+        fail("the headline rewrites drifted from plain d1+fix")
+    del plain, surface
+
+    # gate 2, layer scales 1 and random BN: against plain d1+fix and msca_fused_ref
+    base = mscan_base(random_norms=True)
+    plain, surface = serving_surface(base, decomp_conv0=False)
+    with torch.no_grad():
+        y = surface(x2)
+        with mock.patch.object(fused_ops, "msca_fused", fused_ops.msca_fused_ref):
+            y_ref = surface(x2)
+        check_logits("headline surface (layer scales 1, random BN)", y,
+                     {"plain d1+fix": plain(x2), "msca_fused_ref": y_ref}, LOGITS_TOL)
+
+    # gate 3, launches: 13 msca_fused calls per eager forward, no 1x1 conv through cuDNN
+    reset_counts()
+    times = {"surface": time_forward(surface, size, "cuda", 10, 3)}
+    launches = fused_ops.msca_fused.launches
+    print(f"headline surface: 13 forwards launched msca_fused {launches} times "
+          f"(13 per forward)")
+    if launches != 13 * 13:
+        fail(f"the headline forwards launched msca_fused {launches} times, expected {13 * 13}")
+    x = seeded_batch(21)
+    pw, linears = count_pw_convs(surface, x)
+    # channel_mix is a weight of msca_fused, so 13 of the flagged convs run no forward of their own
+    print(f"headline eager forward: {pw} 1x1 convs through aten::convolution, {linears} "
+          f"aten::linear calls (expected 0 and {HEADLINE_PW - 13 + 1}: the matmuls and the head)")
+    if pw != 0 or linears != HEADLINE_PW - 13 + 1:
+        fail("a pointwise conv of the headline surface did not run as a matmul")
+
+    # gate 4 and serving: the graph
+    compiled, put, names = check_graph("headline surface", surface,
+                                       {"msca_fused march": 13, "msca_fused mix": 13}, 22)
+    with torch.no_grad():
+        eager = kernels_of(lambda: surface(x))
+    transposes = [sum("nchwToNhwc" in n or "nhwcToNchw" in n for n in k) for k in (names, eager)]
+    print(f"headline surface: {transposes[0]} NCHW/NHWC transposes in one replay, "
+          f"{transposes[1]} in one eager forward (the convs that are not 1x1)")
+    if transposes[0] > transposes[1]:
+        fail("the headline replay runs transposes the eager forward does not")
+    serve("headline surface", surface, compiled, put, 100)
+    graphs = {"surface": time_graph(compiled, put, size)}
+    host = {"surface": (host_enqueue_ms(surface, size), host_ms(compiled))}
+    paced = {"surface": pace(surface, compiled, x)}
+    with torch.no_grad():  # the kernel route: no gradient can be asked
+        profile_calls("headline surface eager forward (64, 224, 224, 3)", lambda: surface(x),
+                      keep=MSCA_KERNELS)
+    profile_calls("headline surface graph replay (64, 224, 224, 3)", compiled, keep=MSCA_KERNELS)
+    del compiled, put
+
+    pw_rows = pw_table(gen)
+    ffn_rep_cost(plain, surface, gen)
+
+    # the same rewrites without FfnRep, to read what the merge costs end to end
+    unmerged = copy.deepcopy(plain)
+    if (fold_batchnorm(unmerged), enable_pw_matmul(unmerged)) != (5, 13 * 5):
+        fail("fold_batchnorm and enable_pw_matmul found other sites on plain d1+fix")
+    with torch.no_grad():
+        check_logits("d1+fix, folded, 1x1 as matmuls (no FfnRep)", unmerged(x2),
+                     {"plain d1+fix": plain(x2)}, LOGITS_TOL)
+    for key, model in (("plain d1+fix", plain), ("no FfnRep", unmerged), ("dense", base)):
+        times[key] = time_forward(model, size, "cuda", 10, 3)
+        compiled, put = check_graph(f"MSCAN-t {key}", model, {"msca_fused march": 13}, 23)[:2]
+        graphs[key] = time_graph(compiled, put, size)
+        host[key] = (host_enqueue_ms(model, size), host_ms(compiled))
+        paced[key] = pace(model, compiled, x)
+        del compiled, put
+    del plain, surface, unmerged
+
+    # the dconv0 serving surface (scripts/serve_mscan.py:61-70)
+    plain, surface = serving_surface(base, decomp_conv0=True)
+    with torch.no_grad():
+        check_logits("dconv0 surface (layer scales 1, random BN)", surface(x2), {
+            "plain d1+fix+dconv0": plain(x2), "parallel_cascade_ref": through_plain(surface, x2),
+            "the module path": module_path(surface, MSCA, x2)}, LOGITS_TOL)
+    reset_counts()
+    times["dconv0"] = time_forward(surface, size, "cuda", 10, 3)
+    launches, fused = cascade_ops.parallel_cascade.launches, fused_ops.msca_fused.launches
+    print(f"dconv0 surface: 13 forwards launched parallel_cascade {launches} times (26 per "
+          f"forward), msca_fused {fused} times")
+    if launches != 26 * 13 or fused != 0:
+        fail("the dconv0 surface did not launch parallel_cascade 26 times per forward")
+    compiled, put, _ = check_graph("dconv0 surface", surface,
+                                   {"parallel_cascade": 26, "msca_fused march": 0}, 24)
+    serve("dconv0 surface", surface, compiled, put, 200)
+    graphs["dconv0"] = time_graph(compiled, put, size)
+    host["dconv0"] = (host_enqueue_ms(surface, size), host_ms(compiled))
+    paced["dconv0"] = pace(surface, compiled, x)
+    with torch.no_grad():
+        profile_calls("dconv0 surface eager forward (64, 224, 224, 3)", lambda: surface(x))
+    profile_calls("dconv0 surface graph replay (64, 224, 224, 3)", compiled)
+    del compiled, put, plain, surface, base
+    torch.cuda.empty_cache()
+
+    for key in ("dense", "plain d1+fix", "no FfnRep", "surface", "dconv0"):
+        eager_ms = float(np.median(times[key]))
+        print(f"MSCAN-t {key} forward (64, 224, 224, 3) f32: eager median {eager_ms:.3f} ms, "
+              f"graph median {graphs[key]:.3f} ms ({BATCH / graphs[key] * 1e3:.1f} img/s); "
+              f"back to back {paced[key][0]:.3f} ms eager, {paced[key][1]:.3f} ms graph; host "
+              f"time to enqueue one eager forward {host[key][0]:.3f} ms, one replay "
+              f"{host[key][1]:.3f} ms")
+    for label, key in (("M1 (plain d1+fix)", "plain d1+fix"), ("headline", "surface"),
+                       ("no FfnRep", "no FfnRep"), ("dconv0", "dconv0")):
+        print(f"dense / {label}: eager {np.median(times['dense']) / np.median(times[key]):.4f}, "
+              f"graph {graphs['dense'] / graphs[key]:.4f}; back to back eager "
+              f"{paced['dense'][0] / paced[key][0]:.4f}, graph "
+              f"{paced['dense'][1] / paced[key][1]:.4f}")
+    return pw_rows
 
 
 def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
@@ -1302,7 +1805,7 @@ def main():
     cascade_rows = check_cascade_kernel(gen)
     qmm_rows = check_qmatmul_kernel(gen)
 
-    # -- 4.-7. the main paths ---------------------------------------------
+    # -- 4.-8. the main paths ---------------------------------------------
     msca_launches = run_mscan(gen)
     lowrank_launches = run_alexnet(gen, ALEX_DODECOMP, True,
                                    os.path.join(REPO, "build", "chip_smoke_alexnet"), extras=True)
@@ -1311,11 +1814,12 @@ def main():
     check_lowrank_launches(torch.Generator().manual_seed(3))
     cascade_launches, qmm_launches = run_convnext(gen)
     run_mscan_dconv0(gen)
+    run_headline()
 
-    # -- 8. gradients through eval-mode kernel layers ---------------------
+    # -- 9. gradients through eval-mode kernel layers ---------------------
     check_eval_grad(gen)
 
-    # -- 9. results -------------------------------------------------------
+    # -- 10. results ------------------------------------------------------
     # each entry is one forward at b=64, 224^2: the time per call times the calls per forward
     # (parallel_cascade: the DwSepRep r1 forward of ConvNeXt-T; qmatmul: its int8 forward)
     blocks = {H: n for H, _, n in STAGES}

@@ -12,9 +12,10 @@ leaves:
   ``weight_q``;
 * BatchNorm/LayerNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
 * BatchNorm state ``mean``/``var`` -> ``running_mean``/``running_var``;
-* everything else (``FixPaddingBias.res`` (2, C, p), ``layer_scale_*``,
-  ConvNeXt's ``gamma``, the quantized modules' ``w_scale`` and 0-d
-  ``act_scale``) as is.
+* everything else (``FixPaddingBias.res`` (2, C, p), ``FixPaddingBias2d``'s
+  ``res_v``/``res_h`` (2, C, p) and ``res_c`` (2, 2, C, p, p),
+  ``layer_scale_*``, ConvNeXt's ``gamma``, the quantized modules' ``w_scale``
+  and 0-d ``act_scale``) as is.
 
 This is the inverse direction of ``scripts/ckpt_converter/torch_to_tpu.py``'s
 ``convert_conv``/``convert_linear``.

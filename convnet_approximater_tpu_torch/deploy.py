@@ -1,16 +1,140 @@
-"""Serving rewrites of a model (port of ``convnet_approximater_tpu/deploy.py``;
-only ``quantize_int8`` so far)."""
+"""Serving rewrites of a model (port of ``convnet_approximater_tpu/deploy.py``).
+
+* :func:`fold_batchnorm` folds eval-mode BatchNorm into the conv(s) that feed it;
+* :func:`enable_pw_matmul` runs every pointwise conv as a matrix product over
+  its NHWC view;
+* :func:`quantize_int8` is int8 post-training quantization;
+* :func:`compile_serving` captures the eval forward into a CUDA graph.
+
+The names are the JAX package's, so a config's ``structure_passes`` find them.
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from convnet_approximater_tpu_torch.layers.quant import QuantConv2d, QuantLinear
+from convnet_approximater_tpu_torch.layers.substitution import Substitution
 from convnet_approximater_tpu_torch.models.switchable import set_submodule
-from convnet_approximater_tpu_torch.nn import Conv2d, Linear
+from convnet_approximater_tpu_torch.nn import BatchNorm2d, Conv2d, Identity, Linear
+
+# class name -> (conv, bn) attribute pairs of a module known to call the conv
+# immediately before the bn (call order is not discoverable from structure):
+# MSCAN's DownSample runs proj, then norm.  The ResNet family's pairs come with
+# that family's port.
+FOLD_PATTERNS: Dict[str, List[Tuple[str, str]]] = {
+    "DownSample": [("proj", "norm")],
+}
+
+# class name -> the child that produces the output of a composite layer ending
+# in one linear conv, so that a BN folds through a factored site.  LowRankExpConvV2-V4
+# come with their port.
+FOLD_TAILS: Dict[str, str] = {
+    "LowRankExpConvV1": "d_conv",  # grouped bases -> 1x1 mix (the bias carrier)
+}
+
+
+def _terminal_convs(model: nn.Module, path: str) -> Optional[List[str]]:
+    """The dotted paths of the convs that produce the output of the module at
+    ``path``, through ``FOLD_TAILS``, ``Sequential`` tails and both live
+    branches of a ``Substitution`` (each feeds the same BN, so each absorbs
+    the fold); None if any leaf is not a conv."""
+    mod = model.get_submodule(path) if path else model
+    if isinstance(mod, Conv2d):
+        return [path]
+    if isinstance(mod, Substitution):
+        out = []
+        for branch in ("old", "new"):
+            if branch in mod._modules:
+                sub = _terminal_convs(model, f"{path}.{branch}")
+                if sub is None:
+                    return None
+                out.extend(sub)
+        return out or None
+    tail = FOLD_TAILS.get(type(mod).__name__)
+    if tail is not None and tail in mod._modules:
+        return _terminal_convs(model, f"{path}.{tail}")
+    if isinstance(mod, nn.Sequential) and len(mod):
+        return _terminal_convs(model, f"{path}.{list(mod._modules)[-1]}")
+    return None
+
+
+@torch.no_grad()
+def _fold_pair(conv: Conv2d, bn: BatchNorm2d):
+    """Fold ``bn``'s affine and running stats into ``conv`` in place, in float32,
+    cast back to the weight's type; a conv without a bias gains one on its
+    weight's device."""
+    w = conv.weight
+    r = bn.weight.float() / torch.sqrt(bn.running_var.float() + bn.eps)  # (C_out,)
+    b0 = conv.bias.float() if conv.bias is not None else torch.zeros_like(r)
+    new_b = ((b0 - bn.running_mean.float()) * r + bn.bias.float()).to(w.dtype)
+    w.copy_((w.float() * r[:, None, None, None]).to(w.dtype))
+    if conv.bias is None:
+        conv.bias = nn.Parameter(new_b.to(w.device))
+    else:
+        conv.bias.copy_(new_b)
+
+
+def fold_batchnorm(model: nn.Module) -> int:
+    """Fold every discoverable conv -> BatchNorm pair in place; returns the count.
+
+    Sites are adjacent ``(module, BatchNorm2d)`` children of a ``Sequential``
+    and the attribute pairs of ``FOLD_PATTERNS`` (walking the class's MRO);
+    the module side resolves to its terminal convs (:func:`_terminal_convs`).
+    Each folded BN becomes ``Identity``, so its ``state_dict`` keys go.  The
+    fold freezes the running stats into the weights: it is exact for the
+    eval-mode forward only.  A BN that feeds nothing foldable, and a block's
+    pre-norm (MSCAN's ``norm1``/``norm2``), stays.
+    """
+    pairs: List[Tuple[str, str]] = []  # (site, bn) dotted paths
+    for path, mod in model.named_modules():
+        def sub(name):
+            return f"{path}.{name}" if path else name
+
+        if isinstance(mod, nn.Sequential):
+            names = list(mod._modules)
+            for a, b in zip(names, names[1:]):
+                if isinstance(mod._modules[b], BatchNorm2d):
+                    pairs.append((sub(a), sub(b)))
+        for klass in type(mod).__mro__:
+            for conv_attr, bn_attr in FOLD_PATTERNS.get(klass.__name__, ()):
+                if conv_attr in mod._modules and isinstance(mod._modules.get(bn_attr),
+                                                            BatchNorm2d):
+                    pairs.append((sub(conv_attr), sub(bn_attr)))
+
+    n_folded = 0
+    for site, bn_path in pairs:
+        bn = model.get_submodule(bn_path)
+        conv_paths = _terminal_convs(model, site)
+        if not isinstance(bn, BatchNorm2d) or conv_paths is None:
+            continue  # folded already, or the site does not end in convs
+        convs = [model.get_submodule(p) for p in conv_paths]
+        if any(c.out_channels != bn.num_features for c in convs):
+            continue
+        for conv in convs:
+            _fold_pair(conv, bn)
+        set_submodule(model, bn_path, Identity())
+        n_folded += 1
+    return n_folded
+
+
+def enable_pw_matmul(model: nn.Module) -> int:
+    """Set ``pw_matmul`` on every pointwise conv (1x1, ``groups == 1``, stride 1,
+    no padding, no dilation) that does not have it yet; returns how many.
+
+    Each then runs as a matrix product over its input's NHWC view in eval mode
+    (:class:`~convnet_approximater_tpu_torch.nn.Conv2d`).  Only a flag changes,
+    no parameter, so the rewrite is idempotent and keeps the ``state_dict``.
+    """
+    n = 0
+    for mod in model.modules():
+        if isinstance(mod, Conv2d) and mod.is_pointwise() and not mod.pw_matmul:
+            mod.pw_matmul = True
+            n += 1
+    return n
 
 
 def quantize_int8(model: nn.Module, calib_batches: Iterable[torch.Tensor],
@@ -70,3 +194,89 @@ def quantize_int8(model: nn.Module, calib_batches: Iterable[torch.Tensor],
              else QuantLinear.from_linear(m, act_scale))
         set_submodule(model, path, q)
     return len(targets)
+
+
+class _Snapshot:
+    """What a captured graph relies on: every child, parameter and buffer slot of
+    every module of ``model``, what each holds, and each tensor's address and
+    version counter.  :meth:`holds` tells whether all are as they were; it
+    reads the slots directly, a few times faster than walking
+    ``model.parameters()`` for ``params_key``."""
+
+    def __init__(self, model: nn.Module):
+        self.dicts = [(d, len(d)) for m in model.modules()
+                      for d in (m._modules, m._parameters, m._buffers)]
+        self.items = [(d, k, v) for d, _ in self.dicts for k, v in d.items()]
+        self.tensors = [v for _, _, v in self.items if isinstance(v, torch.Tensor)]
+        self.versions = [(t.data_ptr(), t._version) for t in self.tensors]
+
+    def holds(self) -> bool:
+        return (all(len(d) == n for d, n in self.dicts)
+                and all(d.get(k) is v for d, k, v in self.items)
+                and [(t.data_ptr(), t._version) for t in self.tensors] == self.versions)
+
+
+def compile_serving(model: nn.Module, *example_args: torch.Tensor):
+    """The eval forward of ``model`` as a serving session: returns ``(compiled, put)``.
+
+    ``put(*args)`` copies a batch into the session's static inputs (shaped as
+    ``example_args``) and returns them; ``compiled(*args)`` puts ``args``, if
+    given, runs the forward on the static inputs and returns logits that the
+    caller owns.  This is the counterpart of the JAX package's
+    ``compile_serving`` (an executable compiled with XLA's input layouts).
+
+    On a CUDA model the forward is one ``torch.cuda.CUDAGraph``, captured under
+    ``torch.no_grad()`` (with autograd on, the kernel layers would take their
+    module paths).  Three eval forwards on a side stream first fill every
+    per-weight-version cache (the kernels' packed weights and layouts, the
+    border-fix maps) and build and load the kernels, so that the capture
+    records the steady-state forward; the kernels launch on the current
+    stream, which is the capture stream.  A capture that fails raises; nothing
+    runs eager in its place.  The graph reads the weights, the caches and the
+    tensor maps it froze by address, so ``compiled`` raises once a parameter
+    or buffer has been modified or replaced, or a module swapped: compile
+    again after that.
+
+    On a CPU model ``compiled`` runs the eager forward under ``torch.no_grad()``,
+    with the same contract.
+    """
+    model.eval()
+    device = next(model.parameters()).device
+    static = [torch.empty_like(a, device=device).copy_(a) for a in example_args]
+    graph, out = None, None
+    if device.type == "cuda":
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side), torch.no_grad():
+            for _ in range(3):
+                model(*static)
+        torch.cuda.current_stream(device).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(graph):
+            out = model(*static)
+    snapshot = _Snapshot(model)
+
+    def put(*args: torch.Tensor):
+        if len(args) != len(static):
+            raise ValueError(f"compile_serving: {len(static)} inputs, got {len(args)}")
+        for s, a in zip(static, args):
+            if a is not s:
+                if a.shape != s.shape:
+                    raise ValueError(f"compile_serving: input of shape {tuple(a.shape)}, "
+                                     f"compiled for {tuple(s.shape)}")
+                s.copy_(a)
+        return tuple(static)
+
+    def compiled(*args: torch.Tensor) -> torch.Tensor:
+        if not snapshot.holds():
+            raise RuntimeError("compile_serving: a module, parameter or buffer of the model "
+                               "changed after compile_serving; compile the model again")
+        if args:
+            put(*args)
+        if graph is None:
+            with torch.no_grad():
+                return model(*static)
+        graph.replay()
+        return out.clone()
+
+    return compiled, put

@@ -15,6 +15,10 @@ gradient can be asked of it (eval mode under ``torch.no_grad()`` or
 eval forward under autograd (the kernel has no backward) take the module path.
 The taps are packed once per change of the weights, keyed on the parameters'
 version counters.
+
+``FixPaddingBias2d`` is the border frame of FfnRep's merged conv; its (H, W, C)
+correction map is built once per weight version and map size in eval mode
+without autograd, so the forward is one broadcast add.
 """
 
 from __future__ import annotations
@@ -186,3 +190,70 @@ class FixPaddingBias(nn.Module):
     def forward(self, x):
         strip = fix_strip(self.res.transpose(1, 2), x.shape[2])  # (H, C)
         return x + strip.t()[None, :, :, None]
+
+
+class FixPaddingBias2d(nn.Module):
+    """Learnable border frame of a 2-D merged kernel: the 2-D form of
+    :class:`FixPaddingBias`, for FfnRep's fc1 (1x1, biased) merged into a
+    zero-padded k x k depthwise conv, which is exact except where taps fall
+    outside the map, in a frame of width ``p = k // 2``.
+
+    * ``res_v`` (2, C, p): top and bottom row strips, broadcast across W;
+    * ``res_h`` (2, C, p): left and right column strips, broadcast across H;
+    * ``res_c`` (2, 2, C, p, p): the four p x p corners, which undo the taps
+      counted by both a row and a column strip.
+
+    Side 0 (top, left) is indexed by the distance from its edge, side 1
+    (bottom, right) runs toward its edge.  On maps smaller than p the strips
+    are clipped to ``min(H, p)`` rows and ``min(W, p)`` columns, and strips of
+    both sides overlap below 2 p, as in the JAX package.
+    """
+
+    def __init__(self, num_channels: int, padding: int):
+        super().__init__()
+        self.num_channels = num_channels
+        self.p = padding
+        C, p = num_channels, padding
+        self.res_v = nn.Parameter(torch.zeros(2, C, p))  # drawn by init_weights
+        self.res_h = nn.Parameter(torch.zeros(2, C, p))
+        self.res_c = nn.Parameter(torch.zeros(2, 2, C, p, p))
+
+    def init_weights(self, generator: torch.Generator):
+        with torch.no_grad():
+            for t in (self.res_v, self.res_h, self.res_c):
+                t.normal_(generator=generator)
+
+    def correction(self, H: int, W: int) -> torch.Tensor:
+        """The (H, W, C) map the forward adds."""
+        C, p = self.num_channels, self.p
+        pv, ph = min(H, p), min(W, p)
+        rv, rh, rc = self.res_v, self.res_h, self.res_c
+        sv = rv.new_zeros(H, C)
+        sv[:pv] += rv[0, :, :pv].t()
+        sv[H - pv:] += rv[1, :, p - pv:].t()
+        sh = rh.new_zeros(W, C)
+        sh[:ph] += rh[0, :, :ph].t()
+        sh[W - ph:] += rh[1, :, p - ph:].t()
+        m = sv[:, None, :] + sh[None, :, :]
+        m[:pv, :ph] += rc[0, 0, :, :pv, :ph].permute(1, 2, 0)
+        m[:pv, W - ph:] += rc[0, 1, :, :pv, p - ph:].permute(1, 2, 0)
+        m[H - pv:, :ph] += rc[1, 0, :, p - pv:, :ph].permute(1, 2, 0)
+        m[H - pv:, W - ph:] += rc[1, 1, :, p - pv:, p - ph:].permute(1, 2, 0)
+        return m
+
+    @torch.no_grad()
+    def _cached_correction(self, H: int, W: int) -> torch.Tensor:
+        """:meth:`correction`, one per map size, all built again after a weight
+        changed.  A map stays at its address while the weights stay, which a
+        captured CUDA graph relies on."""
+        key = params_key(self)
+        if key != getattr(self, "_maps_key", None):
+            self._maps, self._maps_key = {}, key
+        if (H, W) not in self._maps:
+            self._maps[(H, W)] = self.correction(H, W)
+        return self._maps[(H, W)]
+
+    def forward(self, x):
+        H, W = x.shape[2], x.shape[3]
+        m = self._cached_correction(H, W) if no_grad_eval(self) else self.correction(H, W)
+        return x + m.permute(2, 0, 1)[None]

@@ -41,6 +41,7 @@ class FFN(nn.Module):
         super().__init__()
         self.num_channel = num_channel
         self.hidden_channel = hidden_channel
+        self.drop_rate = drop
         self.fc1 = Conv2d(num_channel, hidden_channel, 1)
         self.dconv = Conv2d(hidden_channel, hidden_channel, 3, padding=1, groups=hidden_channel)
         self.fc2 = Conv2d(hidden_channel, num_channel, 1)

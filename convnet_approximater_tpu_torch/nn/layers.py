@@ -1,9 +1,12 @@
 """Leaf layers (port of ``convnet_approximater_tpu/nn/layers.py``).
 
-``Conv2d``, ``Linear``, ``Dropout``, ``Identity``, ``ReLU`` and the pools are
-torch's own: the JAX pools (``ops/conv.py``) use torch's bin edges and floor
-mode.  The layers below differ from torch's defaults where the JAX package does:
+``Linear``, ``Dropout``, ``Identity``, ``ReLU`` and the pools are torch's own:
+the JAX pools (``ops/conv.py``) use torch's bin edges and floor mode.  The
+layers below differ from torch's defaults where the JAX package does:
 
+* ``Conv2d`` is torch's with a ``pw_matmul`` flag (``deploy.enable_pw_matmul``
+  sets it): an eval-mode 1x1 conv then runs as a matrix product over the NHWC
+  view of its input;
 * ``BatchNorm2d`` has no ``num_batches_tracked`` counter (the momentum is
   fixed, so the counter is never read), so its ``state_dict`` maps one to one
   onto the JAX params (``scale``/``bias``) and state (``mean``/``var``);
@@ -22,13 +25,52 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-Conv2d = nn.Conv2d
 Linear = nn.Linear
 Dropout = nn.Dropout
 Identity = nn.Identity
 ReLU = nn.ReLU
 MaxPool2d = nn.MaxPool2d
 AdaptiveAvgPool2d = nn.AdaptiveAvgPool2d
+
+
+class Conv2d(nn.Conv2d):
+    """``torch.nn.Conv2d`` with the JAX ``Conv2d``'s ``pw_matmul`` opt-in.
+
+    With ``pw_matmul`` set, an eval-mode forward of a pointwise conv (1x1,
+    ``groups == 1``, stride 1, no padding, no dilation) is ``F.linear`` on the
+    NHWC view ``x.permute(0, 2, 3, 1)``, which is a view when ``x`` is
+    ``channels_last``; the result is permuted back to an NCHW tensor that is
+    ``channels_last`` in memory.  Neither x nor y is copied, where cuDNN runs
+    float32 1x1 convs on channels_last maps as NCHW kernels between two
+    transposes.  It is the function of the conv, up to the order of the sums
+    (``ops/conv.py::pointwise_matmul`` in the JAX package).  A training
+    forward, and every other conv, takes torch's conv.  The JAX package gates
+    the matmul to maps of at most 196 pixels, a measurement of XLA's; on an
+    H100 in float32 the matmul beat cuDNN's conv at every 1x1 shape of MSCAN-t
+    at batch 64 (``chip_smoke.py``'s 1x1 table, ``PERF.md``), so it takes no gate.
+    """
+
+    def __init__(self, *args, pw_matmul: bool = False, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.pw_matmul = pw_matmul
+
+    def is_pointwise(self) -> bool:
+        return (self.kernel_size == (1, 1) and self.groups == 1 and self.stride == (1, 1)
+                and self.padding == (0, 0) and self.dilation == (1, 1))
+
+    def forward(self, x):
+        if self.pw_matmul and not self.training and self.is_pointwise():
+            y = F.linear(x.permute(0, 2, 3, 1), self.weight[:, :, 0, 0], self.bias)
+            return y.permute(0, 3, 1, 2)
+        return super().forward(x)
+
+
+def channels_last(module: nn.Module) -> nn.Module:
+    """Put every 4-d parameter and buffer of ``module`` in ``channels_last``, in
+    place, and return it.  ``Module.to(memory_format=...)`` would refuse the
+    5-d ``res_c`` of ``FixPaddingBias2d``."""
+    return module._apply(
+        lambda t: t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 else t)
 
 
 def flatten_hwc(x):

@@ -4,22 +4,45 @@ PostProcess, with hook dispatch between phases (port of
 
 The runner owns the model, its device and the generator its random weights
 come from.  No phase trains, so the model stays in eval mode throughout.
+``cfg.structure_passes`` (deploy rewrites such as ``fold_batchnorm``, by name)
+run after the weights are drawn or loaded and before the app's sites are
+initialized.
 """
 
 from __future__ import annotations
 
+import inspect
 import os
-from typing import List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
+from convnet_approximater_tpu_torch import deploy
 from convnet_approximater_tpu_torch.core import build_app
 from convnet_approximater_tpu_torch.filters import build_filter
 from convnet_approximater_tpu_torch.hooks import Hook, build_hook
 from convnet_approximater_tpu_torch.models import build_model
-from convnet_approximater_tpu_torch.nn import init_weights
+from convnet_approximater_tpu_torch.nn import channels_last, init_weights
 from convnet_approximater_tpu_torch.utils import (get_cfg, get_logger, get_rank, print_cfg,
                                                   save_cfg)
+
+
+# structure passes of the JAX package's deploy.py that the port does not have yet
+UNPORTED_PASSES = ("prune_chains", "prune_trunks", "prune_width")
+
+
+def structure_pass(cfg) -> Tuple[Callable, dict]:
+    """``(function of deploy.py, keyword arguments)`` of one ``structure_passes`` entry."""
+    kwargs = dict(cfg)
+    name = kwargs.pop("fn")
+    if name in UNPORTED_PASSES:
+        raise NotImplementedError(
+            f"structure_passes: the pass {name!r} is not ported to the PyTorch port yet "
+            f"(ROADMAP.md queue 1 item 9)")
+    fn = getattr(deploy, name, None)
+    if not (inspect.isfunction(fn) and fn.__module__ == deploy.__name__) or name.startswith("_"):
+        raise ValueError(f"structure_passes: deploy.py has no pass {name!r}")
+    return fn, kwargs
 
 
 def _overrides(method: str, base: type, obj) -> bool:
@@ -29,10 +52,7 @@ def _overrides(method: str, base: type, obj) -> bool:
 class Runner:
     def __init__(self, device="cuda", generator: Optional[torch.Generator] = None):
         cfg = get_cfg()
-        if cfg.structure_passes:
-            raise NotImplementedError(
-                f"structure_passes are not ported to the PyTorch port yet; the config sets "
-                f"{cfg.structure_passes}")
+        self.passes = [structure_pass(p) for p in cfg.structure_passes or []]
         self.cfg = cfg
         self.device = torch.device(device)
         self.generator = (generator if generator is not None
@@ -67,7 +87,13 @@ class Runner:
         logger.info("Initialize...")
         init_weights(model, self.generator)
         model.load_init_cfg()
-        model.to(self.device, memory_format=torch.channels_last).eval()
+        channels_last(model.to(self.device)).eval()
+        if self.passes:
+            self.apply_structure_passes()
+            # a pass may change the structure under the registered names;
+            # register again, with fresh filters (IndicesFilter counts)
+            model.register_switchable(app.src_type,
+                                      [build_filter(f) for f in self.cfg.filters or []])
         for idx in range(model.length_switchable):
             sub = app.initialize(model.get_switchable_module(idx), self.generator)
             model.set_switchable_module(idx, sub.eval())
@@ -81,12 +107,20 @@ class Runner:
         logger.info("PostProcess...")
         for idx in range(model.length_switchable):
             model.set_switchable_module(idx, app.postprocess(model.get_switchable_module(idx)))
-        model.to(memory_format=torch.channels_last)
+        channels_last(model)
 
         if self.output_path:
             torch.save(model.state_dict(), self.output_path)
             logger.info(f"saved model to {self.output_path}")
         self.call_hook("after_run")
+
+    def apply_structure_passes(self):
+        """``cfg.structure_passes``, in order: deploy rewrites by name (for
+        example ``dict(fn="fold_batchnorm")``), each called on the model with
+        the dict's other keys."""
+        for fn, kwargs in self.passes:
+            n = fn(self.model, **kwargs)
+            get_logger().info(f"structure pass {fn.__name__}: {n} sites")
 
     # -- hook machinery --------------------------------------------------
     def register_hook(self, hook_cfg):

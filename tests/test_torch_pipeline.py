@@ -127,8 +127,9 @@ def test_runner_d1_fix_matches_jax_runner(dense, images, tmp_path):
 @pytest.mark.parametrize("key,value", [("filters", [dict(type="IndicesFilter", indices=[1])]),
                                        ("structure_passes", [dict(fn="prune_chains")])])
 def test_runner_rejects_unported_config_parts(tmp_path, key, value):
-    """``structure_passes`` are not ported and raise; filters are ported, and
-    the port's Runner registers what the JAX Runner registers with them."""
+    """A structure pass the port does not have yet (``prune_chains``) raises;
+    filters are ported, and the port's Runner registers what the JAX Runner
+    registers with them."""
     from convnet_approximater_tpu.runner import Runner as JRunner
     from convnet_approximater_tpu.utils import config as jcfg
     from convnet_approximater_tpu_torch.runner import Runner
