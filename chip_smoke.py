@@ -96,7 +96,26 @@ From the root of a checkout, with no arguments:
    d1+fix) and a ``LowRankExpConvV1`` on the card: their input and parameter
    gradients against the module path's, no kernel launched under autograd,
    one launch each under ``torch.no_grad()``;
-10. prints one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+10. fine-tunes through the Runner at b = 64, 224^2, float32, TF32 off, on
+    Synthetic data from the seed (each run's cuts printed): F1, MSCAN-t asym
+    with MscaRep d0+fix (``configs/msca-rep/finetune/msca-rep-d0-fix_l2-asym_mscan-t.py``,
+    2 epochs of 4 steps): every loss finite, 13 ``msca_fused`` launches per
+    step (the teacher), the teacher's taps within 1e-5 of ``msca_fused_ref``,
+    student and teacher eval logits within 1e-4 before the first step, the
+    last checkpoint loading back bit for bit; prints the step, teacher,
+    optimizer, validation and checkpoint times, img/s, ``msca_fused``'s share
+    of a profiled step and the peak memory beside the card's name and power
+    limit.  F2, MSCAN-t asym with MscaRep d1+fix on block 1
+    (``configs/msca-rep/each_layer/msca-rep_d1_l1_fix_class-t.py``, drop rates
+    0, 4 steps): a step's loss and trainable gradient norm on the card within
+    1e-4 of the same step on the CPU, a held-out batch's L2 loss lower after
+    the steps, 13 ``msca_fused`` launches per validation forward.  F3, AlexNet
+    sym layer-wise (``configs/low-rank-exp/low-rank-exp-v1_l2345_svd_dodecomp_l2-sym_alexnet.py``,
+    Synthetic for CIFAR-10, 8 epochs of 4 steps): each epoch moves only the new
+    branch of its layer, every other parameter bit-equal; the validation
+    forward launches ``lowrank_conv`` once per layer (4 before training), and
+    once per layer whose bases all channels still share after training;
+11. prints one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
 
 Every failed check exits non-zero without the result lines, as does a run
 without a CUDA device or outside a checkout of the repository.  Random weights
@@ -105,6 +124,7 @@ come from a seeded generator; no network is used.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1745,6 +1765,485 @@ def run_headline():
     return pw_rows
 
 
+# -- 10. fine-tuning ------------------------------------------------------------
+FT_D0 = os.path.join(REPO, "configs", "msca-rep", "finetune", "msca-rep-d0-fix_l2-asym_mscan-t.py")
+FT_D1 = os.path.join(REPO, "configs", "msca-rep", "each_layer", "msca-rep_d1_l1_fix_class-t.py")
+FT_ALEX = os.path.join(REPO, "configs", "low-rank-exp",
+                       "low-rank-exp-v1_l2345_svd_dodecomp_l2-sym_alexnet.py")
+FT_STEPS = 4          # steps per epoch: the hook's default Synthetic(256) at batch 64
+FT_TAP_TOL = 1e-5     # the teacher's taps through msca_fused against msca_fused_ref
+FT_CPU_TOL = 1e-4     # a step's loss and gradient norm on the card against the CPU's
+FT_CPU_BATCH = 8      # images of the first training batch the CPU step is run on
+MSCA_BLOCKS = 13
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (checks against the plain versions, and
+    measurements) leave every kernel's launch count as it was."""
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    fns = (fused_ops.msca_fused, lowrank_ops.lowrank_conv, cascade_ops.parallel_cascade,
+           qmatmul_ops.qmatmul)
+    saved = [f.launches for f in fns]
+    try:
+        yield
+    finally:
+        for f, n in zip(fns, saved):
+            f.launches = n
+
+
+class FinetuneProbe:
+    """Instrumentation of one L2Reconstruct run through the Runner: the
+    launches of ``counter``'s kernel in each training step and each
+    validation forward, each step's loss and CUDA-event time, each checkpoint
+    save's host time, and callbacks before the first epoch (``first``, given
+    the train loader), around every epoch (``before_epoch``/``after_epoch``)
+    and after the hook (``last``)."""
+
+    def __init__(self, counter, first=None, before_epoch=None, after_epoch=None, last=None):
+        self.counter = counter
+        self.first, self.before_epoch, self.after_epoch, self.last = (
+            first, before_epoch, after_epoch, last)
+        self.step_calls, self.eval_calls, self.losses, self.events, self.saves = (
+            [], [], [], [], [])
+
+    def patches(self):
+        import torch
+
+        from convnet_approximater_tpu_torch.hooks import finetune as ft
+
+        probe = self
+        train_step = ft.L2Reconstruct.train_step
+        one_epoch = ft.L2Reconstruct._train_one_epoch
+        after_optimize = ft.L2Reconstruct.after_optimize
+        save, eval_batch = ft.CheckpointSaver.save_checkpoint, ft.eval_batch
+
+        def counting(fn, calls):
+            def wrapped(*args, **kwargs):
+                n = probe.counter.launches
+                out = fn(*args, **kwargs)
+                calls.append(probe.counter.launches - n)
+                return out
+            return wrapped
+
+        def step(hook, *args, **kwargs):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            n = probe.counter.launches
+            start.record()
+            out = train_step(hook, *args, **kwargs)
+            end.record()
+            probe.step_calls.append(probe.counter.launches - n)
+            probe.events.append((start, end))
+            probe.losses.append(out[0])
+            return out
+
+        def epoch(hook, e, loader, *args, **kwargs):
+            if e == 0 and probe.first:
+                with uncounted():
+                    probe.first(hook, loader)
+            if probe.before_epoch:
+                probe.before_epoch(hook, e)
+            out = one_epoch(hook, e, loader, *args, **kwargs)
+            if probe.after_epoch:
+                with uncounted():
+                    probe.after_epoch(hook, e)
+            return out
+
+        def hook_run(hook):
+            after_optimize(hook)
+            if probe.last:
+                kept = [(v, len(v)) for v in (probe.losses, probe.events, probe.step_calls)]
+                with uncounted():
+                    probe.last(hook)
+                for v, n in kept:  # the run's steps only, not the measurements'
+                    del v[n:]
+
+        def timed_save(saver, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = save(saver, *args, **kwargs)
+            probe.saves.append(time.perf_counter() - t0)
+            return out
+
+        return [mock.patch.object(ft, "eval_batch", counting(eval_batch, self.eval_calls)),
+                mock.patch.object(ft.L2Reconstruct, "train_step", step),
+                mock.patch.object(ft.L2Reconstruct, "_train_one_epoch", epoch),
+                mock.patch.object(ft.L2Reconstruct, "after_optimize", hook_run),
+                mock.patch.object(ft.CheckpointSaver, "save_checkpoint", timed_save)]
+
+    def step_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def run_finetune_cfg(config, work_dir, probe, edit_hook, **cfg_updates):
+    """The Runner on ``config`` on the card, seed 0, its L2Reconstruct hook's
+    arguments edited by ``edit_hook`` (the listed cuts), under ``probe``;
+    (runner, seconds)."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.runner import Runner
+    from convnet_approximater_tpu_torch.utils import build_logger, get_cfg, init_cfg, update_cfg
+
+    init_cfg(config)
+    cfg = get_cfg()
+    hooks = copy.deepcopy(list(cfg.hooks))
+    edit_hook(hooks[0])
+    os.makedirs(work_dir, exist_ok=True)
+    build_logger(os.path.join(work_dir, "run.log"))
+    update_cfg(hooks=hooks, work_dir=work_dir, config_name=cfg.name, seed=0, **cfg_updates)
+    patches = probe.patches()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        runner = Runner(device="cuda", generator=torch.Generator().manual_seed(0))
+        runner.run()
+    torch.cuda.synchronize()
+    return runner, time.perf_counter() - t0
+
+
+def held_out(num_classes: int, n: int = BATCH, seed: int = 7):
+    """One batch of ``n`` Synthetic images at 224^2 that no training step sees."""
+    from convnet_approximater_tpu_torch.data import Loader, Synthetic
+
+    ds = Synthetic(n, (224, 224, 3), num_classes, seed=seed, split="validation")
+    return next(iter(Loader(ds, n, device="cuda", prefetch=0)))
+
+
+def probe_step(hook, images, labels, model=None, teacher=None):
+    """``(loss, global norm of the trainable gradients)`` of a training step on a
+    batch, computed as the step computes it, with no update; the BatchNorm
+    state is saved and restored around it and the gradients cleared."""
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import release_taps
+
+    model = model if model is not None else hook.runner.model
+    buffers = {n: b.clone() for n, b in model.named_buffers()}
+    for p in model.parameters():
+        p.grad = None
+    loss, _, _ = hook.loss(images, labels, model=model, teacher=teacher)
+    loss.backward()
+    trainable = hook.trainable(-1)
+    gnorm = torch.stack([p.grad.pow(2).sum() for n, p in model.named_parameters()
+                         if n in trainable and p.grad is not None]).sum().sqrt()
+    with torch.no_grad():
+        for n, b in model.named_buffers():
+            b.copy_(buffers[n])
+    for p in model.parameters():
+        p.grad = None
+    release_taps(model)
+    model.eval()
+    return loss.item(), gnorm.item()
+
+
+def smi_line() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
+
+
+def check_ckpt_loads_back(hook, model, work_dir):
+    """The last checkpoint the hook wrote holds the model's weights bit for bit."""
+    from convnet_approximater_tpu_torch.convert import load_jax_flat, params_to_jax
+    from convnet_approximater_tpu_torch.utils import load_flat
+
+    path = os.path.join(work_dir, "last.ckpt.npz")
+    flat = load_flat(path)
+    want = params_to_jax(model.state_dict())
+    if set(k for k in flat if k.split("/")[0] in ("params", "state")) != set(want):
+        fail(f"{path}: its params/state keys differ from the model's")
+    if any(not np.array_equal(flat[k], v) for k, v in want.items()):
+        fail(f"{path}: a weight does not load back bit for bit")
+    import copy
+
+    clone = copy.deepcopy(model)
+    load_jax_flat(clone, flat)
+    sd, back = model.state_dict(), clone.state_dict()
+    if any(not (sd[k] == back[k]).all() for k in sd):
+        fail(f"{path}: loading it into the model changes a weight")
+    meta = (int(flat["meta/epoch"]), float(flat["meta/metric"]))
+    print(f"F1 checkpoint {os.path.relpath(path, REPO)}: {len(want)} weights and "
+          f"{sum(k.startswith('opt/') for k in flat)} optimizer leaves, epoch {meta[0]}; "
+          f"loads back bit for bit")
+
+
+def run_ft_d0():
+    """F1: MSCAN-t asym, the exact rewrite (MscaRep d0+fix on all 13 blocks)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.classification import eval_batch
+    from convnet_approximater_tpu_torch.layers import release_taps
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_ft_d0")
+    x, y = held_out(10)
+    stats = {}
+
+    def first(hook, loader):
+        student, teacher = hook.runner.model, hook.teacher
+        with torch.no_grad():
+            y_student = student.eval()(x)
+            y_teacher = teacher(x)
+            _, taps = hook.teacher_pass(x)
+            with mock.patch.object(fused_ops, "msca_fused", fused_ops.msca_fused_ref):
+                _, taps_ref = hook.teacher_pass(x)
+        err = rel_err(y_student, y_teacher)
+        tap_err = max(rel_err(taps[k], taps_ref[k]) for k in taps)
+        print(f"F1 before the first step: student (d0+fix, module path) against teacher "
+              f"(dense, msca_fused) eval logits {tuple(y_student.shape)}: rel err {err:.3e} "
+              f"(bound {LOGITS_TOL}); the teacher's {len(taps)} taps against msca_fused_ref: "
+              f"max rel err {tap_err:.3e} (bound {FT_TAP_TOL})")
+        if len(taps) != MSCA_BLOCKS or err > LOGITS_TOL or tap_err > FT_TAP_TOL:
+            fail("F1: the teacher is not the original model on the kernel route")
+
+    def last(hook):
+        model = hook.runner.model
+        check_ckpt_loads_back(hook, model, work_dir)
+        stats["peak"] = torch.cuda.max_memory_allocated()
+        # one steady step profiled, then its parts timed alone
+        mask = hook.trainable(-1)
+        step = lambda: hook.train_step(x, y, mask)
+        stats["step_prof"] = profile_share("one F1 training step", step)
+        stats["teacher_ms"] = cuda_ms(lambda: hook.teacher_pass(x), iters=10)
+        loss, _, _ = hook.loss(x, y)
+        loss.backward()
+        stats["opt_ms"] = cuda_ms(lambda: hook.optimizer.step(mask), iters=10)
+        hook.optimizer.zero_grad()
+        release_taps(model)
+        stats["val_ms"] = cuda_ms(lambda: eval_batch(model, x, y), iters=10)
+
+    probe = FinetuneProbe(fused_ops.msca_fused, first=first, last=last)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runner, run_s = run_finetune_cfg(FT_D0, work_dir, probe,
+                                     lambda h: h["sche_args"].update(epochs=2))
+    launches = fused_ops.msca_fused.launches
+    hook = runner.hooks[0]
+    steps = len(probe.losses)
+    losses = [float(v) for v in probe.losses]
+    print(f"F1 {os.path.relpath(FT_D0, REPO)} through the Runner in {run_s:.2f} s, cut: "
+          f"sche_args.epochs 20 -> 2 ({FT_STEPS} steps each on the hook's default "
+          f"Synthetic(256), b = {BATCH}, 224^2, f32, TF32 off); {steps} steps, losses "
+          f"{', '.join(f'{v:.6g}' for v in losses)}")
+    if steps != 2 * FT_STEPS or not all(np.isfinite(losses)):
+        fail("F1: a loss is not finite, or the run took another number of steps")
+    print(f"F1 msca_fused launches: {probe.step_calls} per training step, all in the "
+          f"teacher's forward (each call is 2 kernels), {probe.eval_calls} per validation "
+          f"forward of the d0+fix student (a dense 21x21 bank: the module path); {launches} "
+          f"in the run")
+    if (probe.step_calls != [MSCA_BLOCKS] * steps
+            or launches != MSCA_BLOCKS * steps + sum(probe.eval_calls)):
+        fail(f"F1: the teacher must launch msca_fused {MSCA_BLOCKS} times per step")
+    times = probe.step_ms()[1:]
+    step_ms = float(np.median(times))
+    prof_ms, msca_ms = stats["step_prof"]
+    smi = smi_line()
+    print(f"F1 fine-tune of MSCAN-t d0+fix asym, b = {BATCH}, 224^2, f32 [{smi}]: "
+          f"median {step_ms:.3f} ms per training step over steps 2-{steps} (CUDA events), "
+          f"{BATCH / step_ms * 1e3:.1f} img/s; teacher forward {stats['teacher_ms']:.3f} ms; "
+          f"optimizer step {stats['opt_ms']:.3f} ms; validation {stats['val_ms']:.3f} ms per "
+          f"batch of {BATCH}; checkpoint save {', '.join(f'{s:.3f}' for s in probe.saves)} s; "
+          f"max_memory_allocated {stats['peak'] / 2**30:.2f} GiB")
+    if prof_ms is not None:
+        print(f"F1 one training step under torch.profiler [{smi}]: {prof_ms:.3f} ms of device "
+              f"time, msca_fused (march + mix) {msca_ms:.3f} ms = "
+              f"{100 * msca_ms / prof_ms:.2f} % of it")
+    del runner, hook
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_share(name, fn, n: int = 2):
+    """(device ms of one ``fn()``, device ms of msca_fused's kernels in it),
+    from torch.profiler over ``n`` calls after one, with the 10 largest kernels
+    printed; (None, None) when the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = getattr(e, "cuda_time_total", 0.0)
+        rows.append((us / 1e3 / n, e.count // n, e.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    if not rows:
+        print(f"profile of {name}: torch.profiler recorded no device time (not measured)")
+        return None, None
+    print(f"profile of {name} (torch.profiler, {n} calls): {total:.3f} device ms per call; "
+          f"the 10 largest kernels (ms per call, launches per call):")
+    for ms, count, kname in rows[:10]:
+        print(f"  {ms:8.3f} ms  x{count:<4d} {kname[:100]}")
+    return total, sum(r[0] for r in rows if any(k in r[2] for k in MSCA_KERNELS))
+
+
+def run_ft_d1():
+    """F2: MSCAN-t asym, inexact (MscaRep d1+fix on block 1), drop rates 0."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import drop_generator
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.utils import get_cfg, init_cfg
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_ft_d1")
+    x_held, y_held = held_out(10)
+    held = {}
+
+    def first(hook, loader):
+        held["before"] = probe_step(hook, x_held, y_held)[0]
+        x, y = (t[:FT_CPU_BATCH] for t in next(iter(loader)))
+        gpu = probe_step(hook, x, y)
+        with drop_generator(hook.runner.model, None):
+            cpu_model = copy.deepcopy(hook.runner.model).cpu()
+        cpu_teacher = copy.deepcopy(hook.teacher).cpu()
+        t0 = time.perf_counter()
+        cpu = probe_step(hook, x.cpu(), y.cpu(), model=cpu_model, teacher=cpu_teacher)
+        errs = [abs(a - b) / abs(b) for a, b in zip(gpu, cpu)]
+        print(f"F2 the first training batch's first {FT_CPU_BATCH} images, one step with no "
+              f"update: loss {gpu[0]:.7g} on the card, {cpu[0]:.7g} on the CPU (rel err "
+              f"{errs[0]:.3e}); trainable gradient norm {gpu[1]:.7g} and {cpu[1]:.7g} (rel err "
+              f"{errs[1]:.3e}); bound {FT_CPU_TOL}; CPU step {time.perf_counter() - t0:.2f} s")
+        if max(errs) > FT_CPU_TOL:
+            fail("F2: the step on the card disagrees with the same step on the CPU")
+
+    def last(hook):
+        held["after"] = probe_step(hook, x_held, y_held)[0]
+
+    probe = FinetuneProbe(fused_ops.msca_fused, first=first, last=last)
+    init_cfg(FT_D1)
+    model_cfg = dict(get_cfg().model, drop_path_rate=0.0, drop_rate=0.0)
+    reset_counts()
+    runner, run_s = run_finetune_cfg(FT_D1, work_dir, probe,
+                                     lambda h: h["sche_args"].update(epochs=1), model=model_cfg)
+    launches = fused_ops.msca_fused.launches
+    steps = len(probe.losses)
+    print(f"F2 {os.path.relpath(FT_D1, REPO)} through the Runner in {run_s:.2f} s, cuts: "
+          f"drop_path_rate 0.1 -> 0, sche_args.epochs 20 -> 1 ({steps} steps, b = {BATCH}); "
+          f"held-out L2 loss (b = {BATCH}) {held['before']:.7g} before, {held['after']:.7g} "
+          f"after; msca_fused launches {probe.step_calls} per training step, "
+          f"{probe.eval_calls} per validation forward; {launches} in the run")
+    if steps != FT_STEPS or not held["after"] < held["before"]:
+        fail("F2: 4 steps did not lower the held-out L2 loss")
+    if probe.eval_calls != [MSCA_BLOCKS] * len(probe.eval_calls) or not probe.eval_calls:
+        fail(f"F2: the validation forward must launch msca_fused {MSCA_BLOCKS} times")
+    times = probe.step_ms()[1:]
+    print(f"F2 fine-tune of MSCAN-t d1+fix (block 1) asym [{smi_line()}]: median "
+          f"{float(np.median(times)):.3f} ms per training step over steps 2-{steps}")
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_ft_alexnet():
+    """F3: AlexNet sym, layer-wise (convs 2-5 as separable LowRankExpConvV1,
+    epoch_behavior [0, 0, 1, 1, 2, 2, 3, 3])."""
+    import torch
+
+    from convnet_approximater_tpu_torch.classification import eval_batch
+    from convnet_approximater_tpu_torch.layers import LowRankExpConvV1
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_ft_alexnet")
+    x, y = held_out(10)
+    snaps, shared, before_calls = {}, [], []
+
+    def first(hook, loader):
+        model = hook.runner.model
+        n = lowrank_ops.lowrank_conv.launches
+        eval_batch(model.eval(), x, y)
+        before_calls.append(lowrank_ops.lowrank_conv.launches - n)
+
+    def before_epoch(hook, e):
+        snaps[e] = {n: p.detach().clone() for n, p in hook.runner.model.named_parameters()}
+
+    def after_epoch(hook, e):
+        model = hook.runner.model
+        layer = model.switchable_names[hook.epoch_behavior[e]]
+        before = snaps.pop(e)
+        moved = {n for n, p in model.named_parameters() if not torch.equal(p, before[n])}
+        branch = {n for n, _ in model.named_parameters() if n.startswith(f"{layer}.new.")}
+        if not moved or not moved <= branch:
+            fail(f"F3 epoch {e}: parameters outside {layer}.new moved, or none moved: "
+                 f"{sorted(moved - branch)[:4]}")
+        with torch.no_grad():
+            shared.append(sum(m.bases_shared() for m in model.modules()
+                              if isinstance(m, LowRankExpConvV1)))
+        print(f"F3 epoch {e}: {len(moved)} of the {len(branch)} parameters of {layer}.new "
+              f"moved, every other parameter (and every old branch) bit-equal")
+
+    def edit(h):
+        h["dataset_args"].update(dataset=None)
+        h["other_args"].update(max_steps_per_epoch=FT_STEPS, checkpoint_hist=1)
+
+    def last(hook):
+        profile_share("one F3 training step (layer 3's epochs)",
+                      lambda: hook.train_step(x, y, hook.trainable(3)))
+
+    probe = FinetuneProbe(lowrank_ops.lowrank_conv, first=first, before_epoch=before_epoch,
+                          after_epoch=after_epoch, last=last)
+    reset_counts()
+    runner, run_s = run_finetune_cfg(FT_ALEX, work_dir, probe, edit)
+    launches = lowrank_ops.lowrank_conv.launches
+    hook = runner.hooks[0]
+    norms = ", ".join(f"{r['train_norm']:.6g}" for r in
+                      summary_rows(os.path.join(work_dir, "summary.csv")))
+    ckpt_mib = os.path.getsize(os.path.join(work_dir, "last.ckpt.npz")) / 2**20
+    print(f"F3 {os.path.relpath(FT_ALEX, REPO)} through the Runner in {run_s:.2f} s, cuts: "
+          f"dataset CIFAR10 -> None (Synthetic, 10 classes: no CIFAR-10 in the repository), "
+          f"{FT_STEPS} steps per epoch, checkpoint_hist 10 -> 1 (each checkpoint of AlexNet "
+          f"with its optimizer state is {ckpt_mib:.0f} MiB); logged L2 norm per epoch (not "
+          f"gated): {norms}")
+    per_epoch = len(probe.eval_calls) // max(len(shared), 1)
+    print(f"F3 lowrank_conv launches per validation forward: {before_calls} before training, "
+          f"then {probe.eval_calls} ({per_epoch} batches per epoch) after epochs 0-7; "
+          f"{probe.step_calls} per training step; layers whose bases are still shared by "
+          f"every input channel after each epoch: {shared} (a trained layer's bases differ "
+          f"per channel, so it takes the module path); {launches} in the run")
+    if (before_calls != [4] or len(shared) != 8 or per_epoch == 0
+            or probe.eval_calls != [s for s in shared for _ in range(per_epoch)]):
+        fail("F3: the validation forward must launch lowrank_conv once per layer whose bases "
+             "the kernel can express (4 before training)")
+    times = probe.step_ms()[1:]
+    print(f"F3 fine-tune of AlexNet scheme-1 sym [{smi_line()}]: median "
+          f"{float(np.median(times)):.3f} ms per training step over steps 2-{len(times) + 1}; "
+          f"checkpoint save median {float(np.median(probe.saves)):.3f} s")
+    del runner, hook
+    torch.cuda.empty_cache()
+    return launches
+
+
+def summary_rows(path):
+    lines = open(path).read().strip().split("\n")
+    header = lines[0].split(",")
+    return [dict(zip(header, map(float, line.split(",")))) for line in lines[1:]]
+
+
+def run_finetune():
+    """F1-F3, each driven with the launch counts at 0 and read after it."""
+    return run_ft_d0(), run_ft_d1(), run_ft_alexnet()
+
+
 def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
     """The kernels-line entry of one forward: rows weighted by calls per forward."""
     nbytes = sum(r["bytes"] * weight(r) for r in rows)
@@ -1819,7 +2318,10 @@ def main():
     # -- 9. gradients through eval-mode kernel layers ---------------------
     check_eval_grad(gen)
 
-    # -- 10. results ------------------------------------------------------
+    # -- 10. fine-tuning: F1-F3 -------------------------------------------
+    run_finetune()
+
+    # -- 11. results ------------------------------------------------------
     # each entry is one forward at b=64, 224^2: the time per call times the calls per forward
     # (parallel_cascade: the DwSepRep r1 forward of ConvNeXt-T; qmatmul: its int8 forward)
     blocks = {H: n for H, _, n in STAGES}

@@ -1,4 +1,4 @@
-"""Carry the JAX package's weights across to the port.
+"""Carry weights between the JAX package and the port.
 
 :func:`params_from_jax` turns a flat ``{'params': ..., 'state': ...}`` tree of
 the JAX package (keys ``/``-joined, as :func:`~.utils.serialize.flatten_tree`
@@ -18,7 +18,10 @@ leaves:
   and 0-d ``act_scale``) as is.
 
 This is the inverse direction of ``scripts/ckpt_converter/torch_to_tpu.py``'s
-``convert_conv``/``convert_linear``.
+``convert_conv``/``convert_linear``.  :func:`params_to_jax` is the inverse of
+:func:`params_from_jax`, so the port writes its checkpoints in the JAX
+package's flat ``/``-joined npz layout, and :func:`load_jax_flat` loads either
+package's into a port model.
 """
 
 from __future__ import annotations
@@ -27,6 +30,10 @@ from typing import Dict
 
 import numpy as np
 import torch
+from torch import nn
+
+from convnet_approximater_tpu_torch.utils.logger import get_logger
+from convnet_approximater_tpu_torch.utils.serialize import unflatten_tree
 
 _STATE_NAMES = {"mean": "running_mean", "var": "running_var"}
 
@@ -54,3 +61,51 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         name, v = _leaf(collection, name, np.asarray(v))
         out[".".join(prefix + [name])] = torch.tensor(v)
     return out
+
+
+def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's ``state_dict`` -> JAX ``params/...`` and ``state/...`` leaves
+    (OIHW -> HWIO, ``(out, in)`` -> ``(in, out)``, a norm's 1-d ``weight`` ->
+    ``scale``, ``running_mean``/``running_var`` -> state ``mean``/``var``)."""
+    out = {}
+    for key, t in state_dict.items():
+        *prefix, name = key.split(".")
+        v = t.detach().cpu().numpy()
+        collection = "params"
+        if name in ("running_mean", "running_var"):
+            collection, name = "state", name[len("running_"):]
+        elif name in ("weight", "weight_q") and v.ndim == 4:
+            v = np.transpose(v, (2, 3, 1, 0))
+        elif name in ("weight", "weight_q") and v.ndim == 2:
+            v = np.transpose(v, (1, 0))
+        elif name == "weight" and v.ndim == 1:
+            name = "scale"
+        out["/".join([collection] + prefix + [name])] = np.ascontiguousarray(v).copy()
+    return out
+
+
+def variables_of(model: nn.Module) -> dict:
+    """``{'params': ..., 'state': ...}`` of ``model`` in the JAX package's
+    layout, as nested numpy trees (what its ``save_model`` writes)."""
+    return unflatten_tree(params_to_jax(model.state_dict()))
+
+
+def load_jax_flat(model: nn.Module, flat: Dict[str, np.ndarray]):
+    """Load the ``params/...`` and ``state/...`` leaves of a flat checkpoint
+    tree into ``model``, non-strict: a leaf of another shape is skipped with
+    a warning, and missing and unexpected keys are logged (the JAX package's
+    ``load_into``).  Other collections (``opt``, ``meta``) are ignored."""
+    logger = get_logger()
+    state = params_from_jax({k: v for k, v in flat.items()
+                             if k.split("/", 1)[0] in ("params", "state")})
+    own = model.state_dict()
+    for k in sorted(set(state) & set(own)):
+        if state[k].shape != own[k].shape:
+            logger.warning(f"shape mismatch for {k}: ckpt {tuple(state[k].shape)} "
+                           f"vs model {tuple(own[k].shape)}; skipped")
+            del state[k]
+    missing, unexpected = model.load_state_dict(state, strict=False)
+    if missing:
+        logger.warning(f"missing keys in checkpoint: {missing}")
+    if unexpected:
+        logger.warning(f"unexpected keys in checkpoint: {unexpected}")

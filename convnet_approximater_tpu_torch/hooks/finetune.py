@@ -1,0 +1,693 @@
+"""L2Reconstruct: fine-tuning by per-layer L2 reconstruction, cross-entropy
+and logit distillation (port of ``convnet_approximater_tpu/hooks/finetune.py``).
+
+The hook trains ``runner.model`` in place on ``runner.device`` after the
+Optimize phase:
+
+* **asym** keeps a frozen teacher, the original model: a deep copy of the
+  student taken before training, with every Substitution switched to its
+  ``old`` branch and ``new`` removed (what the JAX hook's rebuild computes);
+  the student keeps only its ``new`` branches.
+* **sym** keeps both branches on the student; the teacher pass is the
+  student's own forward forced down the ``old`` branches
+  (:func:`~convnet_approximater_tpu_torch.layers.forced_branch`).
+* Either teacher pass runs in ``eval()`` under ``torch.no_grad()``, so the
+  kernel layers on it take their kernels, and the sym pass runs *before* the
+  student's training forward, so it reads the BatchNorm state from before
+  the step, as the JAX step does.
+* The loss is the JAX step's: the per-sample norm of each captured
+  Substitution's output difference, averaged over the taps and then over the
+  batch, plus ``cls_weight`` cross-entropy and ``kd_weight`` T^2-scaled
+  soft-target KL.
+* The optimizer keeps every parameter, with one step count for all of them
+  (:class:`MaskedOptimizer`): frozen parameters get zero gradients before the
+  step, so their moments decay as optax's do, and zero updates, so decoupled
+  weight decay cannot move them.  ``old`` branches are always frozen.
+* DropPath and Dropout masks come from a generator the hook owns, seeded from
+  the run's seed and the step count (the JAX hook's ``fold_in(rng, step)``).
+* SIGTERM stops at the next step boundary and saves the full train state
+  (:class:`~convnet_approximater_tpu_torch.utils.preempt.PreemptionGuard`);
+  ``resume`` restores weights, optimizer and epoch from the port's own
+  checkpoints, and weights only from the JAX package's.
+
+Checkpoints are the JAX package's flat npz layout, with the optimizer state
+under ``opt`` and the epoch and metric under ``meta``.  The model goes back to
+``eval()`` when the hook returns.
+"""
+
+from __future__ import annotations
+
+import copy
+import os
+import shutil
+import time
+from typing import Callable, Dict, Iterable, Optional, Set, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from convnet_approximater_tpu_torch.classification import AverageMeter, eval_batch
+from convnet_approximater_tpu_torch.classification.validate import AMP_TODO, MESH_TODO
+from convnet_approximater_tpu_torch.convert import load_jax_flat, variables_of
+from convnet_approximater_tpu_torch.data import Loader, Synthetic, build_dataset
+from convnet_approximater_tpu_torch.data.loader import check_aug
+from convnet_approximater_tpu_torch.layers import drop_generator, forced_branch, release_taps, taps
+from convnet_approximater_tpu_torch.utils import (get_logger, get_rank, load_flat, save_model,
+                                                  unflatten_tree)
+from convnet_approximater_tpu_torch.utils.config import Config
+from convnet_approximater_tpu_torch.utils.preempt import Preempted, PreemptionGuard
+
+from .hook import HOOK, Hook
+
+SHARDED_TODO = "the sharded checkpoint backend is ROADMAP.md queue 1 item 7"
+
+_default_dataset_args = dict(
+    dataset=None,  # DATASET registry cfg; None -> Synthetic data
+    batch_size=64,
+)
+
+_default_data_config = dict(
+    image_size=(224, 224),
+    mean=(0.485, 0.456, 0.406),
+    std=(0.229, 0.224, 0.225),
+    # train-loader augmentation (hflip, crop_pad, rrc_scale); None = none, the
+    # reference's L2 phase
+    aug=None,
+)
+
+_default_optim_args = dict(opt="adamw", lr=1e-3, momentum=0.9, weight_decay=0.05, eps=1e-8)
+
+_default_sche_args = dict(epochs=20, sched=None, min_lr=1e-6, warmup_epochs=0, decay_rate=0.1)
+
+_default_other_args = dict(
+    log_interval=50,
+    resume="",
+    start_epoch=None,
+    eval_metric="top1",
+    checkpoint_hist=10,
+    num_classes=10,
+    max_steps_per_epoch=None,  # cap for smoke runs
+    max_eval_batches=None,
+    use_mesh=True,
+    model_parallel=1,
+    tp_rules=None,
+    amp=False,
+    ckpt_backend="npz",
+)
+
+
+def _combine(default: dict, new: dict) -> Config:
+    cfg = Config()
+    cfg.update(default)
+    cfg.update(new or {})
+    return cfg
+
+
+# -- optimizer ---------------------------------------------------------------
+def lr_schedule(optim_args: Config, sche_args: Config,
+                steps_per_epoch: int) -> Callable[[int], float]:
+    """The learning rate of update ``count`` (counted from 0), as the JAX
+    hook's optax schedule gives it, in float32 as optax computes it:
+    ``cosine`` is ``warmup_cosine_decay_schedule(0, lr, warmup, epochs *
+    steps, min_lr)`` (its decay steps include the warmup, so a warmup makes
+    lr(0) = 0), ``step`` a staircase ``exponential_decay`` by ``decay_rate``
+    per epoch, anything else the constant ``lr``."""
+    f32 = np.float32
+    base = float(optim_args.lr)
+    sched = sche_args.sched
+    if sched in ("cosine", "cosine_annealing"):
+        warmup = int(sche_args.warmup_epochs * steps_per_epoch)
+        decay = sche_args.epochs * steps_per_epoch - warmup
+        if decay <= 0:
+            raise ValueError(f"cosine schedule: {sche_args.epochs} epochs of {steps_per_epoch} "
+                             f"steps leave no decay steps after {warmup} warmup steps")
+        alpha = f32(0.0 if base == 0.0 else sche_args.min_lr / base)
+
+        def cosine(count: int) -> float:
+            if count < warmup:  # optax.linear_schedule(0, lr, warmup)
+                return float(f32(0.0 - base) * (f32(1) - f32(count) / f32(warmup)) + f32(base))
+            c = f32(min(count - warmup, decay))
+            cos = f32(0.5) * (f32(1) + np.cos(f32(np.pi) * c / f32(decay)))
+            return float(f32(base) * ((f32(1) - alpha) * cos + alpha))
+
+        return cosine
+    if sched == "step" and steps_per_epoch > 0 and sche_args.decay_rate != 0:
+        rate = f32(sche_args.decay_rate)
+        return lambda count: base if count <= 0 else float(
+            f32(base) * rate ** f32(count // steps_per_epoch))
+    return lambda count: base
+
+
+def unitwise_norm(x: torch.Tensor, name: str) -> torch.Tensor:
+    """optax's ``unitwise_norm`` of the JAX package's layout of parameter
+    ``name``, in the port's: a conv weight OIHW is HWIO there (norm over each
+    output channel), a Linear weight (out, in) is (in, out) there (norm over
+    each output unit)."""
+    transposed = name.rsplit(".", 1)[-1] in ("weight", "weight_q")
+    if x.squeeze().dim() <= 1:
+        return x.pow(2).sum().sqrt()
+    if x.dim() == 2:
+        dims = (1,) if transposed else (0,)
+    elif x.dim() == 3:
+        dims = (0,)
+    elif x.dim() == 4:
+        dims = (1, 2, 3) if transposed else (0, 1, 2)
+    else:
+        raise ValueError(f"adaptive clipping: parameter {name} of shape {tuple(x.shape)} "
+                         f"has no unit-wise norm")
+    return x.pow(2).sum(dim=dims, keepdim=True).sqrt()
+
+
+class MaskedOptimizer:
+    """The JAX hook's optax optimizer, in torch's foreach tensor ops with
+    optax's arithmetic, over every parameter of a model, stepped under a
+    freeze mask.
+
+    * ``adamw``: ``optax.adamw``, weight decay added to the update before the
+      learning rate scales it (decoupled);
+    * ``adam`` and ``sgd``/``momentum``: ``optax.adam`` / ``optax.sgd``, with
+      no weight decay whatever ``optim_args`` says, as optax's take none;
+    * the learning rate of update n is :func:`lr_schedule`'s lr(n);
+    * ``clip_grad`` > 0 clips the masked gradients first, by ``clip_mode``:
+      ``norm`` (global norm, with no epsilon added), ``value`` or ``agc``
+      (unit-wise, against the parameters' norms), as optax does.
+
+    optax takes Adam's bias corrections ``1 - b^t`` in float32, where
+    ``torch.optim.Adam`` takes them in float64: after 5 steps the two differ
+    by 6e-6 relative, so this optimizer does not wrap ``torch.optim``.  The
+    state (zero moments, or a zero momentum trace) is made at construction
+    and has one step count for all parameters, as optax's.
+    """
+
+    B1, B2 = 0.9, 0.999  # optax.adam(w)'s defaults
+
+    def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]], optim_args: Config,
+                 sche_args: Config, steps_per_epoch: int):
+        self.named = list(named_params)
+        self.kind = optim_args.opt
+        if self.kind == "adamw":
+            self.weight_decay = float(optim_args.weight_decay)
+        elif self.kind in ("adam", "sgd", "momentum"):
+            self.weight_decay = 0.0
+        else:
+            raise ValueError(f"unknown optimizer {self.kind}")
+        self.eps = float(optim_args.eps)
+        self.momentum = float(optim_args.momentum or 0.0)
+        self.lr = lr_schedule(optim_args, sche_args, steps_per_epoch)
+        self.clip = float(optim_args.clip_grad or 0.0)
+        self.clip_mode = optim_args.clip_mode or "norm"
+        if self.clip > 0 and self.clip_mode not in ("norm", "value", "agc"):
+            raise ValueError(f"unknown clip_mode {self.clip_mode}")
+        self.count = 0
+        names = ("trace",) if self.kind in ("sgd", "momentum") else ("mu", "nu")
+        self.state = {name: {k: torch.zeros_like(p) for k in names} for name, p in self.named}
+
+    def zero_grad(self):
+        for _, p in self.named:
+            p.grad = None
+
+    def _clip(self, grads, params):
+        if self.clip <= 0:
+            return
+        if self.clip_mode == "value":
+            torch._foreach_clamp_min_(grads, -self.clip)
+            torch._foreach_clamp_max_(grads, self.clip)
+        elif self.clip_mode == "norm":
+            norm = torch.stack([g.pow(2).sum() for g in grads]).sum().sqrt()
+            for g in grads:
+                g.copy_(torch.where(norm < self.clip, g, g / norm * self.clip))
+        else:
+            for (name, _), g, p in zip(self.named, grads, params):
+                g_norm = unitwise_norm(g, name)
+                max_norm = self.clip * unitwise_norm(p, name).clamp_min(1e-3)
+                g.copy_(torch.where(g_norm < max_norm, g, g * (max_norm / g_norm.clamp_min(1e-6))))
+
+    @torch.no_grad()
+    def step(self, trainable: Set[str]):
+        """One update of the parameters named in ``trainable``; every other one
+        steps on a zero gradient and keeps its value (optax's moments decay,
+        and the masked update leaves it)."""
+        params = [p for _, p in self.named]
+        grads = [p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        frozen = [i for i, (name, _) in enumerate(self.named) if name not in trainable]
+        for i in frozen:
+            grads[i].zero_()
+        self._clip(grads, params)
+        states = [self.state[name] for name, _ in self.named]
+        if self.kind in ("sgd", "momentum"):
+            trace = [s["trace"] for s in states]
+            torch._foreach_mul_(trace, self.momentum)
+            torch._foreach_add_(trace, grads)
+            updates = [t.clone() for t in trace]
+        else:
+            mu, nu = [s["mu"] for s in states], [s["nu"] for s in states]
+            torch._foreach_mul_(mu, self.B1)
+            torch._foreach_add_(mu, grads, alpha=1 - self.B1)
+            torch._foreach_mul_(nu, self.B2)
+            torch._foreach_add_(nu, torch._foreach_mul(grads, grads), alpha=1 - self.B2)
+            t = np.float32(self.count + 1)
+            bc1 = float(np.float32(1) - np.float32(self.B1) ** t)
+            bc2 = float(np.float32(1) - np.float32(self.B2) ** t)
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+            if self.weight_decay:
+                torch._foreach_add_(updates, params, alpha=self.weight_decay)
+        for i in frozen:
+            updates[i].zero_()
+        torch._foreach_add_(params, updates, alpha=-self.lr(self.count))
+        self.count += 1
+
+
+def make_optimizer(named_params, optim_args: Config, sche_args: Config,
+                   steps_per_epoch: int) -> Tuple[MaskedOptimizer, Callable[[int], float]]:
+    """The optimizer and its learning-rate schedule (timm's
+    ``create_optimizer_v2``/``create_scheduler`` in the reference)."""
+    opt = MaskedOptimizer(named_params, optim_args, sche_args, steps_per_epoch)
+    return opt, opt.lr
+
+
+def opt_state_to_tree(opt: MaskedOptimizer) -> dict:
+    """The optimizer's state as a tree of numpy arrays: its update count, and
+    per parameter name its moments (``mu``, ``nu``) or momentum ``trace``."""
+    tree = {"count": np.int64(opt.count)}
+    for name, state in opt.state.items():
+        tree[name] = {k: v.detach().cpu().numpy().copy() for k, v in state.items()}
+    return tree
+
+
+def opt_state_from_tree(tree: dict, opt: MaskedOptimizer) -> Optional[MaskedOptimizer]:
+    """Restore :func:`opt_state_to_tree`'s tree into ``opt``; returns ``opt``,
+    or None, leaving ``opt`` as it was, when the structure differs (another
+    optimizer, another model, or a JAX package's checkpoint)."""
+    expected = opt_state_to_tree(opt)
+    if set(tree) != set(expected):
+        return None
+    for name, _ in opt.named:
+        if not isinstance(tree[name], dict) or set(tree[name]) != set(expected[name]):
+            return None
+        if any(np.shape(tree[name][k]) != np.shape(v) for k, v in expected[name].items()):
+            return None
+    with torch.no_grad():
+        for name, state in opt.state.items():
+            for k, v in state.items():
+                v.copy_(torch.from_numpy(np.asarray(tree[name][k])))
+    opt.count = int(tree["count"])
+    return opt
+
+
+# -- checkpoints -------------------------------------------------------------
+def _link(src: str, dst: str):
+    """Make ``dst`` the file ``src`` (a hard link where the file system has
+    them), replacing what was there at once."""
+    if os.path.exists(dst) and os.path.samefile(src, dst):
+        return  # a rename onto another link of the same file would do nothing
+    tmp = dst + ".tmp"
+    if os.path.lexists(tmp):
+        os.remove(tmp)
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
+
+
+class CheckpointSaver:
+    """Best-k checkpoint keeper (timm ``CheckpointSaver`` analog).
+
+    A checkpoint carries the full train state (weights, optimizer state,
+    epoch, metric), so a killed fine-tune resumes exactly.  ``last`` and
+    ``model_best`` name the same files as the epoch checkpoints they stand
+    for.  Loads for serving ignore the ``opt``/``meta`` collections."""
+
+    def __init__(self, out_dir: str, decreasing: bool = False, max_history: int = 10,
+                 backend: str = "npz"):
+        if backend == "sharded":
+            raise NotImplementedError(f"ckpt_backend='sharded': {SHARDED_TODO}")
+        if backend != "npz":
+            raise ValueError(f"unknown ckpt backend {backend!r}")
+        self.out_dir = out_dir
+        self.decreasing = decreasing
+        self.max_history = max_history
+        self.history = []  # (metric, path, epoch)
+        os.makedirs(out_dir, exist_ok=True)
+
+    def _tree(self, variables: dict, epoch: int, metric: float, opt_state) -> dict:
+        tree = dict(variables)
+        if opt_state is not None:
+            tree["opt"] = opt_state_to_tree(opt_state)
+        tree["meta"] = {"epoch": np.int64(epoch), "metric": np.float64(metric)}
+        return tree
+
+    def save_checkpoint(self, variables: dict, epoch: int, metric: float, opt_state=None):
+        path = os.path.join(self.out_dir, f"checkpoint-{epoch}.ckpt.npz")
+        save_model(self._tree(variables, epoch, metric, opt_state), path)
+        _link(path, os.path.join(self.out_dir, "last.ckpt.npz"))
+        self.history.append((metric, path, epoch))
+        self.history.sort(key=lambda t: t[0], reverse=not self.decreasing)
+        while len(self.history) > self.max_history:
+            _, stale, _ = self.history.pop()
+            if os.path.exists(stale):
+                os.remove(stale)
+        best_metric, best_path, best_epoch = self.history[0]
+        _link(best_path, os.path.join(self.out_dir, "model_best.ckpt.npz"))
+        return best_metric, best_epoch
+
+    def save_last(self, variables: dict, epoch: int, opt_state=None) -> str:
+        """Preemption save: only the ``last`` checkpoint (the best-k history is
+        untouched).  ``epoch`` is the last completed epoch: a resume redoes the
+        interrupted one from these weights."""
+        path = os.path.join(self.out_dir, "last.ckpt.npz")
+        save_model(self._tree(variables, epoch, float("nan"), opt_state), path)
+        return path
+
+
+def update_summary(epoch: int, train_metrics: dict, eval_metrics: dict, path: str,
+                   write_header: bool = False):
+    """Per-epoch CSV log (timm ``update_summary`` analog)."""
+    row = {"epoch": epoch}
+    row.update({f"train_{k}": v for k, v in train_metrics.items()})
+    row.update({f"eval_{k}": v for k, v in eval_metrics.items()})
+    with open(path, "w" if write_header else "a") as f:
+        if write_header:
+            f.write(",".join(row.keys()) + "\n")
+        f.write(",".join(str(v) for v in row.values()) + "\n")
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of the drop masks of training step ``step`` of a run seeded ``seed``."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+
+
+# -- the hook ----------------------------------------------------------------
+@HOOK.register_module()
+class L2Reconstruct(Hook):
+    def __init__(self, runner, priority, asym: bool = True, l2_weight: float = 1.0,
+                 cls_weight: float = 0.0, kd_weight: float = 0.0,
+                 kd_temperature: float = 4.0, epoch_behavior=(), no_norm: bool = False,
+                 dataset_args=None, optim_args=None, sche_args=None,
+                 data_config=None, other_args=None):
+        super().__init__(runner, priority)
+        self.asym = asym
+        self.l2_weight = l2_weight
+        self.cls_weight = cls_weight
+        self.kd_weight = kd_weight
+        self.kd_temperature = kd_temperature
+        self.epoch_behavior = list(epoch_behavior)
+        self.no_norm = no_norm
+        self.dataset_args = _combine(_default_dataset_args, dataset_args)
+        self.optim_args = _combine(_default_optim_args, optim_args)
+        self.sche_args = _combine(_default_sche_args, sche_args)
+        self.data_config = _combine(_default_data_config, data_config)
+        self.other_args = _combine(_default_other_args, other_args)
+        other = self.other_args
+        if other.amp:
+            raise NotImplementedError(f"L2Reconstruct amp=True: {AMP_TODO}")
+        if int(other.model_parallel or 1) > 1:
+            raise NotImplementedError(f"L2Reconstruct model_parallel > 1: {MESH_TODO}")
+        if (other.use_mesh and torch.device(runner.device).type == "cuda"
+                and torch.cuda.device_count() > 1):
+            raise NotImplementedError(
+                f"L2Reconstruct use_mesh with {torch.cuda.device_count()} visible GPUs: "
+                f"{MESH_TODO}; set other_args.use_mesh=False or show the run one GPU")
+        if other.ckpt_backend == "sharded":
+            raise NotImplementedError(f"L2Reconstruct ckpt_backend='sharded': {SHARDED_TODO}")
+        check_aug(self.data_config.aug)
+        self.teacher: Optional[nn.Module] = None
+        self.optimizer: Optional[MaskedOptimizer] = None
+        self.result = None
+        self._guard = None
+
+    @property
+    def need_teacher(self) -> bool:
+        return (not self.no_norm) or self.kd_weight > 0
+
+    # -- teacher ---------------------------------------------------------
+    def _build_teacher(self) -> nn.Module:
+        """The original model: a deep copy of the student with each Substitution
+        on its ``old`` branch and without ``new`` (the new branches are not
+        copied), in ``eval()`` with no gradients."""
+        model = self.runner.model
+        subs = list(model.switchable_modules())
+        news = [sub._modules.pop("new") for sub in subs]
+        try:
+            teacher = copy.deepcopy(model)
+        finally:
+            for sub, new in zip(subs, news):
+                sub._modules["new"] = new
+        for sub in teacher.switchable_modules():
+            sub.switch_old(remove_new=True)
+            sub.capture = True
+        return teacher.eval().requires_grad_(False)
+
+    @torch.no_grad()
+    def teacher_pass(self, images, model=None, teacher=None):
+        """``(logits, taps)`` of the teacher on ``images``, in ``eval()`` under
+        ``torch.no_grad()``: the asym teacher, or the student forced down its
+        ``old`` branches (before the student's forward, so on the BatchNorm
+        state from before the step)."""
+        model = model if model is not None else self.runner.model
+        teacher = teacher if teacher is not None else self.teacher
+        if self.asym:
+            logits = teacher(images)
+            return logits.float(), taps(teacher)
+        was_training = model.training
+        model.eval()
+        try:
+            with forced_branch(model, "old"):
+                logits = model(images)
+            return logits.float(), taps(model)
+        finally:
+            model.train(was_training)
+
+    # -- the step --------------------------------------------------------
+    def loss(self, images, labels, model=None, teacher=None):
+        """``(loss, ce, norm)`` of one training step on a batch, with autograd
+        (the JAX step's ``loss_fn``); ``model``/``teacher`` default to the
+        runner's model and the hook's teacher."""
+        model = model if model is not None else self.runner.model
+        t_logits = t_taps = None
+        if self.need_teacher:
+            t_logits, t_taps = self.teacher_pass(images, model, teacher)
+        model.train()
+        logits = model(images).float()
+        ce = F.cross_entropy(logits, labels)
+        total_norm = logits.new_zeros(())
+        if not self.no_norm:
+            s_taps = taps(model)
+            keys = [f"{n}.out" for n in model.switchable_names]
+            norm_vec = logits.new_zeros(images.shape[0])
+            for key in keys:
+                diff = (s_taps[key] - t_taps[key]).float()
+                norm_vec = norm_vec + torch.linalg.vector_norm(diff.flatten(1), dim=1)
+            total_norm = (norm_vec / len(keys)).mean()
+        loss = self.l2_weight * total_norm + self.cls_weight * ce
+        if self.kd_weight > 0:
+            T = float(self.kd_temperature)
+            t_log, s_log = t_logits / T, logits / T
+            kd = (F.softmax(t_log, -1) * (F.log_softmax(t_log, -1) - F.log_softmax(s_log, -1))
+                  ).sum(-1).mean()
+            loss = loss + self.kd_weight * T ** 2 * kd
+        return loss, ce, total_norm
+
+    def train_step(self, images, labels, mask: Set[str]):
+        """One training step: the loss, its backward and the masked update;
+        ``(loss, ce, norm)``, detached."""
+        self.optimizer.zero_grad()
+        loss, ce, norm = self.loss(images, labels)
+        loss.backward()
+        self.optimizer.step(mask)
+        release_taps(self.runner.model)
+        if self.teacher is not None:
+            release_taps(self.teacher)
+        return loss.detach(), ce.detach(), norm.detach()
+
+    def trainable(self, behavior: int) -> Set[str]:
+        """The parameters an epoch of ``behavior`` trains: layer ``behavior``'s
+        (>= 0), every switchable layer's (-1) or all (-2); never an ``old``
+        branch."""
+        model = self.runner.model
+        if behavior >= 0:
+            mask = model.freeze_except(behavior)
+        elif behavior == -1:
+            mask = model.freeze_except(*range(model.length_switchable))
+        else:
+            mask = model.unfreeze()
+        olds = tuple(f"{n}.old." for n in model.switchable_names)
+        return {n for n in mask if not n.startswith(olds)}
+
+    # -- main entry ------------------------------------------------------
+    def after_optimize(self):
+        logger = get_logger()
+        runner = self.runner
+        model = runner.model
+        device = runner.device
+
+        # the student routes (and, in asym mode or with no teacher signal,
+        # prunes) to the new branch; sym keeps the old one as the teacher
+        if self.asym and self.need_teacher:
+            self.teacher = self._build_teacher()
+        for sub in model.switchable_modules():
+            sub.switch_new(remove_old=self.asym or not self.need_teacher)
+            sub.capture = not self.no_norm
+
+        image_size = tuple(self.data_config.image_size)
+        num_classes = self.other_args.num_classes
+        if self.dataset_args.dataset:
+            ds_train = build_dataset(dict(self.dataset_args.dataset), split="train")
+            ds_eval = build_dataset(dict(self.dataset_args.dataset), split="validation")
+            num_classes = getattr(ds_train, "num_classes", num_classes)
+        else:
+            ds_train, ds_eval = self._default_datasets(image_size, num_classes)
+
+        def mk_loader(ds, shuffle, aug=None):
+            return Loader(ds, self.dataset_args.batch_size, shuffle=shuffle, drop_last=True,
+                          mean=self.data_config.mean, std=self.data_config.std,
+                          image_size=image_size, device=device, aug=aug)
+
+        loader_train = mk_loader(ds_train, True, self.data_config.aug)
+        loader_eval = mk_loader(ds_eval, False)
+        steps_per_epoch = len(loader_train)
+        if self.other_args.max_steps_per_epoch:
+            steps_per_epoch = min(steps_per_epoch, self.other_args.max_steps_per_epoch)
+
+        self.optimizer, lr_sched = make_optimizer(model.named_parameters(), self.optim_args,
+                                                  self.sche_args, steps_per_epoch)
+        start_epoch = self._resume() if self.other_args.resume else 0
+        if self.other_args.start_epoch is not None:
+            start_epoch = self.other_args.start_epoch
+
+        num_epochs = self.sche_args.epochs
+        behavior = list(self.epoch_behavior)
+        behavior += [-1] * max(0, num_epochs - len(behavior))
+        behavior = behavior[:num_epochs]
+        logger.info(f"epoch behaviors: {behavior}")
+
+        eval_metric = self.other_args.eval_metric
+        out_dir = runner.cfg.work_dir or "."
+        saver = None
+        if get_rank() == 0:
+            saver = CheckpointSaver(out_dir, decreasing=(eval_metric == "loss"),
+                                    max_history=self.other_args.checkpoint_hist,
+                                    backend=self.other_args.ckpt_backend)
+
+        seed = int(runner.cfg.seed or 0)
+        generator = torch.Generator(device=device)
+        best_metric = best_epoch = None
+        preempted = False
+        epoch = start_epoch
+        step_count = start_epoch * steps_per_epoch
+        guard = PreemptionGuard()
+        guard.__enter__()  # SIGTERM -> a cooperative stop and checkpoint
+        self._guard = guard
+        try:
+            with drop_generator(model, generator):
+                for epoch in range(start_epoch, num_epochs):
+                    mask = self.trainable(behavior[epoch])
+                    loader_train.set_epoch(epoch)
+                    train_metrics, step_count = self._train_one_epoch(
+                        epoch, loader_train, steps_per_epoch, mask, step_count, lr_sched,
+                        generator, seed)
+                    eval_metrics = self._validate(loader_eval)
+                    if get_rank() == 0:
+                        update_summary(epoch, train_metrics, eval_metrics,
+                                       os.path.join(out_dir, "summary.csv"),
+                                       write_header=best_metric is None)
+                    if saver is not None:
+                        best_metric, best_epoch = saver.save_checkpoint(
+                            variables_of(model), epoch, eval_metrics[eval_metric],
+                            opt_state=self.optimizer)
+        except KeyboardInterrupt:
+            pass
+        except Preempted:
+            preempted = True
+            if saver is not None:
+                path = saver.save_last(variables_of(model), epoch - 1, opt_state=self.optimizer)
+                logger.warning(f"preempted during epoch {epoch}: full train state saved to "
+                               f"{path}; resuming will redo epoch {epoch}")
+        finally:
+            self._guard = None
+            guard.__exit__()
+            release_taps(model)
+            model.eval()
+        if best_metric is not None:
+            logger.info(f"*** Best metric: {best_metric} (epoch {best_epoch})")
+        self.result = dict(best_metric=best_metric, best_epoch=best_epoch, preempted=preempted)
+
+    def _resume(self) -> int:
+        """Load ``other_args.resume`` into the model and the optimizer; the epoch to start from."""
+        logger = get_logger()
+        path = self.other_args.resume
+        flat = load_flat(path)
+        load_jax_flat(self.runner.model, flat)
+        ckpt = unflatten_tree(flat)
+        restored = []
+        start_epoch = 0
+        if "opt" in ckpt:
+            if opt_state_from_tree(ckpt["opt"], self.optimizer) is None:
+                logger.warning("resume: optimizer state structure mismatch; "
+                               "keeping a fresh optimizer")
+            else:
+                restored.append("optimizer")
+        if "meta" in ckpt and "epoch" in ckpt["meta"]:
+            start_epoch = int(ckpt["meta"]["epoch"]) + 1
+            restored.append(f"epoch {start_epoch}")
+        logger.info(f"resumed weights from {path}"
+                    + (f" (+ {', '.join(restored)})" if restored else ""))
+        return start_epoch
+
+    def _default_datasets(self, image_size, num_classes):
+        """Synthetic data when no dataset cfg is given."""
+        return (Synthetic(256, image_size + (3,), num_classes, split="train"),
+                Synthetic(128, image_size + (3,), num_classes, split="validation"))
+
+    def _train_one_epoch(self, epoch, loader, steps, mask, step_count, lr_sched, generator,
+                         seed):
+        logger = get_logger()
+        losses_m, norm_m, total_m, time_m = (AverageMeter() for _ in range(4))
+        end = time.time()
+        guard = self._guard
+        for i, (images, labels) in enumerate(loader):
+            if i >= steps:
+                break
+            if guard is not None and guard.triggered:
+                raise Preempted()
+            generator.manual_seed(step_seed(seed, step_count))
+            loss, ce, norm = self.train_step(images, labels, mask)
+            step_count += 1
+            bs = images.shape[0]
+            if i % self.other_args.log_interval == 0 or i == steps - 1:
+                losses_m.update(float(ce), bs)
+                norm_m.update(float(norm), bs)
+                total_m.update(float(loss), bs)
+                time_m.update(time.time() - end)
+                logger.info(
+                    f"Train: {epoch} [{i:>4d}/{steps}]  "
+                    f"Loss: {losses_m.val:#.4g} ({losses_m.avg:#.3g})  "
+                    f"Norm: {norm_m.val:#.4g} ({norm_m.avg:#.3g})  "
+                    f"Time: {time_m.val:.3f}s, {bs / max(time_m.val, 1e-9):>7.2f}/s  "
+                    f"LR: {lr_sched(step_count):.3e}")
+            end = time.time()
+        return dict(loss=total_m.avg, norm=norm_m.avg), step_count
+
+    def _validate(self, loader) -> Dict[str, float]:
+        logger = get_logger()
+        model = self.runner.model
+        losses_m, top1_m, top5_m = (AverageMeter() for _ in range(3))
+        max_batches = self.other_args.max_eval_batches
+        model.eval()
+        for i, (images, labels) in enumerate(loader):
+            if max_batches and i >= max_batches:
+                break
+            loss, c1, c5, _ = eval_batch(model, images, labels)
+            bs = images.shape[0]
+            losses_m.update(float(loss), bs)
+            top1_m.update(float(c1) / bs * 100.0, bs)
+            top5_m.update(float(c5) / bs * 100.0, bs)
+        metrics = dict(loss=losses_m.avg, top1=top1_m.avg, top5=top5_m.avg)
+        logger.info(f"Eval: {metrics}")
+        return metrics

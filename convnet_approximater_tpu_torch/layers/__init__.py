@@ -1,7 +1,8 @@
 from .depth_separable_conv import CascadeConv, FixPaddingBias, FixPaddingBias2d, ParallelConv
-from .drop import DropPath, drop_path
+from .drop import DropPath, drop_generator, drop_path
 from .low_rank_conv import LowRankExpConvV1, SeparableConv
 from .merged_ffn import MergedFFN
 from .msca import MSCA, MSCAProfile
 from .quant import QuantConv2d, QuantLinear
-from .substitution import LAYER, Substitution, build_layer
+from .substitution import (LAYER, Substitution, build_layer, forced_branch, release_taps,
+                           taps)

@@ -1,18 +1,32 @@
-"""Stochastic depth (port of ``convnet_approximater_tpu/layers/drop.py``)."""
+"""Stochastic depth (port of ``convnet_approximater_tpu/layers/drop.py``).
+
+A training forward draws its masks from the module's ``generator`` (a
+``torch.Generator`` on the input's device, which the trainer owns and seeds
+from the run's seed), or from torch's global generator when it has none.
+:func:`drop_generator` sets it on every ``DropPath`` and ``Dropout`` of a
+model for the length of a block.  Eval forwards draw nothing.
+"""
 
 from __future__ import annotations
+
+from contextlib import contextmanager
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
 
+from convnet_approximater_tpu_torch.nn import Dropout
 
-def drop_path(x, drop_prob: float, training: bool, scale_by_keep: bool = True):
+
+def drop_path(x, drop_prob: float, training: bool, scale_by_keep: bool = True,
+              generator: Optional[torch.Generator] = None):
     """Drop whole residual paths per sample while training."""
     if not training or drop_prob == 0.0:
         return x
     keep_prob = 1.0 - drop_prob
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(keep_prob)
+    mask = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
+        keep_prob, generator=generator)
     if scale_by_keep and keep_prob > 0.0:
         mask = mask / keep_prob
     return x * mask
@@ -23,6 +37,22 @@ class DropPath(nn.Module):
         super().__init__()
         self.drop_prob = drop_prob
         self.scale_by_keep = scale_by_keep
+        self.generator: Optional[torch.Generator] = None
 
     def forward(self, x):
-        return drop_path(x, self.drop_prob, self.training, self.scale_by_keep)
+        return drop_path(x, self.drop_prob, self.training, self.scale_by_keep, self.generator)
+
+
+@contextmanager
+def drop_generator(model: nn.Module, generator: torch.Generator) -> Iterator[None]:
+    """Draw every ``DropPath`` and ``Dropout`` mask of ``model`` from ``generator``
+    inside the block; the modules get their previous generators back after it."""
+    layers = [m for m in model.modules() if isinstance(m, (DropPath, Dropout))]
+    previous = [m.generator for m in layers]
+    for m in layers:
+        m.generator = generator
+    try:
+        yield
+    finally:
+        for m, g in zip(layers, previous):
+            m.generator = g

@@ -96,6 +96,10 @@ class MSCA(nn.Module):
         attn = self.channel_mix(self.sd_convs(self.conv0(x)))
         return x * attn
 
+    def switchable_layer(self) -> str:
+        """Name of the submodule a freeze schedule unfreezes."""
+        return "sd_convs"
+
 
 @LAYER.register_module()
 class MSCAProfile(MSCA):

@@ -2,14 +2,27 @@
 ``convnet_approximater_tpu/layers/substitution.py``).
 
 ``use_old`` routes the forward; ``switch_new`` / ``switch_old`` drop the other
-branch.  Capturing outputs for fine-tuning is not ported yet.
+branch.  Fine-tuning adds two things:
+
+* ``capture``: a captured Substitution keeps the output of its last forward
+  in ``out``; :func:`taps` collects them under the JAX package's tap keys,
+  ``<name>.out``;
+* ``force_branch``: when set (``"old"`` or ``"new"``) it routes the forward
+  in place of ``use_old``.  :func:`forced_branch` sets it on every
+  Substitution of a model for the length of a block and always resets it.
 """
 
 from __future__ import annotations
 
+from contextlib import contextmanager
+from typing import Dict, Iterator, Optional
+
+import torch
 from torch import nn
 
 from convnet_approximater_tpu_torch.utils.registry import Registry, build_from_cfg
+
+TAP_OUT = "out"
 
 
 class Substitution(nn.Module):
@@ -18,6 +31,9 @@ class Substitution(nn.Module):
         self.old = old_module
         self.new = new_module
         self.use_old = use_old
+        self.capture = False
+        self.force_branch: Optional[str] = None
+        self.out: Optional[torch.Tensor] = None
 
     @property
     def old_module(self) -> nn.Module:
@@ -38,7 +54,41 @@ class Substitution(nn.Module):
             del self.new
 
     def forward(self, x):
-        return self.old(x) if self.use_old else self.new(x)
+        branch = self.force_branch or ("old" if self.use_old else "new")
+        y = self.old(x) if branch == "old" else self.new(x)
+        if self.capture:
+            self.out = y
+        return y
+
+
+def taps(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The outputs the captured Substitutions of ``model`` kept from its last
+    forward, keyed ``<name>.out`` as the JAX package's taps are."""
+    return {f"{name}.{TAP_OUT}": m.out for name, m in model.named_modules()
+            if isinstance(m, Substitution) and m.capture and m.out is not None}
+
+
+def release_taps(model: nn.Module):
+    """Drop the outputs the captured Substitutions of ``model`` keep (and the
+    autograd graph they hold)."""
+    for m in model.modules():
+        if isinstance(m, Substitution):
+            m.out = None
+
+
+@contextmanager
+def forced_branch(model: nn.Module, branch: str) -> Iterator[None]:
+    """Route every Substitution of ``model`` down ``branch`` inside the block."""
+    if branch not in ("old", "new"):
+        raise ValueError(f"branch must be 'old' or 'new', got {branch!r}")
+    subs = [m for m in model.modules() if isinstance(m, Substitution)]
+    for m in subs:
+        m.force_branch = branch
+    try:
+        yield
+    finally:
+        for m in subs:
+            m.force_branch = None
 
 
 LAYER = Registry("LAYER")

@@ -3,12 +3,13 @@
 
 ``register_switchable`` walks ``named_children`` breadth first, in exactly the
 reference's order: a FIFO queue seeded with the model's direct children, and
-a match is not recursed into.
+a match is not recursed into.  ``freeze_except`` / ``unfreeze`` give the set
+of trainable parameter names, where the JAX package gives a mask tree.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Iterator, List, Optional, Set
 
 from torch import nn
 
@@ -35,23 +36,11 @@ class SwitchableModel(nn.Module):
         """Load the JAX package's ``.npz`` checkpoint named by ``init_cfg`` (non-strict)."""
         if not isinstance(self.init_cfg, str):
             return
-        from convnet_approximater_tpu_torch.convert import params_from_jax
+        from convnet_approximater_tpu_torch.convert import load_jax_flat
         from convnet_approximater_tpu_torch.utils.serialize import load_flat
 
-        logger = get_logger()
-        logger.info(f"loading checkpoint from {self.init_cfg}")
-        state = params_from_jax(load_flat(self.init_cfg))
-        own = self.state_dict()
-        for k in sorted(set(state) & set(own)):
-            if state[k].shape != own[k].shape:
-                logger.warning(f"shape mismatch for {k}: ckpt {tuple(state[k].shape)} "
-                               f"vs model {tuple(own[k].shape)}; skipped")
-                del state[k]
-        missing, unexpected = self.load_state_dict(state, strict=False)
-        if missing:
-            logger.warning(f"missing keys in checkpoint: {missing}")
-        if unexpected:
-            logger.warning(f"unexpected keys in checkpoint: {unexpected}")
+        get_logger().info(f"loading checkpoint from {self.init_cfg}")
+        load_jax_flat(self, load_flat(self.init_cfg))
 
     def register_switchable(self, src_type: type, filters, verbose: bool = False):
         """BFS over named children; matching modules pass the filter chain."""
@@ -86,6 +75,29 @@ class SwitchableModel(nn.Module):
 
     def set_switchable_module(self, index: int, module: nn.Module):
         set_submodule(self, self._switchable_names[index], module)
+
+    def switchable_modules(self) -> Iterator[nn.Module]:
+        for idx in range(self.length_switchable):
+            yield self.get_switchable_module(idx)
+
+    # -- freeze masks ----------------------------------------------------
+    def freeze_except(self, *indices: int) -> Set[str]:
+        """Names of the trainable parameters: those under the listed
+        switchables, every other one frozen.  Where the module at a listed
+        path defines ``switchable_layer()`` (MSCA -> ``sd_convs``), only that
+        submodule is trainable (the JAX package's mask, ``switchable.py:95-119``)."""
+        targets = []
+        for index in indices:
+            name = self._switchable_names[index]
+            module = self.get_submodule(name)
+            if hasattr(module, "switchable_layer"):
+                name = f"{name}.{module.switchable_layer()}"
+            targets.append(name)
+        return {n for n, _ in self.named_parameters()
+                if any(n.startswith(t + ".") for t in targets)}
+
+    def unfreeze(self) -> Set[str]:
+        return {n for n, _ in self.named_parameters()}
 
 
 MODEL = Registry("MODEL")

@@ -1,6 +1,6 @@
 """Leaf layers (port of ``convnet_approximater_tpu/nn/layers.py``).
 
-``Linear``, ``Dropout``, ``Identity``, ``ReLU`` and the pools are torch's own:
+``Linear``, ``Identity``, ``ReLU`` and the pools are torch's own:
 the JAX pools (``ops/conv.py``) use torch's bin edges and floor mode.  The
 layers below differ from torch's defaults where the JAX package does:
 
@@ -11,7 +11,9 @@ layers below differ from torch's defaults where the JAX package does:
   fixed, so the counter is never read), so its ``state_dict`` maps one to one
   onto the JAX params (``scale``/``bias``) and state (``mean``/``var``);
 * ``LayerNorm`` normalises the channel axis of an NCHW map;
-* ``GELU`` defaults to the tanh form, as the JAX package does.
+* ``GELU`` defaults to the tanh form, as the JAX package does;
+* ``Dropout`` draws its training mask from its ``generator`` (one the trainer
+  owns, seeded from the run's seed), not from torch's global generator.
 
 Modules take NCHW tensors; the model runs in ``torch.channels_last``, so an
 NCHW tensor is an NHWC block of memory, the layout of the JAX package.
@@ -26,7 +28,6 @@ import torch.nn.functional as F
 from torch import nn
 
 Linear = nn.Linear
-Dropout = nn.Dropout
 Identity = nn.Identity
 ReLU = nn.ReLU
 MaxPool2d = nn.MaxPool2d
@@ -63,6 +64,31 @@ class Conv2d(nn.Conv2d):
             y = F.linear(x.permute(0, 2, 3, 1), self.weight[:, :, 0, 0], self.bias)
             return y.permute(0, 3, 1, 2)
         return super().forward(x)
+
+
+class Dropout(nn.Module):
+    """Zero each element with probability ``p`` while training and scale the
+    rest by ``1 / (1 - p)``, as ``torch.nn.Dropout``; the mask comes from
+    ``generator`` (torch's global generator when it is None)."""
+
+    def __init__(self, p: float = 0.5):
+        super().__init__()
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"dropout probability must be in [0, 1], got {p}")
+        self.p = p
+        self.generator = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        if keep == 0.0:
+            return torch.zeros_like(x)
+        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        return x * mask / keep
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 def channels_last(module: nn.Module) -> nn.Module:

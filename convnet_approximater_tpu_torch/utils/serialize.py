@@ -61,10 +61,12 @@ def save_model(variables: Dict[str, Any], path: str):
         else:
             marked[k] = v
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    buf = io.BytesIO()  # written whole, so an interrupted run leaves no half file
+    buf = io.BytesIO()
     np.savez(buf, **marked)
-    with open(path, "wb") as f:
+    tmp = path + ".tmp"  # written whole, then renamed: an interrupted run leaves no half file
+    with open(tmp, "wb") as f:
         f.write(buf.getvalue())
+    os.replace(tmp, path)
 
 
 def load_flat(path: str) -> Dict[str, np.ndarray]:

@@ -29,7 +29,7 @@ from convnet_approximater_tpu.deploy import fold_batchnorm as jfold  # noqa: E40
 from convnet_approximater_tpu.models import MSCAN_Classifier as JClassifier  # noqa: E402
 from convnet_approximater_tpu.utils.serialize import flatten_tree, unflatten_tree  # noqa: E402
 from convnet_approximater_tpu_torch import deploy  # noqa: E402
-from convnet_approximater_tpu_torch.convert import params_from_jax  # noqa: E402
+from convnet_approximater_tpu_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from convnet_approximater_tpu_torch.core import MscaRep  # noqa: E402
 from convnet_approximater_tpu_torch.deploy_planner import apply_app  # noqa: E402
 from convnet_approximater_tpu_torch.hooks import count_macs  # noqa: E402
@@ -38,7 +38,6 @@ from convnet_approximater_tpu_torch.layers import (MSCA, LowRankExpConvV1,  # no
 from convnet_approximater_tpu_torch.models import MSCAN_Classifier  # noqa: E402
 from convnet_approximater_tpu_torch.nn import (GELU, BatchNorm2d, Conv2d,  # noqa: E402
                                                Identity, channels_last, init_weights)
-from torch_jax import jax_tree  # noqa: E402
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,7 +68,7 @@ def randomize(model, seed=0):
 
 def jax_twin(jmodel, model):
     """JAX variables holding ``model``'s weights."""
-    return unflatten_tree({k: jnp.asarray(v) for k, v in jax_tree(model).items()})
+    return unflatten_tree({k: jnp.asarray(v) for k, v in params_to_jax(model.state_dict()).items()})
 
 
 def japply(jmodel, variables, x):

@@ -36,7 +36,7 @@ from convnet_approximater_tpu.layers import MergedFFN as JMergedFFN  # noqa: E40
 from convnet_approximater_tpu.models import MSCAN_Classifier as JClassifier  # noqa: E402
 from convnet_approximater_tpu.models.mscan import FFN as JFFN  # noqa: E402
 from convnet_approximater_tpu.utils.serialize import flatten_tree, unflatten_tree  # noqa: E402
-from convnet_approximater_tpu_torch.convert import params_from_jax  # noqa: E402
+from convnet_approximater_tpu_torch.convert import params_from_jax, params_to_jax  # noqa: E402
 from convnet_approximater_tpu_torch.core import FfnRep, MscaRep, merged_ffn_solve  # noqa: E402
 from convnet_approximater_tpu_torch.deploy import enable_pw_matmul, fold_batchnorm  # noqa: E402
 from convnet_approximater_tpu_torch.deploy_planner import apply_app  # noqa: E402
@@ -47,7 +47,6 @@ from convnet_approximater_tpu_torch.models import MSCAN_Classifier  # noqa: E402
 from convnet_approximater_tpu_torch.models.mscan import FFN  # noqa: E402
 from convnet_approximater_tpu_torch.nn import (Conv2d, Identity, channels_last,  # noqa: E402
                                                init_weights)
-from torch_jax import jax_tree  # noqa: E402
 
 torch.set_num_threads(1)
 RTOL = 1e-5
@@ -234,7 +233,7 @@ def tiny_dense():
 
 def test_headline_chain_matches_jax():
     dense = tiny_dense()
-    flat = jax_tree(dense)
+    flat = params_to_jax(dense.state_dict())
     for k, v in params_from_jax(flat).items():  # the inverse is exact
         assert torch.equal(v, dense.state_dict()[k]), k
     x = np.random.RandomState(2).randn(2, 64, 64, 3).astype(np.float32)
