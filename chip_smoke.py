@@ -31,7 +31,11 @@ From the root of a checkout, with no arguments:
    depthwise conv of the merged kernel timed beside it and the sums per r1, r2
    and dconv0 forward; ``qmatmul`` bit for bit at the 13 shapes of int8
    ConvNeXt-T, with ``torch._int_mm`` on the quantized operands timed beside it,
-   and at three ragged shapes (M off every tile, K off 32 and off 4, odd N)
+   and at three ragged shapes (M off every tile, K off 32 and off 4, odd N);
+   ``lowrank_conv`` at the scheme-1 shapes of ResNet-18 (its 7 distinct block
+   3x3s, M = 4, stride 2 at the first of stages 2-4) and VGG-16 (its 8 distinct
+   convs of 2-13, M = 16), each with its plan's shared memory against the
+   kernel's, cuDNN's conv of W_eff beside it and the sums per forward
    (kernel times are device times: a sleep kernel holds the stream while the
    host enqueues);
 4. drives the port's MSCAN main path once, through its CLI entry point: the
@@ -115,7 +119,32 @@ From the root of a checkout, with no arguments:
     branch of its layer, every other parameter bit-equal; the validation
     forward launches ``lowrank_conv`` once per layer (4 before training), and
     once per layer whose bases all channels still share after training;
-11. prints one JSON line of kernel results, then ``{"ok": true, "device": ...}``.
+11. drives the paths of ResNet-18, VGG-16, int8 ResNet-50 and the MSCAN-t
+    configs the Dummy app, the Fps hook and the profiler tables run, each
+    through the CLI with the launch counts set to 0 before it: P1
+    ``configs/resnet/low-rank-exp-v1_blocks_svd_resnet18.py`` (16 block 3x3s
+    as separable LowRankExpConvV1 of 4 bases, 16 ``lowrank_conv`` launches per
+    forward, logits against the plain version and the module path, timed beside
+    dense ResNet-18, profiled; ``fold_batchnorm``'s 20 pairs, the logits again
+    and 16 launches after the repack; a compile_serving replay with 16
+    ``lowrank_conv`` kernels; the initdecomp config, then given P1's weights as
+    a deployment loads them: 16 launches, P1's logits); P2
+    ``configs/vgg/low-rank-exp-v1_all_svd_vgg16.py`` (12 sites of 16 bases, 12
+    launches per forward, the logits, dense VGG-16 timed, profiled); P3
+    ``configs/resnet/serve_int8_resnet50.py`` (the Dummy app: no site; then
+    ``fold_batchnorm`` (53) and ``quantize_int8`` (54), 54 ``qmatmul`` launches
+    per forward, int8 logits against the plain versions and the float32 model,
+    peak memory, a profile, a replay with 54 ``qmatmul`` kernels; each (M, K, N)
+    of the forward held bit for bit on its own inputs and timed beside
+    ``torch._int_mm``); P4 ``configs/msca-rep/fps/msca-rep_d1_mscan-t_fps.py``
+    (``Fps``: 13 ``msca_fused`` launches per forward it drives, its img/s beside
+    64 over the same model's median forward), the profiler configs
+    ``msca-rep-profile_d1_fix_mscan-t.py`` and ``msca-profile_mscan-t.py`` (a
+    trace file, the tables, CONV0/SD_CONVS/CHANNEL_MIX with device time and
+    their shares) and ``dummy_mscan-t.py`` (no site; the hooks run);
+12. prints one JSON line of kernel results (``lowrank_conv``'s and ``qmatmul``'s
+    entries list the later paths' launches and sums per forward under
+    ``paths``), then ``{"ok": true, "device": ...}``.
 
 Every failed check exits non-zero without the result lines, as does a run
 without a CUDA device or outside a checkout of the repository.  Random weights
@@ -178,6 +207,14 @@ MSCA_RAGGED = {"H != W": (4, 20, 37, 32, 5, (21,), False, 10),
 # AlexNet's convs 2-5 at 224^2: (H = W, C, k, padding, M bases of the config, N)
 ALEX_CONVS = [(27, 64, 5, 2, 8, 192), (13, 192, 3, 1, 8, 384), (13, 384, 3, 1, 6, 256),
               (13, 256, 3, 1, 4, 256)]
+# the scheme-1 3x3s at 224^2: (H = W, C, N, stride, calls per forward); ResNet-18's 16 block
+# convs take M = 4 bases, VGG-16's convs 2-13 M = 16
+RESNET18_CONVS = [(56, 64, 64, 1, 4), (56, 64, 128, 2, 1), (28, 128, 128, 1, 3),
+                  (28, 128, 256, 2, 1), (14, 256, 256, 1, 3), (14, 256, 512, 2, 1),
+                  (7, 512, 512, 1, 3)]
+VGG16_CONVS = [(224, 64, 64, 1, 1), (112, 64, 128, 1, 1), (112, 128, 128, 1, 1),
+               (56, 128, 256, 1, 1), (56, 256, 256, 1, 2), (28, 256, 512, 1, 1),
+               (28, 512, 512, 1, 2), (14, 512, 512, 1, 3)]
 # lowrank_conv off AlexNet's shapes: (B, H, W, C, M, N, (kh, kw), (sh, sw), (ph, pw)); every
 # one has P = B Ho Wo off the 128-pixel tile, all but the 1 x 1 one tiles that cross images
 LOWRANK_RAGGED = {"stride 2, C = 6, N = 10": (8, 13, 13, 6, 4, 10, (5, 5), (2, 2), (2, 2)),
@@ -210,6 +247,16 @@ PEAK_INT8 = 1979e12   # H100 SXM int8 tensor cores, dense, OP/s
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+def is_kernel(event) -> bool:
+    """Whether a torch.profiler event is device work, not the span of a
+    record_function range on the device (the kernel wrappers open one while
+    the profiler records)."""
+    import torch
+
+    return (event.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(event, "is_user_annotation", False))
 
 
 def rel_err(a, b) -> float:
@@ -300,11 +347,11 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def time_pair(kernel, plain):
+def time_pair(kernel, plain, iters: int = 25):
     """Median ms of kernel and plain version, taken in turns: plain, kernel, kernel, plain."""
-    p = [cuda_ms(plain)]
-    k = [cuda_ms(kernel) for _ in range(2)]
-    p.append(cuda_ms(plain))
+    p = [cuda_ms(plain, iters)]
+    k = [cuda_ms(kernel, iters) for _ in range(2)]
+    p.append(cuda_ms(plain, iters))
     return float(np.median(k)), float(np.median(p))
 
 
@@ -529,6 +576,64 @@ def check_lowrank_kernel(gen):
     return rows
 
 
+def check_lowrank_model_shapes(gen, model, convs, M):
+    """lowrank_conv against lowrank_conv_ref at ``model``'s scheme-1 shapes at
+    b=64, 224^2 (separable bases, M of the config), the weights packed once as
+    the layer caches them, with the planner's shared memory against the
+    kernel's and cuDNN's conv of the merged weight W_eff timed beside it;
+    times over 10 CUDA-event runs (x2).  Returns the rows, with calls per forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
+    rows = []
+    for H, C, N, st, calls in convs:
+        x, A, b, taps = lowrank_inputs(BATCH, H, H, C, M, N, (3, 3), "sep", gen)
+        kw = dict(kernel_size=(3, 3), stride=(st, st), padding=(1, 1), **taps)
+        packed = lowrank_ops.pack_kernel_weights(A, **taps)
+        y = lowrank_ops.lowrank_conv(x, A, b, packed=packed, **kw)
+        y_ref = lowrank_ops.lowrank_conv_ref(x, A, b, **kw)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
+        if not torch.isfinite(y).all() or err > KERNEL_TOL:
+            fail(f"lowrank_conv {model} {(BATCH, H, H, C)} stride {st} M={M} N={N}: rel err "
+                 f"{err:.3e} > {KERNEL_TOL}")
+        del y_ref
+        p = check_lowrank_plan(BATCH, H, H, C, M, N, (3, 3), (st, st), (1, 1))
+        ms, plain_ms = time_pair(lambda: lowrank_ops.lowrank_conv(x, A, b, packed=packed, **kw),
+                                 lambda: lowrank_ops.lowrank_conv_ref(x, A, b, **kw), iters=10)
+        basis = taps["v"][:, :, None] * taps["h"][:, None]
+        w_eff = torch.einsum("mcn,mij->ncij", A.reshape(M, C, N), basis).contiguous()
+        xc = x.permute(0, 3, 1, 2)  # an NCHW view of x, channels_last
+        lib_err = rel_err(F.conv2d(xc, w_eff, b, stride=st, padding=1).permute(0, 2, 3, 1), y)
+        lib_ms = library_time(lambda: F.conv2d(xc, w_eff, b, stride=st, padding=1), iters=10)
+        nbytes, basis_flops, mix_flops = lowrank_cost(BATCH, H, H, C, M, N, (3, 3), (st, st),
+                                                      (1, 1), "sep")
+        b_ms, b_by = lowrank_bound(nbytes, basis_flops, mix_flops)
+        rows.append(dict(shape=(BATCH, H, H, C), stride=st, N=N, calls=calls, rel_err=err,
+                         max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bytes=nbytes, basis_flops=basis_flops, mix_flops=mix_flops,
+                         bound_ms=b_ms, plan=p))
+        print(f"lowrank_conv {model} x{(BATCH, H, H, C)} stride {st} M={M} N={N} "
+              f"x{calls}/forward: rel err {err:.3e} (bound {KERNEL_TOL}), max abs err "
+              f"{abs_err:.3e}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10 "
+              f"CUDA-event runs, x2), cuDNN conv of W_eff {lib_ms:.4f} ms (rel diff "
+              f"{lib_err:.1e}); bound {b_ms:.4f} ms by {b_by} on the 3xTF32 route "
+              f"({nbytes / 1e6:.1f} MB, {basis_flops / 1e9:.3f} + {mix_flops / 1e9:.3f} GFLOP), "
+              f"roofline share {b_ms / ms:.1%}; plan BN {p.bn}, MS {p.ms} x {p.slabs}, {p.qpg} "
+              f"quads x {p.rw} x {p.wv} window, {p.stages} stages, chain {p.chain}, "
+              f"{p.row_tiles} x {p.col_tiles} blocks, {p.smem} B (planner = kernel)")
+        del x, A, b, taps, packed, y, w_eff, xc
+        torch.cuda.empty_cache()
+    total = {k: sum(r[k] * r["calls"] for r in rows)
+             for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    print(f"lowrank_conv per {model} scheme-1 forward ({sum(r['calls'] for r in rows)} calls): "
+          f"kernel {total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, cuDNN conv of W_eff "
+          f"{total['library_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms (3xTF32 route)")
+    return rows
+
+
 def check_lowrank_launches(gen):
     """One eval-mode separable LowRankExpConvV1 forward (AlexNet's conv2) under
     torch.profiler, its packing cached by a first forward: exactly one kernel,
@@ -558,7 +663,7 @@ def check_lowrank_launches(gen):
             torch.cuda.synchronize()
             layer(x)
             torch.cuda.synchronize()
-    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+    kernels = [e.name for e in prof.events() if is_kernel(e)
                and "sleep" not in e.name.lower() and "spin" not in e.name.lower()]
     names = [m.group(0) if (m := re.search(r"lowrank_kernel<[^>]*>", k)) else k[:60] for k in kernels]
     print(f"one cached LowRankExpConvV1 forward {(BATCH, 64, 27, 27)}: {len(kernels)} kernels on "
@@ -588,9 +693,9 @@ def ptxas_summary(source: str, name: str) -> str:
     return "; ".join(f"{k}: {', '.join(v)}" for k, v in stats.items()) or "not measured"
 
 
-def library_time(fn) -> float:
+def library_time(fn, iters: int = 25) -> float:
     """Median ms of the yardstick library call, in two turns."""
-    return float(np.median([cuda_ms(fn) for _ in range(2)]))
+    return float(np.median([cuda_ms(fn, iters) for _ in range(2)]))
 
 
 def check_cascade_kernel(gen):
@@ -959,7 +1064,7 @@ def check_block_launches(msca, gen):
             msca(x)
             torch.cuda.synchronize()
     kernels = sorted(e.name for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
+                     if is_kernel(e))
     print(f"one cached d1+fix MSCA block forward {(BATCH, C, 56, 56)}: {len(kernels)} kernels "
           f"on the card: {', '.join(k.split('::')[-1].split('(')[0] for k in kernels)}")
     if len(kernels) != 2 or not ("march_kernel" in kernels[0] and "mix_kernel" in kernels[1]):
@@ -1021,7 +1126,7 @@ def profile_calls(name, fn, n: int = 3, keep=()):
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not is_kernel(e):
             continue
         us = getattr(e, "device_time_total", None)
         if us is None:
@@ -1342,20 +1447,26 @@ def seeded_batch(seed: int, batch: int = BATCH, device="cuda"):
 
 def kernels_of(fn):
     """The kernels one call of ``fn`` (after one more) puts on the card, by
-    name, from torch.profiler.  A sleep kernel opens the window and is not
-    counted, as in check_lowrank_launches."""
+    name, from torch.profiler.  Two calls run in the profiled window, each
+    after a sleep kernel, and the kernels after the second sleep count: a
+    profiler session after the first in a process may not record the first
+    kernels of its window (a ResNet-18 replay once showed 53 of its 58)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and "sleep" not in e.name.lower() and "spin" not in e.name.lower()]
+        for _ in range(2):
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if is_kernel(e)), key=lambda e: e.time_range.start)
+    sleeps = [i for i, e in enumerate(events) if "sleep" in e.name.lower() or "spin" in e.name.lower()]
+    if not sleeps:  # a dropped first sleep leaves the second, the one that matters
+        fail("kernels_of: the profiler recorded neither sleep kernel")
+    return [e.name for e in events[sleeps[-1] + 1:]]
 
 
 def count_kernels(names, labels):
@@ -2078,7 +2189,7 @@ def profile_share(name, fn, n: int = 2):
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
+        if not is_kernel(e):
             continue
         us = getattr(e, "device_time_total", None)
         if us is None:
@@ -2244,6 +2355,407 @@ def run_finetune():
     return run_ft_d0(), run_ft_d1(), run_ft_alexnet()
 
 
+# -- 11. ResNet-18, VGG-16, int8 ResNet-50 and the MSCAN-t hook configs ------------------
+
+RESNET18 = os.path.join(REPO, "configs", "resnet", "low-rank-exp-v1_blocks_svd_resnet18.py")
+RESNET18_INIT = os.path.join(REPO, "configs", "resnet",
+                             "low-rank-exp-v1_blocks_svd_initdecomp_resnet18.py")
+VGG16 = os.path.join(REPO, "configs", "vgg", "low-rank-exp-v1_all_svd_vgg16.py")
+RESNET50_INT8 = os.path.join(REPO, "configs", "resnet", "serve_int8_resnet50.py")
+MSCAN_FPS = os.path.join(REPO, "configs", "msca-rep", "fps", "msca-rep_d1_mscan-t_fps.py")
+MSCAN_PROFILES = [os.path.join(REPO, "configs", "msca-rep", "profiler", c)
+                  for c in ("msca-rep-profile_d1_fix_mscan-t.py", "msca-profile_mscan-t.py")]
+MSCAN_DUMMY = os.path.join(REPO, "configs", "msca-rep", "dummy_mscan-t.py")
+# the 16 block 3x3s of ResNet-18 in the switchable walk's order
+RESNET18_SITES = [f"layer{i}.{j}.conv{k}" for i in (1, 2, 3, 4) for j in (0, 1) for k in (1, 2)]
+VGG16_SITES = [f"features.{i}" for i in (2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)]
+MSCA_STAGES = ("CONV0", "SD_CONVS", "CHANNEL_MIX")
+INPUT = (BATCH, 224, 224, 3)
+
+
+def through_lowrank_ref(model, x):
+    """``model(x)`` with lowrank_conv swapped for its plain version."""
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
+    with mock.patch.object(lowrank_ops, "lowrank_conv",
+                           lambda *a, packed=None, **k: lowrank_ops.lowrank_conv_ref(*a, **k)):
+        return model(x)
+
+
+def drive_scheme1(gen, config, sites, M, classes):
+    """The Runner on a scheme-1 config through the CLI: the registered sites,
+    separable LowRankExpConvV1s of M bases that all dispatch to lowrank_conv,
+    one launch per site per forward, the logits against the plain version and
+    the module path.  Returns (runner, launches, logits on ``images(gen)``, x)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import LowRankExpConvV1
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
+    name = os.path.relpath(config, REPO)
+    work_dir = os.path.join(REPO, "build", "chip_smoke_" + os.path.basename(config)[:-3])
+    reset_counts()
+    runner, run_s = run_cli(config, work_dir)
+    launches = lowrank_ops.lowrank_conv.launches
+    model, forwards = runner.model, forwards_of(runner)
+    layers = list(model.switchable_modules())
+    if model.switchable_names != sites or not all(
+            isinstance(m, LowRankExpConvV1) and m.num_base == M and hasattr(m.s_conv, "v_conv")
+            for m in layers):
+        fail(f"{name}: registered {model.switchable_names}, expected {len(sites)} separable "
+             f"LowRankExpConvV1 of {M} bases at {sites}")
+    with torch.no_grad():  # the kernel route: no gradient can be asked
+        dispatched = all(m.uses_kernel() for m in layers)
+    if not dispatched:
+        fail(f"{name}: a LowRankExpConvV1 layer does not dispatch to lowrank_conv")
+    if launches != len(sites) * forwards or launches == 0:
+        fail(f"{name}: lowrank_conv launched {launches} times in {forwards} forwards, "
+             f"expected {len(sites) * forwards}")
+    with open(os.path.join(work_dir, "run.log")) as f:
+        macs_line = [ln.strip() for ln in f if "Model MACs: " in ln]
+    if not macs_line:
+        fail(f"{name}: ModelAnalysis logged no 'Model MACs' line")
+    print(f"main path: Runner on {name} in {run_s:.2f} s; {forwards} forwards launched "
+          f"lowrank_conv {launches} times ({len(sites)} per forward); "
+          f"{macs_line[0].split(' - ')[-1]}")
+    x = images(gen)
+    with torch.no_grad():
+        y = model(x)
+        check_logits(name, y, {"lowrank_conv_ref": through_lowrank_ref(model, x),
+                               "the module path": module_path(model, LowRankExpConvV1, x)},
+                     LOGITS_TOL, classes=classes)
+    return runner, launches, y, x
+
+
+def time_dense(name, model, low_ms):
+    """Time a dense model of seed-0 weights beside its compressed form's median."""
+    import torch
+
+    from convnet_approximater_tpu_torch.hooks import time_forward
+    from convnet_approximater_tpu_torch.nn import init_weights
+
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.cuda().to(memory_format=torch.channels_last).eval()
+    dense_ms = float(np.median(time_forward(model, INPUT, "cuda")))
+    print(f"{name} dense forward {INPUT} f32: median {dense_ms:.3f} ms "
+          f"({BATCH / dense_ms * 1e3:.1f} img/s); dense / compressed = {dense_ms / low_ms:.4f}")
+    del model
+    torch.cuda.empty_cache()
+    return dense_ms
+
+
+def run_resnet18(gen):
+    """P1: the scheme-1 ResNet-18 through the CLI, timed beside dense ResNet-18,
+    profiled; then fold_batchnorm (20 pairs, 16 through LowRankExpConvV1.d_conv),
+    the logits again, a compile_serving replay with 16 lowrank_conv kernels; then
+    the initdecomp config through the CLI, given P1's weights as a deployment
+    would load them.  Returns lowrank_conv's launches in the CLI run."""
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.convert import load_jax_flat, params_to_jax
+    from convnet_approximater_tpu_torch.hooks import InferenceTimeHook
+    from convnet_approximater_tpu_torch.models import ResNet
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
+    runner, launches, y, x = drive_scheme1(gen, RESNET18, RESNET18_SITES, 4, 1000)
+    model = runner.model
+    hook = next(h for h in runner.hooks if isinstance(h, InferenceTimeHook))
+    low_ms = hook.result["median_ms"]
+    print(f"ResNet-18 scheme-1 forward {INPUT} f32: median {low_ms:.3f} ms "
+          f"({BATCH / low_ms * 1e3:.1f} img/s)")
+    time_dense("ResNet-18", ResNet(18, 1000), low_ms)
+    profile_forward("ResNet-18 scheme-1", model, INPUT, keep=("lowrank_kernel",))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    n = deploy.fold_batchnorm(model)
+    reset_counts()
+    with torch.no_grad():
+        y_fold = model(x)
+    folded = lowrank_ops.lowrank_conv.launches
+    print(f"ResNet-18 scheme-1: fold_batchnorm folded {n} pairs (expected 20); one forward "
+          f"after it launched lowrank_conv {folded} times (expected 16)")
+    if n != 20 or folded != 16:
+        fail("ResNet-18 scheme-1: the fold or the repacked kernel weights went wrong")
+    check_logits("ResNet-18 scheme-1 after fold_batchnorm", y_fold, {"before the fold": y},
+                 LOGITS_TOL)
+    compiled, put = check_graph("ResNet-18 scheme-1 graph", model, {"lowrank_conv": 16}, 40)[:2]
+    paced = pace(model, compiled, seeded_batch(40))
+    print(f"ResNet-18 scheme-1 (folded) as a graph: median "
+          f"{time_graph(compiled, put, INPUT):.3f} ms; back to back {paced[0]:.3f} ms eager, "
+          f"{paced[1]:.3f} ms graph; eager median "
+          f"{float(np.median(time_forward_cuda(model))):.3f} ms")
+    del compiled, put, runner, model
+    torch.cuda.empty_cache()
+
+    reset_counts()
+    runner, run_s = run_cli(RESNET18_INIT, os.path.join(REPO, "build", "chip_smoke_initdecomp"))
+    model, forwards = runner.model, forwards_of(runner)
+    if model.switchable_names != RESNET18_SITES or not all(
+            hasattr(m.s_conv, "v_conv") for m in model.switchable_modules()):
+        fail(f"{os.path.relpath(RESNET18_INIT, REPO)}: expected 16 separable layers")
+    print(f"main path: Runner on {os.path.relpath(RESNET18_INIT, REPO)} in {run_s:.2f} s (no "
+          f"solve; the separable layers keep their random per-channel init, so they take the "
+          f"module path: lowrank_conv launched {lowrank_ops.lowrank_conv.launches} times in "
+          f"{forwards} forwards)")
+    load_jax_flat(model, params_to_jax(state))  # the solved weights, as a deployment loads them
+    reset_counts()
+    with torch.no_grad():
+        y_init = model(x)
+    if lowrank_ops.lowrank_conv.launches != 16:
+        fail(f"initdecomp with P1's weights launched lowrank_conv "
+             f"{lowrank_ops.lowrank_conv.launches} times in one forward, expected 16")
+    check_logits("initdecomp ResNet-18 with P1's weights (16 launches)", y_init,
+                 {"P1 before the fold": y}, LOGITS_TOL)
+    del runner, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_forward_cuda(model):
+    from convnet_approximater_tpu_torch.hooks import time_forward
+
+    return time_forward(model, INPUT, "cuda")
+
+
+def run_vgg16(gen):
+    """P2: the scheme-1 VGG-16 through the CLI (12 sites, 16 bases), timed beside
+    dense VGG-16 and profiled.  Returns lowrank_conv's launches in the CLI run."""
+    import torch
+
+    from convnet_approximater_tpu_torch.hooks import InferenceTimeHook
+    from convnet_approximater_tpu_torch.models import VGG
+
+    runner, launches, _, _ = drive_scheme1(gen, VGG16, VGG16_SITES, 16, 10)
+    model = runner.model
+    hook = next(h for h in runner.hooks if isinstance(h, InferenceTimeHook))
+    low_ms = hook.result["median_ms"]
+    print(f"VGG-16 scheme-1 forward {INPUT} f32: median {low_ms:.3f} ms "
+          f"({BATCH / low_ms * 1e3:.1f} img/s)")
+    time_dense("VGG-16", VGG(16, 10), low_ms)
+    profile_forward("VGG-16 scheme-1", model, INPUT, keep=("lowrank_kernel",))
+    del runner, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def record_qmatmul_calls(model, x):
+    """({(M, K, N): arguments of its first call}, {(M, K, N): calls}) of qmatmul in
+    one eval forward of ``model(x)``, run through qmatmul_ref (the kernel's bits,
+    and no launch to count)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    first, calls = {}, {}
+
+    def recorder(x2d, w, a, s, b=None):
+        key = (x2d.shape[0], x2d.shape[1], w.shape[0])
+        calls[key] = calls.get(key, 0) + 1
+        if key not in first:
+            first[key] = (x2d.clone(), w, a, s, b)
+        return qmatmul_ops.qmatmul_ref(x2d, w, a, s, b)
+
+    with mock.patch.object(qmatmul_ops, "qmatmul", recorder), torch.no_grad():
+        model(x)
+    return first, calls
+
+
+def check_qmatmul_calls(name, first, calls):
+    """qmatmul against qmatmul_ref, bit for bit, on the recorded inputs of each
+    (M, K, N) of ``name``'s forward (a K off the kernel's step is padded by the
+    wrapper); beside it ``torch._int_mm`` on the quantized operands (K padded to
+    8 with zeros, as it requires).  Returns the rows, with calls per forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    rows = []
+    for (M, K, N), (x, w, a, s, b) in sorted(first.items()):
+        y, y_ref = qmatmul_ops.qmatmul(x, w, a, s, b), qmatmul_ops.qmatmul_ref(x, w, a, s, b)
+        torch.cuda.synchronize()
+        err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
+        if not torch.isfinite(y).all() or not torch.equal(y, y_ref):
+            fail(f"qmatmul {name} {(M, K, N)}: rel err {err:.3e}, max abs err {abs_err:.3e}; "
+                 f"the kernel must give qmatmul_ref's bits")
+        ms, plain_ms = time_pair(lambda: qmatmul_ops.qmatmul(x, w, a, s, b),
+                                 lambda: qmatmul_ops.qmatmul_ref(x, w, a, s, b), iters=10)
+        k8 = -(-K // 8) * 8
+        x_q = F.pad(qmatmul_ops.quantize_activation(x, a), (0, k8 - K))
+        w_t = w[:, :k8].t().contiguous()
+        lib_ms = library_time(lambda: torch._int_mm(x_q, w_t), iters=10)
+        nbytes, ops = qmm_cost(M, K, N)
+        b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
+        p = qmatmul_ops.plan(M, K, N)
+        if qmatmul_ops._library().qmatmul_smem_bytes(p.bm, p.bnw, p.ra, p.sx, p.sb) != p.smem:
+            fail(f"qmatmul {(M, K, N)}: the planner's shared memory differs from the kernel's")
+        c = calls[(M, K, N)]
+        rows.append(dict(shape=(M, K, N), calls=c, rel_err=err, max_abs_err=abs_err, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=ops,
+                         bound_ms=b_ms))
+        print(f"qmatmul {name} (M, K, N)={(M, K, N)} x{c}/forward: bit for bit on the "
+              f"forward's own inputs, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (median of 10 "
+              f"CUDA-event runs, x2), torch._int_mm {lib_ms:.4f} ms; bound {b_ms:.4f} ms by "
+              f"{b_by} ({nbytes / 1e6:.1f} MB, {ops / 1e9:.3f} G int8 ops), roofline share "
+              f"{b_ms / ms:.1%}; plan BM {p.bm}, BN {p.bn}, {p.ntpb} column tiles per block, "
+              f"grid {p.grid}, {p.smem} B")
+        del y, y_ref, x_q, w_t
+    for label, key in (("kernel", "ms"), ("plain", "plain_ms"), ("torch._int_mm", "library_ms"),
+                       ("bound", "bound_ms")):
+        print(f"qmatmul per {name} forward ({sum(r['calls'] for r in rows)} calls): "
+              f"{label} {sum(r[key] * r['calls'] for r in rows):.4f} ms")
+    return rows
+
+
+def run_resnet50_int8(gen):
+    """P3: the Runner on serve_int8_resnet50.py (Dummy: no site), then
+    fold_batchnorm (53 pairs) and quantize_int8 on two seeded calibration
+    batches (every groups == 1 conv and the fc: 54), one qmatmul launch per
+    quantized module per forward, the int8 logits against the plain versions and
+    the float32 model, the peak memory and a profile (the im2col of
+    QuantConv2d), a compile_serving replay; each (M, K, N) of the forward held
+    bit for bit and timed.  Returns (qmatmul's launches, the shape rows)."""
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.layers import QuantConv2d, QuantLinear
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    name = os.path.relpath(RESNET50_INT8, REPO)
+    reset_counts()
+    runner, run_s = run_cli(RESNET50_INT8, os.path.join(REPO, "build", "chip_smoke_resnet50"))
+    model = runner.model
+    if model.length_switchable != 0:
+        fail(f"{name}: Dummy registered {model.length_switchable} sites, expected none")
+    f32_ms = float(np.median(time_forward_cuda(model)))
+    n_fold = deploy.fold_batchnorm(model)
+    fold_ms = float(np.median(time_forward_cuda(model)))
+    x = images(gen)
+    with torch.no_grad():
+        y_f32 = model(x)
+    calib_gen = torch.Generator().manual_seed(8)
+    calib = [torch.randn(BATCH, 3, 224, 224, generator=calib_gen).cuda()
+             .contiguous(memory_format=torch.channels_last) for _ in range(2)]
+    t0 = time.perf_counter()
+    n = deploy.quantize_int8(model, calib)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    del calib
+    quantized = [m for m in model.modules() if isinstance(m, (QuantConv2d, QuantLinear))]
+    print(f"main path: Runner on {name} in {run_s:.2f} s (Dummy: {model.length_switchable} "
+          f"sites); fold_batchnorm folded {n_fold} pairs (expected 53); quantize_int8 "
+          f"quantized {n} modules in {quant_s:.2f} s (expected 54: 53 convs and the fc)")
+    if n_fold != 53 or n != 54 or len(quantized) != 54:
+        fail(f"{name}: folded {n_fold} pairs and quantized {n} modules ({len(quantized)} found)")
+    first, calls = record_qmatmul_calls(model, seeded_batch(41))
+    if sum(calls.values()) != 54:
+        fail(f"{name}: one int8 forward made {sum(calls.values())} qmatmul calls, expected 54")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    int8_ms = float(np.median(time_forward_cuda(model)))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = qmatmul_ops.qmatmul.launches
+    print(f"int8 ResNet-50: 13 forwards launched qmatmul {launches} times (54 per forward); "
+          f"peak device memory {peak:.2f} GiB (weights, {BATCH} images and QuantConv2d's "
+          f"unfolded columns)")
+    if launches != 54 * 13:
+        fail(f"{name}: qmatmul launched {launches} times in 13 forwards, expected {54 * 13}")
+    with torch.no_grad():
+        y_q = model(x)
+        check_logits("int8 ResNet-50", y_q, {"qmatmul_ref": through_plain(model, x)}, INT8_TOL)
+    int8_err = float((y_q - y_f32).abs().max() / y_f32.abs().max())
+    print(f"int8 ResNet-50 against float32 logits: max abs relative {int8_err:.4f} (bound "
+          f"{INT8_F32_TOL})")
+    if not int8_err <= INT8_F32_TOL:
+        fail("int8 ResNet-50 logits drift too far from the float32 model's")
+    print(f"ResNet-50 forward {INPUT}: float32 {f32_ms:.3f} ms, folded {fold_ms:.3f} ms, int8 "
+          f"{int8_ms:.3f} ms ({BATCH / int8_ms * 1e3:.1f} img/s); float32 / int8 = "
+          f"{f32_ms / int8_ms:.4f}")
+    profile_forward("int8 ResNet-50", model, INPUT, keep=("qmatmul_kernel", "im2col"))
+    compiled, put = check_graph("int8 ResNet-50 graph", model, {"qmatmul": 54}, 42)[:2]
+    paced = pace(model, compiled, seeded_batch(42))
+    print(f"int8 ResNet-50 as a graph: median {time_graph(compiled, put, INPUT):.3f} ms; back "
+          f"to back {paced[0]:.3f} ms eager, {paced[1]:.3f} ms graph")
+    del compiled, put
+    rows = check_qmatmul_calls("int8 ResNet-50", first, calls)
+    del first, runner, model
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def run_mscan_configs():
+    """P4: the MSCAN-t hook configs through the CLI: Fps over MscaRep d1
+    (13 msca_fused launches per forward it drives; its img/s beside 64 over the
+    same model's median forward), the two profiler configs (a trace file, the
+    tables, and CONV0/SD_CONVS/CHANNEL_MIX with device time) and dummy_mscan-t
+    (no site; the hooks run).  Returns msca_fused's launches in the Fps run."""
+    import torch
+
+    from convnet_approximater_tpu_torch.hooks import Fps, InferenceTimeHook
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.utils.trace import device_records, range_times
+
+    name = os.path.relpath(MSCAN_FPS, REPO)
+    reset_counts()
+    runner, run_s = run_cli(MSCAN_FPS, os.path.join(REPO, "build", "chip_smoke_fps"))
+    launches = fused_ops.msca_fused.launches
+    hook = next(h for h in runner.hooks if isinstance(h, Fps))
+    if runner.model.length_switchable != 13 or launches != 13 * hook.forwards or launches == 0:
+        fail(f"{name}: {runner.model.length_switchable} sites; msca_fused launched {launches} "
+             f"times in {hook.forwards} forwards, expected 13 per forward")
+    ms = float(np.median(time_forward_cuda(runner.model)))
+    fps = hook.result["average_fps"]
+    print(f"main path: Runner on {name} in {run_s:.2f} s; Fps drove {hook.forwards} forwards "
+          f"({hook.repeat_times} runs of {hook.total_iters}, {hook.num_warmup} untimed each) "
+          f"and msca_fused launched {launches} times (13 per forward)")
+    print(f"Fps (MSCAN-t MscaRep d1, b={hook.dataset_args.get('batch_size')}, Synthetic through "
+          f"Loader): average {fps:.2f} img/s (variance {hook.result['fps_variance']}); the same "
+          f"model's median forward {ms:.3f} ms = {BATCH / ms * 1e3:.1f} img/s; Fps / that = "
+          f"{fps / (BATCH / ms * 1e3):.4f} (the rest is the loader's share)")
+    del runner, hook
+    torch.cuda.empty_cache()
+
+    for config in MSCAN_PROFILES:
+        name = os.path.relpath(config, REPO)
+        work_dir = os.path.join(REPO, "build", "chip_smoke_" + os.path.basename(config)[:-3])
+        runner, run_s = run_cli(config, work_dir)
+        hook = next(h for h in runner.hooks if isinstance(h, InferenceTimeHook))
+        trace = hook.result.get("trace")
+        if not trace or not os.path.isfile(trace) or not os.path.getsize(trace):
+            fail(f"{name}: no trace file under {work_dir}/traces")
+        print(f"main path: Runner on {name} in {run_s:.2f} s; median forward "
+              f"{hook.result['median_ms']:.3f} ms; trace {os.path.relpath(trace, REPO)} "
+              f"({os.path.getsize(trace) / 1e6:.1f} MB)")
+        for group, table in hook.result["tables"].items():
+            print(f"profile by {group} ({name}, one forward {INPUT}):\n{table}")
+        prof = hook.result["profile"]
+        records, on_device = device_records(prof)
+        total = sum(r.us for r in records)
+        stages = {k: range_times(prof).get(k, [0.0, 0])[0] for k in MSCA_STAGES}
+        print(f"{name}: MSCA stages over the 13 blocks, device ms (share of the forward's "
+              f"{total / 1e3:.3f} device ms; of the three): " + ", ".join(
+                  f"{k} {v / 1e3:.3f} ({v / total:.1%}; {v / sum(stages.values()):.1%})"
+                  for k, v in stages.items()))
+        if not on_device or not all(v > 0 for v in stages.values()):
+            fail(f"{name}: a stage range has no device time")
+        del runner, hook, prof
+        torch.cuda.empty_cache()
+
+    name = os.path.relpath(MSCAN_DUMMY, REPO)
+    reset_counts()
+    runner, run_s = run_cli(MSCAN_DUMMY, os.path.join(REPO, "build", "chip_smoke_dummy"))
+    forwards, fused = forwards_of(runner), fused_ops.msca_fused.launches
+    print(f"main path: Runner on {name} in {run_s:.2f} s; {runner.model.length_switchable} "
+          f"sites; the hooks ran {forwards} forwards of dense MSCAN-t, msca_fused launched "
+          f"{fused} times (13 per forward)")
+    if runner.model.length_switchable != 0 or forwards != 14 or fused != 13 * forwards:
+        fail(f"{name}: expected no site and 14 forwards of 13 msca_fused launches")
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
 def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
     """The kernels-line entry of one forward: rows weighted by calls per forward."""
     nbytes = sum(r["bytes"] * weight(r) for r in rows)
@@ -2303,6 +2815,10 @@ def main():
     lowrank_rows = check_lowrank_kernel(gen)
     cascade_rows = check_cascade_kernel(gen)
     qmm_rows = check_qmatmul_kernel(gen)
+    resnet18_rows = check_lowrank_model_shapes(torch.Generator().manual_seed(4), "ResNet-18",
+                                               RESNET18_CONVS, 4)
+    vgg16_rows = check_lowrank_model_shapes(torch.Generator().manual_seed(5), "VGG-16",
+                                            VGG16_CONVS, 16)
 
     # -- 4.-8. the main paths ---------------------------------------------
     msca_launches = run_mscan(gen)
@@ -2321,7 +2837,13 @@ def main():
     # -- 10. fine-tuning: F1-F3 -------------------------------------------
     run_finetune()
 
-    # -- 11. results ------------------------------------------------------
+    # -- 11. P1-P4: ResNet-18 and VGG-16 scheme-1, int8 ResNet-50, MSCAN-t configs
+    resnet18_launches = run_resnet18(gen)
+    vgg16_launches = run_vgg16(gen)
+    r50_launches, r50_rows = run_resnet50_int8(gen)
+    fps_launches = run_mscan_configs()
+
+    # -- 12. results ------------------------------------------------------
     # each entry is one forward at b=64, 224^2: the time per call times the calls per forward
     # (parallel_cascade: the DwSepRep r1 forward of ConvNeXt-T; qmatmul: its int8 forward)
     blocks = {H: n for H, _, n in STAGES}
@@ -2347,6 +2869,23 @@ def main():
             replaces="scripts/exp_pallas_qmatmul.py:61", launches=qmm_launches,
             max_abs_err=max(r["max_abs_err"] for r in qmm_rows)), peak=PEAK_INT8),
     ]
+    # the later paths' launches and per-forward sums, beside the first path's
+    calls = lambda r: r["calls"]  # noqa: E731
+    path_keys = ("launches", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels[0]["paths"] = [dict(path="MSCAN-t MscaRep d1 under Fps", launches=fps_launches)]
+    kernels[1]["paths"] = [
+        {k: v for k, v in dict(per_forward(rows, calls, dict(launches=launches)), path=path)
+         .items() if k in path_keys + ("path",)}
+        for path, rows, launches in (("ResNet-18 scheme-1", resnet18_rows, resnet18_launches),
+                                     ("VGG-16 scheme-1", vgg16_rows, vgg16_launches))]
+    kernels[3]["paths"] = [
+        {k: v for k, v in dict(per_forward(r50_rows, calls, dict(launches=r50_launches),
+                                           peak=PEAK_INT8), path="int8 ResNet-50").items()
+         if k in path_keys + ("path",)}]
+    kernels[1]["max_abs_err"] = max([kernels[1]["max_abs_err"]] + [
+        r["max_abs_err"] for r in resnet18_rows + vgg16_rows])
+    kernels[3]["max_abs_err"] = max([kernels[3]["max_abs_err"]] +
+                                    [r["max_abs_err"] for r in r50_rows])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -1,4 +1,5 @@
 from .approximater import APP, Approximater, build_app
+from .dummy import Dummy
 from .dw_sep_rep import DwSepRep
 from .ffn_rep import FfnRep, merged_ffn_solve
 from .low_rank_exp import LowRankExpV1

@@ -52,7 +52,9 @@ class Approximater(ABC):
         init_weights(tgt, generator)
         sub = Substitution(src, tgt)
         self._fix_substitution(sub, generator)
-        sub.new.to(next(src.parameters()).device)
+        param = next(src.parameters(), None)
+        if param is not None:
+            sub.new.to(param.device)
         return sub
 
     @abstractmethod

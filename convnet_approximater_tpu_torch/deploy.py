@@ -23,10 +23,13 @@ from convnet_approximater_tpu_torch.nn import BatchNorm2d, Conv2d, Identity, Lin
 
 # class name -> (conv, bn) attribute pairs of a module known to call the conv
 # immediately before the bn (call order is not discoverable from structure):
-# MSCAN's DownSample runs proj, then norm.  The ResNet family's pairs come with
-# that family's port.
+# MSCAN's DownSample runs proj, then norm; every ResNet conv feeds its own BN
+# (a downsample's pair is found as a Sequential's adjacent children).
 FOLD_PATTERNS: Dict[str, List[Tuple[str, str]]] = {
     "DownSample": [("proj", "norm")],
+    "ResNet": [("conv1", "bn1")],
+    "BasicBlock": [("conv1", "bn1"), ("conv2", "bn2")],
+    "Bottleneck": [("conv1", "bn1"), ("conv2", "bn2"), ("conv3", "bn3")],
 }
 
 # class name -> the child that produces the output of a composite layer ending

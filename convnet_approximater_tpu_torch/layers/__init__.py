@@ -1,8 +1,10 @@
 from .depth_separable_conv import CascadeConv, FixPaddingBias, FixPaddingBias2d, ParallelConv
 from .drop import DropPath, drop_generator, drop_path
+from .dummy import DummyLayer
 from .low_rank_conv import LowRankExpConvV1, SeparableConv
 from .merged_ffn import MergedFFN
 from .msca import MSCA, MSCAProfile
 from .quant import QuantConv2d, QuantLinear
+from .simple_conv import SimpleConv
 from .substitution import (LAYER, Substitution, build_layer, forced_branch, release_taps,
                            taps)

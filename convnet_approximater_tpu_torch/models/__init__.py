@@ -1,4 +1,6 @@
 from .alexnet import AlexNet
 from .convnext import ConvNeXt, ConvNeXtBlock, ConvNeXtTiny, LayerScale
 from .mscan import MSCAN, MSCAN_Classifier
+from .resnet import BasicBlock, Bottleneck, ResNet, ResNet18, ResNet50
 from .switchable import MODEL, SwitchableModel, build_model
+from .vgg import VGG, VGG16

@@ -1,7 +1,8 @@
 """Build CUDA sources of ``csrc/`` with nvcc and load them with ctypes.
 
 Each source compiles on its own into a shared library with a plain C interface
-(no PyTorch headers, so a build takes seconds).  The library lands in
+(no PyTorch headers, so a build takes seconds).  :func:`launch_range` names a
+launch for ``torch.profiler``.  The library lands in
 ``build/torch_kernels/`` at the repository root, named by a hash of the source
 and the flags, so an edited source is rebuilt and an unchanged one is reused.
 :func:`build_all` starts one nvcc per source, all at once.
@@ -9,6 +10,7 @@ and the flags, so an edited source is rebuilt and an unchanged one is reused.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +19,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Sequence
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -92,3 +96,12 @@ def load(source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` if needed and load it."""
     build_all([source])
     return ctypes.CDLL(str(library_path(source)))
+
+
+def launch_range(name: str):
+    """A ``record_function`` range named after a kernel's wrapper while
+    ``torch.profiler`` records, so that the kernels a launch puts on the card
+    are attributed to it (``utils/trace.py``); no range otherwise."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .build import load
+from .build import launch_range, load
 
 # the kernel's shared-memory plan (csrc/lowrank_conv.cu: smem_bytes) and the card's
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -344,7 +344,7 @@ def lowrank_conv(x, A_mc, b, *, v=None, h=None, bases=None, kernel_size, stride=
                              f"{tuple(t.shape)} on {t.device}")
     Ho, Wo = out_size(H, W, kernel_size, stride, padding)
     y = x.new_empty((B, Ho, Wo, N))
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), launch_range("lowrank_conv"):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().lowrank_conv_f32(
             x.data_ptr(), w.data_ptr(), taps.data_ptr(), b.data_ptr(), y.data_ptr(),

@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .build import load
+from .build import launch_range, load
 
 MAX_BRANCHES = 8  # kMaxBranches in csrc/msca_fused.cu
 
@@ -262,7 +262,7 @@ def msca_fused(x, w0, b0, w1, b1, w2, b2, wm, bm, res=None, *,
         raise ValueError(f"msca_fused: no kernel plan for k0={k0}, ks={tuple(ks)}")
     out = torch.empty_like(x)
     attn = torch.empty_like(x)  # the march's output, the mix's input
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), launch_range("msca_fused"):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().msca_fused_f32(
             x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),

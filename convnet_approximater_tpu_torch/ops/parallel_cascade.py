@@ -24,7 +24,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from .build import load
+from .build import launch_range, load
 from .msca_fused import MAX_BRANCHES
 
 MAX_BANK_ROWS = 128  # kMaxBankRows in csrc/parallel_cascade.cu: nb * k_max
@@ -119,7 +119,7 @@ def parallel_cascade(x, w1, b1, w2, b2, *, ks: Sequence[int], identity: bool):
     nb, k_max = w1.shape[0], w1.shape[1]
     out = torch.empty_like(x)
     ks_arr = (ctypes.c_int * nb)(*ks)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), launch_range("parallel_cascade"):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().parallel_cascade_f32(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),

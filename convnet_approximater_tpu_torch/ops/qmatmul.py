@@ -20,7 +20,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .build import load
+from .build import launch_range, load
 
 INT8_MAX = 127.0
 K_ALIGN = 32  # the kernel's K step (one wgmma k32); the packed weight's rows are padded to it
@@ -199,7 +199,7 @@ def qmatmul(x, w_packed, a_scale, w_scale, bias: Optional[torch.Tensor] = None):
         x = F.pad(x, (0, -K % 4)) if K % 4 else x.clone()
     p = plan(M, K, N)
     y = x.new_empty((M, N))
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), launch_range("qmatmul"):
         stream = torch.cuda.current_stream().cuda_stream
         err = _library().qmatmul_f32(
             x.data_ptr(), w_packed.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
