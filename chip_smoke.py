@@ -142,7 +142,29 @@ From the root of a checkout, with no arguments:
     ``msca-rep-profile_d1_fix_mscan-t.py`` and ``msca-profile_mscan-t.py`` (a
     trace file, the tables, CONV0/SD_CONVS/CHANNEL_MIX with device time and
     their shares) and ``dummy_mscan-t.py`` (no site; the hooks run);
-12. prints one JSON line of kernel results (``lowrank_conv``'s and ``qmatmul``'s
+12. drives the rest of the low-rank family, calibration and QAT through the
+    CLI, each solve (``optimize``) and calibration pass timed between two
+    synchronizes, the first site solved again on the CPU (what the solve
+    reached within 1e-4, the outputs within 1e-2), no port kernel launched by
+    a V2-V4 layer: P5
+    ``configs/resnet/low-rank-exp-v3_blocks_resnet18.py`` (16 block 3x3s as
+    ``LowRankExpConvV3``), timed beside dense ResNet-18, then
+    ``fold_batchnorm`` (20 pairs, 16 through ``mix_conv``; logits within 1e-4),
+    ``enable_pw_matmul`` and a compile_serving replay (within 1e-6 of eager),
+    profiled; P6 the VGG-16 configs ``low-rank-exp-v3_all``, ``-v3_dd``,
+    ``-v4_all`` and ``-v2_all`` (the last two calibrate on 2 batches of 8 at
+    224^2), each forward beside dense VGG-16 with its Optimize time; P7
+    ``configs/low-rank-exp/low-rank-exp-v2_l2345_alexnet.py`` beside dense
+    AlexNet; P8 ``configs/quant/int8-qat_ce_alexnet.py`` for 4 steps on
+    Synthetic data (8 QAT twins, every loss finite, every observer warm), then
+    ``convert_qat_to_int8`` (8 modules): 8 ``qmatmul`` launches per int8
+    forward and per replay at AlexNet's 8 shapes, int8 logits against the
+    plain versions (1e-3) and against the fake-quant and float32 models
+    (0.12), timed beside float32 and profiled, each (M, K, N) bit for bit on
+    its own inputs beside ``torch._int_mm``; F4
+    ``configs/vgg/low-rank-exp-v3_l2-kd_vgg16.py`` (CIFAR-10 cut to Synthetic)
+    for 4 steps, every loss finite, a teacher with no V3 layer;
+13. prints one JSON line of kernel results (``lowrank_conv``'s and ``qmatmul``'s
     entries list the later paths' launches and sums per forward under
     ``paths``), then ``{"ok": true, "device": ...}``.
 
@@ -2007,7 +2029,7 @@ def run_finetune_cfg(config, work_dir, probe, edit_hook, **cfg_updates):
     init_cfg(config)
     cfg = get_cfg()
     hooks = copy.deepcopy(list(cfg.hooks))
-    edit_hook(hooks[0])
+    edit_hook(next(h for h in hooks if h["type"] == "L2Reconstruct"))
     os.makedirs(work_dir, exist_ok=True)
     build_logger(os.path.join(work_dir, "run.log"))
     update_cfg(hooks=hooks, work_dir=work_dir, config_name=cfg.name, seed=0, **cfg_updates)
@@ -2564,8 +2586,8 @@ def record_qmatmul_calls(model, x):
 def check_qmatmul_calls(name, first, calls):
     """qmatmul against qmatmul_ref, bit for bit, on the recorded inputs of each
     (M, K, N) of ``name``'s forward (a K off the kernel's step is padded by the
-    wrapper); beside it ``torch._int_mm`` on the quantized operands (K padded to
-    8 with zeros, as it requires).  Returns the rows, with calls per forward."""
+    wrapper); beside it ``torch._int_mm`` on the quantized operands (K and N
+    padded to multiples of 8 with zeros, as it requires).  Returns the rows, with calls per forward."""
     import torch
     import torch.nn.functional as F
 
@@ -2581,9 +2603,9 @@ def check_qmatmul_calls(name, first, calls):
                  f"the kernel must give qmatmul_ref's bits")
         ms, plain_ms = time_pair(lambda: qmatmul_ops.qmatmul(x, w, a, s, b),
                                  lambda: qmatmul_ops.qmatmul_ref(x, w, a, s, b), iters=10)
-        k8 = -(-K // 8) * 8
+        k8, n8 = -(-K // 8) * 8, -(-N // 8) * 8
         x_q = F.pad(qmatmul_ops.quantize_activation(x, a), (0, k8 - K))
-        w_t = w[:, :k8].t().contiguous()
+        w_t = F.pad(w[:, :k8].t(), (0, n8 - N)).contiguous()
         lib_ms = library_time(lambda: torch._int_mm(x_q, w_t), iters=10)
         nbytes, ops = qmm_cost(M, K, N)
         b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
@@ -2756,6 +2778,398 @@ def run_mscan_configs():
     return launches
 
 
+# -- 12. the rest of the low-rank family, calibration and QAT ----------------------
+
+RESNET18_V3 = os.path.join(REPO, "configs", "resnet", "low-rank-exp-v3_blocks_resnet18.py")
+VGG16_V234 = [os.path.join(REPO, "configs", "vgg", f"low-rank-exp-{v}_vgg16.py")
+              for v in ("v3_all", "v3_dd", "v4_all", "v2_all")]
+ALEX_V2 = os.path.join(REPO, "configs", "low-rank-exp", "low-rank-exp-v2_l2345_alexnet.py")
+QAT_ALEX = os.path.join(REPO, "configs", "quant", "int8-qat_ce_alexnet.py")
+FT_V3_KD = os.path.join(REPO, "configs", "vgg", "low-rank-exp-v3_l2-kd_vgg16.py")
+# the first site's solve on the card against the same solve on the CPU: what the solve
+# reports it reached (V2's ALS error after each iteration, else the retained energy), and
+# the layers' outputs, against a wrong layout of a factor (an O(1) error).  Random weights
+# have flat spectra, so a truncated subspace is fixed only to float32 rounding over the gap
+# between neighbouring singular values, and the iterative solves (30 ALS steps, 3 HOOI
+# sweeps) stop before they converge, on a path rounding steers: seen 2.0e-5 in V4's energy
+# and 6.6e-4 in V2's outputs between the two devices
+OBJECTIVE_TOL = 1e-4
+SOLVE_OUTPUT_TOL = 1e-2
+# (M, K, N) of the 8 qmatmul calls of one int8 AlexNet forward at b=64, 224^2: the
+# 11x11/4 stem, convs 2-5 (im2col rows), the three Linears (10 classes)
+ALEX_QMM_SHAPES = {(193600, 363, 64), (46656, 1600, 192), (10816, 1728, 384),
+                   (10816, 3456, 256), (10816, 2304, 256), (64, 9216, 4096), (64, 4096, 1024),
+                   (64, 1024, 10)}
+
+
+@contextlib.contextmanager
+def solve_probe(stats):
+    """Times every V2-V4 ``optimize`` (one site's solve) and CalibrationHook's
+    pass on the card, each between two synchronizes, into ``stats``
+    ("solves", "calibration"), and keeps a CPU copy of the first site's source
+    conv and calibration moment ("src", "xcov") and what its solve reached
+    ("objective"), to solve again on the CPU."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.core import LowRankExpV2, LowRankExpV3, LowRankExpV4
+    from convnet_approximater_tpu_torch.hooks import CalibrationHook
+
+    def timed(fn, key, keep=False):
+        def wrapped(self, *args):
+            first = keep and not stats[key]
+            if first:
+                stats["src"] = copy.deepcopy(args[0].old_module).cpu()
+                xcov = getattr(self, "_xcov", {}).get(0)
+                stats["xcov"] = None if xcov is None else xcov.detach().cpu().clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(self, *args)
+            torch.cuda.synchronize()
+            stats[key].append(time.perf_counter() - t0)
+            if first:
+                stats["objective"] = solve_objective(self)
+            return out
+        return wrapped
+
+    stats.update(solves=[], calibration=[])
+    with contextlib.ExitStack() as stack:
+        for app in (LowRankExpV2, LowRankExpV3, LowRankExpV4):
+            stack.enter_context(mock.patch.object(app, "optimize",
+                                                  timed(app.optimize, "solves", keep=True)))
+        stack.enter_context(mock.patch.object(
+            CalibrationHook, "after_initialize",
+            timed(CalibrationHook.after_initialize, "calibration")))
+        yield stats
+
+
+def solve_objective(app):
+    """What an app's last solve reports it reached, as float64 on the CPU: V2's
+    ALS error after each iteration (its retained energy without ALS), V3's and
+    V4's retained energy."""
+    import torch
+
+    errors = getattr(app, "errors", None)
+    if errors is not None and len(errors):
+        return errors.detach().cpu().double()
+    energy = app.energy_kept if hasattr(app, "energy_kept") else app.pc_energy
+    return torch.tensor([energy], dtype=torch.float64)
+
+
+def check_solve_on_cpu(name, runner, stats):
+    """The first site as the card solved it against the same app solving the
+    same conv (and calibration moment) on the CPU: what each solve reached
+    (``solve_objective``) within OBJECTIVE_TOL, and the layers' outputs on a
+    seeded (2, C, 32, 32) input within SOLVE_OUTPUT_TOL.  Singular vectors may
+    differ in sign between the two LAPACKs; the layers' outputs do not."""
+    import torch
+
+    from convnet_approximater_tpu_torch.core import build_app
+    from convnet_approximater_tpu_torch.utils import get_cfg
+
+    app = build_app(dict(get_cfg().app))
+    if stats["xcov"] is not None:
+        app.set_calibration(0, stats["xcov"])
+    sub = app.initialize(stats["src"], torch.Generator().manual_seed(0))
+    app.optimize(sub)
+    cpu_layer = app.postprocess(sub).eval()
+    card_layer = next(iter(runner.model.switchable_modules()))
+    x = torch.randn(2, stats["src"].in_channels, 32, 32,
+                    generator=torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        err = rel_err(card_layer(x.cuda()).cpu(), cpu_layer(x))
+    card, cpu = stats["objective"], solve_objective(app)
+    obj_err = float(((card - cpu).abs() / cpu.abs().clamp_min(1e-30)).max())
+    what = (f"the ALS error after each of {len(cpu)} iterations" if len(cpu) > 1
+            else "the retained energy")
+    print(f"{name}: site 0 ({runner.model.switchable_names[0]}, "
+          f"{'calibrated' if stats['xcov'] is not None else 'plain'} solve) on the card against "
+          f"the same solve on the CPU: {what} {float(card[-1]):.7g} and {float(cpu[-1]):.7g}, "
+          f"max rel err {obj_err:.3e} (bound {OBJECTIVE_TOL}); outputs rel err {err:.3e} "
+          f"(bound {SOLVE_OUTPUT_TOL})")
+    if not (obj_err <= OBJECTIVE_TOL and err <= SOLVE_OUTPUT_TOL):
+        fail(f"{name}: the solve on the card disagrees with the CPU's")
+
+
+def drive_low_rank(config, sites, layer_type, gen, classes):
+    """The Runner on a V2-V4 config through the CLI with the solves timed: the
+    registered sites, each a ``layer_type`` at the config's rank, no kernel
+    launched (the factors are plain convs), the first site's solve against the
+    CPU's, finite logits.  Returns (runner, stats, seconds, logits on
+    ``images(gen)``, x)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    name = os.path.relpath(config, REPO)
+    work_dir = os.path.join(REPO, "build", "chip_smoke_" + os.path.basename(config)[:-3])
+    stats = {}
+    reset_counts()
+    with solve_probe(stats):
+        runner, run_s = run_cli(config, work_dir)
+    model, app = runner.model, runner.app
+    layers = list(model.switchable_modules())
+
+    def rank(b):
+        if layer_type.__name__ == "LowRankExpConvV4" and not isinstance(b, (tuple, list)):
+            return (b, b)
+        return tuple(b) if isinstance(b, (tuple, list)) else b
+
+    if (model.switchable_names != sites or not all(isinstance(m, layer_type) for m in layers)
+            or [m.num_base for m in layers] != [rank(b) for b in app.num_bases]):
+        fail(f"{name}: registered {model.switchable_names} as "
+             f"{sorted({type(m).__name__ for m in layers})}, expected {len(sites)} "
+             f"{layer_type.__name__} at {sites} with the config's ranks")
+    if lowrank_ops.lowrank_conv.launches or qmatmul_ops.qmatmul.launches:
+        fail(f"{name}: a kernel launched; the V2-V4 factors are plain convs")
+    calib = (f"; CalibrationHook's pass {stats['calibration'][0]:.3f} s"
+             if stats["calibration"] else "")
+    print(f"main path: Runner on {name} in {run_s:.2f} s; {len(sites)} "
+          f"{layer_type.__name__} sites; Optimize (the solves, on the card) "
+          f"{sum(stats['solves']):.3f} s in all, the slowest site {max(stats['solves']):.3f} s"
+          f"{calib} [{smi_line()}]")
+    check_solve_on_cpu(name, runner, stats)
+    x = images(gen)
+    with torch.no_grad():
+        y = model(x)
+    if tuple(y.shape) != (2, classes) or not torch.isfinite(y).all():
+        fail(f"{name}: logits of shape {tuple(y.shape)} or not finite")
+    return runner, stats, run_s, y, x
+
+
+def hook_or_timed_ms(runner):
+    """The median forward at INPUT: InferenceTimeHook's when the config has one."""
+    from convnet_approximater_tpu_torch.hooks import InferenceTimeHook
+
+    hook = next((h for h in runner.hooks if isinstance(h, InferenceTimeHook)), None)
+    if hook is not None:
+        return hook.result["median_ms"]
+    return float(np.median(time_forward_cuda(runner.model)))
+
+
+def run_resnet18_v3(gen):
+    """P5: ResNet-18 V3 through the CLI (16 block 3x3s as a dense k x k basis
+    and a 1x1 mix), timed beside dense ResNet-18; then fold_batchnorm (20
+    pairs, 16 through mix_conv), enable_pw_matmul, and a compile_serving graph."""
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.layers import LowRankExpConvV3
+    from convnet_approximater_tpu_torch.models import ResNet
+    from convnet_approximater_tpu_torch.nn import Identity
+
+    runner, _, _, y, x = drive_low_rank(RESNET18_V3, RESNET18_SITES, LowRankExpConvV3, gen, 1000)
+    model = runner.model
+    low_ms = hook_or_timed_ms(runner)
+    print(f"ResNet-18 V3 forward {INPUT} f32: median {low_ms:.3f} ms "
+          f"({BATCH / low_ms * 1e3:.1f} img/s)")
+    time_dense("ResNet-18 (against V3)", ResNet(18, 1000), low_ms)
+    n = deploy.fold_batchnorm(model)
+    through = sum(isinstance(model.get_submodule(s[:-len("convK")] + "bn" + s[-1]), Identity)
+                  for s in RESNET18_SITES)
+    with torch.no_grad():
+        y_fold = model(x)
+    print(f"ResNet-18 V3: fold_batchnorm folded {n} pairs (expected 20), {through} of them "
+          f"through a site's mix_conv (expected 16)")
+    if n != 20 or through != 16:
+        fail("ResNet-18 V3: fold_batchnorm folded other pairs")
+    check_logits("ResNet-18 V3 after fold_batchnorm", y_fold, {"before the fold": y}, LOGITS_TOL)
+    fold_ms = float(np.median(time_forward_cuda(model)))
+    n_pw = deploy.enable_pw_matmul(model)
+    with torch.no_grad():
+        y_pw = model(x)
+    check_logits(f"ResNet-18 V3 folded, {n_pw} 1x1 convs as matmuls", y_pw,
+                 {"before the fold": y}, LOGITS_TOL)
+    pw_ms = float(np.median(time_forward_cuda(model)))
+    if n_pw < 16:
+        fail(f"ResNet-18 V3: enable_pw_matmul set {n_pw} convs, expected the 16 mix_convs at least")
+    compiled, put = check_graph("ResNet-18 V3 (folded, 1x1s as matmuls) graph", model, {}, 50)[:2]
+    graph_ms = time_graph(compiled, put, INPUT)
+    paced = pace(model, compiled, seeded_batch(50))
+    print(f"ResNet-18 V3 forward {INPUT} f32 [{smi_line()}]: Runner {low_ms:.3f} ms, folded "
+          f"{fold_ms:.3f} ms, with {n_pw} 1x1s as matmuls {pw_ms:.3f} ms, as a graph "
+          f"{graph_ms:.3f} ms; back to back {paced[0]:.3f} ms eager, {paced[1]:.3f} ms graph")
+    profile_forward("ResNet-18 V3 (folded, 1x1s as matmuls)", model, INPUT)
+    del compiled, put, runner, model
+    torch.cuda.empty_cache()
+
+
+def run_vgg16_v234(gen):
+    """P6: VGG-16 V3, V3 data-driven, V4 and V2 data-driven through the CLI
+    (the last two calibrate on 2 batches of 8 at 224^2), each timed beside
+    dense VGG-16, with its Optimize phase's wall time."""
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import (LowRankExpConvV2, LowRankExpConvV3,
+                                                       LowRankExpConvV4)
+    from convnet_approximater_tpu_torch.models import VGG
+
+    types = (LowRankExpConvV3, LowRankExpConvV3, LowRankExpConvV4, LowRankExpConvV2)
+    rows = []
+    for config, layer_type in zip(VGG16_V234, types):
+        runner, stats, run_s, _, _ = drive_low_rank(config, VGG16_SITES, layer_type, gen, 10)
+        rows.append((os.path.relpath(config, REPO), hook_or_timed_ms(runner),
+                     sum(stats["solves"]), sum(stats["calibration"]), run_s))
+        del runner
+        torch.cuda.empty_cache()
+    dense_ms = time_dense("VGG-16 (against V3)", VGG(16, 10), rows[0][1])
+    for name, ms, solve_s, calib_s, run_s in rows:
+        print(f"VGG-16 {name} forward {INPUT} f32 [{smi_line()}]: median {ms:.3f} ms "
+              f"({BATCH / ms * 1e3:.1f} img/s); dense {dense_ms:.3f} ms, dense / this = "
+              f"{dense_ms / ms:.4f}; Optimize {solve_s:.3f} s, calibration {calib_s:.3f} s, "
+              f"the Runner {run_s:.2f} s")
+
+
+def run_alexnet_v2(gen):
+    """P7: AlexNet V2 through the CLI (convs 2-5 as scheme-2 vertical and
+    horizontal convs), timed beside dense AlexNet."""
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import LowRankExpConvV2
+    from convnet_approximater_tpu_torch.models import AlexNet
+
+    runner, stats, _, _, _ = drive_low_rank(ALEX_V2, ALEX_NAMES, LowRankExpConvV2, gen, 10)
+    ms = hook_or_timed_ms(runner)
+    dense_ms = time_dense("AlexNet (against V2)", AlexNet(), ms)
+    print(f"AlexNet V2 forward {INPUT} f32 [{smi_line()}]: median {ms:.3f} ms "
+          f"({BATCH / ms * 1e3:.1f} img/s); dense {dense_ms:.3f} ms; Optimize "
+          f"{sum(stats['solves']):.3f} s")
+    del runner
+    torch.cuda.empty_cache()
+
+
+def run_qat_alexnet(gen):
+    """P8: the QAT config through the Runner for a few steps on Synthetic
+    data, then convert_qat_to_int8 (8 modules), an int8 forward of 8 qmatmul
+    launches at AlexNet's shapes against the plain version, the fake-quant
+    model and float32, timed and profiled, a compile_serving replay of 8
+    qmatmul kernels, and each (M, K, N) bit for bit on its own inputs.
+    Returns (qmatmul's launches in the timed int8 forwards, the shape rows)."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.layers import QATConv2d, QATLinear
+    from convnet_approximater_tpu_torch.models.switchable import set_submodule
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    name = os.path.relpath(QAT_ALEX, REPO)
+    work_dir = os.path.join(REPO, "build", "chip_smoke_qat")
+
+    def edit(h):
+        h["sche_args"].update(epochs=1)
+        h["other_args"] = dict(h.get("other_args") or {}, max_steps_per_epoch=FT_STEPS,
+                               checkpoint_hist=1)
+
+    probe = FinetuneProbe(qmatmul_ops.qmatmul)
+    reset_counts()
+    runner, run_s = run_finetune_cfg(QAT_ALEX, work_dir, probe, edit)
+    model = runner.model
+    swapped = next(h for h in runner.hooks if type(h).__name__ == "PrepareQAT").swapped
+    twins = [(p, m) for p, m in model.named_modules() if isinstance(m, (QATConv2d, QATLinear))]
+    losses = [float(v) for v in probe.losses]
+    print(f"P8 {name} through the Runner in {run_s:.2f} s, cuts: sche_args.epochs 5 -> 1 "
+          f"({FT_STEPS} steps on the hook's default Synthetic(256), b = {BATCH}, 224^2, f32, "
+          f"TF32 off), checkpoint_hist 10 -> 1; PrepareQAT swapped {swapped} modules; losses "
+          f"{', '.join(f'{v:.6g}' for v in losses)}; qmatmul launches per training step "
+          f"{probe.step_calls} (the twins train on the module path)")
+    if (swapped != 8 or len(twins) != 8 or len(losses) != FT_STEPS
+            or not all(np.isfinite(losses)) or any(probe.step_calls)):
+        fail("P8: PrepareQAT must swap 8 modules and the steps must give finite losses")
+    if not all(float(m.act_absmax) > 0 for _, m in twins):
+        fail("P8: an observer saw no training batch")
+    print("P8 learned input scales (act_absmax / 127): " + ", ".join(
+        f"{p} {float(m.act_absmax) / 127.0:.4g}" for p, m in twins))
+    step_ms = float(np.median(probe.step_ms()[1:]))
+    dense = copy.deepcopy(model)
+    for p, m in twins:
+        set_submodule(dense, p, dense.get_submodule(p).dense())
+    x = images(gen)
+    with torch.no_grad():
+        y_fq = model.eval()(x)
+        y_f32 = dense.eval()(x)
+    f32_ms = float(np.median(time_forward_cuda(dense)))
+    del dense
+    n = deploy.convert_qat_to_int8(model)
+    first, calls = record_qmatmul_calls(model, seeded_batch(43))
+    print(f"P8 convert_qat_to_int8 converted {n} modules (expected 8); one int8 forward "
+          f"calls qmatmul at {sorted(calls)}")
+    if n != 8 or set(calls) != ALEX_QMM_SHAPES or sum(calls.values()) != 8:
+        fail(f"P8: expected 8 int8 modules and qmatmul at {sorted(ALEX_QMM_SHAPES)}")
+    reset_counts()
+    int8_ms = float(np.median(time_forward_cuda(model)))
+    launches = qmatmul_ops.qmatmul.launches
+    if launches != 8 * 13:
+        fail(f"P8: qmatmul launched {launches} times in 13 int8 forwards, expected {8 * 13}")
+    with torch.no_grad():
+        y_q = model(x)
+        check_logits("int8 QAT AlexNet", y_q, {"qmatmul_ref": through_plain(model, x)},
+                     INT8_TOL, classes=10)
+    errs = {k: float((y_q - v).abs().max() / v.abs().max())
+            for k, v in (("the fake-quant model", y_fq), ("float32", y_f32))}
+    print("int8 QAT AlexNet logits, max abs relative: " + ", ".join(
+        f"{e:.4f} against {k}" for k, e in errs.items()) + f" (bound {INT8_F32_TOL})")
+    if not all(e <= INT8_F32_TOL for e in errs.values()):
+        fail("P8: the int8 logits drift too far from the fake-quant and float32 models'")
+    print(f"AlexNet QAT [{smi_line()}]: training step median {step_ms:.3f} ms over steps "
+          f"2-{len(losses)} ({BATCH / step_ms * 1e3:.1f} img/s); forward {INPUT}: float32 "
+          f"{f32_ms:.3f} ms, int8 {int8_ms:.3f} ms (13 forwards launched qmatmul {launches} "
+          f"times); float32 / int8 = {f32_ms / int8_ms:.4f}")
+    profile_forward("int8 QAT AlexNet", model, INPUT, keep=("qmatmul_kernel", "im2col"))
+    compiled, put = check_graph("int8 QAT AlexNet graph", model, {"qmatmul": 8}, 44)[:2]
+    paced = pace(model, compiled, seeded_batch(44))
+    print(f"int8 QAT AlexNet as a graph: median {time_graph(compiled, put, INPUT):.3f} ms; back "
+          f"to back {paced[0]:.3f} ms eager, {paced[1]:.3f} ms graph")
+    del compiled, put
+    rows = check_qmatmul_calls("int8 QAT AlexNet", first, calls)
+    del first, runner, model
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def run_ft_v3_kd():
+    """F4: VGG-16 V3 asym L2+KD for a few steps on Synthetic data: every loss
+    finite, a float teacher of 12 dense convs in place of the sites."""
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import LowRankExpConvV3
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
+    name = os.path.relpath(FT_V3_KD, REPO)
+    work_dir = os.path.join(REPO, "build", "chip_smoke_ft_v3_kd")
+
+    def edit(h):
+        h["dataset_args"].update(dataset=None)
+        h["sche_args"].update(epochs=1)
+        h["other_args"].update(max_steps_per_epoch=FT_STEPS, checkpoint_hist=1, log_interval=1)
+
+    probe = FinetuneProbe(lowrank_ops.lowrank_conv)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    runner, run_s = run_finetune_cfg(FT_V3_KD, work_dir, probe, edit)
+    hook = next(h for h in runner.hooks if type(h).__name__ == "L2Reconstruct")
+    losses = [float(v) for v in probe.losses]
+    sites = sum(isinstance(m, LowRankExpConvV3) for m in runner.model.switchable_modules())
+    in_teacher = sum(isinstance(m, LowRankExpConvV3) for m in hook.teacher.modules())
+    batch = hook.dataset_args.batch_size
+    print(f"F4 {name} through the Runner in {run_s:.2f} s, cuts: dataset CIFAR10 -> None "
+          f"(Synthetic, 10 classes: no CIFAR-10 in the repository), sche_args.epochs 8 -> 1, "
+          f"{FT_STEPS} steps at the config's b = {batch}, checkpoint_hist 10 -> 1; {sites} V3 "
+          f"sites in the student, {in_teacher} in the teacher; losses "
+          f"{', '.join(f'{v:.6g}' for v in losses)}")
+    if len(losses) != FT_STEPS or not all(np.isfinite(losses)) or sites != 12 or in_teacher:
+        fail("F4: a loss is not finite, or the student or teacher is not the expected model")
+    step_ms = float(np.median(probe.step_ms()[1:]))
+    print(f"F4 fine-tune of VGG-16 V3 asym L2+KD [{smi_line()}]: median {step_ms:.3f} ms per "
+          f"training step over steps 2-{len(losses)} ({batch / step_ms * 1e3:.1f} img/s); "
+          f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del runner, hook
+    torch.cuda.empty_cache()
+
+
 def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
     """The kernels-line entry of one forward: rows weighted by calls per forward."""
     nbytes = sum(r["bytes"] * weight(r) for r in rows)
@@ -2843,7 +3257,14 @@ def main():
     r50_launches, r50_rows = run_resnet50_int8(gen)
     fps_launches = run_mscan_configs()
 
-    # -- 12. results ------------------------------------------------------
+    # -- 12. P5-P8 and F4: V2-V4 with calibration, and QAT through int8 ---
+    run_resnet18_v3(gen)
+    run_vgg16_v234(gen)
+    run_alexnet_v2(gen)
+    qat_launches, qat_rows = run_qat_alexnet(gen)
+    run_ft_v3_kd()
+
+    # -- 13. results ------------------------------------------------------
     # each entry is one forward at b=64, 224^2: the time per call times the calls per forward
     # (parallel_cascade: the DwSepRep r1 forward of ConvNeXt-T; qmatmul: its int8 forward)
     blocks = {H: n for H, _, n in STAGES}
@@ -2879,13 +3300,15 @@ def main():
         for path, rows, launches in (("ResNet-18 scheme-1", resnet18_rows, resnet18_launches),
                                      ("VGG-16 scheme-1", vgg16_rows, vgg16_launches))]
     kernels[3]["paths"] = [
-        {k: v for k, v in dict(per_forward(r50_rows, calls, dict(launches=r50_launches),
-                                           peak=PEAK_INT8), path="int8 ResNet-50").items()
-         if k in path_keys + ("path",)}]
+        {k: v for k, v in dict(per_forward(rows, calls, dict(launches=launches),
+                                           peak=PEAK_INT8), path=path).items()
+         if k in path_keys + ("path",)}
+        for path, rows, launches in (("int8 ResNet-50", r50_rows, r50_launches),
+                                     ("int8 QAT AlexNet", qat_rows, qat_launches))]
     kernels[1]["max_abs_err"] = max([kernels[1]["max_abs_err"]] + [
         r["max_abs_err"] for r in resnet18_rows + vgg16_rows])
     kernels[3]["max_abs_err"] = max([kernels[3]["max_abs_err"]] +
-                                    [r["max_abs_err"] for r in r50_rows])
+                                    [r["max_abs_err"] for r in r50_rows + qat_rows])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

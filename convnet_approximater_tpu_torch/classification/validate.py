@@ -37,8 +37,8 @@ _default_eval_cfg = dict(
     test_input_size=None,  # (H, W): eval at another resolution
 )
 
-AMP_TODO = "bf16 is ROADMAP.md queue 1 item 4"
-MESH_TODO = "more than one device is ROADMAP.md queue 1 item 13"
+AMP_TODO = "bf16 is ROADMAP.md queue 1 item 7"
+MESH_TODO = "more than one device is ROADMAP.md queue 1 item 12"
 
 
 class AverageMeter:

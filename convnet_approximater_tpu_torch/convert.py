@@ -12,6 +12,7 @@ leaves:
   ``weight_q``;
 * BatchNorm/LayerNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
 * BatchNorm state ``mean``/``var`` -> ``running_mean``/``running_var``;
+* the QAT twins' observer, state ``act_absmax`` (a 0-d buffer), keeps its name;
 * everything else (``FixPaddingBias.res`` (2, C, p), ``FixPaddingBias2d``'s
   ``res_v``/``res_h`` (2, C, p) and ``res_c`` (2, 2, C, p, p),
   ``layer_scale_*``, ConvNeXt's ``gamma``, the quantized modules' ``w_scale``
@@ -66,7 +67,8 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's ``state_dict`` -> JAX ``params/...`` and ``state/...`` leaves
     (OIHW -> HWIO, ``(out, in)`` -> ``(in, out)``, a norm's 1-d ``weight`` ->
-    ``scale``, ``running_mean``/``running_var`` -> state ``mean``/``var``)."""
+    ``scale``, ``running_mean``/``running_var`` -> state ``mean``/``var``, a QAT
+    twin's ``act_absmax`` -> state ``act_absmax``)."""
     out = {}
     for key, t in state_dict.items():
         *prefix, name = key.split(".")
@@ -74,6 +76,8 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         collection = "params"
         if name in ("running_mean", "running_var"):
             collection, name = "state", name[len("running_"):]
+        elif name == "act_absmax":
+            collection = "state"
         elif name in ("weight", "weight_q") and v.ndim == 4:
             v = np.transpose(v, (2, 3, 1, 0))
         elif name in ("weight", "weight_q") and v.ndim == 2:

@@ -1,4 +1,4 @@
-"""Solvers of the Jaderberg scheme-1 problem (port of
+"""Solvers of the Jaderberg scheme-1 and scheme-2 problems (port of
 ``convnet_approximater_tpu/core/low_rank_solvers.py``).
 
 ``min_{A, B} sum_i ||w_i - (A B)_i||_2 + lmda * sum_m ||B_m||_nuc`` over the
@@ -9,8 +9,12 @@ proximal-IRLS alternation:
   then singular-value soft-thresholding of each (d, d) basis;
 * A-step: the ridge-stabilised per-row least squares ``W B^T (B B^T + eps I)^-1``.
 
+Scheme 2, ``W[n, c, u, v] ~= sum_m V[m, c, u] H[n, m, v]``, is a truncated SVD
+of the stacked kernel (:func:`scheme2_factorize`), refined on calibration data
+by an alternating ridge least squares (:func:`scheme2_data_driven`).
+
 Everything runs in ``torch.linalg`` on the weights' device; the iterations
-are a Python loop that returns the objective after each one.
+are a Python loop that returns the objective (or error) after each one.
 """
 
 from __future__ import annotations
@@ -111,3 +115,52 @@ def lmda_schedule(lmda_length: int, min_lmda: float, max_lmda: float,
     """Log-spaced lambda continuation schedule."""
     lst = np.logspace(0, inc_rate, lmda_length + 1)[1:] - 1
     return lst / lst[-1] * (max_lmda - min_lmda) + min_lmda
+
+
+def _stack2(W: torch.Tensor) -> torch.Tensor:
+    """``T[(c, u), (n, v)] = W[n, c, u, v]``: (C*kh, N*kw)."""
+    N, C, kh, kw = W.shape
+    return W.permute(1, 2, 0, 3).reshape(C * kh, N * kw)
+
+
+def scheme2_factorize(W: torch.Tensor, num_bases: int):
+    """Closed-form scheme-2 reconstruction of an OIHW kernel W (N, C, kh, kw):
+    the truncated SVD of the stacked kernel (Eckart-Young).  Returns ``(V, H,
+    energy)``: V (M, C, kh), H (N, M, kw) and the retained spectral-energy
+    fraction; bases past the spectrum are zeros."""
+    N, C, kh, kw = W.shape
+    u, s, vh = torch.linalg.svd(_stack2(W), full_matrices=False)
+    M = min(num_bases, s.shape[0])
+    sq = s[:M].sqrt()
+    V = (u[:, :M] * sq[None, :]).T.reshape(M, C, kh)
+    H = (vh[:M] * sq[:, None]).reshape(M, N, kw).permute(1, 0, 2)
+    energy = (s[:M] ** 2).sum() / torch.clamp((s ** 2).sum(), min=1e-12)
+    if num_bases > M:
+        V = torch.cat([V, V.new_zeros(num_bases - M, C, kh)], dim=0)
+        H = torch.cat([H, H.new_zeros(N, num_bases - M, kw)], dim=1)
+    return V.contiguous(), H.contiguous(), energy
+
+
+def scheme2_data_driven(W: torch.Tensor, V0: torch.Tensor, H0: torch.Tensor,
+                        xcov: torch.Tensor, num_iters: int, ridge: float = 1e-8):
+    """Refine the scheme-2 factors under the input metric ``xcov``, the (C*kh,
+    C*kh) second moment of the vertical input strips: alternate the V-step
+    ``min ||T - Vm Hm||_F`` and the metric-weighted H-step ``min (T - Vm Hm)^T
+    xcov (T - Vm Hm)`` by ridge least squares, on ``T`` of :func:`scheme2_factorize`.
+    With ``xcov = I`` this is plain ALS.  Returns ``(V, H, errors)``, the
+    Frobenius error ``||T - Vm Hm||`` after each iteration."""
+    N, C, kh, kw = W.shape
+    M = V0.shape[0]
+    T = _stack2(W)
+    Vm = V0.reshape(M, C * kh).T  # (C*kh, M)
+    Hm = H0.permute(1, 0, 2).reshape(M, N * kw)  # (M, N*kw)
+    eye = torch.eye(M, dtype=T.dtype, device=T.device)
+    errs = []
+    for _ in range(num_iters):
+        Vm = torch.linalg.solve(Hm @ Hm.T + ridge * eye, Hm @ T.T).T
+        Vx = Vm.T @ xcov
+        Hm = torch.linalg.solve(Vx @ Vm + ridge * eye, Vx @ T)
+        errs.append(torch.linalg.norm(T - Vm @ Hm))
+    V = Vm.T.reshape(M, C, kh)
+    H = Hm.reshape(M, N, kw).permute(1, 0, 2)
+    return V.contiguous(), H.contiguous(), torch.stack(errs) if errs else W.new_zeros(0)

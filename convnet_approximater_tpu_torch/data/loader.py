@@ -12,7 +12,7 @@ package's layout) with int64 labels.
 The shuffle order and the augmentation draws come from ``RandomState``
 seeds of the same form as the JAX package's, so both loaders give the same
 batches.  The JAX package's C++ batch prep (``data/_native``) is a host
-speed-up that is not ported (``ROADMAP.md`` queue 1 item 7); RandAugment
+speed-up that is not ported (``ROADMAP.md`` queue 1 item 5); RandAugment
 (``aug=dict(rand_aug=...)``) is not ported either.
 """
 
@@ -114,7 +114,7 @@ def check_aug(aug) -> dict:
     if aug.get("rand_aug"):
         raise NotImplementedError(
             "aug=dict(rand_aug=...): RandAugment (data/randaug.py) is not ported to the "
-            "PyTorch port yet (ROADMAP.md queue 1 item 7, with TrainHelper and mixup.py)")
+            "PyTorch port yet (ROADMAP.md queue 1 item 5, with TrainHelper and mixup.py)")
     aug.pop("rand_aug", None)
     unknown = set(aug) - set(AUG_KEYS)
     if unknown:
@@ -134,7 +134,7 @@ class Loader:
         std=IMAGENET_DEFAULT_STD,
         image_size: Optional[Tuple[int, int]] = None,
         seed: int = 0,
-        device="cpu",
+        device="cuda",
         prefetch: int = 2,
         aug=None,
     ):

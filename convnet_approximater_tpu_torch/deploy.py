@@ -4,6 +4,9 @@
 * :func:`enable_pw_matmul` runs every pointwise conv as a matrix product over
   its NHWC view;
 * :func:`quantize_int8` is int8 post-training quantization;
+* :func:`prepare_qat` swaps dense convs and Linears for their fake-quant
+  training twins, and :func:`convert_qat_to_int8` turns the trained twins into
+  the int8 serving modules;
 * :func:`compile_serving` captures the eval forward into a CUDA graph.
 
 The names are the JAX package's, so a config's ``structure_passes`` find them.
@@ -16,7 +19,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple
 import torch
 from torch import nn
 
-from convnet_approximater_tpu_torch.layers.quant import QuantConv2d, QuantLinear
+from convnet_approximater_tpu_torch.layers.quant import (QATConv2d, QATLinear, QuantConv2d,
+                                                         QuantLinear)
 from convnet_approximater_tpu_torch.layers.substitution import Substitution
 from convnet_approximater_tpu_torch.models.switchable import set_submodule
 from convnet_approximater_tpu_torch.nn import BatchNorm2d, Conv2d, Identity, Linear
@@ -33,10 +37,12 @@ FOLD_PATTERNS: Dict[str, List[Tuple[str, str]]] = {
 }
 
 # class name -> the child that produces the output of a composite layer ending
-# in one linear conv, so that a BN folds through a factored site.  LowRankExpConvV2-V4
-# come with their port.
+# in one linear conv, so that a BN folds through a factored site
 FOLD_TAILS: Dict[str, str] = {
     "LowRankExpConvV1": "d_conv",  # grouped bases -> 1x1 mix (the bias carrier)
+    "LowRankExpConvV2": "h_conv",  # vertical -> horizontal (the bias carrier)
+    "LowRankExpConvV3": "mix_conv",  # dense k x k basis -> 1x1 mix
+    "LowRankExpConvV4": "out_conv",  # Tucker-2: 1x1 -> k x k core -> 1x1
 }
 
 
@@ -197,6 +203,71 @@ def quantize_int8(model: nn.Module, calib_batches: Iterable[torch.Tensor],
              else QuantLinear.from_linear(m, act_scale))
         set_submodule(model, path, q)
     return len(targets)
+
+
+def qat_substitution_filter(model: nn.Module) -> Callable[[str, nn.Module], bool]:
+    """A ``filter_fn`` that leaves out every module inside a ``Substitution``:
+    QAT covers the dense remainder while the substitutions cover their own
+    sites."""
+    prefixes = tuple(path + "." for path, mod in model.named_modules()
+                     if isinstance(mod, Substitution))
+
+    def filter_fn(path, mod):
+        return not path.startswith(prefixes) if prefixes else True
+
+    return filter_fn
+
+
+def prepare_qat(model: nn.Module, filter_fn: Optional[Callable[[str, nn.Module], bool]] = None,
+                linears: bool = True, momentum: float = 0.1, verbose: bool = False) -> int:
+    """Swap every dense conv (``type(m) is Conv2d`` with ``groups == 1``), and
+    every ``Linear`` when ``linears``, that ``filter_fn(path, module)`` keeps,
+    for its fake-quant twin (:class:`QATConv2d` / :class:`QATLinear`), in place,
+    so that a fine-tune trains the weights under int8 numerics.  The twins hold
+    the same parameter tensors under the same names and add one ``act_absmax``
+    observer buffer each, at 0 until a training batch.  Call it after
+    :func:`fold_batchnorm` if the served form folds BN.  Returns the number of
+    modules swapped."""
+    n = 0
+    for path, mod in list(model.named_modules()):
+        ok = (type(mod) is Conv2d and mod.groups == 1) or (linears and type(mod) is Linear)
+        if not ok or (filter_fn is not None and not filter_fn(path, mod)):
+            continue
+        qat = (QATConv2d.from_conv(mod, qat_momentum=momentum) if isinstance(mod, Conv2d)
+               else QATLinear.from_linear(mod, qat_momentum=momentum))
+        set_submodule(model, path, qat)
+        n += 1
+        if verbose:
+            print(f"prepare_qat: {path}")
+    return n
+
+
+def convert_qat_to_int8(model: nn.Module, verbose: bool = False) -> int:
+    """Turn every :class:`QATConv2d` / :class:`QATLinear` of a QAT-trained model
+    into a :class:`QuantConv2d` / :class:`QuantLinear` whose input scale is its
+    learned observer, ``act_absmax / 127``: the PTQ modules of
+    :func:`quantize_int8`, with the same weight grid.  Raises when an observer is
+    missing or never saw a training batch.  Returns the number converted."""
+    n = 0
+    for path, mod in list(model.named_modules()):
+        if not isinstance(mod, (QATConv2d, QATLinear)):
+            continue
+        if mod._buffers.get("act_absmax") is None:
+            raise RuntimeError(
+                f"convert_qat_to_int8: no observer state for {path} — was the model "
+                f"fine-tuned (training=True) after prepare_qat?")
+        absmax = float(mod.act_absmax)
+        if absmax <= 0:
+            raise RuntimeError(f"convert_qat_to_int8: observer at {path} never saw a "
+                               f"training batch (act_absmax=0)")
+        act_scale = absmax / 127.0
+        q = (QuantConv2d.from_conv(mod, act_scale) if isinstance(mod, QATConv2d)
+             else QuantLinear.from_linear(mod, act_scale))
+        set_submodule(model, path, q)
+        n += 1
+        if verbose:
+            print(f"convert_qat_to_int8: {path} (act_scale={act_scale:.3e})")
+    return n
 
 
 class _Snapshot:

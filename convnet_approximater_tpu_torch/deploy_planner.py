@@ -1,6 +1,6 @@
 """The approximation loop outside the Runner (port of ``apply_app`` in
-``convnet_approximater_tpu/deploy_planner.py``; the serving planner is not
-ported yet)."""
+``convnet_approximater_tpu/deploy_planner.py``, with its calibration pass; the
+serving planner is not ported yet)."""
 
 from __future__ import annotations
 
@@ -21,21 +21,38 @@ def apply_app(model: nn.Module, app: Approximater, filters: Sequence[ModuleFilte
     place, one site after another; returns the number of sites rewritten (0
     when the app found none).
 
+    With ``calib_batches`` and an app that has ``set_calibration``, the loop
+    takes the Runner's two-pass shape instead: initialize every site, run the
+    batches down the ``old`` branches tapping each site's input
+    (:func:`~convnet_approximater_tpu_torch.hooks.calibration.calibrate`, the
+    work of ``CalibrationHook``), then optimize and postprocess each site.
+
     The new modules draw their random weights from ``generator`` (seed 0 when
     None) before the solve overwrites them, land on their source's device and
-    training mode, and keep the model's ``channels_last`` weights.  The
-    data-driven branch of the JAX function (``calib_batches``) is not ported.
+    training mode, and keep the model's ``channels_last`` weights.
     """
-    if calib_batches is not None:
-        raise NotImplementedError(
-            "apply_app: calib_batches (the data-driven solve) comes with the calibration "
-            "hook, ROADMAP.md queue 1 item 7 (hooks/calibration.py)")
     generator = generator if generator is not None else torch.Generator().manual_seed(0)
     model.register_switchable(app.src_type, list(filters))
-    for idx in range(model.length_switchable):
+    n = model.length_switchable
+    if calib_batches is None or not hasattr(app, "set_calibration"):
+        for idx in range(n):
+            src = model.get_switchable_module(idx)
+            sub = app.initialize(src, generator).train(src.training)
+            model.set_switchable_module(idx, sub)
+            app.optimize(sub)
+            model.set_switchable_module(idx, channels_last(app.postprocess(sub)))
+        return n
+
+    from convnet_approximater_tpu_torch.hooks.calibration import calibrate
+
+    subs = []
+    for idx in range(n):
         src = model.get_switchable_module(idx)
         sub = app.initialize(src, generator).train(src.training)
         model.set_switchable_module(idx, sub)
+        subs.append(sub)
+    calibrate(model, app, calib_batches)
+    for idx, sub in enumerate(subs):
         app.optimize(sub)
         model.set_switchable_module(idx, channels_last(app.postprocess(sub)))
-    return model.length_switchable
+    return n

@@ -1,3 +1,4 @@
+from .calibration import CalibrationHook, calibrate, site_statistic
 from .checkpoint import CkptHook
 from .class_eval_hook import ClassEvalHook
 from .finetune import CheckpointSaver, L2Reconstruct, make_optimizer
@@ -7,3 +8,4 @@ from .inference_time_hook import InferenceTimeHook, time_forward
 from .low_rank_exp_v1_decomp import LowRankExpV1Decomp
 from .model_analysis import ModelAnalysis, count_macs, count_params
 from .priority import Priority, get_priority
+from .qat import PrepareQAT

@@ -53,7 +53,9 @@ from convnet_approximater_tpu_torch.classification.validate import AMP_TODO, MES
 from convnet_approximater_tpu_torch.convert import load_jax_flat, variables_of
 from convnet_approximater_tpu_torch.data import Loader, Synthetic, build_dataset
 from convnet_approximater_tpu_torch.data.loader import check_aug
-from convnet_approximater_tpu_torch.layers import drop_generator, forced_branch, release_taps, taps
+from convnet_approximater_tpu_torch.layers import (QATConv2d, QATLinear, drop_generator,
+                                                   forced_branch, release_taps, taps)
+from convnet_approximater_tpu_torch.models.switchable import set_submodule
 from convnet_approximater_tpu_torch.utils import (get_logger, get_rank, load_flat, save_model,
                                                   unflatten_tree)
 from convnet_approximater_tpu_torch.utils.config import Config
@@ -61,7 +63,7 @@ from convnet_approximater_tpu_torch.utils.preempt import Preempted, PreemptionGu
 
 from .hook import HOOK, Hook
 
-SHARDED_TODO = "the sharded checkpoint backend is ROADMAP.md queue 1 item 7"
+SHARDED_TODO = "the sharded checkpoint backend is ROADMAP.md queue 1 item 5"
 
 _default_dataset_args = dict(
     dataset=None,  # DATASET registry cfg; None -> Synthetic data
@@ -430,7 +432,9 @@ class L2Reconstruct(Hook):
     def _build_teacher(self) -> nn.Module:
         """The original model: a deep copy of the student with each Substitution
         on its ``old`` branch and without ``new`` (the new branches are not
-        copied), in ``eval()`` with no gradients."""
+        copied), and each QAT twin back to its dense layer (the JAX hook rebuilds
+        the teacher from the config, so its layers are float), in ``eval()``
+        with no gradients."""
         model = self.runner.model
         subs = list(model.switchable_modules())
         news = [sub._modules.pop("new") for sub in subs]
@@ -442,6 +446,9 @@ class L2Reconstruct(Hook):
         for sub in teacher.switchable_modules():
             sub.switch_old(remove_new=True)
             sub.capture = True
+        for path, m in list(teacher.named_modules()):
+            if isinstance(m, (QATConv2d, QATLinear)):
+                set_submodule(teacher, path, m.dense())
         return teacher.eval().requires_grad_(False)
 
     @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Jaderberg scheme-1 low-rank target layers (port of
+"""Jaderberg low-rank target layers (port of
 ``convnet_approximater_tpu/layers/low_rank_conv.py``).
 
 ``LowRankExpConvV1`` is a grouped basis conv ``s_conv`` (C -> C*M, groups C;
@@ -15,6 +15,11 @@ channels, once per change of the weights:
 a layer whose bases are per-channel (after fine-tuning) takes the module path
 and logs that once.  A training forward and an eval forward under autograd
 take the module path, since the kernel has no backward.
+
+``LowRankExpConvV2`` (scheme 2), ``LowRankExpConvV3`` (channel rank) and
+``LowRankExpConvV4`` (Tucker-2) are chains of dense ``Conv2d`` children with
+the JAX package's child names, so checkpoints carry across as they are; they
+have no kernel of their own, in the JAX package either.
 """
 
 from __future__ import annotations
@@ -161,3 +166,76 @@ class LowRankExpConvV1(nn.Module):
         else:
             basis = B * cm * Ho * Wo * kh * kw
         return basis + B * Ho * Wo * cm * self.out_channels
+
+
+@LAYER.register_module()
+class LowRankExpConvV2(nn.Module):
+    """Scheme 2: a dense vertical (kh, 1) conv C -> M (``v_conv``, no bias), then
+    a horizontal (1, kw) conv M -> N (``h_conv``, the bias carrier); each strides
+    and pads its own axis.  ``grouped=True`` makes ``h_conv`` the reference's
+    grouped M -> M conv (checkpoint parity only: it cannot stand in for an
+    N-output conv)."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_base: int, kernel_size,
+                 stride, padding, grouped: bool = False):
+        super().__init__()
+        (kh, kw), (sh, sw), (ph, pw) = _pair(kernel_size), _pair(stride), _pair(padding)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.num_base = num_base
+        self.grouped = grouped
+        self.v_conv = Conv2d(in_channels, num_base, (kh, 1), stride=(sh, 1), padding=(ph, 0),
+                             bias=False)
+        self.h_conv = Conv2d(num_base, num_base if grouped else out_channels, (1, kw),
+                             stride=(1, sw), padding=(0, pw), groups=num_base if grouped else 1)
+
+    def forward(self, x):
+        return self.h_conv(self.v_conv(x))
+
+
+@LAYER.register_module()
+class LowRankExpConvV3(nn.Module):
+    """Channel rank: a dense k x k conv C -> r (``basis_conv``, no bias), then a
+    1x1 conv r -> N (``mix_conv``, the bias carrier)."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_base: int, kernel_size,
+                 stride, padding):
+        super().__init__()
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.num_base = num_base
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.basis_conv = Conv2d(in_channels, num_base, self.kernel_size, stride=self.stride,
+                                 padding=self.padding, bias=False)
+        self.mix_conv = Conv2d(num_base, out_channels, 1)
+
+    def forward(self, x):
+        return self.mix_conv(self.basis_conv(x))
+
+
+@LAYER.register_module()
+class LowRankExpConvV4(nn.Module):
+    """Tucker-2: a 1x1 conv C -> r1 (``in_conv``), a dense k x k core r1 -> r2
+    (``core_conv``, with the stride and padding), a 1x1 conv r2 -> N
+    (``out_conv``, the bias carrier); ``num_base`` is r1 = r2 or the pair
+    (r1, r2)."""
+
+    def __init__(self, in_channels: int, out_channels: int, num_base, kernel_size, stride,
+                 padding):
+        super().__init__()
+        r1, r2 = num_base if isinstance(num_base, (tuple, list)) else (num_base, num_base)
+        self.in_channels = in_channels
+        self.out_channels = out_channels
+        self.num_base = (int(r1), int(r2))
+        self.kernel_size = _pair(kernel_size)
+        self.stride = _pair(stride)
+        self.padding = _pair(padding)
+        self.in_conv = Conv2d(in_channels, self.num_base[0], 1, bias=False)
+        self.core_conv = Conv2d(self.num_base[0], self.num_base[1], self.kernel_size,
+                                stride=self.stride, padding=self.padding, bias=False)
+        self.out_conv = Conv2d(self.num_base[1], out_channels, 1)
+
+    def forward(self, x):
+        return self.out_conv(self.core_conv(self.in_conv(x)))

@@ -13,6 +13,14 @@ Layouts are torch's: ``weight_q`` is (out, in) for ``QuantLinear`` and OIHW
 for ``QuantConv2d``; ``convert.params_from_jax`` transposes the JAX package's
 (in, out) and HWIO.  The packed weight of the kernel is made once per change
 of the parameters, keyed on their version counters.
+
+Quantization-aware training (the QAT half of the JAX module): ``QATConv2d``
+and ``QATLinear`` are the training twins of the dense layers, with the same
+parameters; their forward quantize-dequantizes the input (per tensor, at the
+scale of an absmax observer) and the weight (per output channel, on the PTQ
+grid) with a straight-through gradient, and runs the float conv or matmul on
+the module path.  ``deploy.convert_qat_to_int8`` turns them into
+``QuantConv2d``/``QuantLinear`` with the learned scales.
 """
 
 from __future__ import annotations
@@ -25,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.nn.modules.utils import _pair
 
-from convnet_approximater_tpu_torch.nn import params_key
+from convnet_approximater_tpu_torch.nn import Conv2d, params_key
 from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
 from convnet_approximater_tpu_torch.ops.qmatmul import (INT8_MAX,  # noqa: F401
                                                         quantize_activation)
@@ -186,3 +194,111 @@ class QuantConv2d(_QuantBase):
         Ho, Wo = self.out_size(H, W)
         kh, kw = self.kernel_size
         return B * Ho * Wo * self.out_channels * C * kh * kw
+
+
+# -- quantization-aware training ---------------------------------------------
+
+def fake_quant(x: torch.Tensor, scale) -> torch.Tensor:
+    """int8 quantize-dequantize with a straight-through gradient: the forward is
+    ``clip(round(x / scale), -127, 127) * scale`` (``scale`` broadcasts, so a
+    per-channel grid works); the gradient is 1 where ``|x / scale| <= 127`` and 0
+    outside; no gradient reaches ``scale`` (clamped at 1e-12)."""
+    s = torch.clamp(torch.as_tensor(scale, dtype=torch.float32, device=x.device).detach(),
+                    min=1e-12).to(x.dtype)
+    r = x / s
+    q = torch.clamp(torch.round(r), -INT8_MAX, INT8_MAX) * s
+    xm = x * (r.abs() <= INT8_MAX).to(x.dtype)
+    return xm + (q - xm).detach()
+
+
+def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel (dim 0) fake-quant of a live weight, on the grid of
+    :func:`quantize_weight_per_channel`, so the QAT forward sees the weights
+    the int8 module will run."""
+    absmax = w.detach().float().abs().amax(dim=tuple(range(1, w.dim())), keepdim=True)
+    return fake_quant(w, torch.clamp(absmax, min=1e-12) / INT8_MAX)
+
+
+class _Observed:
+    """The input absmax observer of a QAT twin: a 0-d ``act_absmax`` buffer, an
+    EMA at ``qat_momentum`` updated under ``no_grad`` in training mode only
+    (the first training batch sets it), frozen in eval; a twin that has not
+    seen a training batch (0) leaves its input unquantized."""
+
+    def _init_observer(self, qat_momentum: float, device):
+        self.qat_momentum = qat_momentum
+        self.register_buffer("act_absmax", torch.zeros((), dtype=torch.float32, device=device))
+
+    def _fake_quant_input(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            with torch.no_grad():
+                cur = x.detach().abs().amax().float()
+                m = self.qat_momentum
+                self.act_absmax.copy_(torch.where(self.act_absmax > 0,
+                                                  (1 - m) * self.act_absmax + m * cur, cur))
+        absmax = self.act_absmax.clone()
+        return torch.where(absmax > 0, fake_quant(x, absmax / INT8_MAX), x)
+
+
+class QATConv2d(Conv2d, _Observed):
+    """Fake-quant training twin of :class:`QuantConv2d` (``groups == 1``), with the
+    parameters of the :class:`Conv2d` it replaces."""
+
+    def __init__(self, *args, qat_momentum: float = 0.1, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._init_observer(qat_momentum, self.weight.device)
+
+    @classmethod
+    def from_conv(cls, conv: nn.Conv2d, qat_momentum: float = 0.1) -> "QATConv2d":
+        """The twin of ``conv``, holding ``conv``'s own parameter tensors."""
+        if conv.groups != 1:
+            raise ValueError("only dense convs quantize")
+        with torch.device("meta"):
+            mod = cls(conv.in_channels, conv.out_channels, conv.kernel_size, stride=conv.stride,
+                      padding=conv.padding, dilation=conv.dilation, bias=conv.bias is not None,
+                      qat_momentum=qat_momentum)
+        mod.weight, mod.bias = conv.weight, conv.bias
+        mod.act_absmax = torch.zeros((), dtype=torch.float32, device=conv.weight.device)
+        return mod.train(conv.training)
+
+    def dense(self) -> Conv2d:
+        """The plain :class:`Conv2d` holding this twin's parameter tensors."""
+        with torch.device("meta"):
+            mod = Conv2d(self.in_channels, self.out_channels, self.kernel_size,
+                         stride=self.stride, padding=self.padding, dilation=self.dilation,
+                         bias=self.bias is not None)
+        mod.weight, mod.bias = self.weight, self.bias
+        return mod.train(self.training)
+
+    def forward(self, x):
+        return F.conv2d(self._fake_quant_input(x), fake_quant_weight(self.weight), self.bias,
+                        self.stride, self.padding, self.dilation, 1)
+
+
+class QATLinear(nn.Linear, _Observed):
+    """Fake-quant training twin of :class:`QuantLinear`, with the parameters of the
+    ``Linear`` it replaces (per-out-feature weight grid)."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 qat_momentum: float = 0.1, device=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self._init_observer(qat_momentum, self.weight.device)
+
+    @classmethod
+    def from_linear(cls, lin: nn.Linear, qat_momentum: float = 0.1) -> "QATLinear":
+        """The twin of ``lin``, holding ``lin``'s own parameter tensors."""
+        mod = cls(lin.in_features, lin.out_features, bias=lin.bias is not None,
+                  qat_momentum=qat_momentum, device="meta")
+        mod.weight, mod.bias = lin.weight, lin.bias
+        mod.act_absmax = torch.zeros((), dtype=torch.float32, device=lin.weight.device)
+        return mod.train(lin.training)
+
+    def dense(self) -> nn.Linear:
+        """The plain ``Linear`` holding this twin's parameter tensors."""
+        mod = nn.Linear(self.in_features, self.out_features, bias=self.bias is not None,
+                        device="meta")
+        mod.weight, mod.bias = self.weight, self.bias
+        return mod.train(self.training)
+
+    def forward(self, x):
+        return F.linear(self._fake_quant_input(x), fake_quant_weight(self.weight), self.bias)

@@ -7,6 +7,9 @@ branch.  Fine-tuning adds two things:
 * ``capture``: a captured Substitution keeps the output of its last forward
   in ``out``; :func:`taps` collects them under the JAX package's tap keys,
   ``<name>.out``;
+* ``capture_inputs``: a Substitution with it set keeps the input of its last
+  forward in ``inp``, which :func:`taps` returns as ``<name>.in`` (the JAX
+  package's ``ctx.capture_inputs``; calibration reads it);
 * ``force_branch``: when set (``"old"`` or ``"new"``) it routes the forward
   in place of ``use_old``.  :func:`forced_branch` sets it on every
   Substitution of a model for the length of a block and always resets it.
@@ -23,6 +26,7 @@ from torch import nn
 from convnet_approximater_tpu_torch.utils.registry import Registry, build_from_cfg
 
 TAP_OUT = "out"
+TAP_IN = "in"
 
 
 class Substitution(nn.Module):
@@ -32,8 +36,10 @@ class Substitution(nn.Module):
         self.new = new_module
         self.use_old = use_old
         self.capture = False
+        self.capture_inputs = False
         self.force_branch: Optional[str] = None
         self.out: Optional[torch.Tensor] = None
+        self.inp: Optional[torch.Tensor] = None
 
     @property
     def old_module(self) -> nn.Module:
@@ -55,6 +61,8 @@ class Substitution(nn.Module):
 
     def forward(self, x):
         branch = self.force_branch or ("old" if self.use_old else "new")
+        if self.capture_inputs:
+            self.inp = x
         y = self.old(x) if branch == "old" else self.new(x)
         if self.capture:
             self.out = y
@@ -63,17 +71,24 @@ class Substitution(nn.Module):
 
 def taps(model: nn.Module) -> Dict[str, torch.Tensor]:
     """The outputs the captured Substitutions of ``model`` kept from its last
-    forward, keyed ``<name>.out`` as the JAX package's taps are."""
-    return {f"{name}.{TAP_OUT}": m.out for name, m in model.named_modules()
-            if isinstance(m, Substitution) and m.capture and m.out is not None}
+    forward, keyed ``<name>.out`` as the JAX package's taps are, and the inputs
+    of those capturing inputs, keyed ``<name>.in``."""
+    out = {}
+    for name, m in model.named_modules():
+        if isinstance(m, Substitution):
+            if m.capture and m.out is not None:
+                out[f"{name}.{TAP_OUT}"] = m.out
+            if m.capture_inputs and m.inp is not None:
+                out[f"{name}.{TAP_IN}"] = m.inp
+    return out
 
 
 def release_taps(model: nn.Module):
-    """Drop the outputs the captured Substitutions of ``model`` keep (and the
+    """Drop the outputs and inputs the Substitutions of ``model`` keep (and the
     autograd graph they hold)."""
     for m in model.modules():
         if isinstance(m, Substitution):
-            m.out = None
+            m.out = m.inp = None
 
 
 @contextmanager

@@ -38,7 +38,7 @@ def structure_pass(cfg) -> Tuple[Callable, dict]:
     if name in UNPORTED_PASSES:
         raise NotImplementedError(
             f"structure_passes: the pass {name!r} is not ported to the PyTorch port yet "
-            f"(ROADMAP.md queue 1 item 9)")
+            f"(ROADMAP.md queue 1 item 8)")
     fn = getattr(deploy, name, None)
     if not (inspect.isfunction(fn) and fn.__module__ == deploy.__name__) or name.startswith("_"):
         raise ValueError(f"structure_passes: deploy.py has no pass {name!r}")

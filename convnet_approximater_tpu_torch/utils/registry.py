@@ -10,6 +10,11 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+# names the JAX package registers and the port does not have yet -> the
+# ROADMAP.md queue 1 item that ports them
+PENDING = {"FfnPrune": 8, "MlpPrune": 8, "AttnPrune": 8,
+           "SegNeXt": 11, "SegL2Reconstruct": 11, "SyntheticSeg": 11}
+
 
 class Registry:
     """A simple name -> class map."""
@@ -31,6 +36,10 @@ class Registry:
         return _register
 
     def get(self, name: str):
+        if name not in self._modules and name in PENDING:
+            raise NotImplementedError(
+                f"{name} ({self.name!r} registry) is not ported to the PyTorch port yet "
+                f"(ROADMAP.md queue 1 item {PENDING[name]})")
         if name not in self._modules:
             raise KeyError(
                 f"{name} is not registered in registry {self.name!r} of the PyTorch port. "

@@ -94,11 +94,11 @@ def test_augment_batch_matches_jax():
 
 def test_loader_length_drop_last_and_prefetch():
     ds = tdata.Synthetic(30, (6, 6, 3), 4)
-    assert len(tdata.Loader(ds, 8, drop_last=True)) == 3
-    loader = tdata.Loader(ds, 8, drop_last=False, prefetch=0)
+    assert len(tdata.Loader(ds, 8, drop_last=True, device="cpu")) == 3
+    loader = tdata.Loader(ds, 8, drop_last=False, prefetch=0, device="cpu")
     batches = list(loader)
     assert len(loader) == 4 and [b[0].shape[0] for b in batches] == [8, 8, 8, 6]
-    pre = list(tdata.Loader(ds, 8, drop_last=False, prefetch=2))
+    pre = list(tdata.Loader(ds, 8, drop_last=False, prefetch=2, device="cpu"))
     for (a, la), (b, lb) in zip(batches, pre):
         assert torch.equal(a, b) and torch.equal(la, lb)
 
@@ -107,7 +107,7 @@ def test_loader_abandoned_iteration_releases_worker():
     """Breaking out of a prefetching epoch early (max_steps_per_epoch) must not
     strand the prefetch worker on a full queue."""
     ds = tdata.Synthetic(64, (8, 8, 3), 4)
-    loader = tdata.Loader(ds, 4, shuffle=False, prefetch=2)
+    loader = tdata.Loader(ds, 4, shuffle=False, prefetch=2, device="cpu")
     before = threading.active_count()
     for _ in range(3):
         it = iter(loader)
@@ -121,7 +121,7 @@ def test_loader_abandoned_iteration_releases_worker():
 
 def test_loader_worker_failure_reaches_the_consumer():
     ds = tdata.Synthetic(16, (8, 8, 3), 4)
-    loader = tdata.Loader(ds, 4, prefetch=2)
+    loader = tdata.Loader(ds, 4, prefetch=2, device="cpu")
 
     def broken(idx):
         raise RuntimeError("gather failed")
@@ -133,10 +133,10 @@ def test_loader_worker_failure_reaches_the_consumer():
 
 def test_rand_aug_is_not_ported():
     ds = tdata.Synthetic(8, (8, 8, 3), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-        tdata.Loader(ds, 4, aug=dict(rand_aug=dict(n=2, m=9)))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
+        tdata.Loader(ds, 4, aug=dict(rand_aug=dict(n=2, m=9)), device="cpu")
     with pytest.raises(ValueError, match="unknown augmentation"):
-        tdata.Loader(ds, 4, aug=dict(flip=0.5))
+        tdata.Loader(ds, 4, aug=dict(flip=0.5), device="cpu")
 
 
 def test_datasets_registry_npz_and_missing_files(tmp_path):

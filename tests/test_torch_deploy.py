@@ -325,9 +325,18 @@ def test_compile_serving_raises_once_the_model_changed(change):
 
 
 def test_apply_app_refuses_calibration():
+    """An app without ``set_calibration`` refuses the calibration pass: the loop
+    is the one-pass loop and no calibration batch is drawn, as in the JAX
+    function."""
     model = MSCAN_Classifier(**TINY)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        apply_app(model, MscaRep(decomp=1, fix=True), calib_batches=[torch.zeros(1, 3, 8, 8)])
+    drawn = []
+
+    def batches():
+        drawn.append(1)
+        yield torch.zeros(1, 3, 8, 8)
+
+    assert apply_app(model, MscaRep(decomp=1, fix=True), calib_batches=batches()) == 4
+    assert drawn == []
 
 
 def tiny_config(tmp_path, passes):

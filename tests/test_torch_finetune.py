@@ -181,10 +181,12 @@ def summary(path):
     return [dict(zip(header, map(float, line.split(",")))) for line in lines[1:]]
 
 
-def run_both(tmp_path, model_text, body, optim=SGD, epochs=1, steps=3, px=16, extra=""):
+def run_both(tmp_path, model_text, body, optim=SGD, epochs=1, steps=3, px=16, extra="",
+             extra_hooks=""):
     kw = dict(body=body, optim=optim, epochs=epochs, steps=steps, px=px, extra=extra)
-    jrunner, jsteps = run_jax(tmp_path, model_text + FT.format(snap=JAX_SNAP, **kw))
-    trunner, tsteps = run_port(tmp_path, model_text + FT.format(snap=PORT_LOAD, **kw))
+    jrunner, jsteps = run_jax(tmp_path, model_text + FT.format(snap=JAX_SNAP + extra_hooks, **kw))
+    trunner, tsteps = run_port(tmp_path,
+                               model_text + FT.format(snap=PORT_LOAD + extra_hooks, **kw))
     assert len(tsteps) == len(jsteps) == epochs * steps
     for i, (t, j) in enumerate(zip(tsteps, jsteps)):
         for what, a, b in zip(("loss", "ce", "norm"), t, j):
@@ -633,14 +635,14 @@ def test_validate_helper_matches_jax(tmp_path):
         assert math.isclose(got["loss"], want["loss"], rel_tol=STEP_TOL)
         for k in set(want) - {"loss"}:
             assert got[k] == want[k], (extra, k)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         ValidateHelper(model, dict(amp=True), device="cpu")
 
 
 # -- what the port refuses ---------------------------------------------------
 @pytest.mark.parametrize("other,match", [
-    (dict(amp=True), "queue 1 item 4"),
-    (dict(model_parallel=2), "queue 1 item 13"),
+    (dict(amp=True), "queue 1 item 7"),
+    (dict(model_parallel=2), "queue 1 item 12"),
     (dict(ckpt_backend="sharded"), "sharded checkpoint backend"),
 ])
 def test_unported_options_raise(tmp_path, other, match):
