@@ -164,9 +164,39 @@ From the root of a checkout, with no arguments:
     its own inputs beside ``torch._int_mm``; F4
     ``configs/vgg/low-rank-exp-v3_l2-kd_vgg16.py`` (CIFAR-10 cut to Synthetic)
     for 4 steps, every loss finite, a teacher with no V3 layer;
-13. prints one JSON line of kernel results (``lowrank_conv``'s and ``qmatmul``'s
-    entries list the later paths' launches and sums per forward under
-    ``paths``), then ``{"ok": true, "device": ...}``.
+13. drives width pruning at full width (weights from seed 0, Synthetic data,
+    each cut printed, the card's name and power limit beside the numbers):
+    first ``msca_fused`` and ``parallel_cascade`` against their plain versions
+    at the pruned widths (C = 16/32/80/128 for MscaRep d1+fix and the dconv0
+    cascades, 48/128/256/384 for DwSepRep r1).  P9
+    ``configs/prune/ffn-prune_dd_l2-asym_mscan-t.py`` through the Runner:
+    calibration (2 batches of 8 at 224^2), FfnPrune(0.75) on 13 FFNs (hiddens
+    192/384/480/768) solved on the card, each site solved again on the CPU with
+    the same taps (how many kept sets differ; the reconstruction error on the
+    calibration maps within 1e-3 of the CPU's where the sample has full rank),
+    the asym L2 fine-tune cut to 4 steps (every loss finite, 13 ``msca_fused``
+    launches per step in the teacher, the teacher equal to the unpruned
+    model), the forward (13 launches, logits within 1e-4 of the plain version)
+    beside dense MSCAN-t, the Optimize and calibration seconds.  P10 the
+    pruned MSCAN-t quad (``prune_trunks(0.5, 64)``, AttnPrune(0.5),
+    FfnPrune(0.5, 128); trunks 16/32/64/128, branches 16/32/80/128, hiddens
+    128/256/256/512) with MscaRep d1+fix (13 ``msca_fused`` per forward) and
+    dconv0 (26 ``parallel_cascade``), folded, 1x1s as matmuls: logits, graph
+    replays, eager, graph and back-to-back times beside dense MSCAN-t and the
+    unpruned d1+fix form (arbitrated_apply waits for ROADMAP item 10).  P11 the
+    pruned ConvNeXt-T quad (``prune_trunks(0.5, 128)``, MlpPrune(0.5, 128),
+    DwSepRep r1, ``quantize_int8``): 18 ``parallel_cascade`` and 41 ``qmatmul``
+    per forward, logits, a replay, every (M, K, N) bit for bit, timed beside
+    dense ConvNeXt-T and the unpruned r1 and int8 forms.  P12
+    ``configs/prune/trunk-prune_ce_resnet18.py`` and
+    ``chain-prune_ce_vgg16.py`` through the Runner (4 trunk groups and 8
+    junctions; 14 junctions), the CE fine-tune cut to 4 steps, the last
+    checkpoint restored bit for bit through the same config, then
+    ``fold_batchnorm`` + ``quantize_int8``: ``qmatmul`` bit for bit at each
+    shape, int8 logits, float32 and int8 timed beside the dense model;
+14. prints one JSON line of kernel results (each kernel's entry lists the later
+    paths' launches and sums per forward under ``paths``), then
+    ``{"ok": true, "device": ...}``.
 
 Every failed check exits non-zero without the result lines, as does a run
 without a CUDA device or outside a checkout of the repository.  Random weights
@@ -431,6 +461,38 @@ def check_msca_plan(x, w0, w1, ks):
     return p
 
 
+def msca_row(form, H, C, blocks, gen):
+    """msca_fused against msca_fused_ref on one MSCA block's random inputs of
+    ``form`` (see kernel_inputs) at (BATCH, H, H, C), timed beside it, with its
+    bound and its planner's shared memory checked; the row."""
+    import torch
+
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    args, kw = kernel_inputs(form, H, C, gen)
+    y = fused_ops.msca_fused(*args, **kw)
+    y_ref = fused_ops.msca_fused_ref(*args, **kw)
+    torch.cuda.synchronize()
+    err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
+    if not torch.isfinite(y).all() or err > KERNEL_TOL:
+        fail(f"msca_fused {form} {(BATCH, H, H, C)}: rel err {err:.3e} > {KERNEL_TOL}")
+    p = check_msca_plan(args[0], args[1], args[3], kw["ks"])
+    ms, plain_ms = time_pair(lambda: fused_ops.msca_fused(*args, **kw),
+                             lambda: fused_ops.msca_fused_ref(*args, **kw))
+    nbytes, flops = msca_cost(H, C, kw["ks"], kw["identity"], kw["fix_p"])
+    b_ms, b_by = bound(nbytes, flops)
+    row = dict(form=form, shape=(BATCH, H, H, C), blocks=blocks, rel_err=err,
+               max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
+               bound_ms=b_ms)
+    print(f"msca_fused {form:5s} x{row['shape']}: rel err {err:.3e} (bound "
+          f"{KERNEL_TOL}), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (median of 25 CUDA-event runs, x2); bound {b_ms:.4f} ms "
+          f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
+          f"roofline share {b_ms / ms:.1%}; plan G {p.g}, {p.ntiles} tiles of {p.tw}, "
+          f"{p.bands} bands, {p.blocks} blocks, {p.smem} B, {p.launches} launches")
+    return row
+
+
 def check_kernel(gen):
     """msca_fused against msca_fused_ref at MSCAN-t's eight block shapes (the dense
     7/11/21 bank with identity and the d1+fix 21-tap cascade with fix_p = 10) and
@@ -439,31 +501,8 @@ def check_kernel(gen):
 
     from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
 
-    rows = []
-    for form in ("dense", "d1fix"):
-        for H, C, blocks in STAGES:
-            args, kw = kernel_inputs(form, H, C, gen)
-            y = fused_ops.msca_fused(*args, **kw)
-            y_ref = fused_ops.msca_fused_ref(*args, **kw)
-            torch.cuda.synchronize()
-            err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
-            if not torch.isfinite(y).all() or err > KERNEL_TOL:
-                fail(f"msca_fused {form} {(BATCH, H, H, C)}: rel err {err:.3e} > {KERNEL_TOL}")
-            p = check_msca_plan(args[0], args[1], args[3], kw["ks"])
-            ms, plain_ms = time_pair(lambda: fused_ops.msca_fused(*args, **kw),
-                                     lambda: fused_ops.msca_fused_ref(*args, **kw))
-            nbytes, flops = msca_cost(H, C, kw["ks"], kw["identity"], kw["fix_p"])
-            b_ms, b_by = bound(nbytes, flops)
-            rows.append(dict(form=form, shape=(BATCH, H, H, C), blocks=blocks, rel_err=err,
-                             max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bytes=nbytes,
-                             flops=flops, bound_ms=b_ms))
-            print(f"msca_fused {form:5s} x{rows[-1]['shape']}: rel err {err:.3e} (bound "
-                  f"{KERNEL_TOL}), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms (median of 25 CUDA-event runs, x2); bound {b_ms:.4f} ms "
-                  f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
-                  f"roofline share {b_ms / ms:.1%}; plan G {p.g}, {p.ntiles} tiles of {p.tw}, "
-                  f"{p.bands} bands, {p.blocks} blocks, {p.smem} B, {p.launches} launches")
-            del args, y, y_ref
+    rows = [msca_row(form, H, C, blocks, gen) for form in ("dense", "d1fix")
+            for H, C, blocks in STAGES]
     for form in ("dense", "d1fix"):
         sel = [r for r in rows if r["form"] == form]
         total = {k: sum(r[k] * r["blocks"] for r in sel) for k in ("ms", "plain_ms", "bound_ms")}
@@ -720,16 +759,13 @@ def library_time(fn, iters: int = 25) -> float:
     return float(np.median([cuda_ms(fn, iters) for _ in range(2)]))
 
 
-def check_cascade_kernel(gen):
-    """parallel_cascade against parallel_cascade_ref, bit for bit, at ConvNeXt-T's
-    stage shapes with one and two 7-tap cascades (DwSepRep r1/r2: no first bias,
-    the second bias on the last branch), at MSCAN-t's four stage shapes in the
-    two forms of MscaRep(1, fix, decomp_conv0) (conv0 as a 5-tap cascade and the
-    bank as one 21-tap cascade, biased like r1), and in MSCA's dense-bank form
-    (7/11/21 with every bias and the identity, the kernel's ring path) at
-    MSCAN-t's first stage.  Beside it, cuDNN's depthwise conv of the merged k x k
-    kernel sum_j v_j (x) h_j, the same function where b1 = 0 (all but the
-    dense bank)."""
+def cascade_row(form, H, C, ks, blocks, gen):
+    """parallel_cascade against parallel_cascade_ref, bit for bit, on random
+    inputs at (BATCH, H, H, C) with cascades of ``ks``: DwSepRep's form (no
+    first bias, the second bias on the last branch), or with ``form`` "msca"
+    MSCA's dense bank (every bias and the identity).  Beside it, cuDNN's
+    depthwise conv of the merged k x k kernel sum_j v_j (x) h_j, the same
+    function where b1 = 0 (all but the dense bank).  The row."""
     import torch
     import torch.nn.functional as F
 
@@ -739,51 +775,59 @@ def check_cascade_kernel(gen):
     def u(*shape, scale=1.0):
         return (torch.rand(*shape, generator=gen) * 2 - 1) * scale
 
+    dense = form == "msca"
+    w1, b1, w2, b2, ks = pack_cascade_weights(
+        [u(k, C, scale=k ** -0.5) for k in ks],
+        [u(C, scale=0.2) if dense else None for _ in ks],
+        [u(k, C, scale=k ** -0.5) for k in ks],
+        [u(C, scale=0.2) if dense or i == len(ks) - 1 else None for i in range(len(ks))])
+    w1, b1, w2, b2 = (t.cuda() for t in (w1, b1, w2, b2))
+    x = u(BATCH, H, H, C).cuda()
+    kw = dict(ks=ks, identity=dense)
+    y = cascade_ops.parallel_cascade(x, w1, b1, w2, b2, **kw)
+    y_ref = cascade_ops.parallel_cascade_ref(x, w1, b1, w2, b2, **kw)
+    torch.cuda.synchronize()
+    err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
+    if not torch.isfinite(y).all() or not torch.equal(y, y_ref):
+        fail(f"parallel_cascade {form} {(BATCH, H, H, C)}: rel err {err:.3e}, max abs err "
+             f"{abs_err:.3e}; the kernel must give parallel_cascade_ref's bits")
+    ms, plain_ms = time_pair(lambda: cascade_ops.parallel_cascade(x, w1, b1, w2, b2, **kw),
+                             lambda: cascade_ops.parallel_cascade_ref(x, w1, b1, w2, b2, **kw))
+    lib_ms = None
+    if not dense:
+        merged = torch.einsum("bic,bjc->cij", w2, w1)[:, None]  # (C, 1, k, k)
+        xc, bias = x.permute(0, 3, 1, 2), b2.sum(0)  # xc: an NCHW view, channels_last
+        y_lib = F.conv2d(xc, merged, bias, padding=max(ks) // 2, groups=C)
+        lib_err = rel_err(y_lib.permute(0, 2, 3, 1), y_ref)
+        lib_ms = library_time(lambda: F.conv2d(xc, merged, bias, padding=max(ks) // 2,
+                                               groups=C))
+    nbytes, flops = cascade_cost(H, C, ks, dense)
+    b_ms, b_by = bound(nbytes, flops)
+    row = dict(form=form, shape=(BATCH, H, H, C), blocks=blocks, rel_err=err,
+               max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               bytes=nbytes, flops=flops, bound_ms=b_ms)
+    lib = (f"cuDNN merged {lib_ms:.4f} ms (rel diff {lib_err:.1e})" if lib_ms is not None
+           else "no single library call (b1 and the identity)")
+    print(f"parallel_cascade {form:5s} x{row['shape']} ks={ks}: rel err {err:.3e} "
+          f"(bound 0: bit for bit), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, {lib}; bound {b_ms:.4f} ms by {b_by} "
+          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), roofline share {b_ms / ms:.1%}")
+    return row
+
+
+def check_cascade_kernel(gen):
+    """parallel_cascade (:func:`cascade_row`) at ConvNeXt-T's stage shapes with
+    one and two 7-tap cascades (DwSepRep r1/r2), at MSCAN-t's four stage
+    shapes in the two forms of MscaRep(1, fix, decomp_conv0) (conv0 as a 5-tap
+    cascade and the bank as one 21-tap cascade, biased like r1), and in MSCA's
+    dense-bank form (7/11/21 with every bias and the identity, the kernel's
+    ring path) at MSCAN-t's first stage; the sums per forward."""
     cases = [(f"r{nb}", H, C, (7,) * nb, blocks) for nb in (1, 2)
              for H, C, blocks in CONVNEXT_STAGES]
     cases += [(form, H, C, (k,), blocks) for form, k in (("d0k5", 5), ("d0k21", 21))
               for H, C, blocks in STAGES]
     cases.append(("msca", STAGES[0][0], STAGES[0][1], (7, 11, 21), STAGES[0][2]))
-    rows = []
-    for form, H, C, ks, blocks in cases:
-        dense = form == "msca"
-        w1, b1, w2, b2, ks = pack_cascade_weights(
-            [u(k, C, scale=k ** -0.5) for k in ks],
-            [u(C, scale=0.2) if dense else None for _ in ks],
-            [u(k, C, scale=k ** -0.5) for k in ks],
-            [u(C, scale=0.2) if dense or i == len(ks) - 1 else None for i in range(len(ks))])
-        w1, b1, w2, b2 = (t.cuda() for t in (w1, b1, w2, b2))
-        x = u(BATCH, H, H, C).cuda()
-        kw = dict(ks=ks, identity=dense)
-        y = cascade_ops.parallel_cascade(x, w1, b1, w2, b2, **kw)
-        y_ref = cascade_ops.parallel_cascade_ref(x, w1, b1, w2, b2, **kw)
-        torch.cuda.synchronize()
-        err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
-        if not torch.isfinite(y).all() or not torch.equal(y, y_ref):
-            fail(f"parallel_cascade {form} {(BATCH, H, H, C)}: rel err {err:.3e}, max abs err "
-                 f"{abs_err:.3e}; the kernel must give parallel_cascade_ref's bits")
-        ms, plain_ms = time_pair(lambda: cascade_ops.parallel_cascade(x, w1, b1, w2, b2, **kw),
-                                 lambda: cascade_ops.parallel_cascade_ref(x, w1, b1, w2, b2, **kw))
-        lib_ms = None
-        if not dense:
-            merged = torch.einsum("bic,bjc->cij", w2, w1)[:, None]  # (C, 1, k, k)
-            xc, bias = x.permute(0, 3, 1, 2), b2.sum(0)  # xc: an NCHW view, channels_last
-            y_lib = F.conv2d(xc, merged, bias, padding=max(ks) // 2, groups=C)
-            lib_err = rel_err(y_lib.permute(0, 2, 3, 1), y_ref)
-            lib_ms = library_time(lambda: F.conv2d(xc, merged, bias, padding=max(ks) // 2,
-                                                   groups=C))
-        nbytes, flops = cascade_cost(H, C, ks, dense)
-        b_ms, b_by = bound(nbytes, flops)
-        rows.append(dict(form=form, shape=(BATCH, H, H, C), blocks=blocks, rel_err=err,
-                         max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bytes=nbytes, flops=flops, bound_ms=b_ms))
-        lib = (f"cuDNN merged {lib_ms:.4f} ms (rel diff {lib_err:.1e})" if lib_ms is not None
-               else "no single library call (b1 and the identity)")
-        print(f"parallel_cascade {form:5s} x{rows[-1]['shape']} ks={ks}: rel err {err:.3e} "
-              f"(bound 0: bit for bit), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, {lib}; bound {b_ms:.4f} ms by {b_by} "
-              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), roofline share {b_ms / ms:.1%}")
-        del x, y, y_ref
+    rows = [cascade_row(form, H, C, ks, blocks, gen) for form, H, C, ks, blocks in cases]
     for name, forms in (("ConvNeXt-T DwSepRep r1", ("r1",)), ("ConvNeXt-T DwSepRep r2", ("r2",)),
                         ("MSCAN-t d1+fix+dconv0", ("d0k5", "d0k21"))):
         sel = [r for r in rows if r["form"] in forms]
@@ -3170,6 +3214,466 @@ def run_ft_v3_kd():
     torch.cuda.empty_cache()
 
 
+# -- 13. width pruning: P9-P12 ---------------------------------------------------
+FFN_PRUNE = os.path.join(REPO, "configs", "prune", "ffn-prune_dd_l2-asym_mscan-t.py")
+TRUNK_R18 = os.path.join(REPO, "configs", "prune", "trunk-prune_ce_resnet18.py")
+CHAIN_VGG = os.path.join(REPO, "configs", "prune", "chain-prune_ce_vgg16.py")
+# (H = W, C, blocks) of the pruned MSCAN-t quad's MSCA branches and ConvNeXt-T's trunks
+PRUNED_STAGES = [(56, 16, 3), (28, 32, 3), (14, 80, 5), (7, 128, 2)]
+PRUNED_CONVNEXT = [(56, 48, 3), (28, 128, 3), (14, 256, 9), (7, 384, 3)]
+SOLVE_TOL = 1e-3  # a site's reconstruction error solved on the card against the CPU's,
+# relative, where the calibration sample has at least as many pixels as hidden channels
+
+
+def pruned_kernel_rows():
+    """msca_fused (d1+fix) and parallel_cascade (dconv0's 5- and 21-tap
+    cascades, and DwSepRep r1) against their plain versions at the widths of
+    the pruned MSCAN-t and ConvNeXt-T quads; the sums per forward."""
+    import torch
+
+    gen = torch.Generator().manual_seed(13)
+    msca = [msca_row("d1fix", H, C, blocks, gen) for H, C, blocks in PRUNED_STAGES]
+    cascade = [cascade_row(form, H, C, (k,), blocks, gen)
+               for form, k in (("d0k5", 5), ("d0k21", 21)) for H, C, blocks in PRUNED_STAGES]
+    cascade += [cascade_row("r1", H, C, (7,), blocks, gen) for H, C, blocks in PRUNED_CONVNEXT]
+    for name, kernel, rows in (("pruned MSCAN-t d1+fix", "msca_fused", msca),
+                               ("pruned MSCAN-t dconv0", "parallel_cascade", cascade[:8]),
+                               ("pruned ConvNeXt-T r1", "parallel_cascade", cascade[8:])):
+        total = {k: sum(r[k] * r["blocks"] for r in rows if r.get(k) is not None)
+                 for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"{kernel} per {name} forward ({sum(r['blocks'] for r in rows)} calls): kernel "
+              f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms"
+              + (f", cuDNN merged {total['library_ms']:.4f} ms" if kernel != "msca_fused" else "")
+              + f", bound {total['bound_ms']:.4f} ms")
+    return msca, cascade
+
+
+def through_all_plain(model, x):
+    """``model(x)`` with every kernel of the port swapped for its plain version."""
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    with mock.patch.object(fused_ops, "msca_fused", fused_ops.msca_fused_ref):
+        return through_plain(model, x)
+
+
+def counted_forwards(model):
+    """(msca_fused, parallel_cascade, qmatmul) launches and the median ms of
+    time_forward's 13 forwards of ``model`` at INPUT."""
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    reset_counts()
+    ms = float(np.median(time_forward_cuda(model)))
+    return (fused_ops.msca_fused.launches, cascade_ops.parallel_cascade.launches,
+            qmatmul_ops.qmatmul.launches), ms
+
+
+def solve_on_cpu(src, tgt, x):
+    """FfnPrune(0.75)'s solve of one site again on the CPU with the card's taps
+    ``x``: (the same kept set, the card's reconstruction error of the site's
+    output on its calibration maps, the CPU's), both errors evaluated on the
+    CPU."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.core import FfnPrune
+
+    src, tgt, x = (copy.deepcopy(src).cpu().eval(), copy.deepcopy(tgt).cpu().eval(),
+                   x.detach().cpu())
+    app = FfnPrune(keep_ratio=0.75)
+    app.set_calibration(0, x)
+    sub = app.initialize(src)
+    app.optimize(sub)
+    with torch.no_grad():
+        ref = src(x)
+        return (torch.equal(tgt.fc1.weight, sub.new.fc1.weight), rel_err(tgt(x), ref),
+                rel_err(sub.new.eval()(x), ref))
+
+
+def run_ffn_prune():
+    """P9: configs/prune/ffn-prune_dd_l2-asym_mscan-t.py through the Runner:
+    CalibrationHook (2 batches of 8 at 224^2, raw maps), FfnPrune(0.75) on 13
+    FFNs solved on the card (each site solved again on the CPU with the same
+    taps), the asym L2 fine-tune cut to 4 steps and InferenceTimeHook; the
+    teacher against the unpruned model, msca_fused's launches, the logits
+    against the plain version, dense MSCAN-t timed beside it.  Returns
+    msca_fused's launches in the run."""
+    import torch
+
+    from convnet_approximater_tpu_torch.core import FfnPrune
+    from convnet_approximater_tpu_torch.hooks import CalibrationHook, InferenceTimeHook
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_ffn_prune")
+    x, y = held_out(10)
+    stats = {"optimize_s": 0.0}
+    optimize, calibrate = FfnPrune.optimize, CalibrationHook.after_initialize
+
+    def timed(fn, key, add=False):
+        def wrapped(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            stats[key] = stats.get(key, 0.0) * add + time.perf_counter() - t0
+            return out
+        return wrapped
+
+    def first(hook, loader):
+        student, teacher, app = hook.runner.model, hook.teacher, hook.runner.app
+        dense = mscan_base(random_norms=False)  # seed 0: the model before FfnPrune
+        with torch.no_grad():
+            y_t, y_d = teacher(x), dense(x)
+        err = rel_err(y_t, y_d)
+        print(f"P9 teacher against the unpruned MSCAN-t (seed 0) eval logits "
+              f"{tuple(y_t.shape)}: rel err {err:.3e} (bound {REPLAY_TOL}), "
+              f"{'bit-equal' if torch.equal(y_t, y_d) else 'not bit-equal'}")
+        if err > REPLAY_TOL:
+            fail("P9: the teacher is not the unpruned model")
+        del dense
+        t0 = time.perf_counter()
+        sites = list(zip(teacher.switchable_modules(), student.switchable_modules()))
+        checks = [solve_on_cpu(t.old, s.new, app._raw[i]) for i, (t, s) in enumerate(sites)]
+        # a sample of fewer pixels than hidden channels (stage 4: 16 x 7 x 7 = 784 for
+        # 1024) leaves the covariance rank-deficient, and the greedy selection near its
+        # rank picks among gains of the order of float32 rounding (the app warns)
+        full = [app._raw[i].shape[0] * app._raw[i].shape[2] * app._raw[i].shape[3]
+                >= t.old.hidden_channel for i, (t, _) in enumerate(sites)]
+        differ = sum(not same for same, _, _ in checks)
+        diffs = [abs(card - cpu) / cpu for _, card, cpu in checks]
+        worst = max(d for d, f in zip(diffs, full) if f)
+        print(f"P9 the 13 solves again on the CPU with the card's taps "
+              f"({time.perf_counter() - t0:.2f} s): {differ} sites picked another kept set "
+              f"({sum(not same for (same, _, _), f in zip(checks, full) if f)} of the "
+              f"{sum(full)} with a full-rank sample); reconstruction error of each site's "
+              f"output on its calibration maps, card / CPU: " + ", ".join(
+                  f"{card:.4e}/{cpu:.4e}" for _, card, cpu in checks)
+              + f"; max relative difference {worst:.3e} where the sample has full rank (bound "
+              f"{SOLVE_TOL}), {max(diffs):.3e} over all 13")
+        if worst > SOLVE_TOL:
+            fail("P9: a solve on the card reconstructs worse than the CPU's")
+
+    probe = FinetuneProbe(fused_ops.msca_fused, first=first)
+    reset_counts()
+    with mock.patch.object(FfnPrune, "optimize", timed(optimize, "optimize_s", add=True)), \
+            mock.patch.object(CalibrationHook, "after_initialize", timed(calibrate, "calib_s")):
+        runner, run_s = run_finetune_cfg(FFN_PRUNE, work_dir, probe,
+                                         lambda h: h["sche_args"].update(epochs=1))
+    launches = fused_ops.msca_fused.launches
+    model, name = runner.model, os.path.relpath(FFN_PRUNE, REPO)
+    hooks = {type(h).__name__: h for h in runner.hooks}
+    timer = hooks["InferenceTimeHook"]
+    steps, losses = len(probe.losses), [float(v) for v in probe.losses]
+    hidden = [m.hidden_channel for m in model.switchable_modules()]
+    smi = smi_line()
+    print(f"P9 {name} through the Runner in {run_s:.2f} s [{smi}], cut: sche_args.epochs 20 -> "
+          f"1 ({FT_STEPS} steps on the hook's default Synthetic(256), b = {BATCH}, 224^2, f32, "
+          f"TF32 off); calibration {hooks['CalibrationHook'].calibrated} in "
+          f"{stats['calib_s']:.3f} s; Optimize (greedy selection and refit of 13 sites) "
+          f"{stats['optimize_s']:.3f} s; FFN hiddens {hidden}; losses "
+          f"{', '.join(f'{v:.6g}' for v in losses)}")
+    if hidden != [192] * 3 + [384] * 3 + [480] * 5 + [768] * 2:
+        fail("P9: FfnPrune(0.75) kept other widths than 192/384/480/768")
+    if steps != FT_STEPS or not all(np.isfinite(losses)):
+        fail("P9: a loss is not finite, or the run took another number of steps")
+    forwards = forwards_of(runner)
+    want = MSCA_BLOCKS * (2 + steps + len(probe.eval_calls) + forwards)
+    print(f"P9 msca_fused launches: {probe.step_calls} per training step (the teacher), "
+          f"{probe.eval_calls} per validation forward, {launches} in the run (13 per forward: 2 "
+          f"calibration, {steps} teacher, {len(probe.eval_calls)} validation and {forwards} "
+          f"timed forwards)")
+    if probe.step_calls != [MSCA_BLOCKS] * steps or launches != want:
+        fail(f"P9: msca_fused launched {launches} times, expected {want}")
+    (fused, _, _), ms = counted_forwards(model)
+    if fused != MSCA_BLOCKS * 13:
+        fail(f"P9: 13 forwards of the pruned model launched msca_fused {fused} times")
+    x2 = images(torch.Generator().manual_seed(9))
+    with torch.no_grad():
+        check_logits("P9 FfnPrune(0.75) MSCAN-t", model(x2),
+                     {"msca_fused_ref": through_all_plain(model, x2)}, LOGITS_TOL)
+    step_ms = float(np.median(probe.step_ms()[1:]))
+    hook_ms = timer.result["median_ms"]
+    dense_ms = float(np.median(time_forward_cuda(mscan_base(random_norms=False))))
+    print(f"P9 FfnPrune(0.75) MSCAN-t forward {INPUT} f32 [{smi}]: InferenceTimeHook median "
+          f"{hook_ms:.3f} ms, again {ms:.3f} ms ({BATCH / ms * 1e3:.1f} img/s); dense MSCAN-t "
+          f"{dense_ms:.3f} ms; dense / pruned = {dense_ms / ms:.4f}; L2 training step median "
+          f"{step_ms:.3f} ms over steps 2-{steps}")
+    del runner, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mscan_quad_widths(model):
+    """(trunk widths, MSCA branch widths, FFN hiddens) of each stage's first block."""
+    blocks = [layer[1][0] for layer in model.backbone.layers]
+    return ([b.num_channel for b in blocks], [b.attn.inner_channel for b in blocks],
+            [b.mlp.hidden_channel for b in blocks])
+
+
+def run_pruned_mscan():
+    """P10: the pruned MSCAN-t quad of bench.py:336-345 in float32 without
+    FfnRep's arbitration: prune_trunks(0.5, round_to=64), AttnPrune(0.5),
+    FfnPrune(0.5, round_to=128), then MscaRep(1, fix) or MscaRep(1, fix,
+    decomp_conv0), fold_batchnorm and enable_pw_matmul; launches, logits
+    against the plain versions and the module path, a graph replay of each,
+    and both timed eager, as graphs and back to back beside dense MSCAN-t and
+    the unpruned d1+fix surface.  Returns ({form: launches}, timings)."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.core import AttnPrune, FfnPrune, MscaRep
+    from convnet_approximater_tpu_torch.deploy import (enable_pw_matmul, fold_batchnorm,
+                                                       prune_trunks)
+    from convnet_approximater_tpu_torch.deploy_planner import apply_app
+    from convnet_approximater_tpu_torch.layers import MSCA
+
+    base = mscan_base(random_norms=True)
+    pruned = copy.deepcopy(base)
+    t0 = time.perf_counter()
+    counts = (prune_trunks(pruned, 0.5, round_to=64),
+              apply_app(pruned, AttnPrune(keep_ratio=0.5), []),
+              apply_app(pruned, FfnPrune(keep_ratio=0.5, round_to=128), []))
+    torch.cuda.synchronize()
+    widths = mscan_quad_widths(pruned)
+    print(f"P10 pruned MSCAN-t quad: prune_trunks {counts[0]} groups, AttnPrune {counts[1]} "
+          f"and FfnPrune {counts[2]} sites in {time.perf_counter() - t0:.2f} s; trunks "
+          f"{widths[0]}, MSCA branches {widths[1]}, FFN hiddens {widths[2]}")
+    if counts != (4, 13, 13) or widths != ([16, 32, 64, 128], [16, 32, 80, 128],
+                                           [128, 256, 256, 512]):
+        fail("P10: the pruned quad has other sites or widths than the JAX passes give")
+    forms = {}
+    for key, src, d0 in (("unpruned d1+fix", base, False), ("pruned d1+fix", pruned, False),
+                         ("pruned dconv0", pruned, True)):
+        model = copy.deepcopy(src)
+        n = (apply_app(model, MscaRep(decomp=1, fix=True, decomp_conv0=d0), []),
+             fold_batchnorm(model), enable_pw_matmul(model))
+        if n != (13, 5, 65):
+            fail(f"P10 {key}: MscaRep, fold_batchnorm and enable_pw_matmul found {n} sites, "
+                 f"expected (13, 5, 65)")
+        forms[key] = model
+    del pruned
+    x2, x = seeded_batch(60, batch=2), seeded_batch(61)
+    launches, times = {}, {}
+    expect = {"pruned d1+fix": ({"msca_fused march": 13, "msca_fused mix": 13}, (13, 0)),
+              "pruned dconv0": ({"parallel_cascade": 26, "msca_fused march": 0}, (0, 26))}
+    for key, model in [("dense", base)] + list(forms.items()):
+        (fused, cascade, _), eager_ms = counted_forwards(model)
+        if key in expect:
+            per = expect[key][1]
+            if (fused, cascade) != (per[0] * 13, per[1] * 13):
+                fail(f"P10 {key}: 13 forwards launched msca_fused {fused} and "
+                     f"parallel_cascade {cascade} times, expected {per} per forward")
+            launches[key] = fused or cascade
+            with torch.no_grad():
+                check_logits(f"P10 {key} (layer scales 1, random BN)", model(x2), {
+                    "the plain versions": through_all_plain(model, x2),
+                    "the module path": module_path(model, MSCA, x2)}, LOGITS_TOL)
+        compiled, put = check_graph(f"P10 {key}", model,
+                                    expect.get(key, ({"msca_fused march": 13},))[0], 62)[:2]
+        times[key] = (eager_ms, time_graph(compiled, put, INPUT), *pace(model, compiled, x))
+        if key.startswith("pruned"):
+            profile_calls(f"P10 {key} graph replay {INPUT}", compiled, keep=MSCA_KERNELS)
+        del compiled, put
+    smi = smi_line()
+    for key, (eager_ms, graph_ms, b2b_eager, b2b_graph) in times.items():
+        print(f"P10 MSCAN-t {key} forward {INPUT} f32 [{smi}]: eager median {eager_ms:.3f} ms, "
+              f"graph {graph_ms:.3f} ms ({BATCH / graph_ms * 1e3:.1f} img/s); back to back "
+              f"{b2b_eager:.3f} ms eager, {b2b_graph:.3f} ms graph; dense / this: eager "
+              f"{times['dense'][0] / eager_ms:.4f}, graph {times['dense'][1] / graph_ms:.4f}")
+    print("P10 FfnRep's arbitration (arbitrated_apply) waits for ROADMAP item 10: not run here")
+    del base, forms
+    torch.cuda.empty_cache()
+    return launches, times
+
+
+def run_pruned_convnext():
+    """P11: the pruned ConvNeXt-T quad of bench.py:361-372 in float32:
+    prune_trunks(0.5, round_to=128), MlpPrune(0.5, round_to=128), DwSepRep(1)
+    on the dwconvs, quantize_int8 on two calibration batches; launches, logits
+    (gamma = 1) against the plain versions and the float32 model, a graph
+    replay, every qmatmul (M, K, N) of the forward bit for bit; timed beside
+    dense ConvNeXt-T and the unpruned r1 and int8 forms.  Returns
+    (parallel_cascade's and qmatmul's launches, qmatmul's rows, timings)."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.core import DwSepRep, MlpPrune
+    from convnet_approximater_tpu_torch.deploy_planner import apply_app
+    from convnet_approximater_tpu_torch.filters import DepthwiseConvFilter
+    from convnet_approximater_tpu_torch.layers import CascadeConv, ParallelConv
+    from convnet_approximater_tpu_torch.models import ConvNeXt
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+
+    base = ConvNeXt(num_classes=1000)
+    init_weights(base, torch.Generator().manual_seed(0))
+    base = channels_last(base.cuda()).eval()
+    set_gamma(base)
+    pruned = copy.deepcopy(base)
+    counts = (deploy.prune_trunks(pruned, 0.5, round_to=128),
+              apply_app(pruned, MlpPrune(keep_ratio=0.5, round_to=128), []),
+              apply_app(pruned, DwSepRep(ranks=1), [DepthwiseConvFilter()]))
+    dims = [stage[0].dim for stage in pruned.stages]
+    hidden = [stage[0].hidden for stage in pruned.stages]
+    print(f"P11 pruned ConvNeXt-T quad: prune_trunks {counts[0]} groups, MlpPrune {counts[1]} "
+          f"and DwSepRep(1) {counts[2]} sites; trunks {dims}, MLP hiddens {hidden}")
+    if counts != (4, 18, 18) or dims != [48, 128, 256, 384] or hidden != [256, 384, 768, 1536]:
+        fail("P11: the pruned quad has other sites or widths than the JAX passes give")
+    unpruned = copy.deepcopy(base)
+    if apply_app(unpruned, DwSepRep(ranks=1), [DepthwiseConvFilter()]) != 18:
+        fail("P11: DwSepRep(1) found another number of dwconvs on ConvNeXt-T")
+    x2 = seeded_batch(70, batch=2)
+    times = {"dense": counted_forwards(base)[1], "unpruned r1": counted_forwards(unpruned)[1]}
+    (_, cascade, _), times["pruned r1"] = counted_forwards(pruned)
+    if cascade != 18 * 13:
+        fail(f"P11: 13 forwards launched parallel_cascade {cascade} times, expected {18 * 13}")
+    with torch.no_grad():
+        y_f32 = pruned(x2)
+        check_logits("P11 pruned ConvNeXt-T r1 (gamma = 1)", y_f32, {
+            "parallel_cascade_ref": through_plain(pruned, x2),
+            "the module path": module_path(pruned, (CascadeConv, ParallelConv), x2)}, LOGITS_TOL)
+    calib_gen = torch.Generator().manual_seed(71)
+    calib = [torch.randn(BATCH, 3, 224, 224, generator=calib_gen).cuda()
+             .contiguous(memory_format=torch.channels_last) for _ in range(2)]
+    n = (deploy.quantize_int8(pruned, calib), deploy.quantize_int8(unpruned, calib))
+    del calib
+    if n != (41, 41):
+        fail(f"P11: quantize_int8 quantized {n} modules, expected 41 in each")
+    first, calls = record_qmatmul_calls(pruned, seeded_batch(72))
+    times["unpruned int8"] = counted_forwards(unpruned)[1]
+    del unpruned
+    (_, cascade, q_launches), times["pruned int8"] = counted_forwards(pruned)
+    if q_launches != 41 * 13 or cascade != 18 * 13 or sum(calls.values()) != 41:
+        fail(f"P11: 13 int8 forwards launched qmatmul {q_launches} and parallel_cascade "
+             f"{cascade} times, expected 41 and 18 per forward")
+    with torch.no_grad():
+        y_q = pruned(x2)
+        check_logits("P11 pruned int8 ConvNeXt-T (gamma = 1)", y_q,
+                     {"qmatmul_ref and parallel_cascade_ref": through_plain(pruned, x2)}, INT8_TOL)
+    int8_err = float((y_q - y_f32).abs().max() / y_f32.abs().max())
+    print(f"P11 pruned int8 against float32 logits: max abs relative {int8_err:.4f} (bound "
+          f"{INT8_F32_TOL})")
+    if not int8_err <= INT8_F32_TOL:
+        fail("P11: int8 logits drift too far from the float32 model's")
+    compiled, put = check_graph("P11 pruned int8 ConvNeXt-T", pruned,
+                                {"qmatmul": 41, "parallel_cascade": 18}, 73)[:2]
+    times["pruned int8 graph"] = time_graph(compiled, put, INPUT)
+    del compiled, put
+    profile_forward("P11 pruned int8 ConvNeXt-T", pruned, INPUT, keep=("qmatmul_kernel",))
+    rows = check_qmatmul_calls("pruned int8 ConvNeXt-T", first, calls)
+    smi = smi_line()
+    print(f"P11 ConvNeXt-T forwards {INPUT} [{smi}]: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in times.items()) + f"; dense / pruned r1 = "
+          f"{times['dense'] / times['pruned r1']:.4f}, dense / pruned int8 = "
+          f"{times['dense'] / times['pruned int8']:.4f}, unpruned int8 / pruned int8 = "
+          f"{times['unpruned int8'] / times['pruned int8']:.4f}")
+    del base, pruned, first
+    torch.cuda.empty_cache()
+    return cascade, q_launches, rows, times
+
+
+def run_pruned_classic(config, passes, model_fn, n_fold, n_quant, classes, seed):
+    """P12: a prune config through the Runner (its structure passes, the CE
+    fine-tune cut to 4 steps), its last checkpoint restored bit for bit through
+    the same config, then fold_batchnorm + quantize_int8 (bench.py:374-384):
+    qmatmul launches, int8 logits against the plain versions and float32, each
+    (M, K, N) bit for bit; float32 and int8 timed beside the dense model.
+    Returns (qmatmul's launches, its rows)."""
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+    from convnet_approximater_tpu_torch.runner import Runner
+    from convnet_approximater_tpu_torch.utils import init_cfg, update_cfg
+
+    name = os.path.relpath(config, REPO)
+    tag = os.path.basename(config)[:-3]
+    work_dir = os.path.join(REPO, "build", f"chip_smoke_{tag}")
+    probe = FinetuneProbe(qmatmul_ops.qmatmul)
+    runner, run_s = run_finetune_cfg(config, work_dir, probe,
+                                     lambda h: h["sche_args"].update(epochs=1))
+    model = runner.model.eval()
+    with open(os.path.join(work_dir, "run.log")) as f:
+        log = f.read()
+    steps, losses = len(probe.losses), [float(v) for v in probe.losses]
+    step_ms = float(np.median(probe.step_ms()[1:]))
+    smi = smi_line()
+    print(f"P12 {name} through the Runner in {run_s:.2f} s [{smi}], cut: sche_args.epochs -> 1 "
+          f"({FT_STEPS} steps on the hook's default Synthetic(256), b = {BATCH}, 224^2, f32, "
+          f"TF32 off); " + "; ".join(f"{p}" for p in passes) + f"; losses "
+          f"{', '.join(f'{v:.6g}' for v in losses)}; CE training step median {step_ms:.3f} ms "
+          f"over steps 2-{steps} ({BATCH / step_ms * 1e3:.1f} img/s)")
+    if any(f"structure pass {p}" not in log for p in passes):
+        fail(f"P12 {name}: the Runner's log lacks one of {passes}")
+    if steps != FT_STEPS or not all(np.isfinite(losses)):
+        fail(f"P12 {name}: a loss is not finite, or the run took another number of steps")
+    init_cfg(config)
+    update_cfg(work_dir=work_dir + "_restored", config_name=tag, seed=0)
+    restored = Runner(device="cuda", generator=torch.Generator().manual_seed(1))
+    restored.restore(os.path.join(work_dir, "last.ckpt.npz"))
+    want, got = model.state_dict(), restored.model.state_dict()
+    if set(want) != set(got) or any(not torch.equal(want[k], got[k]) for k in want):
+        fail(f"P12 {name}: the last checkpoint does not restore bit for bit through the config")
+    print(f"P12 {name}: last.ckpt.npz restored through the same config (passes replayed, "
+          f"another seed) bit for bit: {len(want)} tensors")
+    del restored
+    x = images(torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        y_f32 = model(x)
+    f32_ms = float(np.median(time_forward_cuda(model)))
+    folded = deploy.fold_batchnorm(model)
+    calib_gen = torch.Generator().manual_seed(seed + 1)
+    calib = [torch.randn(BATCH, 3, 224, 224, generator=calib_gen).cuda()
+             .contiguous(memory_format=torch.channels_last) for _ in range(2)]
+    quantized = deploy.quantize_int8(model, calib)
+    del calib
+    if (folded, quantized) != (n_fold, n_quant):
+        fail(f"P12 {name}: folded {folded} and quantized {quantized}, expected {n_fold} and "
+             f"{n_quant}")
+    first, calls = record_qmatmul_calls(model, seeded_batch(seed + 2))
+    (_, _, launches), int8_ms = counted_forwards(model)
+    if launches != n_quant * 13 or sum(calls.values()) != n_quant:
+        fail(f"P12 {name}: 13 int8 forwards launched qmatmul {launches} times, expected "
+             f"{n_quant * 13}")
+    with torch.no_grad():
+        y_q = model(x)
+        check_logits(f"P12 int8 {tag}", y_q, {"qmatmul_ref": through_plain(model, x)}, INT8_TOL,
+                     classes=classes)
+    int8_err = float((y_q - y_f32).abs().max() / y_f32.abs().max())
+    print(f"P12 {tag}: fold_batchnorm {folded} pairs, quantize_int8 {quantized} modules, "
+          f"{launches} qmatmul launches in 13 forwards; int8 against float32 logits: max abs "
+          f"relative {int8_err:.4f} (bound {INT8_F32_TOL})")
+    if not int8_err <= INT8_F32_TOL:
+        fail(f"P12 {name}: int8 logits drift too far from the float32 model's")
+    print(f"P12 {tag} forward {INPUT} [{smi}]: pruned float32 {f32_ms:.3f} ms, pruned int8 "
+          f"{int8_ms:.3f} ms; float32 / int8 = {f32_ms / int8_ms:.4f}")
+    time_dense(f"P12 {tag}: the unpruned", model_fn(), f32_ms)
+    profile_forward(f"P12 pruned int8 {tag}", model, INPUT, keep=("qmatmul_kernel", "im2col"))
+    rows = check_qmatmul_calls(f"pruned int8 {tag}", first, calls)
+    del runner, model, first
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+def run_pruning():
+    """P9-P12; returns what the kernels line needs."""
+    from convnet_approximater_tpu_torch.models import VGG, ResNet
+
+    out = dict(rows=pruned_kernel_rows(), p9=run_ffn_prune(), p10=run_pruned_mscan(),
+               p11=run_pruned_convnext())
+    out["p12"] = [
+        ("int8 trunk+chain-pruned ResNet-18", *run_pruned_classic(
+            TRUNK_R18, ("prune_trunks: 4 sites", "prune_chains: 8 sites"),
+            lambda: ResNet(18, 1000), 20, 21, 1000, 80)),
+        ("int8 chain-pruned VGG-16", *run_pruned_classic(
+            CHAIN_VGG, ("prune_chains: 14 sites",), lambda: VGG(16, 10), 0, 16, 10, 90))]
+    return out
+
+
 def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
     """The kernels-line entry of one forward: rows weighted by calls per forward."""
     nbytes = sum(r["bytes"] * weight(r) for r in rows)
@@ -3264,7 +3768,10 @@ def main():
     qat_launches, qat_rows = run_qat_alexnet(gen)
     run_ft_v3_kd()
 
-    # -- 13. results ------------------------------------------------------
+    # -- 13. P9-P12: width pruning ------------------------------------------
+    pruning = run_pruning()
+
+    # -- 14. results ------------------------------------------------------
     # each entry is one forward at b=64, 224^2: the time per call times the calls per forward
     # (parallel_cascade: the DwSepRep r1 forward of ConvNeXt-T; qmatmul: its int8 forward)
     blocks = {H: n for H, _, n in STAGES}
@@ -3305,10 +3812,35 @@ def main():
          if k in path_keys + ("path",)}
         for path, rows, launches in (("int8 ResNet-50", r50_rows, r50_launches),
                                      ("int8 QAT AlexNet", qat_rows, qat_launches))]
+    # P9-P12, the width-pruned paths
+    p_msca, p_cascade = pruning["rows"]
+    p10_launches, p11 = pruning["p10"][0], pruning["p11"]
+    blocks = lambda r: r["blocks"]  # noqa: E731
+
+    def path(name, rows, weight, launches, peak=PEAK_F32):
+        entry = dict(per_forward(rows, weight, dict(launches=launches), peak=peak), path=name)
+        return {k: v for k, v in entry.items() if k in path_keys + ("path",)}
+
+    kernels[0]["paths"] += [
+        dict(path="MSCAN-t FfnPrune(0.75) config (P9)", launches=pruning["p9"]),
+        path("pruned MSCAN-t quad, MscaRep d1+fix (P10)", p_msca, blocks,
+             p10_launches["pruned d1+fix"])]
+    kernels[2]["paths"] = [
+        path("pruned MSCAN-t quad, MscaRep dconv0 (P10)", p_cascade[:8], blocks,
+             p10_launches["pruned dconv0"]),
+        path("pruned ConvNeXt-T quad, DwSepRep r1 (P11)", p_cascade[8:], blocks, p11[0])]
+    kernels[3]["paths"] += [path("pruned int8 ConvNeXt-T (P11)", p11[2], calls, p11[1], PEAK_INT8)]
+    kernels[3]["paths"] += [path(f"{name} (P12)", rows, calls, launches, PEAK_INT8)
+                            for name, launches, rows in pruning["p12"]]
+    kernels[0]["max_abs_err"] = max([kernels[0]["max_abs_err"]] +
+                                    [r["max_abs_err"] for r in p_msca])
     kernels[1]["max_abs_err"] = max([kernels[1]["max_abs_err"]] + [
         r["max_abs_err"] for r in resnet18_rows + vgg16_rows])
-    kernels[3]["max_abs_err"] = max([kernels[3]["max_abs_err"]] +
-                                    [r["max_abs_err"] for r in r50_rows + qat_rows])
+    kernels[2]["max_abs_err"] = max([kernels[2]["max_abs_err"]] +
+                                    [r["max_abs_err"] for r in p_cascade])
+    kernels[3]["max_abs_err"] = max([kernels[3]["max_abs_err"]] + [
+        r["max_abs_err"] for r in r50_rows + qat_rows + p11[2]
+        + [r for _, _, rows in pruning["p12"] for r in rows]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -7,7 +7,9 @@ Optimize phase:
 * **asym** keeps a frozen teacher, the original model: a deep copy of the
   student taken before training, with every Substitution switched to its
   ``old`` branch and ``new`` removed (what the JAX hook's rebuild computes);
-  the student keeps only its ``new`` branches.
+  after structure passes, the model as it stood before them, its sites
+  wrapped the same way (the JAX hook rebuilds it from the config and runs no
+  pass); the student keeps only its ``new`` branches.
 * **sym** keeps both branches on the student; the teacher pass is the
   student's own forward forced down the ``old`` branches
   (:func:`~convnet_approximater_tpu_torch.layers.forced_branch`).
@@ -53,8 +55,10 @@ from convnet_approximater_tpu_torch.classification.validate import AMP_TODO, MES
 from convnet_approximater_tpu_torch.convert import load_jax_flat, variables_of
 from convnet_approximater_tpu_torch.data import Loader, Synthetic, build_dataset
 from convnet_approximater_tpu_torch.data.loader import check_aug
-from convnet_approximater_tpu_torch.layers import (QATConv2d, QATLinear, drop_generator,
-                                                   forced_branch, release_taps, taps)
+from convnet_approximater_tpu_torch.filters import build_filter
+from convnet_approximater_tpu_torch.layers import (QATConv2d, QATLinear, Substitution,
+                                                   drop_generator, forced_branch, release_taps,
+                                                   taps)
 from convnet_approximater_tpu_torch.models.switchable import set_submodule
 from convnet_approximater_tpu_torch.utils import (get_logger, get_rank, load_flat, save_model,
                                                   unflatten_tree)
@@ -432,17 +436,30 @@ class L2Reconstruct(Hook):
     def _build_teacher(self) -> nn.Module:
         """The original model: a deep copy of the student with each Substitution
         on its ``old`` branch and without ``new`` (the new branches are not
-        copied), and each QAT twin back to its dense layer (the JAX hook rebuilds
-        the teacher from the config, so its layers are float), in ``eval()``
-        with no gradients."""
-        model = self.runner.model
-        subs = list(model.switchable_modules())
-        news = [sub._modules.pop("new") for sub in subs]
-        try:
-            teacher = copy.deepcopy(model)
-        finally:
-            for sub, new in zip(subs, news):
-                sub._modules["new"] = new
+        copied), or the Runner's model from before its structure passes, and
+        each QAT twin back to its dense layer (the JAX hook rebuilds the
+        teacher from the config, so its layers are float and unpruned), in
+        ``eval()`` with no gradients."""
+        runner = self.runner
+        if runner.model_before_passes is not None:
+            # the model before the structure passes, with the app's sites
+            # registered on it as Substitutions that hold only ``old``
+            teacher, runner.model_before_passes = runner.model_before_passes, None
+            teacher.register_switchable(runner.app.src_type,
+                                        [build_filter(f) for f in runner.cfg.filters or []])
+            for idx in range(teacher.length_switchable):
+                sub = Substitution(teacher.get_switchable_module(idx), nn.Identity())
+                sub.switch_old(remove_new=True)
+                teacher.set_switchable_module(idx, sub)
+        else:
+            model = runner.model
+            subs = list(model.switchable_modules())
+            news = [sub._modules.pop("new") for sub in subs]
+            try:
+                teacher = copy.deepcopy(model)
+            finally:
+                for sub, new in zip(subs, news):
+                    sub._modules["new"] = new
         for sub in teacher.switchable_modules():
             sub.switch_old(remove_new=True)
             sub.capture = True

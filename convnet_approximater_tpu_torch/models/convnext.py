@@ -29,6 +29,7 @@ class LayerScale(nn.Module):
 
     def __init__(self, dim: int, init_value: float = 1e-6):
         super().__init__()
+        self.init_value = init_value
         self.gamma = nn.Parameter(torch.full((dim,), float(init_value)))
 
     def forward(self, x):
@@ -36,14 +37,18 @@ class LayerScale(nn.Module):
 
 
 class ConvNeXtBlock(nn.Module):
-    def __init__(self, dim: int, drop_path: float = 0.0, layer_scale: float = 1e-6):
+    """``hidden`` overrides the MLP's 4x expansion: the width ``MlpPrune`` shrinks."""
+
+    def __init__(self, dim: int, drop_path: float = 0.0, layer_scale: float = 1e-6,
+                 hidden: int = None):
         super().__init__()
         self.dim = dim
+        self.hidden = 4 * dim if hidden is None else hidden
         self.dwconv = Conv2d(dim, dim, 7, padding=3, groups=dim)
         self.norm = nn.LayerNorm(dim, eps=EPS)
-        self.pwconv1 = Linear(dim, 4 * dim)
+        self.pwconv1 = Linear(dim, self.hidden)
         self.act = GELU()
-        self.pwconv2 = Linear(4 * dim, dim)
+        self.pwconv2 = Linear(self.hidden, dim)
         self.gamma = LayerScale(dim, layer_scale)
         self.drop_path = DropPath(drop_path)
 
@@ -86,6 +91,37 @@ class ConvNeXt(SwitchableModel):
         self.stages = nn.ModuleList(stages)
         self.norm = nn.LayerNorm(dims[-1], eps=EPS)
         self.head = Linear(dims[-1], num_classes)
+
+    def trunk_groups(self):
+        """``deploy.prune_trunks`` groups, one per stage: the downsample conv and
+        every block's ``pwconv2`` produce the trunk; every block's ``pwconv1``
+        and the next downsample conv (or the head) consume it; the block
+        dwconvs ride the mask as depthwise pass-throughs, and the LayerNorms
+        and ``gamma`` vectors slice along."""
+        groups = []
+        for i in range(4):
+            if i == 0:
+                producers, norms = [("downsample_layers.0.0", None)], ["downsample_layers.0.1"]
+            else:
+                producers, norms = [(f"downsample_layers.{i}.1", None)], []
+            consumers, vectors, depthwise, attrs = [], [], [], []
+            for bname, _ in self.stages[i].named_children():
+                bb = f"stages.{i}.{bname}"
+                depthwise.append(f"{bb}.dwconv")
+                consumers.append(f"{bb}.pwconv1")
+                producers.append((f"{bb}.pwconv2", None))
+                norms.append(f"{bb}.norm")
+                vectors.append(f"{bb}.gamma.gamma")
+                attrs.append((bb, "dim"))  # MlpPrune builds its target from dim
+            if i < 3:
+                norms.append(f"downsample_layers.{i + 1}.0")
+                consumers.append(f"downsample_layers.{i + 1}.1")
+            else:
+                norms.append("norm")
+                consumers.append("head")
+            groups.append(dict(producers=producers, consumers=consumers, norms=norms,
+                               vectors=vectors, depthwise=depthwise, attrs=attrs))
+        return groups
 
     def forward(self, x):
         for down, stage in zip(self.downsample_layers, self.stages):

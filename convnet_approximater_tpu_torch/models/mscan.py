@@ -52,12 +52,18 @@ class FFN(nn.Module):
 
 
 class SpatialAttention(nn.Module):
-    def __init__(self, num_channel: int, k1_size: int = 5, k_sizes=(7, 11, 21)):
+    """``inner_channel`` (default ``num_channel``) is the width of the gated
+    MSCA branch between the two projections, the axis ``AttnPrune`` shrinks."""
+
+    def __init__(self, num_channel: int, k1_size: int = 5, k_sizes=(7, 11, 21),
+                 inner_channel: int = None):
         super().__init__()
         self.num_channel = num_channel
-        self.proj_1 = Conv2d(num_channel, num_channel, 1)
-        self.spatial_gating_unit = MSCA(num_channel, k1_size, k_sizes)
-        self.proj_2 = Conv2d(num_channel, num_channel, 1)
+        self.inner_channel = inner_channel or num_channel
+        inner = self.inner_channel
+        self.proj_1 = Conv2d(num_channel, inner, 1)
+        self.spatial_gating_unit = MSCA(inner, k1_size, k_sizes)
+        self.proj_2 = Conv2d(inner, num_channel, 1)
 
     def forward(self, x):
         y = self.proj_2(self.spatial_gating_unit(gelu(self.proj_1(x))))
@@ -122,6 +128,37 @@ class MSCAN(nn.Module):
             self.layers.append(nn.ModuleList([down, stage, LayerNorm(out_c)]))
             cur += nb
 
+    def trunk_groups(self, prefix: str = ""):
+        """Residual-trunk channel groups of ``deploy.prune_trunks``, one per
+        stage: the stem's or downsample's last conv (and its BN) and every
+        block's ``attn.proj_2`` and ``mlp.fc2`` produce the trunk; every
+        block's ``attn.proj_1`` and ``mlp.fc1`` and the next stage's
+        downsample consume it; the block BNs, the stage LayerNorm and the
+        layer-scale vectors slice along.  Paths are dense module names: run
+        the pass before any substitution."""
+        groups = []
+        names = [n for n, _ in self.layers.named_children()]
+        for i, (name, layer) in enumerate(self.layers.named_children()):
+            base = f"{prefix}layers.{name}"
+            producers = ([(f"{base}.0.proj.3", f"{base}.0.proj.4")] if i == 0
+                         else [(f"{base}.0.proj", f"{base}.0.norm")])
+            consumers, norms, vectors, attrs = [], [], [], []
+            for bname, _ in layer[1].named_children():
+                bb = f"{base}.1.{bname}"
+                consumers += [f"{bb}.attn.proj_1", f"{bb}.mlp.fc1"]
+                producers += [(f"{bb}.attn.proj_2", None), (f"{bb}.mlp.fc2", None)]
+                norms += [f"{bb}.norm1", f"{bb}.norm2"]
+                vectors += [f"{bb}.layer_scale_1", f"{bb}.layer_scale_2"]
+                # the widths the prune and rep apps build their targets from
+                attrs += [(bb, "num_channel"), (f"{bb}.attn", "num_channel"),
+                          (f"{bb}.mlp", "num_channel")]
+            norms.append(f"{base}.2")  # the stage LayerNorm
+            groups.append(dict(producers=producers, consumers=consumers, norms=norms,
+                               vectors=vectors, attrs=attrs))
+        for i in range(len(groups) - 1):
+            groups[i]["consumers"].append(f"{prefix}layers.{names[i + 1]}.0.proj")
+        return groups
+
     def forward(self, x):
         features = []
         for down, stage, norm in self.layers:
@@ -144,6 +181,12 @@ class MSCAN_Classifier(SwitchableModel):
                               num_blocks=num_blocks, exp_ratios=exp_ratios,
                               drop_rate=drop_rate, drop_path_rate=drop_path_rate)
         self.head = Linear(num_channels[-1], num_classes, bias=True)
+
+    def trunk_groups(self):
+        """The backbone's trunk groups, with the head consuming the last."""
+        groups = self.backbone.trunk_groups(prefix="backbone.")
+        groups[-1]["consumers"].append("head")
+        return groups
 
     def forward(self, x):
         x = self.backbone(x)[-1]

@@ -4,13 +4,16 @@ PostProcess, with hook dispatch between phases (port of
 
 The runner owns the model, its device and the generator its random weights
 come from.  No phase trains, so the model stays in eval mode throughout.
-``cfg.structure_passes`` (deploy rewrites such as ``fold_batchnorm``, by name)
-run after the weights are drawn or loaded and before the app's sites are
-initialized.
+``cfg.structure_passes`` (deploy rewrites such as ``fold_batchnorm`` or
+``prune_trunks``, by name) run after the weights are drawn or loaded and before
+the app's sites are initialized; the model as it stood before them is kept as
+``model_before_passes`` (an asym fine-tune's teacher), and a checkpoint of
+the run loads back through the same config with :meth:`Runner.restore`.
 """
 
 from __future__ import annotations
 
+import copy
 import inspect
 import os
 from typing import Callable, List, Optional, Tuple
@@ -22,23 +25,16 @@ from convnet_approximater_tpu_torch.core import build_app
 from convnet_approximater_tpu_torch.filters import build_filter
 from convnet_approximater_tpu_torch.hooks import Hook, build_hook
 from convnet_approximater_tpu_torch.models import build_model
+from convnet_approximater_tpu_torch.convert import params_from_jax
 from convnet_approximater_tpu_torch.nn import channels_last, init_weights
-from convnet_approximater_tpu_torch.utils import (get_cfg, get_logger, get_rank, print_cfg,
-                                                  save_cfg)
-
-
-# structure passes of the JAX package's deploy.py that the port does not have yet
-UNPORTED_PASSES = ("prune_chains", "prune_trunks", "prune_width")
+from convnet_approximater_tpu_torch.utils import (get_cfg, get_logger, get_rank, load_flat,
+                                                  print_cfg, save_cfg)
 
 
 def structure_pass(cfg) -> Tuple[Callable, dict]:
     """``(function of deploy.py, keyword arguments)`` of one ``structure_passes`` entry."""
     kwargs = dict(cfg)
     name = kwargs.pop("fn")
-    if name in UNPORTED_PASSES:
-        raise NotImplementedError(
-            f"structure_passes: the pass {name!r} is not ported to the PyTorch port yet "
-            f"(ROADMAP.md queue 1 item 8)")
     fn = getattr(deploy, name, None)
     if not (inspect.isfunction(fn) and fn.__module__ == deploy.__name__) or name.startswith("_"):
         raise ValueError(f"structure_passes: deploy.py has no pass {name!r}")
@@ -58,6 +54,7 @@ class Runner:
         self.generator = (generator if generator is not None
                           else torch.Generator().manual_seed(cfg.seed or 0))
         self.model = build_model(cfg.model)
+        self.model_before_passes = None
         self.app = build_app(cfg.app)
         self.filters = [build_filter(f_cfg) for f_cfg in cfg.filters or []]
         self.hooks: List[Hook] = []
@@ -85,15 +82,7 @@ class Runner:
         self.call_hook("after_register")
 
         logger.info("Initialize...")
-        init_weights(model, self.generator)
-        model.load_init_cfg()
-        channels_last(model.to(self.device)).eval()
-        if self.passes:
-            self.apply_structure_passes()
-            # a pass may change the structure under the registered names;
-            # register again, with fresh filters (IndicesFilter counts)
-            model.register_switchable(app.src_type,
-                                      [build_filter(f) for f in self.cfg.filters or []])
+        self.init_model()
         for idx in range(model.length_switchable):
             sub = app.initialize(model.get_switchable_module(idx), self.generator)
             model.set_switchable_module(idx, sub.eval())
@@ -114,6 +103,22 @@ class Runner:
             logger.info(f"saved model to {self.output_path}")
         self.call_hook("after_run")
 
+    def init_model(self):
+        """Draw the weights, load ``init_cfg``, move the model to the device in
+        ``channels_last`` and eval mode, and run the structure passes.  A pass
+        may change the structure under the registered names, and
+        ``prune_width``'s app loop registers its own sites: the app's sites are
+        registered again after them, with fresh filters (IndicesFilter counts)."""
+        model = self.model
+        init_weights(model, self.generator)
+        model.load_init_cfg()
+        channels_last(model.to(self.device)).eval()
+        if self.passes:
+            self.model_before_passes = copy.deepcopy(model)
+            self.apply_structure_passes()
+            model.register_switchable(self.app.src_type,
+                                      [build_filter(f) for f in self.cfg.filters or []])
+
     def apply_structure_passes(self):
         """``cfg.structure_passes``, in order: deploy rewrites by name (for
         example ``dict(fn="fold_batchnorm")``), each called on the model with
@@ -121,6 +126,21 @@ class Runner:
         for fn, kwargs in self.passes:
             n = fn(self.model, **kwargs)
             get_logger().info(f"structure pass {fn.__name__}: {n} sites")
+
+    def restore(self, path: str):
+        """Load a checkpoint of a run of this config into a fresh model: the
+        Runner's ``.pt`` state_dict, or a flat ``.npz`` (the fine-tune's, or
+        the JAX package's).  The weights are drawn and the structure passes
+        replayed first, so that the shapes match; a pass's selection need not
+        replay, the load overwrites the values.  The load is strict: a key or
+        shape that differs raises."""
+        self.init_model()
+        if path.endswith(".pt"):
+            state = torch.load(path, map_location=self.device)
+        else:
+            state = params_from_jax({k: v for k, v in load_flat(path).items()
+                                     if k.split("/", 1)[0] in ("params", "state")})
+        self.model.load_state_dict(state)
 
     # -- hook machinery --------------------------------------------------
     def register_hook(self, hook_cfg):

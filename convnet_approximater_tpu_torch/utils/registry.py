@@ -12,8 +12,7 @@ from typing import Any, Dict, Optional
 
 # names the JAX package registers and the port does not have yet -> the
 # ROADMAP.md queue 1 item that ports them
-PENDING = {"FfnPrune": 8, "MlpPrune": 8, "AttnPrune": 8,
-           "SegNeXt": 11, "SegL2Reconstruct": 11, "SyntheticSeg": 11}
+PENDING = {"SegNeXt": 11, "SegL2Reconstruct": 11, "SyntheticSeg": 11}
 
 
 class Registry:

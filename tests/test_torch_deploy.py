@@ -369,10 +369,25 @@ def test_structure_passes_run_through_the_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("name", ["prune_chains", "prune_trunks", "prune_width"])
 def test_unported_structure_pass_raises_naming_it(tmp_path, name):
+    """The prune passes, once refused, now run: the Runner applies each to the
+    tiny MSCAN of the MscaRep config as the JAX pass does to the same weights
+    (every width and tensor equal), and registers the app's 4 MSCA sites on
+    the pruned model."""
+    from convnet_approximater_tpu import deploy as jdeploy
     from convnet_approximater_tpu_torch.runner import Runner
     from convnet_approximater_tpu_torch.utils import config as tcfg
+    from test_torch_prune_passes import assert_same_pruned
 
-    tcfg.init_cfg(tiny_config(tmp_path, [dict(fn=name)]))
+    options = dict(keep_ratio=0.5, round_to=None)
+    if name == "prune_width":
+        options["ffn_round_to"] = None
+    tcfg.init_cfg(tiny_config(tmp_path, [dict(fn=name, **options)]))
     tcfg.update_cfg(work_dir=str(tmp_path / "run"))
-    with pytest.raises(NotImplementedError, match=name):
-        Runner(device="cpu")
+    runner = Runner(device="cpu")
+    runner.init_model()
+    jmodel = JClassifier(**TINY)
+    variables = unflatten_tree(params_to_jax(runner.model_before_passes.state_dict()))
+    assert getattr(jdeploy, name)(jmodel, variables, **options) > 0
+    assert_same_pruned(jmodel, variables, runner.model)
+    assert runner.model.length_switchable == 4
+    assert all(isinstance(m, MSCA) for m in runner.model.switchable_modules())

@@ -308,11 +308,10 @@ def test_cli_runs_low_rank_configs_on_cpu(tmp_path, name):
 REFUSED = {  # config: the ROADMAP.md queue 1 item its refusal names
     "msca-rep/msca-rep_d1_fix_segnext-t.py": 11,
     "msca-rep/finetune/msca-rep-d1-fix_l2-asym_segnext-t.py": 11,
-    "prune/ffn-prune_dd_l2-asym_mscan-t.py": 8,
-    "prune/chain-prune_ce_vgg16.py": 8,
-    "prune/trunk-prune_ce_resnet18.py": 8,
 }
-BUILT = [c for c, *_ in CONFIGS.values()] + ["quant/int8-qat_ce_alexnet.py"]
+BUILT = [c for c, *_ in CONFIGS.values()] + [
+    "quant/int8-qat_ce_alexnet.py", "prune/ffn-prune_dd_l2-asym_mscan-t.py",
+    "prune/chain-prune_ce_vgg16.py", "prune/trunk-prune_ce_resnet18.py"]
 
 
 @pytest.mark.parametrize("name", BUILT + sorted(REFUSED))
@@ -327,4 +326,5 @@ def test_runner_builds_the_slice_configs_and_names_the_item_of_a_refusal(tmp_pat
             Runner(device="cpu")
         return
     runner = Runner(device="cpu")
-    assert type(runner.app).__name__ in ("LowRankExpV2", "LowRankExpV3", "LowRankExpV4", "Dummy")
+    assert type(runner.app).__name__ in ("LowRankExpV2", "LowRankExpV3", "LowRankExpV4", "Dummy",
+                                         "FfnPrune")

@@ -125,13 +125,18 @@ def test_runner_d1_fix_matches_jax_runner(dense, images, tmp_path):
 
 
 @pytest.mark.parametrize("key,value", [("filters", [dict(type="IndicesFilter", indices=[1])]),
-                                       ("structure_passes", [dict(fn="prune_chains")])])
+                                       ("structure_passes", [dict(fn="prune_chains",
+                                                                  keep_ratio=0.5)])])
 def test_runner_rejects_unported_config_parts(tmp_path, key, value):
-    """A structure pass the port does not have yet (``prune_chains``) raises;
-    filters are ported, and the port's Runner registers what the JAX Runner
-    registers with them."""
+    """Both parts are ported.  ``prune_chains`` (once refused) the Runner
+    applies: MSCAN-t's one junction (the stem's 16-channel conv pair) pruned
+    as the JAX pass prunes it on the same weights, and the app's 13 MSCA sites
+    registered again on the pruned model.  Filters: the port's Runner
+    registers what the JAX Runner registers with them."""
+    from convnet_approximater_tpu import deploy as jdeploy
     from convnet_approximater_tpu.runner import Runner as JRunner
     from convnet_approximater_tpu.utils import config as jcfg
+    from convnet_approximater_tpu_torch.convert import params_to_jax
     from convnet_approximater_tpu_torch.runner import Runner
     from convnet_approximater_tpu_torch.utils import config as tcfg
 
@@ -139,8 +144,23 @@ def test_runner_rejects_unported_config_parts(tmp_path, key, value):
     tcfg.init_cfg(cfg)
     tcfg.update_cfg(work_dir=str(tmp_path), **{key: value})
     if key == "structure_passes":
-        with pytest.raises(NotImplementedError, match=key):
-            Runner(device="cpu")
+        runner = Runner(device="cpu")
+        runner.init_model()
+        stem = runner.model.backbone.layers[0][0].proj
+        assert (stem[0].out_channels, stem[1].num_features, stem[3].in_channels) == (8, 8, 8)
+        assert runner.model.length_switchable == 13
+        jmodel = JClassifier()
+        variables = jser.unflatten_tree(params_to_jax(runner.model_before_passes.state_dict()))
+        assert jdeploy.prune_chains(jmodel, variables, keep_ratio=0.5) == 1
+        got = params_to_jax(stem.state_dict())
+        want = jser.flatten_tree(variables["params"]["backbone"]["layers"]["0"]["0"]["proj"])
+        want.update({"state/" + k: v for k, v in jser.flatten_tree(
+            variables["state"]["backbone"]["layers"]["0"]["0"]["proj"]).items()})
+        assert set(got) == {"params/" + k for k in want if not k.startswith("state/")} | \
+            {k for k in want if k.startswith("state/")}
+        for k, v in got.items():
+            np.testing.assert_array_equal(v, np.asarray(want[k[len("params/"):]] if
+                                                        k.startswith("params/") else want[k]))
         return
     runner = Runner(device="cpu")
     runner.model.register_switchable(runner.app.src_type, runner.filters)
