@@ -194,7 +194,27 @@ From the root of a checkout, with no arguments:
     checkpoint restored bit for bit through the same config, then
     ``fold_batchnorm`` + ``quantize_int8``: ``qmatmul`` bit for bit at each
     shape, int8 logits, float32 and int8 timed beside the dense model;
-14. prints one JSON line of kernel results (each kernel's entry lists the later
+14. drives SegNeXt-T (150 classes, weights from seed 0, f32, TF32 off; the
+    card's name and power limit beside the numbers): P13 ``msca_fused``
+    against its plain version at SegNeXt-T's four stage shapes at b=16, 512^2
+    (128^2 and 64^2 take the two-band march), in both bank forms, then
+    ``configs/msca-rep/msca-rep_d1_fix_segnext-t.py`` through the CLI (the
+    Runner and InferenceTimeHook at (16, 512, 512, 3): 13 ``msca_fused``
+    launches per forward, logits within 1e-4 of the plain version and the
+    module path), a ``compile_serving`` graph (26 kernels per replay, within
+    1e-6 of eager), eager, graph and back-to-back times beside dense SegNeXt-T,
+    and profiles; F6 ``configs/msca-rep/finetune/msca-rep-d1-fix_l2-asym_segnext-t.py``
+    through the Runner cut to 4 steps and one validation of 2 batches on
+    SyntheticSeg (b=16, 512^2, drop path 0): every loss finite, 13 launches per
+    step (the teacher) and per validation forward, a step on a 128^2 crop on the
+    card within 1e-4 of the CPU's, the last checkpoint bit for bit, the step's
+    ms, mIoU and aAcc; P14 the CAM CLI on the dense MSCAN-t classifier for
+    ``attn`` and the 11 methods at the first and the last block (every heatmap
+    finite and non-negative, 13 ``msca_fused`` launches per forward, re-forwards
+    included, ms per heatmap), then each heatmap on a 64^2 image on the card
+    against the CPU within 1e-4 (xgradcam and ablationcam amplify rounding: what
+    they are given is held instead);
+15. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``), then
     ``{"ok": true, "device": ...}``.
 
@@ -321,14 +341,14 @@ def bound(nbytes: float, flops: float, peak: float = PEAK_F32):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def msca_cost(H, C, ks, identity, fix_p, k0=5):
-    """(bytes, FLOP) of one msca_fused call at batch BATCH: x read and out
+def msca_cost(H, C, ks, identity, fix_p, k0=5, batch=BATCH):
+    """(bytes, FLOP) of one msca_fused call at ``batch``: x read and out
     written once, the weights read once; per element the k0^2 conv0, each
     branch's horizontal and vertical taps with their biases, the identity, the
     C-wide channel mix, its bias and the gate; the border fix on 2 min(H, p) rows."""
-    n = BATCH * H * H * C
+    n = batch * H * H * C
     per = 2 * k0 * k0 + 1 + sum(4 * k + 2 for k in ks) + int(identity) + 2 * C + 2
-    flops = n * per + 2 * min(H, fix_p) * BATCH * H * C
+    flops = n * per + 2 * min(H, fix_p) * batch * H * C
     weights = k0 * k0 * C + C + len(ks) * (2 * max(ks) + 2) * C + C * C + C + 2 * fix_p * C
     return 4 * (2 * n + weights), flops
 
@@ -407,9 +427,10 @@ def time_pair(kernel, plain, iters: int = 25):
     return float(np.median(k)), float(np.median(p))
 
 
-def kernel_inputs(form: str, H: int, C: int, gen):
-    """Random inputs of one MSCA block of MSCAN-t: the dense (7, 11, 21) bank with
-    identity, or the d1+fix single 21-tap cascade with fix_p = 10."""
+def kernel_inputs(form: str, H: int, C: int, gen, batch: int = BATCH):
+    """Random inputs of one MSCA block of MSCAN-t at (batch, H, H, C): the dense
+    (7, 11, 21) bank with identity, or the d1+fix single 21-tap cascade with
+    fix_p = 10."""
     import torch
 
     from convnet_approximater_tpu_torch.ops.msca_fused import pack_cascade_weights
@@ -424,7 +445,7 @@ def kernel_inputs(form: str, H: int, C: int, gen):
         [u(k, C, scale=k ** -0.5) for k in ks],
         [u(C, scale=0.2) for _ in ks])
     fix_p = 10 if form == "d1fix" else 0
-    args = [u(BATCH, H, H, C), u(5, 5, C, scale=0.2), u(C, scale=0.2), w1, b1, w2, b2,
+    args = [u(batch, H, H, C), u(5, 5, C, scale=0.2), u(C, scale=0.2), w1, b1, w2, b2,
             u(C, C, scale=C ** -0.5), u(C, scale=0.2), u(2, fix_p, C) if fix_p else None]
     args = [a.cuda() if a is not None else None for a in args]
     return args, dict(ks=ks, identity=form == "dense", fix_p=fix_p)
@@ -461,27 +482,27 @@ def check_msca_plan(x, w0, w1, ks):
     return p
 
 
-def msca_row(form, H, C, blocks, gen):
+def msca_row(form, H, C, blocks, gen, batch: int = BATCH):
     """msca_fused against msca_fused_ref on one MSCA block's random inputs of
-    ``form`` (see kernel_inputs) at (BATCH, H, H, C), timed beside it, with its
+    ``form`` (see kernel_inputs) at (batch, H, H, C), timed beside it, with its
     bound and its planner's shared memory checked; the row."""
     import torch
 
     from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
 
-    args, kw = kernel_inputs(form, H, C, gen)
+    args, kw = kernel_inputs(form, H, C, gen, batch)
     y = fused_ops.msca_fused(*args, **kw)
     y_ref = fused_ops.msca_fused_ref(*args, **kw)
     torch.cuda.synchronize()
     err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
     if not torch.isfinite(y).all() or err > KERNEL_TOL:
-        fail(f"msca_fused {form} {(BATCH, H, H, C)}: rel err {err:.3e} > {KERNEL_TOL}")
+        fail(f"msca_fused {form} {(batch, H, H, C)}: rel err {err:.3e} > {KERNEL_TOL}")
     p = check_msca_plan(args[0], args[1], args[3], kw["ks"])
     ms, plain_ms = time_pair(lambda: fused_ops.msca_fused(*args, **kw),
                              lambda: fused_ops.msca_fused_ref(*args, **kw))
-    nbytes, flops = msca_cost(H, C, kw["ks"], kw["identity"], kw["fix_p"])
+    nbytes, flops = msca_cost(H, C, kw["ks"], kw["identity"], kw["fix_p"], batch=batch)
     b_ms, b_by = bound(nbytes, flops)
-    row = dict(form=form, shape=(BATCH, H, H, C), blocks=blocks, rel_err=err,
+    row = dict(form=form, shape=(batch, H, H, C), blocks=blocks, rel_err=err,
                max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, bytes=nbytes, flops=flops,
                bound_ms=b_ms)
     print(f"msca_fused {form:5s} x{row['shape']}: rel err {err:.3e} (bound "
@@ -1033,14 +1054,16 @@ def images(gen, size=224):
         memory_format=torch.channels_last)
 
 
-def check_logits(name, y, against, tol, classes: int = 1000):
-    """Shape, finiteness and relative error of the logits against each plain run."""
+def check_logits(name, y, against, tol, classes: int = 1000, shape=None):
+    """Shape (``shape``, or (2, classes)), finiteness and relative error of the
+    logits against each plain run."""
     import torch
 
-    if tuple(y.shape) != (2, classes) or not torch.isfinite(y).all():
+    shape = tuple(shape or (2, classes))
+    if tuple(y.shape) != shape or not torch.isfinite(y).all():
         fail(f"{name}: logits of shape {tuple(y.shape)} or not finite")
     errs = {k: rel_err(y, v) for k, v in against.items()}
-    print(f"{name} logits (2, {classes}): " + ", ".join(
+    print(f"{name} logits {shape}: " + ", ".join(
         f"rel err {e:.3e} against {k}" for k, e in errs.items()) + f" (bound {tol})")
     if any(e > tol for e in errs.values()):
         fail(f"{name}: logits disagree with the plain versions")
@@ -1503,11 +1526,11 @@ def run_mscan_dconv0(gen):
     torch.cuda.empty_cache()
 
 
-def seeded_batch(seed: int, batch: int = BATCH, device="cuda"):
-    """A (batch, 3, 224, 224) channels_last batch of normal values from ``seed``."""
+def seeded_batch(seed: int, batch: int = BATCH, device="cuda", size: int = 224):
+    """A (batch, 3, size, size) channels_last batch of normal values from ``seed``."""
     import torch
 
-    x = torch.randn(batch, 3, 224, 224, generator=torch.Generator().manual_seed(seed))
+    x = torch.randn(batch, 3, size, size, generator=torch.Generator().manual_seed(seed))
     return x.to(device).contiguous(memory_format=torch.channels_last)
 
 
@@ -1541,8 +1564,8 @@ def count_kernels(names, labels):
             for label in labels}
 
 
-def check_graph(name, model, expect: dict, seed: int):
-    """``deploy.compile_serving`` of ``model`` at b=64, 224^2: the replay's
+def check_graph(name, model, expect: dict, seed: int, batch: int = BATCH, size: int = 224):
+    """``deploy.compile_serving`` of ``model`` at (batch, size^2): the replay's
     logits against the eager forward's on a seeded batch (relative error <=
     REPLAY_TOL), and ``expect``'s kernels in one replay.  Returns (compiled,
     put, kernel names of one replay)."""
@@ -1550,7 +1573,7 @@ def check_graph(name, model, expect: dict, seed: int):
 
     from convnet_approximater_tpu_torch.deploy import compile_serving
 
-    x = seeded_batch(seed)
+    x = seeded_batch(seed, batch, size=size)
     t0 = time.perf_counter()
     compiled, put = compile_serving(model, x)
     torch.cuda.synchronize()
@@ -2059,8 +2082,9 @@ class FinetuneProbe:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-def run_finetune_cfg(config, work_dir, probe, edit_hook, **cfg_updates):
-    """The Runner on ``config`` on the card, seed 0, its L2Reconstruct hook's
+def run_finetune_cfg(config, work_dir, probe, edit_hook, hook_type="L2Reconstruct",
+                     **cfg_updates):
+    """The Runner on ``config`` on the card, seed 0, its ``hook_type`` hook's
     arguments edited by ``edit_hook`` (the listed cuts), under ``probe``;
     (runner, seconds)."""
     import copy
@@ -2073,7 +2097,7 @@ def run_finetune_cfg(config, work_dir, probe, edit_hook, **cfg_updates):
     init_cfg(config)
     cfg = get_cfg()
     hooks = copy.deepcopy(list(cfg.hooks))
-    edit_hook(next(h for h in hooks if h["type"] == "L2Reconstruct"))
+    edit_hook(next(h for h in hooks if h["type"] == hook_type))
     os.makedirs(work_dir, exist_ok=True)
     build_logger(os.path.join(work_dir, "run.log"))
     update_cfg(hooks=hooks, work_dir=work_dir, config_name=cfg.name, seed=0, **cfg_updates)
@@ -2129,7 +2153,7 @@ def smi_line() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
 
 
-def check_ckpt_loads_back(hook, model, work_dir):
+def check_ckpt_loads_back(hook, model, work_dir, label="F1"):
     """The last checkpoint the hook wrote holds the model's weights bit for bit."""
     from convnet_approximater_tpu_torch.convert import load_jax_flat, params_to_jax
     from convnet_approximater_tpu_torch.utils import load_flat
@@ -2149,7 +2173,7 @@ def check_ckpt_loads_back(hook, model, work_dir):
     if any(not (sd[k] == back[k]).all() for k in sd):
         fail(f"{path}: loading it into the model changes a weight")
     meta = (int(flat["meta/epoch"]), float(flat["meta/metric"]))
-    print(f"F1 checkpoint {os.path.relpath(path, REPO)}: {len(want)} weights and "
+    print(f"{label} checkpoint {os.path.relpath(path, REPO)}: {len(want)} weights and "
           f"{sum(k.startswith('opt/') for k in flat)} optimizer leaves, epoch {meta[0]}; "
           f"loads back bit for bit")
 
@@ -3674,6 +3698,392 @@ def run_pruning():
     return out
 
 
+# -- 14. P13, F6 and P14: SegNeXt-T serving and fine-tuning, and CAM ---------------------
+
+SEG_CONFIG = os.path.join(REPO, "configs", "msca-rep", "msca-rep_d1_fix_segnext-t.py")
+SEG_FT = os.path.join(REPO, "configs", "msca-rep", "finetune",
+                      "msca-rep-d1-fix_l2-asym_segnext-t.py")
+SEG_BATCH = 16
+SEG_INPUT = (SEG_BATCH, 512, 512, 3)
+SEG_CLASSES = 150
+SEG_STAGES = [(128, 32, 3), (64, 64, 3), (32, 160, 5), (16, 256, 2)]  # (H = W, C, blocks), 512^2
+SEG_FT_STEPS = 4
+SEG_FT_EVAL = 2
+SEG_CPU_CROP = 128  # the CPU step's images: this crop of the first training batch's first 2
+CAM_BLOCKS = (0, 12)  # the first and the last of MSCAN-t's 13 MSCA blocks
+CAM_TOL = 1e-4
+CAM_SCORE_TOL = 1e-5  # ablationcam's re-forward scores, relative to its base score
+# a heatmap farther than CAM_TOL from the CPU's is held to a float64 forward of the
+# same model: the card's distance to it at most CAM_COND times the CPU's own (both
+# are float32 roundings in different orders; a kernel fault is far larger)
+CAM_COND = 10.0
+
+
+def run_segnext(gen):
+    """P13: msca_fused at SegNeXt-T's four stage shapes at b=16, 512^2 (dense bank
+    and d1+fix); the CLI on configs/msca-rep/msca-rep_d1_fix_segnext-t.py (the
+    Runner's four phases and InferenceTimeHook at (16, 512, 512, 3)): 13
+    msca_fused launches per forward, the logits against the plain version and
+    the module path; then a compile_serving graph (26 kernels per replay, the
+    replay against eager), eager, graph and back-to-back times beside dense
+    SegNeXt-T, and a profile.  Returns (launches in the CLI run, kernel rows)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.hooks import InferenceTimeHook, time_forward
+    from convnet_approximater_tpu_torch.layers import MSCA
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.segmentation import SegNeXt
+
+    kgen = torch.Generator().manual_seed(14)
+    rows = [msca_row(form, H, C, blocks, kgen, batch=SEG_BATCH)
+            for form in ("dense", "d1fix") for H, C, blocks in SEG_STAGES]
+    for form in ("dense", "d1fix"):
+        sel = [r for r in rows if r["form"] == form]
+        total = {k: sum(r[k] * r["blocks"] for r in sel) for k in ("ms", "plain_ms", "bound_ms")}
+        print(f"msca_fused per {form} SegNeXt-T forward (b = {SEG_BATCH}, 512^2, "
+              f"{sum(r['blocks'] for r in sel)} calls): kernel {total['ms']:.4f} ms, plain "
+              f"{total['plain_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms")
+
+    reset_counts()
+    runner, run_s = run_cli(SEG_CONFIG, os.path.join(REPO, "build", "chip_smoke_segnext"))
+    launches = fused_ops.msca_fused.launches
+    model = runner.model
+    hook = next(h for h in runner.hooks if isinstance(h, InferenceTimeHook))
+    mscas = [m for m in model.modules() if isinstance(m, MSCA)]
+    if type(model).__name__ != "SegNeXt" or model.length_switchable != MSCA_BLOCKS \
+            or len(mscas) != MSCA_BLOCKS or tuple(hook.input_size) != SEG_INPUT:
+        fail(f"P13: expected SegNeXt with {MSCA_BLOCKS} MSCA blocks timed at {SEG_INPUT}")
+    with torch.no_grad():
+        if not all(m.can_fuse() for m in mscas):
+            fail("P13: an MscaRep'd MSCA block of SegNeXt-T cannot take the fused kernel")
+    if launches != MSCA_BLOCKS * hook.forwards or launches == 0:
+        fail(f"P13: msca_fused launched {launches} times in {hook.forwards} forwards, "
+             f"expected {MSCA_BLOCKS * hook.forwards}")
+    d1_ms = hook.result["median_ms"]
+    print(f"P13 SegNeXt-T: the CLI on {os.path.relpath(SEG_CONFIG, REPO)} in {run_s:.2f} s "
+          f"(MscaRep d1+fix on 13 blocks, the SVDs on the card, {SEG_CLASSES} classes, random "
+          f"weights from seed 0); {hook.forwards} forwards launched msca_fused {launches} "
+          f"times ({MSCA_BLOCKS} per forward)")
+
+    x = torch.randn(2, 3, 512, 512, generator=gen).cuda().contiguous(
+        memory_format=torch.channels_last)
+    with torch.no_grad(), uncounted():
+        y = model(x)
+        with mock.patch.object(fused_ops, "msca_fused", fused_ops.msca_fused_ref):
+            y_plain = model(x)
+            plain_ms = float(np.median(time_forward(model, SEG_INPUT, "cuda", hook.num_iters,
+                                                    hook.warmup)))
+        y_module = module_path(model, (MSCA,), x)
+    check_logits("P13 SegNeXt-T d1+fix", y, {"msca_fused_ref": y_plain,
+                                             "the module path": y_module},
+                 LOGITS_TOL, shape=(2, SEG_CLASSES, 64, 64))
+    expect = {"msca_fused march": MSCA_BLOCKS, "msca_fused mix": MSCA_BLOCKS}
+    with uncounted():
+        compiled, put, _ = check_graph("P13 SegNeXt-T d1+fix", model, expect, seed=14,
+                                       batch=SEG_BATCH, size=512)
+        graph_ms = time_graph(compiled, put, SEG_INPUT)
+        b2b_ms = back_to_back_ms(compiled)
+        enqueue_ms = host_enqueue_ms(model, SEG_INPUT)
+        profile_forward("P13 SegNeXt-T d1+fix", model, SEG_INPUT, keep=MSCA_KERNELS)
+    del compiled, put, runner
+    torch.cuda.empty_cache()
+
+    dense = SegNeXt(num_classes=SEG_CLASSES)
+    init_weights(dense, torch.Generator().manual_seed(0))
+    dense = channels_last(dense.cuda()).eval()
+    with uncounted():
+        fused_ops.msca_fused.launches = 0
+        dense_ms = float(np.median(time_forward(dense, SEG_INPUT, "cuda", hook.num_iters,
+                                                hook.warmup)))
+        if fused_ops.msca_fused.launches != MSCA_BLOCKS * (hook.num_iters + hook.warmup):
+            fail("P13: the dense SegNeXt-T forward did not launch msca_fused once per block")
+        dcompiled, dput, _ = check_graph("P13 dense SegNeXt-T", dense, expect, seed=15,
+                                         batch=SEG_BATCH, size=512)
+        dense_graph_ms = time_graph(dcompiled, dput, SEG_INPUT)
+        dense_b2b_ms = back_to_back_ms(dcompiled)
+        profile_forward("P13 dense SegNeXt-T", dense, SEG_INPUT, keep=MSCA_KERNELS)
+    smi = smi_line()
+    b = SEG_BATCH
+    print(f"M19 SegNeXt-T d1+fix forward {SEG_INPUT} f32 [{smi}]: eager median {d1_ms:.3f} ms "
+          f"({b / d1_ms * 1e3:.1f} img/s), with msca_fused_ref in place of the kernel "
+          f"{plain_ms:.3f} ms, {enqueue_ms:.3f} ms of host time to enqueue it; as a graph "
+          f"{graph_ms:.3f} ms, back to back {b2b_ms:.3f} ms per call")
+    print(f"M19 dense SegNeXt-T forward {SEG_INPUT} f32 [{smi}]: eager median {dense_ms:.3f} "
+          f"ms, graph {dense_graph_ms:.3f} ms, back to back {dense_b2b_ms:.3f} ms; dense / "
+          f"d1+fix = {dense_ms / d1_ms:.4f} eager, {dense_graph_ms / graph_ms:.4f} as graphs, "
+          f"{dense_b2b_ms / b2b_ms:.4f} back to back")
+    del dcompiled, dput, dense
+    torch.cuda.empty_cache()
+    return launches, rows
+
+
+class SegProbe(FinetuneProbe):
+    """FinetuneProbe of a SegL2Reconstruct run: its validation streams a
+    confusion matrix, not ``eval_batch``, so the launches of each validation
+    are counted per forward in ``eval_calls``."""
+
+    def patches(self):
+        from convnet_approximater_tpu_torch.segmentation.finetune import SegL2Reconstruct
+
+        probe, validate = self, SegL2Reconstruct._validate
+
+        def counted(hook, loader):
+            n = probe.counter.launches
+            out = validate(hook, loader)
+            batches = min(len(loader), hook.other_args.max_eval_batches or len(loader))
+            probe.eval_calls.append((probe.counter.launches - n) / batches)
+            return out
+
+        return super().patches() + [mock.patch.object(SegL2Reconstruct, "_validate", counted)]
+
+
+def run_ft_seg():
+    """F6: configs/msca-rep/finetune/msca-rep-d1-fix_l2-asym_segnext-t.py through the
+    Runner (SyntheticSeg at b=16, 512^2, 150 classes; cut to 4 steps and one
+    validation of 2 batches): every loss finite, 13 msca_fused launches per
+    step (the asym teacher) and per validation forward, a step on the card
+    against the same step on the CPU (drop rates 0 for that step), the last
+    checkpoint bit for bit;
+    the step's median ms, mIoU and aAcc.  Returns msca_fused's launches in the run."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import DropPath, drop_generator
+    from convnet_approximater_tpu_torch.nn import Dropout
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_ft_seg")
+    c = SEG_CPU_CROP
+
+    def first(hook, loader):
+        x, y = next(iter(loader))
+        x = x[:2, :, :c, :c].contiguous(memory_format=torch.channels_last)
+        y = y[:2, :c, :c].contiguous()
+        student = hook.runner.model
+        # drop rates 0 for this step alone: the card's and the CPU's masks differ
+        rates = {m: "drop_prob" if isinstance(m, DropPath) else "p" for m in student.modules()
+                 if isinstance(m, (DropPath, Dropout))}
+        saved = {m: getattr(m, a) for m, a in rates.items()}
+        for m, a in rates.items():
+            setattr(m, a, 0.0)
+        try:
+            gpu = probe_step(hook, x, y)
+            with drop_generator(student, None):
+                cpu_model = copy.deepcopy(student).cpu()
+            cpu_teacher = copy.deepcopy(hook.teacher).cpu()
+            t0 = time.perf_counter()
+            cpu = probe_step(hook, x.cpu(), y.cpu(), model=cpu_model, teacher=cpu_teacher)
+        finally:
+            for m, a in rates.items():
+                setattr(m, a, saved[m])
+        errs = [abs(a - b) / abs(b) for a, b in zip(gpu, cpu)]
+        print(f"F6 one step with no update on a {c}^2 crop of the first training batch's first "
+              f"2 images (SegNeXt-T, drop rates 0): loss {gpu[0]:.7g} on the card, {cpu[0]:.7g} "
+              f"on the CPU (rel err {errs[0]:.3e}); trainable gradient norm {gpu[1]:.7g} and "
+              f"{cpu[1]:.7g} (rel err {errs[1]:.3e}); bound {FT_CPU_TOL}; CPU step "
+              f"{time.perf_counter() - t0:.2f} s")
+        if max(errs) > FT_CPU_TOL:
+            fail("F6: the step on the card disagrees with the same step on the CPU")
+
+    def last(hook):
+        check_ckpt_loads_back(hook, hook.runner.model, work_dir, label="F6")
+
+    def edit(h):
+        h["sche_args"].update(epochs=1)
+        h["other_args"].update(max_steps_per_epoch=SEG_FT_STEPS, max_eval_batches=SEG_FT_EVAL)
+
+    probe = SegProbe(fused_ops.msca_fused, first=first, last=last)
+    reset_counts()
+    runner, run_s = run_finetune_cfg(SEG_FT, work_dir, probe, edit, hook_type="SegL2Reconstruct")
+    launches = fused_ops.msca_fused.launches
+    steps = len(probe.losses)
+    losses = [float(v) for v in probe.losses]
+    row = summary_rows(os.path.join(work_dir, "summary.csv"))[-1]
+    print(f"F6 {os.path.relpath(SEG_FT, REPO)} through the Runner in {run_s:.2f} s, cuts: "
+          f"sche_args.epochs 20 -> 1 of {SEG_FT_STEPS} steps (max_steps_per_epoch) and "
+          f"{SEG_FT_EVAL} validation batches (max_eval_batches) on the hook's default "
+          f"SyntheticSeg(128 / 64) at b = {SEG_BATCH}, 512^2, {SEG_CLASSES} classes; "
+          f"{steps} steps, losses "
+          f"{', '.join(f'{v:.6g}' for v in losses)}; validation loss {row['eval_loss']:.6g}, "
+          f"mIoU {row['eval_miou']:.6g}, aAcc {row['eval_aacc']:.6g}")
+    if steps != SEG_FT_STEPS or not all(np.isfinite(losses)) or not np.isfinite(row["eval_loss"]):
+        fail("F6: a loss is not finite, or the run took another number of steps")
+    print(f"F6 msca_fused launches: {probe.step_calls} per training step (the asym teacher), "
+          f"{probe.eval_calls} per validation forward; {launches} in the run")
+    if (probe.step_calls != [MSCA_BLOCKS] * steps or probe.eval_calls != [MSCA_BLOCKS]
+            or launches != MSCA_BLOCKS * (steps + SEG_FT_EVAL)):
+        fail(f"F6: the teacher and each validation forward must launch msca_fused "
+             f"{MSCA_BLOCKS} times")
+    times = probe.step_ms()[1:]
+    print(f"F6 SegNeXt-T d1+fix L2 + CE step, asym, b = {SEG_BATCH}, 512^2, f32 "
+          f"[{smi_line()}]: median {float(np.median(times)):.3f} ms per training step over "
+          f"steps 2-{steps} (CUDA events), {SEG_BATCH / float(np.median(times)) * 1e3:.1f} "
+          f"img/s; checkpoint save {', '.join(f'{t:.3f}' for t in probe.saves)} s")
+    del runner
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_cam():
+    """P14: the CAM CLI on the MSCAN-t classifier of CONFIG (its dense model,
+    weights from seed 0) on the card, for attn and the 11 methods at the first
+    and the last MSCA block, on the CLI's 224^2 image: every heatmap finite and
+    non-negative, msca_fused's launches per heatmap (13 per forward: the
+    capture, and each re-forward batch of scorecam and ablationcam), the ms per
+    heatmap; then each (method, block) on the same image on the card and on
+    the CPU (the plain versions): what each method was given within 1e-4
+    (ablationcam's scores within 1e-5 of its base score), and each heatmap
+    within 1e-4, or, where the method is ill-conditioned at this input, no
+    more than 10x as far as the CPU's from a float64 forward's heatmap.
+    Returns msca_fused's launches in the CLI runs."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import MSCA
+    from convnet_approximater_tpu_torch.models import build_model
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.utils import get_cfg, init_cfg
+    from convnet_approximater_tpu_torch.visualization import cam
+
+    methods = ("attn",) + tuple(cam.CAM_METHODS)
+    out = os.path.join(REPO, "build", "chip_smoke_cam")
+    launches, total = {}, 0
+    t_run = time.perf_counter()
+    for block in CAM_BLOCKS:
+        for method in methods:
+            reset_counts()
+            heat = cam.main(["--config", CONFIG, "--block", str(block), "--method", method,
+                             "--out", out])
+            launches[(method, block)] = fused_ops.msca_fused.launches
+            total += launches[(method, block)]
+            if not (np.isfinite(heat).all() and (heat >= 0).all()):
+                fail(f"P14 {method} at block {block}: the heatmap is not finite and non-negative")
+    run_s = time.perf_counter() - t_run
+
+    init_cfg(CONFIG)
+    model = build_model(get_cfg().model)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model.register_switchable(MSCA, [])
+    widths = [model.get_switchable_module(b).num_channel for b in CAM_BLOCKS]
+    for block, C in zip(CAM_BLOCKS, widths):
+        chunks = -(-C // cam.SCORE_CHUNK)
+        for method in methods:
+            reforwards = {"scorecam": chunks, "ablationcam": 1 + chunks}.get(method, 0)
+            if launches[(method, block)] != MSCA_BLOCKS * (1 + reforwards):
+                fail(f"P14 {method} at block {block}: msca_fused launched "
+                     f"{launches[(method, block)]} times, expected "
+                     f"{MSCA_BLOCKS * (1 + reforwards)} (13 per forward)")
+
+    # the same heatmaps again, warm, each timed between two synchronizes
+    img = np.random.RandomState(0).randint(0, 256, (224, 224, 3)).astype(np.float32)
+    x224 = torch.from_numpy((img / 255.0 - 0.5) / 0.5).permute(2, 0, 1)[None].cuda()
+    x224 = x224.contiguous(memory_format=torch.channels_last)
+    card = channels_last(copy.deepcopy(model).cuda()).eval()
+    heat_ms = {}
+    with uncounted():
+        for key in launches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cam.heatmap(card, x224, key[1], key[0])  # a numpy array: the card's work is done
+            heat_ms[key] = (time.perf_counter() - t0) * 1e3
+    smi = smi_line()
+    print(f"P14 CAM CLI (python -m convnet_approximater_tpu_torch.visualization.cam) on the "
+          f"dense MSCAN-t of {os.path.relpath(CONFIG, REPO)}, seed-0 weights, the CLI's "
+          f"RandomState(0) 224^2 image: {len(launches)} CLI runs in {run_s:.2f} s [{smi}]; ms "
+          f"per heatmap (a second, warm call, host clock around it) and msca_fused launches "
+          f"in the CLI run:")
+    for method in methods:
+        print(f"  {method:20s} " + "   ".join(
+            f"block {b} (C = {C}): {heat_ms[(method, b)]:9.3f} ms, {launches[(method, b)]:3d} "
+            f"launches" for b, C in zip(CAM_BLOCKS, widths)))
+
+    models = {"cpu": channels_last(model).eval(), "cuda": card}
+    xs = {"cpu": x224.cpu().contiguous(memory_format=torch.channels_last), "cuda": x224}
+    with torch.no_grad():
+        cls = {d: int(m(xs[d])[0].argmax()) for d, m in models.items()}
+    if cls["cpu"] != cls["cuda"]:
+        fail(f"P14: the top class differs, {cls['cuda']} on the card and {cls['cpu']} on the CPU")
+    inputs = {}  # (method, device) -> what the method was given: feats, grads, scores
+
+    def recording(name, fn, kind):
+        def wrapped(feats, *args, **kwargs):
+            key = (name, feats.device.type)
+            inputs[key] = [feats.detach().cpu()]
+            if kind == "grad":
+                inputs[key].append(args[0].detach().cpu())
+            if kind in ("score", "override"):  # the re-forwards' class scores
+                outs, score_fn = [], args[-1] if kind == "score" else args[0]
+
+                def rec(*a):
+                    out = score_fn(*a)
+                    outs.append(out.detach().cpu())
+                    return out
+
+                args = (args[0], rec) if kind == "score" else (rec,)
+                h = fn(feats, *args, **kwargs)
+                inputs[key].append(torch.cat(outs))
+                return h
+            return fn(feats, *args, **kwargs)
+        return wrapped
+
+    patched = {n: (recording(n, fn, k), k) for n, (fn, k) in cam.CAM_METHODS.items()
+               if k != "model"}
+    c64 = channels_last(copy.deepcopy(card).double()).eval()  # module path, float64
+    errs = []
+    t_cmp = time.perf_counter()
+    with uncounted(), mock.patch.dict(cam.CAM_METHODS, patched):
+        for block in CAM_BLOCKS:
+            for method in methods:
+                h = {d: cam.heatmap(models[d], xs[d], block, method) for d in models}
+                err = float(np.linalg.norm(h["cuda"] - h["cpu"])
+                            / max(np.linalg.norm(h["cpu"]), 1e-12))
+                got = list(zip(inputs.get((method, "cuda"), []), inputs.get((method, "cpu"), [])))
+                in_errs = [rel_err(a, b) for a, b in got]
+                tols = [CAM_TOL] * len(in_errs)
+                extra, heat_ok = "", err <= CAM_TOL
+                if method == "ablationcam":  # its scores against the base score
+                    (sc, sp), base = got[-1], abs(float(got[-1][1][0]))
+                    in_errs[-1], tols[-1] = float((sc - sp).abs().max()) / base, CAM_SCORE_TOL
+                    extra = (f", drops {rel_err(sc[0] - sc[1:], sp[0] - sp[1:]):.3e} apart (the "
+                             f"largest {float((sp[0] - sp[1:]).abs().max()) / base:.3e} of the "
+                             f"base score)")
+                if not heat_ok:  # ill-conditioned here? both against a float64 forward
+                    with mock.patch.object(fused_ops, "msca_fused", fused_ops.msca_fused_ref):
+                        h64 = cam.heatmap(c64, x224.double(), block, method)
+                    d64 = {d: float(np.linalg.norm(h[d] - h64) / np.linalg.norm(h64)) for d in h}
+                    heat_ok = d64["cuda"] <= CAM_COND * d64["cpu"]
+                    extra += (f"; against a float64 forward: card {d64['cuda']:.3e}, CPU "
+                              f"{d64['cpu']:.3e}")
+                    if method == "ablationcam":  # the drops too
+                        s64 = inputs[(method, "cuda")][-1]
+                        drop = {d: rel_err(v[0] - v[1:], s64[0] - s64[1:])
+                                for d, v in (("cuda", sc), ("cpu", sp))}
+                        heat_ok = heat_ok and drop["cuda"] <= CAM_COND * drop["cpu"]
+                        extra += f" (drops: card {drop['cuda']:.3e}, CPU {drop['cpu']:.3e})"
+                ok = (np.isfinite(h["cuda"]).all() and (method == "attn" or (h["cuda"] >= 0).all())
+                      and all(e <= t for e, t in zip(in_errs, tols)) and heat_ok)
+                errs.append(f"{method} block {block}: heat {err:.3e}" + (
+                    f", inputs {', '.join(f'{e:.3e}' for e in in_errs)}" if in_errs else "")
+                    + extra)
+                if not ok:
+                    fail(f"P14 {method} at block {block}: the card disagrees with the CPU "
+                         f"({errs[-1]})")
+    print(f"P14 the card against the CPU on the CLI's RandomState(0) 224^2 image (top class "
+          f"{cls['cuda']} on both; {time.perf_counter() - t_cmp:.2f} s): relative error of "
+          f"each heatmap (bound {CAM_TOL}, or where it is missed, the card's distance to a "
+          f"float64 forward's heatmap (the module path) at most {CAM_COND:g}x the CPU's) and "
+          f"of what each method was given (feats, grads, scorecam's class probabilities: "
+          f"bound {CAM_TOL}; ablationcam's scores against its base score: bound "
+          f"{CAM_SCORE_TOL}): " + "; ".join(errs))
+    del models, card
+    torch.cuda.empty_cache()
+    return total
+
+
 def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
     """The kernels-line entry of one forward: rows weighted by calls per forward."""
     nbytes = sum(r["bytes"] * weight(r) for r in rows)
@@ -3771,7 +4181,12 @@ def main():
     # -- 13. P9-P12: width pruning ------------------------------------------
     pruning = run_pruning()
 
-    # -- 14. results ------------------------------------------------------
+    # -- 14. P13, F6 and P14: SegNeXt-T serving and fine-tuning, and CAM -----
+    seg_launches, seg_rows = run_segnext(gen)
+    ft_seg_launches = run_ft_seg()
+    cam_launches = run_cam()
+
+    # -- 15. results ------------------------------------------------------
     # each entry is one forward at b=64, 224^2: the time per call times the calls per forward
     # (parallel_cascade: the DwSepRep r1 forward of ConvNeXt-T; qmatmul: its int8 forward)
     blocks = {H: n for H, _, n in STAGES}
@@ -3832,8 +4247,14 @@ def main():
     kernels[3]["paths"] += [path("pruned int8 ConvNeXt-T (P11)", p11[2], calls, p11[1], PEAK_INT8)]
     kernels[3]["paths"] += [path(f"{name} (P12)", rows, calls, launches, PEAK_INT8)
                             for name, launches, rows in pruning["p12"]]
+    kernels[0]["paths"] += [
+        path("SegNeXt-T MscaRep d1+fix, b=16, 512^2 (P13)",
+             [r for r in seg_rows if r["form"] == "d1fix"], blocks, seg_launches),
+        dict(path="SegNeXt-T L2 fine-tune, 4 steps and 2 validation batches (F6)",
+             launches=ft_seg_launches),
+        dict(path="CAM CLI on MSCAN-t, 24 heatmaps (P14)", launches=cam_launches)]
     kernels[0]["max_abs_err"] = max([kernels[0]["max_abs_err"]] +
-                                    [r["max_abs_err"] for r in p_msca])
+                                    [r["max_abs_err"] for r in p_msca + seg_rows])
     kernels[1]["max_abs_err"] = max([kernels[1]["max_abs_err"]] + [
         r["max_abs_err"] for r in resnet18_rows + vgg16_rows])
     kernels[2]["max_abs_err"] = max([kernels[2]["max_abs_err"]] +

@@ -10,9 +10,14 @@ leaves:
   ``weight_q`` of ``QuantConv2d``;
 * ``Linear`` weight ``(in, out)`` -> ``(out, in)``, and so ``QuantLinear``'s
   ``weight_q``;
-* BatchNorm/LayerNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
+* BatchNorm/LayerNorm/GroupNorm ``scale`` -> ``weight`` (``bias`` keeps its name);
 * BatchNorm state ``mean``/``var`` -> ``running_mean``/``running_var``;
 * the QAT twins' observer, state ``act_absmax`` (a 0-d buffer), keeps its name;
+* the Hamburger's NMF dictionary start, state ``nmf_init`` (1, C, rank), keeps
+  its name: the JAX package draws it inside the forward from a fixed
+  ``jax.random`` key and stores none, so a JAX checkpoint leaves the port's own
+  draw in place, and a test that holds the port against JAX adds JAX's draw
+  under that key;
 * everything else (``FixPaddingBias.res`` (2, C, p), ``FixPaddingBias2d``'s
   ``res_v``/``res_h`` (2, C, p) and ``res_c`` (2, 2, C, p, p),
   ``layer_scale_*``, ConvNeXt's ``gamma``, the quantized modules' ``w_scale``
@@ -68,7 +73,8 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The port's ``state_dict`` -> JAX ``params/...`` and ``state/...`` leaves
     (OIHW -> HWIO, ``(out, in)`` -> ``(in, out)``, a norm's 1-d ``weight`` ->
     ``scale``, ``running_mean``/``running_var`` -> state ``mean``/``var``, a QAT
-    twin's ``act_absmax`` -> state ``act_absmax``)."""
+    twin's ``act_absmax`` and the Hamburger's ``nmf_init`` -> state leaves of
+    those names)."""
     out = {}
     for key, t in state_dict.items():
         *prefix, name = key.split(".")
@@ -76,7 +82,7 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
         collection = "params"
         if name in ("running_mean", "running_var"):
             collection, name = "state", name[len("running_"):]
-        elif name == "act_absmax":
+        elif name in ("act_absmax", "nmf_init"):
             collection = "state"
         elif name in ("weight", "weight_q") and v.ndim == 4:
             v = np.transpose(v, (2, 3, 1, 0))

@@ -13,7 +13,9 @@ The shuffle order and the augmentation draws come from ``RandomState``
 seeds of the same form as the JAX package's, so both loaders give the same
 batches.  The JAX package's C++ batch prep (``data/_native``) is a host
 speed-up that is not ported (``ROADMAP.md`` queue 1 item 5); RandAugment
-(``aug=dict(rand_aug=...)``) is not ported either.
+(``aug=dict(rand_aug=...)``) is not ported either.  Augmentation with dense
+labels (segmentation masks) is refused: it would move the images and not
+their masks.
 """
 
 from __future__ import annotations
@@ -150,6 +152,13 @@ class Loader:
         self.prefetch = prefetch
         # hflip, crop_pad, rrc_scale; None or {} = no augmentation
         self.aug = check_aug(aug)
+        if self.aug and np.ndim(dataset.labels) > 1:
+            # the JAX Loader crops and flips the images alone, so its dense masks
+            # would no longer line up with their pixels; the port refuses
+            raise ValueError(
+                f"aug={self.aug} with dense labels (shape {np.shape(dataset.labels)}): the "
+                f"augmentation moves the images and not their masks, so the labels would "
+                f"no longer match the pixels; train segmentation without aug")
         self._mean = torch.from_numpy(self.mean).to(self.device)
         self._std = torch.from_numpy(self.std).to(self.device)
         self._epoch = 0

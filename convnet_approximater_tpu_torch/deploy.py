@@ -425,6 +425,20 @@ def _junctions(model: nn.Module) -> List[Tuple[str, Tuple[str, ...], str]]:
     return junctions
 
 
+def _consumer(model: nn.Module, c) -> Tuple[nn.Module, Optional[int]]:
+    """``(module, offset)`` of a consumer entry: a path, or a dict
+    ``{"path", "offset_modules"}`` for a consumer that reads the trunk as one
+    segment of a channel-concatenated input (SegNeXt's squeeze conv), whose
+    offset is the sum of the current widths of the listed norms (None for a path)."""
+    if not isinstance(c, dict):
+        return model.get_submodule(c), None
+    off = 0
+    for p in c.get("offset_modules", ()):
+        norm = model.get_submodule(p)
+        off += norm.normalized_shape[0] if isinstance(norm, nn.LayerNorm) else norm.num_features
+    return model.get_submodule(c["path"]), off
+
+
 @torch.no_grad()
 def _consumer_stats(model: nn.Module, consumers: Sequence[str],
                     calib_batches: Iterable[torch.Tensor]) -> Dict[str, dict]:
@@ -679,7 +693,8 @@ def prune_trunks(model: nn.Module, keep_ratio: float, round_to: int = 64,
     An identity add pins every block's input and output to the stage's trunk
     width, so no single junction can cut it; this pass slices one mask through
     all that touches the trunk (:func:`_trunk_groups`): every producer (and
-    its BN), every consumer's input, the depthwise convs, norms and
+    its BN), every consumer's input (or its segment of a concatenated input:
+    :func:`_consumer`), the depthwise convs, norms and
     layer-scale vectors riding on it, and the width attributes later passes
     build from.  The channels kept are those of largest
     ``sqrt(sum_p ||W_p[m]||^2 g_m^2) * sqrt(sum_c ||W_c[:, m]||^2)`` over the
@@ -692,7 +707,7 @@ def prune_trunks(model: nn.Module, keep_ratio: float, round_to: int = 64,
     n_pruned = 0
     for gi, g in enumerate(_trunk_groups(model)):
         prods = [(model.get_submodule(p), bn) for p, bn in g["producers"]]
-        cons = [model.get_submodule(c) for c in g["consumers"]]
+        cons = [_consumer(model, c) for c in g["consumers"]]
         M = _width_out(prods[0][0])
         if any(_width_out(p) != M for p, _ in prods):
             continue  # a malformed group: leave it alone
@@ -711,9 +726,11 @@ def prune_trunks(model: nn.Module, keep_ratio: float, round_to: int = 64,
             gain = _bn_gain(model.get_submodule(bn_path)) if bn_path is not None else None
             prod_e = prod_e + (na if gain is None else na * gain ** 2)
         cons_e = 0
-        for mod in cons:
-            cons_e = cons_e + (mod.weight.detach().float() ** 2).sum(
-                dim=(0, 2, 3) if isinstance(mod, nn.Conv2d) else 0)
+        for mod, off in cons:
+            w = mod.weight.detach().float()
+            if off is not None:  # the trunk's segment of the consumer's input
+                w = w[:, off:off + M]
+            cons_e = cons_e + (w ** 2).sum(dim=(0, 2, 3) if isinstance(mod, nn.Conv2d) else 0)
         # layer-scale vectors gate the producers: their RMS over the group (a
         # product of many 1e-2 scales would underflow)
         vecs = [getattr(*_vector_parent(model, vp)) for vp in g["vectors"]]
@@ -727,8 +744,13 @@ def prune_trunks(model: nn.Module, keep_ratio: float, round_to: int = 64,
             _slice_out(mod, idx)
             if bn_path is not None:
                 _slice_norm(model.get_submodule(bn_path), idx)
-        for mod in cons:
-            _slice_in(mod, idx, k)
+        for mod, off in cons:
+            if off is None:
+                _slice_in(mod, idx, k)
+            else:  # keep the other segments whole
+                total = mod.weight.shape[1]
+                _slice_in(mod, torch.cat([torch.arange(off), idx + off,
+                                          torch.arange(off + M, total)]), total - (M - k))
         for dpath in g["depthwise"]:
             # a channel-tied pass-through (ConvNeXt's 7x7 on the trunk)
             dm = model.get_submodule(dpath)

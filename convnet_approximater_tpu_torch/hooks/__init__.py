@@ -9,3 +9,6 @@ from .low_rank_exp_v1_decomp import LowRankExpV1Decomp
 from .model_analysis import ModelAnalysis, count_macs, count_params
 from .priority import Priority, get_priority
 from .qat import PrepareQAT
+
+# registers SegL2Reconstruct; imported last, since it builds on the hooks above
+import convnet_approximater_tpu_torch.segmentation.finetune  # noqa: E402,F401

@@ -19,8 +19,10 @@ Optimize phase:
   the step, as the JAX step does.
 * The loss is the JAX step's: the per-sample norm of each captured
   Substitution's output difference, averaged over the taps and then over the
-  batch, plus ``cls_weight`` cross-entropy and ``kd_weight`` T^2-scaled
-  soft-target KL.
+  batch, plus ``cls_weight`` times the task loss (``_ce_fn``: cross-entropy
+  here, the per-pixel one in ``SegL2Reconstruct``) and ``kd_weight``
+  T^2-scaled soft-target KL over the class axis.  A subclass also overrides
+  ``_default_datasets`` and ``_validate``.
 * The optimizer keeps every parameter, with one step count for all of them
   (:class:`MaskedOptimizer`): frozen parameters get zero gradients before the
   step, so their moments decay as optax's do, and zero updates, so decoupled
@@ -499,7 +501,7 @@ class L2Reconstruct(Hook):
             t_logits, t_taps = self.teacher_pass(images, model, teacher)
         model.train()
         logits = model(images).float()
-        ce = F.cross_entropy(logits, labels)
+        ce = self._ce_fn()(logits, labels)
         total_norm = logits.new_zeros(())
         if not self.no_norm:
             s_taps = taps(model)
@@ -512,9 +514,10 @@ class L2Reconstruct(Hook):
         loss = self.l2_weight * total_norm + self.cls_weight * ce
         if self.kd_weight > 0:
             T = float(self.kd_temperature)
+            # over the class axis: dim 1 of (B, K) and of NCHW segmentation logits
             t_log, s_log = t_logits / T, logits / T
-            kd = (F.softmax(t_log, -1) * (F.log_softmax(t_log, -1) - F.log_softmax(s_log, -1))
-                  ).sum(-1).mean()
+            kd = (F.softmax(t_log, 1) * (F.log_softmax(t_log, 1) - F.log_softmax(s_log, 1))
+                  ).sum(1).mean()
             loss = loss + self.kd_weight * T ** 2 * kd
         return loss, ce, total_norm
 
@@ -664,6 +667,11 @@ class L2Reconstruct(Hook):
                     + (f" (+ {', '.join(restored)})" if restored else ""))
         return start_epoch
 
+    # -- task plug points (SegL2Reconstruct overrides these) ----------------
+    def _ce_fn(self) -> Callable:
+        """The task loss on (logits, labels): classification cross-entropy."""
+        return F.cross_entropy
+
     def _default_datasets(self, image_size, num_classes):
         """Synthetic data when no dataset cfg is given."""
         return (Synthetic(256, image_size + (3,), num_classes, split="train"),
@@ -699,6 +707,8 @@ class L2Reconstruct(Hook):
         return dict(loss=total_m.avg, norm=norm_m.avg), step_count
 
     def _validate(self, loader) -> Dict[str, float]:
+        """Loss, top-1 and top-5 over the validation batches (``eval_metric``
+        names one of them)."""
         logger = get_logger()
         model = self.runner.model
         losses_m, top1_m, top5_m = (AverageMeter() for _ in range(3))

@@ -1,5 +1,5 @@
 """Leaf layers of the port; containers are ``torch.nn``'s own."""
 
-from .layers import (GELU, AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Dropout, Identity,
-                     LayerNorm, Linear, MaxPool2d, ReLU, channels_last, flatten_hwc, gelu,
-                     init_weights, params_key)
+from .layers import (GELU, AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Dropout, GroupNorm,
+                     Identity, LayerNorm, Linear, MaxPool2d, ReLU, channels_last,
+                     flatten_hwc, gelu, init_weights, params_key)

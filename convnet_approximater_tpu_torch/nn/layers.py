@@ -1,8 +1,11 @@
 """Leaf layers (port of ``convnet_approximater_tpu/nn/layers.py``).
 
-``Linear``, ``Identity``, ``ReLU`` and the pools are torch's own:
-the JAX pools (``ops/conv.py``) use torch's bin edges and floor mode.  The
-layers below differ from torch's defaults where the JAX package does:
+``Linear``, ``Identity``, ``ReLU``, ``GroupNorm`` and the pools are torch's
+own: the JAX pools (``ops/conv.py``) use torch's bin edges and floor mode, and
+the JAX ``GroupNorm`` normalises each sample's (H, W, C/G) group with its
+biased variance and eps 1e-5, as torch's does (its ``scale`` is torch's
+``weight``).  The layers below differ from torch's defaults where the JAX
+package does:
 
 * ``Conv2d`` is torch's with a ``pw_matmul`` flag (``deploy.enable_pw_matmul``
   sets it): an eval-mode 1x1 conv then runs as a matrix product over the NHWC
@@ -30,6 +33,7 @@ from torch import nn
 Linear = nn.Linear
 Identity = nn.Identity
 ReLU = nn.ReLU
+GroupNorm = nn.GroupNorm
 MaxPool2d = nn.MaxPool2d
 AdaptiveAvgPool2d = nn.AdaptiveAvgPool2d
 

@@ -11,8 +11,8 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 # names the JAX package registers and the port does not have yet -> the
-# ROADMAP.md queue 1 item that ports them
-PENDING = {"SegNeXt": 11, "SegL2Reconstruct": 11, "SyntheticSeg": 11}
+# ROADMAP.md queue 1 item that ports them (none since SegNeXt was ported)
+PENDING: Dict[str, int] = {}
 
 
 class Registry:

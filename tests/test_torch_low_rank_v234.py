@@ -305,13 +305,14 @@ def test_cli_runs_low_rank_configs_on_cpu(tmp_path, name):
 
 
 # -- which configs the port's Runner builds ------------------------------------------
-REFUSED = {  # config: the ROADMAP.md queue 1 item its refusal names
-    "msca-rep/msca-rep_d1_fix_segnext-t.py": 11,
-    "msca-rep/finetune/msca-rep-d1-fix_l2-asym_segnext-t.py": 11,
+REFUSED = {}  # config: the ROADMAP.md queue 1 item its refusal names (none since SegNeXt)
+SEGNEXT = {  # the configs SegNeXt's port unblocked: their hooks
+    "msca-rep/msca-rep_d1_fix_segnext-t.py": ["InferenceTimeHook"],
+    "msca-rep/finetune/msca-rep-d1-fix_l2-asym_segnext-t.py": ["SegL2Reconstruct"],
 }
 BUILT = [c for c, *_ in CONFIGS.values()] + [
     "quant/int8-qat_ce_alexnet.py", "prune/ffn-prune_dd_l2-asym_mscan-t.py",
-    "prune/chain-prune_ce_vgg16.py", "prune/trunk-prune_ce_resnet18.py"]
+    "prune/chain-prune_ce_vgg16.py", "prune/trunk-prune_ce_resnet18.py"] + sorted(SEGNEXT)
 
 
 @pytest.mark.parametrize("name", BUILT + sorted(REFUSED))
@@ -326,5 +327,24 @@ def test_runner_builds_the_slice_configs_and_names_the_item_of_a_refusal(tmp_pat
             Runner(device="cpu")
         return
     runner = Runner(device="cpu")
+    if name in SEGNEXT:
+        assert type(runner.model).__name__ == "SegNeXt" and runner.model.num_classes == 150
+        assert type(runner.app).__name__ == "MscaRep" and runner.app.fix
+        assert [h.name for h in runner.hooks] == SEGNEXT[name]
+        return
     assert type(runner.app).__name__ in ("LowRankExpV2", "LowRankExpV3", "LowRankExpV4", "Dummy",
                                          "FfnPrune")
+
+
+def test_a_pending_name_raises_naming_its_item(monkeypatch):
+    """A name the JAX registries have and the port's do not yet raises
+    ``NotImplementedError`` naming its ROADMAP.md item; any other unknown name
+    raises ``KeyError``."""
+    from convnet_approximater_tpu_torch.models import MODEL
+    from convnet_approximater_tpu_torch.utils import registry
+
+    monkeypatch.setitem(registry.PENDING, "NotPortedNet", 12)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+        registry.build_from_cfg(dict(type="NotPortedNet"), MODEL)
+    with pytest.raises(KeyError, match="not registered"):
+        MODEL.get("NoSuchNet")
