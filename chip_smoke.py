@@ -183,7 +183,7 @@ From the root of a checkout, with no arguments:
     128/256/256/512) with MscaRep d1+fix (13 ``msca_fused`` per forward) and
     dconv0 (26 ``parallel_cascade``), folded, 1x1s as matmuls: logits, graph
     replays, eager, graph and back-to-back times beside dense MSCAN-t and the
-    unpruned d1+fix form (arbitrated_apply waits for ROADMAP item 10).  P11 the
+    unpruned d1+fix form (P16 runs arbitrated_apply).  P11 the
     pruned ConvNeXt-T quad (``prune_trunks(0.5, 128)``, MlpPrune(0.5, 128),
     DwSepRep r1, ``quantize_int8``): 18 ``parallel_cascade`` and 41 ``qmatmul``
     per forward, logits, a replay, every (M, K, N) bit for bit, timed beside
@@ -214,7 +214,33 @@ From the root of a checkout, with no arguments:
     included, ms per heatmap), then each heatmap on a 64^2 image on the card
     against the CPU within 1e-4 (xgradcam and ablationcam amplify rounding: what
     they are given is held instead);
-15. prints one JSON line of kernel results (each kernel's entry lists the later
+15. P15, deploy mode: ``configs/msca-rep/msca-rep_d1_fix_mscan-t.py`` solved
+    through the CLI, then run again by the CLI with ``--checkpoint`` on its
+    ``.pt`` (``Runner(deploy=True, skip_optim=True, skip_post=True)``: bare MSCA
+    targets, no solve), its logits bit-equal to the solved model's at b=64,
+    224^2 and 13 ``msca_fused`` launches per forward; then the inference CLI
+    (``ClassInference``) on phase 5's dodecomp AlexNet checkpoint at b=64 with
+    ``--decomp --never-lose --quantize int8``: each report's median ms, MACs and
+    params, ``lowrank_conv`` once per factored site per forward in
+    ``approximated``, ``decomposed`` and ``never-lose``, ``qmatmul`` once per
+    int8 module per forward in ``int8``, and the decision table written;
+16. P16, the arbiters: ``never_lose_deploy`` on phase 11's solved scheme-1
+    VGG-16 loaded in deploy mode (b=64, 224^2): each site's rematerialized
+    dense conv within 1e-5 of the factored layer's plain version, the decision
+    table with its times, the final logits within 1e-4 of the all-factored
+    model's, and the final model re-timed within 3 % of the better form; then
+    ``arbitrated_apply(FfnRep(fix=True))`` on MSCAN-t d1+fix grouped by stage:
+    the measured table, and a replay from it that times nothing and gives the
+    same structure and logits bit for bit;
+17. P17, the serving planner: ``plan_serving`` on MSCAN-t, then ConvNeXt-T
+    (layer scales 1), at b=64, 224^2, float32, the default candidates (without
+    ConvNeXt-T's MlpPrune ones: their greedy selection runs on the host), each
+    timed as the default timer times with its launches per forward counted:
+    the report rows and the winner, dense/float32 qualified, every built row
+    timed, the launches per forward of the candidates whose kernels are known,
+    and ``reuse_plan`` rebuilding the winner with no timing call and logits
+    within 1e-4 of the plan's;
+18. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``), then
     ``{"ok": true, "device": ...}``.
 
@@ -3507,7 +3533,7 @@ def run_pruned_mscan():
               f"graph {graph_ms:.3f} ms ({BATCH / graph_ms * 1e3:.1f} img/s); back to back "
               f"{b2b_eager:.3f} ms eager, {b2b_graph:.3f} ms graph; dense / this: eager "
               f"{times['dense'][0] / eager_ms:.4f}, graph {times['dense'][1] / graph_ms:.4f}")
-    print("P10 FfnRep's arbitration (arbitrated_apply) waits for ROADMAP item 10: not run here")
+    print("P10 FfnRep's arbitration (arbitrated_apply) runs on unpruned MSCAN-t in P16")
     del base, forms
     torch.cuda.empty_cache()
     return launches, times
@@ -4084,6 +4110,447 @@ def run_cam():
     return total
 
 
+# -- P15-P17: deploy mode, ClassInference, the arbiters and the serving planner
+P15_ROUND_TRIP_SEED = 150  # the seeded batch of the deploy round trip's logits
+ARBITER_MARGIN = 0.03      # never_lose_deploy's default margin: t_final against the better form
+REMAT_TOL = 1e-5           # a rematerialized dense conv against its factored layer's plain version
+REMAT_BATCH = 8            # images whose site inputs the per-site gate takes
+PLANNER_SKIP = {"ConvNeXt-T": ("mlpprune",)}
+DEVICE = "cuda"  # where P15-P17 run: the card
+
+
+def kernel_counts() -> dict:
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    return {"msca_fused": fused_ops.msca_fused.launches,
+            "lowrank_conv": lowrank_ops.lowrank_conv.launches,
+            "parallel_cascade": cascade_ops.parallel_cascade.launches,
+            "qmatmul": qmatmul_ops.qmatmul.launches}
+
+
+@contextlib.contextmanager
+def forwards_counted(model):
+    """A list that gets one entry per top-level forward of ``model`` in the block."""
+    seen = []
+    handle = model.register_forward_pre_hook(lambda m, i: seen.append(1))
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+def checkpoint_in(work_dir: str) -> str:
+    """The Runner's ``.pt`` that an earlier phase's CLI run wrote into ``work_dir``."""
+    found = sorted(f for f in os.listdir(work_dir) if f.endswith(".pt"))
+    if len(found) != 1:
+        fail(f"expected one .pt checkpoint in {work_dir}, found {found}")
+    return os.path.join(work_dir, found[0])
+
+
+def run_deploy_round_trip():
+    """P15, the Runner: MSCAN-t MscaRep d1+fix solved through the CLI, its .pt
+    loaded back by the CLI with --checkpoint (deploy, skip_optim, skip_post):
+    no solve, the logits bit-equal to the solved model's at b=64, 224^2, 13
+    msca_fused launches per forward of the deploy run's hooks.  Returns the
+    deploy run's launches."""
+    import torch
+
+    from convnet_approximater_tpu_torch import main as cli
+    from convnet_approximater_tpu_torch.layers import MSCA
+
+    solved, solve_s = run_cli(CONFIG, os.path.join(REPO, "build", "chip_smoke_p15_solve"))
+    ckpt = solved.output_path
+    x = seeded_batch(P15_ROUND_TRIP_SEED)
+    with torch.no_grad(), uncounted():
+        y_solved = solved.model(x)
+    del solved
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    runner = cli.main(["--config", CONFIG, "--device", DEVICE, "--seed", "0", "--work-dir",
+                       os.path.join(REPO, "build", "chip_smoke_p15_deploy"), "--checkpoint", ckpt])
+    torch.cuda.synchronize()
+    deploy_s = time.perf_counter() - t0
+    launches, forwards = kernel_counts()["msca_fused"], forwards_of(runner)
+    model = runner.model
+    if not (runner.deploy and runner.skip_optim and runner.skip_post) or not all(
+            type(m) is MSCA for m in model.switchable_modules()) or model.length_switchable != 13:
+        fail("P15: the deploy run did not build 13 bare MSCA targets in deploy mode")
+    if launches != 13 * forwards or launches == 0:
+        fail(f"P15: the deploy run's {forwards} forwards launched msca_fused {launches} times, "
+             f"expected {13 * forwards}")
+    with torch.no_grad(), uncounted():
+        y = model(x)
+    same = torch.equal(y, y_solved)
+    print(f"P15 deploy round trip of {os.path.relpath(CONFIG, REPO)}: solve run {solve_s:.2f} s, "
+          f"deploy run {deploy_s:.2f} s (Runner(deploy=True, skip_optim=True, skip_post=True) "
+          f"on {os.path.relpath(ckpt, REPO)}); {forwards} forwards launched msca_fused "
+          f"{launches} times (13 per forward); logits at {INPUT} bit-equal to the solved "
+          f"model's: {same} [{smi_line()}]")
+    if not same:
+        fail(f"P15: the deployed logits differ from the solved model's by "
+             f"{rel_err(y, y_solved):.3e} (relative); no solve ran, so they must be equal")
+    del runner, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_inference_cli():
+    """P15, ClassInference: the inference CLI on the dodecomp AlexNet's .pt of
+    phase 5 at b=64, 224^2, with --decomp --never-lose --quantize int8.  Each
+    report's median ms, MACs and params; lowrank_conv once per factored site
+    per forward in approximated, decomposed and never-lose (as many as the
+    arbiter kept decomposed), qmatmul once per int8 module per forward in int8;
+    the decision table written.  Returns ({report: launches}, qmatmul modules)."""
+    import torch
+
+    from convnet_approximater_tpu_torch import inference as inference_cli
+    from convnet_approximater_tpu_torch.layers import LowRankExpConvV1, QuantConv2d, QuantLinear
+    from convnet_approximater_tpu_torch.runner import ClassInference
+
+    ckpt = checkpoint_in(os.path.join(REPO, "build", "chip_smoke_alexnet"))
+    work_dir = os.path.join(REPO, "build", "chip_smoke_p15_inference")
+    table_path = os.path.join(work_dir, "never_lose_decisions.json")
+    if os.path.exists(table_path):
+        os.remove(table_path)
+    seen = {}
+    report = ClassInference._report
+
+    def counted(self, tag, model):
+        with torch.no_grad():
+            factored = sum(isinstance(m, LowRankExpConvV1) and m.uses_kernel()
+                           for m in model.modules())
+        reset_counts()
+        with forwards_counted(model) as forwards:
+            report(self, tag, model)
+        seen[tag] = dict(forwards=len(forwards), factored=factored, launches=kernel_counts())
+
+    t0 = time.perf_counter()
+    with mock.patch.object(ClassInference, "_report", counted):
+        run = inference_cli.main(["--config", ALEX_DODECOMP, "--checkpoint", ckpt, "--batch",
+                                  str(BATCH), "--decomp", "--never-lose", "--quantize", "int8",
+                                  "--device", DEVICE, "--seed", "0", "--work-dir", work_dir])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    if list(run.reports) != ["original", "approximated", "decomposed", "never-lose", "int8"]:
+        fail(f"P15: ClassInference made the reports {list(run.reports)}")
+    if not os.path.exists(table_path):
+        fail(f"P15: --never-lose wrote no {table_path}")
+    with open(table_path) as f:
+        table = json.load(f)
+    kept = table["kept_decomposed"]
+    int8_modules = sum(isinstance(m, (QuantConv2d, QuantLinear)) for m in run.new_model.modules())
+    print(f"P15 inference CLI on {os.path.relpath(ALEX_DODECOMP, REPO)} with "
+          f"{os.path.relpath(ckpt, REPO)} at ({BATCH}, 224, 224, 3), --decomp --never-lose "
+          f"--quantize int8: {run_s:.2f} s [{smi_line()}]")
+    for row in table["layers"]:
+        print(f"P15 never-lose: {row['name']} -> {row['kept']}")
+    print(f"P15 never-lose: t_decomposed {table['t_decomposed'] * 1e3:.3f} ms, t_dense "
+          f"{table['t_dense'] * 1e3:.3f} ms, t_final {table['t_final'] * 1e3:.3f} ms, "
+          f"{kept} of 4 kept decomposed; table in {os.path.relpath(table_path, REPO)}")
+    want = {"approximated": 4, "decomposed": 4, "never-lose": kept}
+    for tag, r in run.reports.items():
+        s = seen[tag]
+        per = {k: v / s["forwards"] for k, v in s["launches"].items()}
+        print(f"P15 report {tag}: median {r['ms']:.3f} ms ({BATCH / r['ms'] * 1e3:.1f} img/s), "
+              f"MACs {r['macs'] / 1e6:.2f} M, params {r['params'] / 1e6:.2f} M; launches per "
+              f"forward over {s['forwards']} forwards: " + ", ".join(
+                  f"{k} {v:g}" for k, v in per.items()))
+        if tag in want and (s["factored"] != want[tag]
+                            or s["launches"]["lowrank_conv"] != want[tag] * s["forwards"]):
+            fail(f"P15 {tag}: {s['factored']} factored sites take the kernel and lowrank_conv "
+                 f"launched {s['launches']['lowrank_conv']} times in {s['forwards']} forwards; "
+                 f"expected {want[tag]} per forward")
+    q = seen["int8"]
+    if int8_modules == 0 or q["launches"]["qmatmul"] != int8_modules * q["forwards"]:
+        fail(f"P15 int8: qmatmul launched {q['launches']['qmatmul']} times in {q['forwards']} "
+             f"forwards for {int8_modules} int8 modules")
+    launches = {tag: s["launches"] for tag, s in seen.items()}
+    del run
+    torch.cuda.empty_cache()
+    return launches, int8_modules
+
+
+def run_never_lose():
+    """P16, never_lose_deploy on the solved scheme-1 VGG-16 of phase 11 (its .pt
+    loaded in deploy mode through ClassInference.build_approximated), b=64,
+    224^2: each site's rematerialized dense conv within 1e-5 of the factored
+    layer's plain version on its own input (8 images), the decision table with
+    t_decomposed, t_dense and t_final, the final logits within 1e-4 of the
+    all-factored model's, lowrank_conv once per site kept decomposed, and the
+    final model re-timed within 3 % of the better of the two forms.  Returns
+    (the arbiter's launches, the final model's per forward)."""
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.hooks import time_forward
+    from convnet_approximater_tpu_torch.layers import LowRankExpConvV1
+    from convnet_approximater_tpu_torch.runner import ClassInference
+    from convnet_approximater_tpu_torch.utils import init_cfg
+
+    ckpt = checkpoint_in(os.path.join(REPO, "build", "chip_smoke_low-rank-exp-v1_all_svd_vgg16"))
+    init_cfg(VGG16)
+    model = ClassInference(ckpt, batch_size=BATCH, device=DEVICE).build_approximated()
+    sites = list(model.switchable_modules())
+    if model.switchable_names != VGG16_SITES or not all(
+            isinstance(m, LowRankExpConvV1) for m in sites):
+        fail(f"P16: the deployed VGG-16 has sites {model.switchable_names}")
+    inputs = {}
+    handles = [m.register_forward_pre_hook(lambda mod, inp, i=i: inputs.__setitem__(i, inp[0]))
+               for i, m in enumerate(sites)]
+    with torch.no_grad(), uncounted():
+        model(seeded_batch(160, batch=REMAT_BATCH))
+        for h in handles:
+            h.remove()
+        errs = []
+        for i, m in enumerate(sites):
+            dense = deploy.rematerialize_dense(m)
+            errs.append(rel_err(dense(inputs[i]), through_lowrank_ref(m, inputs[i])))
+        x = seeded_batch(161)
+        y_factored = model(x)
+    del inputs
+    print(f"P16 rematerialize_dense at VGG-16's 12 sites, ({REMAT_BATCH}, 224, 224, 3): dense "
+          f"conv against the factored layer's plain version, rel err max {max(errs):.3e} "
+          f"(bound {REMAT_TOL}): " + ", ".join(f"{e:.2e}" for e in errs))
+    if max(errs) > REMAT_TOL:
+        fail("P16: a rematerialized dense conv disagrees with its factored layer")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with forwards_counted(model) as forwards:
+        res = deploy.never_lose_deploy(model, INPUT)
+    torch.cuda.synchronize()
+    arbiter_s = time.perf_counter() - t0
+    arbiter_launches = kernel_counts()["lowrank_conv"]
+    for row in res["layers"]:
+        print(f"P16 never_lose_deploy VGG-16: {row['name']} -> {row['kept']}")
+    t_dec, t_dense, t_final = res["t_decomposed"], res["t_dense"], res["t_final"]
+    kept = res["kept_decomposed"]
+    print(f"P16 never_lose_deploy VGG-16 at {INPUT}: t_decomposed {t_dec * 1e3:.3f} ms, t_dense "
+          f"{t_dense * 1e3:.3f} ms, t_final {t_final * 1e3:.3f} ms, {kept} of 12 kept "
+          f"decomposed; {arbiter_s:.2f} s of host time, {len(forwards) // 12} timings of 12 "
+          f"forwards [{smi_line()}]")
+    with torch.no_grad(), uncounted():
+        y = model(x)
+    check_logits("P16 VGG-16 after never_lose_deploy", y, {"the all-factored model": y_factored},
+                 LOGITS_TOL, classes=10, shape=(BATCH, 10))
+    reset_counts()
+    t_re = float(np.median(time_forward(model, INPUT, DEVICE, 10, 2))) / 1e3
+    per_forward = kernel_counts()["lowrank_conv"] / 12
+    bound_s = min(t_dec, t_dense) * (1 + ARBITER_MARGIN)
+    print(f"P16 the final VGG-16 re-timed: {t_re * 1e3:.3f} ms (bound {bound_s * 1e3:.3f} ms = "
+          f"min(t_decomposed, t_dense) x {1 + ARBITER_MARGIN}); lowrank_conv {per_forward:g} per "
+          f"forward")
+    if per_forward != kept:
+        fail(f"P16: the final model launched lowrank_conv {per_forward} times per forward, "
+             f"{kept} sites kept decomposed")
+    if t_re > bound_s:
+        fail("P16: the final model is slower than the better of its two forms")
+    del model, y_factored, y
+    torch.cuda.empty_cache()
+    return arbiter_launches, per_forward
+
+
+def run_arbitrated():
+    """P16, arbitrated_apply(FfnRep(fix=True)) on MSCAN-t after MscaRep d1+fix,
+    grouped by stage, b=64, 224^2: the measured run writes its table, a replay
+    from it on a fresh model times nothing, and its structure and logits are the
+    measured run's, bit for bit.  Returns msca_fused's launches in the measured
+    run."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.core import FfnRep, MscaRep
+    from convnet_approximater_tpu_torch.deploy import arbitrated_apply
+    from convnet_approximater_tpu_torch.deploy_planner import apply_app
+
+    base = mscan_base(random_norms=False)
+    path = os.path.join(REPO, "build", "chip_smoke_p16", "ffnrep_decisions.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+
+    def stage(name):
+        return name.rsplit(".", 3)[0]
+
+    def prepared():
+        model = copy.deepcopy(base)
+        if apply_app(model, MscaRep(decomp=1, fix=True), [],
+                     torch.Generator().manual_seed(0)) != 13:
+            fail("P16: MscaRep found another number of MSCA blocks on MSCAN-t")
+        return model
+
+    model = prepared()
+    reset_counts()
+    t0 = time.perf_counter()
+    with forwards_counted(model) as forwards:
+        res = arbitrated_apply(model, FfnRep(fix=True), [], INPUT, group_fn=stage,
+                               decisions_path=path, retime=True)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernel_counts()["msca_fused"]
+    if launches != 13 * len(forwards) or not forwards:
+        fail(f"P16 arbitrated_apply: {len(forwards)} forwards launched msca_fused {launches} "
+             f"times, expected 13 per forward")
+    for row in res["layers"]:
+        print(f"P16 arbitrated_apply(FfnRep) MSCAN-t: {row['name']} -> {row['kept']}")
+    print(f"P16 arbitrated_apply(FfnRep, by stage) on MSCAN-t d1+fix at {INPUT}: t_applied "
+          f"{res['t_applied'] * 1e3:.3f} ms, t_original {res['t_original'] * 1e3:.3f} ms, t_final "
+          f"{res['t_final'] * 1e3:.3f} ms, {res['kept_applied']} of 13 FFNs merged; "
+          f"{run_s:.2f} s of host time (the 13 FfnRep solves and {len(forwards) // 12} timings "
+          f"of 12 forwards); msca_fused {launches} launches [{smi_line()}]")
+    calls = []
+    replay = prepared()
+    res2 = arbitrated_apply(replay, FfnRep(fix=True), [], INPUT, group_fn=stage,
+                            decisions_path=path, time_fn=lambda m, s: calls.append(1) or 1.0)
+    x = seeded_batch(162)
+    with torch.no_grad(), uncounted():
+        same = torch.equal(replay(x), model(x))
+    kinds = [type(m).__name__ for m in model.switchable_modules()]
+    print(f"P16 replay from {os.path.relpath(path, REPO)}: {len(calls)} timing calls, "
+          f"structure equal {kinds == [type(m).__name__ for m in replay.switchable_modules()]}, "
+          f"logits bit-equal {same}")
+    if calls or not res2.get("replayed") or res2["decisions"] != res["decisions"]:
+        fail("P16: the replay timed, or gave another decision table")
+    if kinds != [type(m).__name__ for m in replay.switchable_modules()] or not same:
+        fail("P16: the replayed model differs from the measured one")
+    del base, model, replay
+    torch.cuda.empty_cache()
+    return launches
+
+
+def plan_model(name):
+    """(make, the plan's launch gates) of P17's two models at full width, seed 0."""
+    import torch
+
+    from convnet_approximater_tpu_torch.models import ConvNeXt
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+
+    if name == "MSCAN-t":
+        return (lambda: mscan_base(random_norms=False),
+                {"dense/float32": {"msca_fused": 13, "parallel_cascade": 0},
+                 "v3/e=0.9": {"msca_fused": 13}, "tucker/e=0.9": {"msca_fused": 13},
+                 "mscarep/d1+fix+dconv0+arb-ffnrep": {"msca_fused": 0, "parallel_cascade": 26},
+                 "ffnprune/0.5+mscarep": {"msca_fused": 0, "parallel_cascade": 26},
+                 "trunk+attnprune+ffnprune/0.5+mscarep": {"msca_fused": 0,
+                                                          "parallel_cascade": 26},
+                 "int8": {"msca_fused": 0, "parallel_cascade": 13}})
+
+    def make():
+        model = ConvNeXt(num_classes=1000)
+        init_weights(model, torch.Generator().manual_seed(0))
+        model = channels_last(model.to(DEVICE)).eval()
+        set_gamma(model)  # at the 1e-6 init the blocks would hide from the agreement gate
+        return model
+
+    return make, {"dense/float32": {"parallel_cascade": 0, "qmatmul": 0},
+                  "dwsep/r=1": {"parallel_cascade": 18}, "dwsep/r=1+int8": {"parallel_cascade": 18}}
+
+
+def run_plan(name):
+    """P17 on one model: plan_serving at b=64, 224^2, float32, with the default
+    candidates (less PLANNER_SKIP's), each timed as the default time_fn times
+    (the median of 10 CUDA-event-timed forwards after 3) and its launches per
+    forward counted there.  Gates: dense/float32 qualifies, every built row has
+    a time, the kernels' launches per forward of each candidate, int8's qmatmul
+    once per int8 module; reuse_plan of plan_to_json rebuilds the winner with no
+    timing call, its logits within 1e-4 of the plan's.  Returns ({candidate:
+    launches per forward}, plan)."""
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy_planner as planner
+    from convnet_approximater_tpu_torch.hooks import time_forward
+    from convnet_approximater_tpu_torch.layers import QuantConv2d, QuantLinear
+
+    make, gates = plan_model(name)
+    per_forward, int8_modules, built_s, calls = {}, {}, {}, []
+    last = [0.0]
+
+    def time_fn(cand, model, shape, dtype):
+        # the host time since the last timing is this candidate's build and agreement
+        built_s[cand] = time.perf_counter() - last[0]
+        calls.append(cand)
+        reset_counts()
+        with forwards_counted(model) as forwards:
+            ms = float(np.median(time_forward(model, shape, DEVICE, 10, 3)))
+        per_forward[cand] = {k: v / len(forwards) for k, v in kernel_counts().items()}
+        int8_modules[cand] = sum(isinstance(m, (QuantConv2d, QuantLinear))
+                                 for m in model.modules())
+        last[0] = time.perf_counter()
+        return ms / 1e3
+
+    skip = PLANNER_SKIP.get(name, ())
+    cands = [c for c in planner.default_candidates(make(), input_shape=INPUT)
+             if not any(s in c[0] for s in skip)]
+    t0 = last[0] = time.perf_counter()
+    plan = planner.plan_serving(make, INPUT, candidates=cands, time_fn=time_fn)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    print(f"P17 plan_serving {name} at {INPUT} float32: {len(cands)} candidates"
+          + (f" (skipped: the {', '.join(skip)} candidates)" if skip else "")
+          + f", {plan_s:.2f} s of host time, {len(calls)} timing calls [{smi_line()}]")
+    print(f"P17 {name} {'surface':<42}{'ms':>10}{'img/s':>10}{'agree':>8}{'qualified':>10}  note")
+    for r in plan["report"]:
+        ms = f"{r['ms']:.3f}" if r["ms"] is not None else "-"
+        ips = f"{r['img_per_s']:.1f}" if r["img_per_s"] else "-"
+        agree = f"{r['agree']:.4f}" if r["agree"] is not None else "-"
+        print(f"P17 {name} {r['name']:<42}{ms:>10}{ips:>10}{agree:>8}{str(r['qualified']):>10}"
+              f"  {r['note']}")
+    print(f"P17 {name} winner: {plan['winner']} ({plan['speedup_vs_dense']:.4f}x dense/float32)")
+    for cand, per in per_forward.items():
+        print(f"P17 {name} {cand}: launches per forward " + ", ".join(
+            f"{k} {v:g}" for k, v in per.items()) + f"; {int8_modules[cand]} int8 modules; "
+              f"built and graded in {built_s[cand]:.2f} s of host time")
+    rows = plan["report"][1:]
+    if not any(r["name"] == "dense/float32" and r["qualified"] for r in rows):
+        fail(f"P17 {name}: dense/float32 did not qualify")
+    if any(r["ms"] is None and not r["note"].startswith("skipped") for r in rows):
+        fail(f"P17 {name}: a candidate that built has no time")
+    for cand, want in gates.items():
+        got = per_forward.get(cand)
+        if got is not None and any(got[k] != v for k, v in want.items()):
+            fail(f"P17 {name} {cand}: launches per forward {got}, expected {want}")
+    for cand, per in per_forward.items():
+        if "int8" in cand and (int8_modules[cand] == 0
+                               or per["qmatmul"] != int8_modules[cand]):
+            fail(f"P17 {name} {cand}: qmatmul {per['qmatmul']} per forward for "
+                 f"{int8_modules[cand]} int8 modules")
+
+    replay_calls = []
+    again = planner.plan_serving(make, INPUT, candidates=cands,
+                                 time_fn=lambda *a: replay_calls.append(1) or 1.0,
+                                 reuse_plan=json.loads(json.dumps(planner.plan_to_json(plan))))
+    x = seeded_batch(170)
+    with torch.no_grad(), uncounted():
+        err = rel_err(again["model"](x), plan["model"](x))
+    print(f"P17 {name} reuse_plan: winner {again['winner']}, replayed {again.get('replayed')}, "
+          f"{len(replay_calls)} timing calls; logits against the plan's winner rel err "
+          f"{err:.3e} (bound {LOGITS_TOL})")
+    if replay_calls or not again.get("replayed") or again["winner"] != plan["winner"]:
+        fail(f"P17 {name}: reuse_plan timed, or rebuilt another winner")
+    if err > LOGITS_TOL:
+        fail(f"P17 {name}: the rebuilt winner's logits differ from the plan's")
+    del again
+    torch.cuda.empty_cache()
+    return per_forward, plan
+
+
+def run_planner():
+    """P17: the serving planner on MSCAN-t, then ConvNeXt-T."""
+    out = {}
+    for name in ("MSCAN-t", "ConvNeXt-T"):
+        t0 = time.perf_counter()
+        per_forward, plan = run_plan(name)
+        out[name] = dict(per_forward=per_forward, winner=plan["winner"],
+                         seconds=time.perf_counter() - t0)
+        del plan
+    print(f"P17 in {sum(v['seconds'] for v in out.values()):.2f} s: " + ", ".join(
+        f"{k} {v['seconds']:.2f} s" for k, v in out.items()))
+    return out
+
+
 def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
     """The kernels-line entry of one forward: rows weighted by calls per forward."""
     nbytes = sum(r["bytes"] * weight(r) for r in rows)
@@ -4186,7 +4653,14 @@ def main():
     ft_seg_launches = run_ft_seg()
     cam_launches = run_cam()
 
-    # -- 15. results ------------------------------------------------------
+    # -- 15.-17. P15-P17: deploy mode and ClassInference, the arbiters, the planner
+    p15_launches = run_deploy_round_trip()
+    p15_reports, p15_int8 = run_inference_cli()
+    p16_arbiter, p16_final = run_never_lose()
+    p16_ffnrep = run_arbitrated()
+    p17 = run_planner()
+
+    # -- 18. results ------------------------------------------------------
     # each entry is one forward at b=64, 224^2: the time per call times the calls per forward
     # (parallel_cascade: the DwSepRep r1 forward of ConvNeXt-T; qmatmul: its int8 forward)
     blocks = {H: n for H, _, n in STAGES}
@@ -4253,6 +4727,33 @@ def main():
         dict(path="SegNeXt-T L2 fine-tune, 4 steps and 2 validation batches (F6)",
              launches=ft_seg_launches),
         dict(path="CAM CLI on MSCAN-t, 24 heatmaps (P14)", launches=cam_launches)]
+    # P15-P17: the deploy paths, each with its launches (per forward where it says so)
+    p17_mscan, p17_convnext = p17["MSCAN-t"]["per_forward"], p17["ConvNeXt-T"]["per_forward"]
+
+    def planned(name, per, cand, kernel):
+        return dict(path=f"plan_serving {name} candidate {cand}, per forward (P17)",
+                    launches=per.get(cand, {}).get(kernel))
+
+    kernels[0]["paths"] += [
+        dict(path="MSCAN-t d1+fix deploy run of its checkpoint (P15)", launches=p15_launches),
+        dict(path="arbitrated_apply(FfnRep) on MSCAN-t d1+fix, its timed forwards (P16)",
+             launches=p16_ffnrep),
+        planned("MSCAN-t", p17_mscan, "dense/float32", "msca_fused")]
+    kernels[1]["paths"] += [
+        dict(path=f"ClassInference AlexNet report {tag}, 14 forwards (P15)",
+             launches=p15_reports[tag]["lowrank_conv"])
+        for tag in ("approximated", "decomposed", "never-lose")] + [
+        dict(path="never_lose_deploy on VGG-16 scheme-1, its timed forwards (P16)",
+             launches=p16_arbiter),
+        dict(path="VGG-16 after never_lose_deploy, per forward (P16)", launches=p16_final)]
+    kernels[2]["paths"] += [
+        planned("MSCAN-t", p17_mscan, "mscarep/d1+fix+dconv0+arb-ffnrep", "parallel_cascade"),
+        planned("ConvNeXt-T", p17_convnext, "dwsep/r=1", "parallel_cascade")]
+    kernels[3]["paths"] += [
+        dict(path=f"ClassInference AlexNet report int8, 14 forwards, {p15_int8} int8 modules "
+                  f"(P15)", launches=p15_reports["int8"]["qmatmul"]),
+        planned("MSCAN-t", p17_mscan, "int8", "qmatmul"),
+        planned("ConvNeXt-T", p17_convnext, "int8", "qmatmul")]
     kernels[0]["max_abs_err"] = max([kernels[0]["max_abs_err"]] +
                                     [r["max_abs_err"] for r in p_msca + seg_rows])
     kernels[1]["max_abs_err"] = max([kernels[1]["max_abs_err"]] + [

@@ -5,7 +5,12 @@
 registry, draws its weights from the caller's generator, puts it on the
 source's device, wraps both in a :class:`Substitution` and carries invariant
 weights across (``_fix_substitution``); ``optimize`` solves the target's
-weights in place; ``postprocess`` unwraps.
+weights in place; ``postprocess`` unwraps; ``rewind`` resets an app's per-site
+cursors for another pass over the same sites.
+
+With ``deploy=True`` ``initialize`` returns the bare target, carried weights
+included, with no ``Substitution``: the served form of a compressed model,
+whose solved weights come from its checkpoint.
 """
 
 from __future__ import annotations
@@ -24,6 +29,9 @@ from convnet_approximater_tpu_torch.utils.registry import Registry, build_from_c
 class Approximater(ABC):
     _src_type = ""
     _tgt_type = ""
+
+    def __init__(self, deploy: bool = False):
+        self.deploy = deploy
 
     @property
     def src_type(self) -> type:
@@ -55,6 +63,8 @@ class Approximater(ABC):
         param = next(src.parameters(), None)
         if param is not None:
             sub.new.to(param.device)
+        if self.deploy:
+            return sub.new
         return sub
 
     @abstractmethod
@@ -68,6 +78,9 @@ class Approximater(ABC):
     def postprocess(self, sub: Substitution) -> nn.Module:
         self._postprocess(sub)
         return sub.new_module
+
+    def rewind(self):
+        """Reset the per-site cursors (none here)."""
 
 
 APP = Registry("APP")

@@ -19,12 +19,6 @@ class Dummy(Approximater):
     _src_type = "DummyLayer"
     _tgt_type = "DummyLayer"
 
-    def __init__(self, deploy: bool = False):
-        if deploy:
-            raise NotImplementedError(
-                "Dummy(deploy=True): the port's Approximater has no deploy mode yet "
-                "(ROADMAP.md queue 1 item 9)")
-
     def _get_tgt_args(self, src: nn.Module) -> Dict:
         return {}
 

@@ -26,7 +26,9 @@ from .approximater import APP, Approximater
 class DwSepRep(Approximater):
     _src_type = Conv2d
 
-    def __init__(self, ranks=None, energy: Optional[float] = None, strip_matmul: bool = False):
+    def __init__(self, ranks=None, energy: Optional[float] = None, strip_matmul: bool = False,
+                 deploy: bool = False):
+        super().__init__(deploy=deploy)
         # ranks: one int for every layer, or one per switchable layer in order;
         # or energy = tau: per layer, the smallest r whose mean retained
         # per-channel spectral energy is >= tau.  strip_matmul picks an XLA

@@ -108,7 +108,8 @@ class FfnPrune(Approximater):
     calibration_stat = "raw"
 
     def __init__(self, keep=None, keep_ratio=None, energy: float = None, refit: bool = True,
-                 ridge: float = 1e-6, round_to: int = None):
+                 ridge: float = 1e-6, round_to: int = None, deploy: bool = False):
+        super().__init__(deploy=deploy)
         given = sum(x is not None for x in (keep, keep_ratio, energy))
         if given != 1:
             raise ValueError("give exactly one of keep / keep_ratio / energy")

@@ -82,7 +82,8 @@ class FfnRep(Approximater):
     _src_type = FFN
     _tgt_type = "MergedFFN"
 
-    def __init__(self, fix: bool = True):
+    def __init__(self, fix: bool = True, deploy: bool = False):
+        super().__init__(deploy=deploy)
         self.fix = fix
 
     def _get_tgt_args(self, src: FFN) -> Dict:

@@ -85,7 +85,8 @@ class LowRankExpV1(Approximater):
     def __init__(self, num_bases=None, max_iter: int = 0, lmda_length: int = 1,
                  min_lmda: float = 0.0, max_lmda: float = 0.0, energy: float = None,
                  init_method: str = "svd", inc_rate: float = 1.5, do_decomp: bool = False,
-                 init_decomp: bool = False, epsilon: float = 1e-3):
+                 init_decomp: bool = False, epsilon: float = 1e-3, deploy: bool = False):
+        super().__init__(deploy=deploy)
         # num_bases: one M per switchable layer, in order; or energy = tau: the
         # smallest M that keeps tau of the stacked filters' spectral energy
         _check_rank_args(num_bases, energy)
@@ -105,6 +106,9 @@ class LowRankExpV1(Approximater):
         self.epsilon = epsilon
         self.objectives = []  # the last optimize()'s objective trace, over all lambdas
         self.pc_energy = None  # and its PC energy after the last lambda
+
+    def rewind(self):
+        self.curr = 0
 
     @staticmethod
     def _stacked(conv: Conv2d) -> torch.Tensor:
@@ -128,9 +132,12 @@ class LowRankExpV1(Approximater):
         else:
             num_base = self.num_bases[self.curr]
             self.curr += 1
+        # deploy builds the served form, the one the checkpoint was saved in: a
+        # do_decomp run saves its layers after decomp()
         return dict(in_channels=src.in_channels, out_channels=src.out_channels,
                     num_base=num_base, kernel_size=src.kernel_size, stride=src.stride,
-                    padding=src.padding, decomp=self.init_decomp)
+                    padding=src.padding,
+                    decomp=self.init_decomp or (self.deploy and self.do_decomp))
 
     @torch.no_grad()
     def _fix_substitution(self, sub: Substitution, generator: torch.Generator):
@@ -188,7 +195,8 @@ class LowRankExpV1(Approximater):
 class _CalibratedApp(Approximater):
     """A rank cursor and per-site calibration moments, shared by V2-V4."""
 
-    def __init__(self, num_bases):
+    def __init__(self, num_bases, deploy: bool = False):
+        super().__init__(deploy=deploy)
         self.num_bases = num_bases
         self.curr = 0
         self._opt_curr = 0
@@ -226,8 +234,8 @@ class LowRankExpV2(_CalibratedApp):
     _tgt_type = "LowRankExpConvV2"
     calibration_stat = "strips"
 
-    def __init__(self, num_bases, data_driven_iters: int = 0):
-        super().__init__(num_bases)
+    def __init__(self, num_bases, data_driven_iters: int = 0, deploy: bool = False):
+        super().__init__(num_bases, deploy=deploy)
         self.data_driven_iters = data_driven_iters
         self.energy_kept = None  # the last optimize()'s retained energy
         self.errors = None  # and its ALS errors
@@ -278,9 +286,9 @@ class LowRankExpV3(_CalibratedApp):
     calibration_stat = "patches"
 
     def __init__(self, num_bases=None, energy: float = None, data_driven: bool = False,
-                 ridge: float = 1e-6):
+                 ridge: float = 1e-6, deploy: bool = False):
         _check_rank_args(num_bases, energy)
-        super().__init__(num_bases)
+        super().__init__(num_bases, deploy=deploy)
         self.energy = energy
         self.data_driven = data_driven
         self.ridge = ridge
@@ -345,9 +353,9 @@ class LowRankExpV4(_CalibratedApp):
     calibration_stat = "channels"
 
     def __init__(self, num_bases=None, energy: float = None, hooi_iters: int = 3,
-                 data_driven: bool = False, ridge: float = 1e-6):
+                 data_driven: bool = False, ridge: float = 1e-6, deploy: bool = False):
         _check_rank_args(num_bases, energy)
-        super().__init__(num_bases)
+        super().__init__(num_bases, deploy=deploy)
         self.energy = energy
         self.hooi_iters = int(hooi_iters)
         self.data_driven = data_driven

@@ -102,7 +102,9 @@ class MscaRep(Approximater):
     _src_type = "MSCA"
     _tgt_type = "MSCA"
 
-    def __init__(self, decomp: int, fix: bool, decomp_conv0: bool = False):
+    def __init__(self, decomp: int, fix: bool, decomp_conv0: bool = False,
+                 deploy: bool = False):
+        super().__init__(deploy=deploy)
         if not 0 <= decomp <= 4:
             raise ValueError(f"decomp must be in 0..4, got {decomp}")
         self.decomp = decomp

@@ -9,6 +9,11 @@
   the int8 serving modules;
 * :func:`prune_chains`, :func:`prune_trunks` and :func:`prune_width` prune
   channel widths across layers;
+* :func:`rematerialize_dense` rebuilds the exact dense conv of a factored
+  layer, and :func:`never_lose_deploy` serves each factored site in whichever
+  form the timed model prefers;
+* :func:`arbitrated_apply` applies an app only at the sites where the timed
+  model gains, and replays a persisted decision table;
 * :func:`compile_serving` captures the eval forward into a CUDA graph.
 
 The names are the JAX package's, so a config's ``structure_passes`` find them.
@@ -16,6 +21,10 @@ The names are the JAX package's, so a config's ``structure_passes`` find them.
 
 from __future__ import annotations
 
+import copy
+import json
+import os
+import zlib
 from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -23,12 +32,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from convnet_approximater_tpu_torch.layers.depth_separable_conv import CascadeConv, ParallelConv
+from convnet_approximater_tpu_torch.layers.low_rank_conv import (LowRankExpConvV1,
+                                                                 LowRankExpConvV2,
+                                                                 LowRankExpConvV3,
+                                                                 LowRankExpConvV4, SeparableConv)
 from convnet_approximater_tpu_torch.layers.quant import (QATConv2d, QATLinear, QuantConv2d,
                                                          QuantLinear)
 from convnet_approximater_tpu_torch.layers.substitution import Substitution
 from convnet_approximater_tpu_torch.models.switchable import set_submodule
 from convnet_approximater_tpu_torch.nn import (GELU, AdaptiveAvgPool2d, BatchNorm2d, Conv2d,
-                                               Dropout, Identity, Linear, MaxPool2d, ReLU)
+                                               Dropout, Identity, Linear, MaxPool2d, ReLU,
+                                               channels_last)
 from convnet_approximater_tpu_torch.utils.logger import get_logger
 
 # class name -> (conv, bn) attribute pairs of a module known to call the conv
@@ -168,7 +183,10 @@ def quantize_int8(model: nn.Module, calib_batches: Iterable[torch.Tensor],
     Targets are exact types only (``type(m) is Conv2d`` with ``groups == 1``,
     or ``type(m) is Linear``): a subclass with its own forward would lose it,
     and depthwise strips stay as they are.  ``filter_fn(path, module)``
-    narrows the set further.
+    narrows the set further.  A target that a kernel layer computes in place of
+    its module (``MSCA``'s ``channel_mix`` inside ``msca_fused``) is observed
+    in a second pass on the module path (autograd on); once quantized, that
+    layer takes its module path.
     """
     targets = [(path, m) for path, m in model.named_modules()
                if ((type(m) is Conv2d and m.groups == 1) or (linears and type(m) is Linear))
@@ -185,19 +203,24 @@ def quantize_int8(model: nn.Module, calib_batches: Iterable[torch.Tensor],
             absmax[path] = cur if path not in absmax else torch.maximum(absmax[path], cur)
         return hook
 
+    def calibrate(observed, grad: bool):
+        handles = [m.register_forward_pre_hook(observe(path)) for path, m in observed]
+        try:
+            with torch.set_grad_enabled(grad):
+                for x in calib_batches:
+                    model(x)
+        finally:
+            for h in handles:
+                h.remove()
+
     model.eval()
-    handles = [m.register_forward_pre_hook(observe(path)) for path, m in targets]
-    n_batches = 0
-    try:
-        with torch.no_grad():
-            for x in calib_batches:
-                model(x)
-                n_batches += 1
-    finally:
-        for h in handles:
-            h.remove()
-    if n_batches == 0:
+    calib_batches = list(calib_batches)
+    if not calib_batches:
         raise ValueError("quantize_int8 needs at least one calibration batch")
+    calibrate(targets, grad=False)
+    unseen = [(path, m) for path, m in targets if path not in absmax]
+    if unseen:  # computed by a kernel layer: observe them on its module path
+        calibrate(unseen, grad=True)
     missing = [path for path, _ in targets if path not in absmax]
     if missing:
         raise RuntimeError(f"calibration never reached {missing}")
@@ -801,6 +824,319 @@ def prune_width(model: nn.Module, keep_ratio: float, round_to: int = 64,
     finally:
         model._switchable_names = saved
     return n
+
+
+def _dense_conv(like: nn.Module, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                stride, padding, groups: int = 1) -> Conv2d:
+    """A ``Conv2d`` holding the float32 OIHW ``weight`` (and ``bias``) cast back
+    to the type of ``like``'s parameters, on their device, in ``channels_last``
+    and ``like``'s training mode."""
+    ref = next(like.parameters())
+    N, Cg, kh, kw = weight.shape
+    conv = Conv2d(Cg * groups, N, (kh, kw), stride=stride, padding=padding, groups=groups,
+                  bias=bias is not None)
+    with torch.no_grad():
+        conv.weight = nn.Parameter(weight.to(ref.dtype), requires_grad=ref.requires_grad)
+        if bias is not None:
+            conv.bias = nn.Parameter(bias.detach().to(ref.dtype).clone(),
+                                     requires_grad=ref.requires_grad)
+    return channels_last(conv.to(ref.device)).train(like.training)
+
+
+@torch.no_grad()
+def rematerialize_dense(module: nn.Module) -> Optional[Conv2d]:
+    """The exact dense ``Conv2d`` of a factored layer, or None.
+
+    The factored layers are linear, so the kernel they compute rebuilds
+    exactly (OIHW, in float32, cast back to the stored type):
+
+    * ``LowRankExpConvV1``, grouped ``s_conv`` (C*M, 1, kh, kw) and 1x1
+      ``d_conv`` (N, C*M): ``W[n, c] = sum_m s[c*M + m] d[n, c*M + m]``; in its
+      decomposed form the rank-1 ``v (x) h`` of each basis stands for ``s``;
+    * ``LowRankExpConvV2`` (vertical C -> M, horizontal M -> N):
+      ``W[n, c, u, v] = sum_m V[m, c, u] H[n, m, v]``; None when ``grouped``
+      (it has no dense N-output equivalent);
+    * ``LowRankExpConvV3`` and ``V4``: the product of their convs' weights;
+    * ``CascadeConv``, and a ``ParallelConv`` of cascades of one kernel size:
+      one depthwise kernel ``W_c = sum_j w2_j[c] (x) w1_j[c]``, exact only
+      when the first convs have no bias (``DwSepRep`` builds them so).
+
+    The factors stay in the checkpoint; this changes only the served form.
+    """
+    if isinstance(module, LowRankExpConvV1):
+        C, N, M = module.in_channels, module.out_channels, module.num_base
+        d = module.d_conv.weight.float()[:, :, 0, 0].reshape(N, C, M)
+        if isinstance(module.s_conv, SeparableConv):
+            v = module.s_conv.v_conv.weight.float()[:, 0, :, 0].reshape(C, M, -1)
+            h = module.s_conv.h_conv.weight.float()[:, 0, 0, :].reshape(C, M, -1)
+            W = torch.einsum("cmu,cmv,ncm->ncuv", v, h, d)
+        else:
+            s = module.s_conv.weight.float()[:, 0].reshape(C, M, *module.kernel_size)
+            W = torch.einsum("cmuv,ncm->ncuv", s, d)
+        return _dense_conv(module, W, module.d_conv.bias, module.stride, module.padding)
+    if isinstance(module, LowRankExpConvV3):
+        W = torch.einsum("rcuv,nr->ncuv", module.basis_conv.weight.float(),
+                         module.mix_conv.weight.float()[:, :, 0, 0])
+        return _dense_conv(module, W, module.mix_conv.bias, module.stride, module.padding)
+    if isinstance(module, LowRankExpConvV4):
+        W = torch.einsum("ac,bauv,nb->ncuv", module.in_conv.weight.float()[:, :, 0, 0],
+                         module.core_conv.weight.float(),
+                         module.out_conv.weight.float()[:, :, 0, 0])
+        return _dense_conv(module, W, module.out_conv.bias, module.stride, module.padding)
+    if isinstance(module, LowRankExpConvV2):
+        if module.grouped:
+            return None
+        W = torch.einsum("mcu,nmv->ncuv", module.v_conv.weight.float()[:, :, :, 0],
+                         module.h_conv.weight.float()[:, :, 0, :])
+        return _dense_conv(module, W, module.h_conv.bias,
+                           (module.v_conv.stride[0], module.h_conv.stride[1]),
+                           (module.v_conv.padding[0], module.h_conv.padding[1]))
+    if isinstance(module, CascadeConv):
+        cascades = [module]
+    elif isinstance(module, ParallelConv):
+        cascades = list(module.branches)
+        if not all(isinstance(b, CascadeConv) for b in cascades):
+            return None  # an identity branch (MSCA's bank) is no conv
+    else:
+        return None
+    if len({c.kernel_size for c in cascades}) != 1 or any(
+            c.conv1.bias is not None or c.conv1.stride != (1, 1) or c.conv2.stride != (1, 1)
+            for c in cascades):
+        return None
+    W = sum(c.conv2.weight.float()[:, 0, :, 0, None] * c.conv1.weight.float()[:, 0, 0, None, :]
+            for c in cascades)  # (C, k, k)
+    biases = [c.conv2.bias.float() for c in cascades if c.conv2.bias is not None]
+    pad = cascades[0].conv2.padding[0]
+    return _dense_conv(module, W[:, None], sum(biases) if biases else None, 1, pad,
+                       groups=module.dim)
+
+
+def _timer(num_iters: int) -> Callable:
+    """The arbiters' default ``time_fn(model, input_shape) -> seconds``."""
+    from convnet_approximater_tpu_torch.hooks.inference_time_hook import forward_seconds
+
+    return lambda model, input_shape: forward_seconds(model, input_shape, num_iters, warmup=2)
+
+
+def never_lose_deploy(model: nn.Module, input_shape, time_fn: Optional[Callable] = None,
+                      num_iters: int = 10, margin: float = 0.03, greedy: bool = True,
+                      verbose: bool = True) -> dict:
+    """Serve each factored switchable site factored only where the model gains.
+
+    Every site that :func:`rematerialize_dense` rebuilds is a candidate.  Time
+    the model with all of them factored, then all dense; when the factored
+    model is faster beyond ``margin`` (relative) it stays whole, else, with
+    ``greedy``, the sites are factored again one at a time and each kept only
+    where the model gains beyond ``margin`` over the best so far.  The model
+    is edited in place to the chosen forms.
+
+    ``time_fn(model, input_shape) -> seconds`` times the model (a test injects
+    one); the default is the median of ``num_iters`` CUDA-event-timed forwards
+    of a ones batch of the NHWC ``input_shape`` after 2 warm-ups.  Returns the
+    JAX package's table: ``t_decomposed``, ``t_dense``, ``t_final`` (seconds),
+    ``layers`` (``name``, ``kept``: ``decomposed`` or ``dense``) and
+    ``kept_decomposed``.
+    """
+    time_fn = time_fn if time_fn is not None else _timer(num_iters)
+    logger = get_logger()
+    sites = []  # (idx, name, factored module, dense module)
+    for idx in range(model.length_switchable):
+        mod = model.get_switchable_module(idx)
+        dense = rematerialize_dense(mod)
+        if dense is not None:
+            sites.append((idx, model.switchable_names[idx], mod, dense))
+    result = dict(t_decomposed=None, t_dense=None, layers=[], kept_decomposed=0)
+    if not sites:
+        return result
+
+    def set_site(site, dense: bool):
+        idx, _, factored, dense_mod = site
+        model.set_switchable_module(idx, dense_mod if dense else factored)
+
+    t_dec = time_fn(model, input_shape)
+    for site in sites:
+        set_site(site, dense=True)
+    t_dense = time_fn(model, input_shape)
+    result["t_decomposed"], result["t_dense"] = t_dec, t_dense
+    if verbose:
+        logger.info(f"never_lose_deploy: decomposed {t_dec * 1e3:.3f} ms vs dense "
+                    f"{t_dense * 1e3:.3f} ms ({len(sites)} low-rank layers)")
+    if t_dec < t_dense * (1.0 - margin):
+        for site in sites:
+            set_site(site, dense=False)
+        result["layers"] = [dict(name=s[1], kept="decomposed") for s in sites]
+        result["kept_decomposed"] = len(sites)
+        result["t_final"] = t_dec
+        return result
+
+    t_best = t_dense  # the dense model is the floor; re-admit single winners
+    for site in sites:
+        kept = "dense"
+        if greedy:
+            set_site(site, dense=False)
+            t_try = time_fn(model, input_shape)
+            if t_try < t_best * (1.0 - margin):
+                t_best, kept = t_try, "decomposed"
+                result["kept_decomposed"] += 1
+            else:
+                set_site(site, dense=True)
+        result["layers"].append(dict(name=site[1], kept=kept))
+        if verbose:
+            logger.info(f"never_lose_deploy: {site[1]} -> {kept} (best {t_best * 1e3:.3f} ms)")
+    result["t_final"] = t_best
+    return result
+
+
+def site_generator(seed: int, name: str) -> torch.Generator:
+    """The generator of the site ``name``: its draws depend on the seed and the
+    name, not on the order in which the sites are visited."""
+    return torch.Generator().manual_seed(zlib.crc32(f"{seed}:{name}".encode()))
+
+
+def arbitrated_apply(model: nn.Module, app, filters, input_shape, seed: int = 0,
+                     num_iters: int = 10, margin: float = 0.03, greedy: bool = True,
+                     time_fn: Optional[Callable] = None,
+                     group_fn: Optional[Callable[[str], object]] = None, verbose: bool = True,
+                     decisions: Optional[Dict[str, str]] = None,
+                     decisions_path: Optional[str] = None, retime: bool = False,
+                     boundary_band: float = 0.02) -> dict:
+    """Apply ``app`` only at the sites where the timed model gains, in place.
+
+    The sites are ``model``'s switchables of ``app.src_type`` that pass
+    ``filters``.  Each original is kept as a module (a deep copy made before
+    its ``initialize``), so any app can be undone without an inverse.  Apply
+    the app at every site (register, initialize, optimize, postprocess; each
+    site's new weights drawn from :func:`site_generator` of ``seed`` and its
+    name) and time the model; restore every original and time again; when the
+    applied model wins beyond ``margin`` (relative) it stays whole, else, with
+    ``greedy``, apply one group at a time (``group_fn(site name) -> key``
+    groups the sites, default one group each) and keep it only where the model
+    gains beyond ``margin`` over the best so far.  A group whose time lands
+    within ``boundary_band`` (relative) of that threshold is timed once more
+    and decided on the mean of the two readings.
+
+    ``decisions`` (``{site: "applied" | "original"}``), or the JSON table at
+    ``decisions_path`` when it exists and ``retime`` is False, replays a
+    decided structure with no timing: the app's cursors are rewound, and at
+    each original site the app initializes a target it drops, so that every
+    applied site gets the target of the measured run.  A table that names none
+    of the model's sites is refused.  A measured run writes its table to
+    ``decisions_path`` (keys sorted).
+
+    ``time_fn(model, input_shape) -> seconds`` times the model (a test injects
+    one); the default is the median of ``num_iters`` CUDA-event-timed forwards
+    of a ones batch of the NHWC ``input_shape`` after 2 warm-ups.  Returns
+    ``t_applied``, ``t_original``, ``t_final`` (seconds; None on a replay),
+    ``layers`` (``name``, ``kept``), ``kept_applied``, ``decisions``, and
+    ``replayed`` on a replay.
+    """
+    time_fn = time_fn if time_fn is not None else _timer(num_iters)
+    logger = get_logger()
+    model.register_switchable(app.src_type, list(filters))
+    names = model.switchable_names
+    if decisions is None and decisions_path and not retime and os.path.exists(decisions_path):
+        with open(decisions_path) as f:
+            decisions = json.load(f)
+    result = dict(t_applied=None, t_original=None, t_final=None, layers=[], kept_applied=0)
+    app.rewind()
+
+    def apply_site(idx: int, name: str) -> nn.Module:
+        src = model.get_switchable_module(idx)
+        sub = app.initialize(src, site_generator(seed, name)).train(src.training)
+        model.set_switchable_module(idx, sub)
+        app.optimize(sub)
+        new = channels_last(app.postprocess(sub))
+        model.set_switchable_module(idx, new)
+        return new
+
+    if decisions is not None:
+        if names and not set(decisions) & set(names):
+            raise ValueError(f"arbitrated_apply: the decisions table names none of the model's "
+                             f"sites; table {sorted(decisions)}, sites {names}")
+        unknown = sorted(set(decisions) - set(names))
+        if unknown:
+            logger.warning(f"arbitrated_apply: the decisions table names {unknown}, which "
+                           f"are not sites of this model")
+        for idx, name in enumerate(names):
+            kept = decisions.get(name, "original")
+            if kept not in ("applied", "original"):
+                raise ValueError(f"arbitrated_apply: {name}: {kept!r} is neither 'applied' "
+                                 f"nor 'original'")
+            if kept == "applied":
+                apply_site(idx, name)
+            else:  # advance the app's cursors as the measured run did
+                src = model.get_switchable_module(idx)
+                app.initialize(src, site_generator(seed, name))
+            result["layers"].append(dict(name=name, kept=kept))
+            result["kept_applied"] += int(kept == "applied")
+        result["replayed"] = True
+        result["decisions"] = {r["name"]: r["kept"] for r in result["layers"]}
+        logger.info(f"arbitrated_apply[{type(app).__name__}]: replayed "
+                    f"{result['kept_applied']}/{len(result['layers'])} applied from the "
+                    f"decisions table (retime=True measures again)")
+        return result
+
+    sites = []  # (idx, name, original, applied)
+    for idx, name in enumerate(names):
+        original = copy.deepcopy(model.get_switchable_module(idx))
+        sites.append((idx, name, original, apply_site(idx, name)))
+    if not sites:
+        result["decisions"] = {}
+        return result
+
+    def set_site(site, applied: bool):
+        idx, _, original, new = site
+        model.set_switchable_module(idx, new if applied else original)
+
+    def finish():
+        result["decisions"] = {r["name"]: r["kept"] for r in result["layers"]}
+        if decisions_path:
+            with open(decisions_path, "w") as f:
+                json.dump(result["decisions"], f, indent=2, sort_keys=True)
+        return result
+
+    t_app = time_fn(model, input_shape)
+    for site in sites:
+        set_site(site, applied=False)
+    t_orig = time_fn(model, input_shape)
+    result["t_applied"], result["t_original"] = t_app, t_orig
+    if verbose:
+        logger.info(f"arbitrated_apply[{type(app).__name__}]: applied {t_app * 1e3:.3f} ms vs "
+                    f"original {t_orig * 1e3:.3f} ms ({len(sites)} sites)")
+    if t_app < t_orig * (1.0 - margin):
+        for site in sites:
+            set_site(site, applied=True)
+        result["layers"] = [dict(name=s[1], kept="applied") for s in sites]
+        result["kept_applied"] = len(sites)
+        result["t_final"] = t_app
+        return finish()
+
+    groups: Dict[object, list] = {}
+    for site in sites:
+        groups.setdefault(site[1] if group_fn is None else group_fn(site[1]), []).append(site)
+    t_best = t_orig
+    for group in groups.values():
+        kept = "original"
+        if greedy:
+            for site in group:
+                set_site(site, applied=True)
+            t_try = time_fn(model, input_shape)
+            threshold = t_best * (1.0 - margin)
+            if abs(t_try - threshold) <= boundary_band * t_best:
+                # near the threshold one reading decides on noise: take the mean of two
+                t_try = 0.5 * (t_try + time_fn(model, input_shape))
+            if t_try < threshold:
+                t_best, kept = t_try, "applied"
+                result["kept_applied"] += len(group)
+            else:
+                for site in group:
+                    set_site(site, applied=False)
+        result["layers"].extend(dict(name=s[1], kept=kept) for s in group)
+        if verbose:
+            logger.info(f"arbitrated_apply: {','.join(s[1] for s in group)} -> {kept} "
+                        f"(best {t_best * 1e3:.3f} ms)")
+    result["t_final"] = t_best
+    return finish()
 
 
 class _Snapshot:

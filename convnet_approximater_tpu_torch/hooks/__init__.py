@@ -4,7 +4,7 @@ from .class_eval_hook import ClassEvalHook
 from .finetune import CheckpointSaver, L2Reconstruct, make_optimizer
 from .fps import Fps
 from .hook import HOOK, Hook, build_hook
-from .inference_time_hook import InferenceTimeHook, time_forward
+from .inference_time_hook import InferenceTimeHook, forward_seconds, time_forward
 from .low_rank_exp_v1_decomp import LowRankExpV1Decomp
 from .model_analysis import ModelAnalysis, count_macs, count_params
 from .priority import Priority, get_priority

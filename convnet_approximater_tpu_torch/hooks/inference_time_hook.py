@@ -63,6 +63,13 @@ def time_forward(model, input_size, device, num_iters: int = 10, warmup: int = 3
     return np.asarray(times)
 
 
+def forward_seconds(model, input_size, num_iters: int = 10, warmup: int = 3) -> float:
+    """Seconds of one eval forward of ``model`` on its parameters' device: the
+    median of :func:`time_forward`'s ``num_iters`` after ``warmup``."""
+    device = next(model.parameters()).device
+    return float(np.median(time_forward(model, input_size, device, num_iters, warmup))) / 1e3
+
+
 @HOOK.register_module()
 class InferenceTimeHook(Hook):
     def __init__(self, runner, priority, infer_cfg=None):

@@ -14,7 +14,8 @@ kernel reads the bases of input channel 0 only, so the weights are packed
 channels, once per change of the weights:
 a layer whose bases are per-channel (after fine-tuning) takes the module path
 and logs that once.  A training forward and an eval forward under autograd
-take the module path, since the kernel has no backward.
+take the module path, since the kernel has no backward, and so does a layer
+whose ``d_conv`` ``quantize_int8`` made an int8 module.
 
 ``LowRankExpConvV2`` (scheme 2), ``LowRankExpConvV3`` (channel rank) and
 ``LowRankExpConvV4`` (Tucker-2) are chains of dense ``Conv2d`` children with
@@ -124,11 +125,15 @@ class LowRankExpConvV1(nn.Module):
             self._pack_key = key
         return self._pack
 
+    def _may_fuse(self) -> bool:
+        # an int8 d_conv (quantize_int8) runs as its own module
+        return no_grad_eval(self) and type(self.d_conv) is Conv2d
+
     def uses_kernel(self) -> bool:
-        return no_grad_eval(self) and self.packed() is not None
+        return self._may_fuse() and self.packed() is not None
 
     def forward(self, x):
-        packed = self.packed() if no_grad_eval(self) else None
+        packed = self.packed() if self._may_fuse() else None
         if packed is None:
             return self.d_conv(self.s_conv(x))
         kw = dict(packed)

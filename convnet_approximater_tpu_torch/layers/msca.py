@@ -10,7 +10,9 @@ no gradient can be asked of it (eval mode, autograd off); a
 training forward and an eval forward under autograd take the module path,
 since the kernel has no backward.  A block whose conv0 is a cascade (``MscaRep(decomp_conv0=True)``)
 takes the module path too, where conv0 and the bank each run
-:func:`~convnet_approximater_tpu_torch.ops.parallel_cascade.parallel_cascade`.
+:func:`~convnet_approximater_tpu_torch.ops.parallel_cascade.parallel_cascade`,
+and so does a block whose ``channel_mix`` is not a plain ``Conv2d`` (an int8
+module of ``quantize_int8``, a QAT twin).
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ class MSCA(nn.Module):
 
     def can_fuse(self) -> bool:
         return (no_grad_eval(self) and isinstance(self.conv0, Conv2d)
-                and self._fuse_parts() is not None)
+                and type(self.channel_mix) is Conv2d and self._fuse_parts() is not None)
 
     @torch.no_grad()
     def _kernel_weights(self) -> dict:

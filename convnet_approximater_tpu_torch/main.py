@@ -1,11 +1,14 @@
 """Pipeline CLI of the PyTorch port.
 
     python -m convnet_approximater_tpu_torch.main --config <cfg> [--device cuda]
-        [--seed 42] [--work-dir DIR]
+        [--seed 42] [--work-dir DIR] [--checkpoint CKPT] [--skip-optim] [--skip-post]
 
 reads the repository's config files unchanged and runs the 4-phase Runner on
-one device.  ``--device`` defaults to ``cuda`` and fails when no CUDA device is
-present; the CPU runs only when asked for with ``--device cpu``.
+one device.  ``--checkpoint`` is deploy mode: the app's sites are built as
+their bare targets and the checkpoint (the Runner's ``.pt`` or a flat
+``.npz``) loads into them, with Optimize and PostProcess skipped.
+``--device`` defaults to ``cuda`` and fails when no CUDA device is present;
+the CPU runs only when asked for with ``--device cpu``.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda", help="torch device: cuda (default), cuda:N or cpu")
     p.add_argument("--seed", type=int, default=42, help="seed of the random weights")
     p.add_argument("--work-dir", default=None)
+    p.add_argument("--checkpoint", default=None, help="deploy mode: load this checkpoint")
+    p.add_argument("--skip-optim", action="store_true")
+    p.add_argument("--skip-post", action="store_true")
     return p.parse_args(argv)
 
 
@@ -42,8 +48,12 @@ def main(argv=None) -> Runner:
     if get_rank() == 0:
         os.makedirs(work_dir, exist_ok=True)
         build_logger(os.path.join(work_dir, "run.log"))
-    update_cfg(work_dir=work_dir, config_name=cfg.name, seed=args.seed)
-    runner = Runner(device=device, generator=torch.Generator().manual_seed(args.seed))
+    deploy = args.checkpoint is not None
+    update_cfg(work_dir=work_dir, config_name=cfg.name, checkpoint=args.checkpoint,
+               seed=args.seed)
+    runner = Runner(device=device, generator=torch.Generator().manual_seed(args.seed),
+                    deploy=deploy, skip_optim=args.skip_optim or deploy,
+                    skip_post=args.skip_post or deploy)
     runner.run()
     return runner
 

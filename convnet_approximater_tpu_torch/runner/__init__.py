@@ -1,1 +1,2 @@
+from .class_inference import BaseRunner, ClassInference
 from .runner import Runner

@@ -9,6 +9,13 @@ come from.  No phase trains, so the model stays in eval mode throughout.
 the app's sites are initialized; the model as it stood before them is kept as
 ``model_before_passes`` (an asym fine-tune's teacher), and a checkpoint of
 the run loads back through the same config with :meth:`Runner.restore`.
+
+``deploy=True`` builds the app's sites as bare targets (no ``Substitution``)
+and loads ``cfg.checkpoint`` into them after Initialize: a compressed model
+straight into its served form, with no solve.  ``skip_optim`` and
+``skip_post`` skip the Optimize and PostProcess phases; deploy mode needs both,
+since its sites hold nothing to solve or unwrap.  The hooks run at the same
+stages either way.
 """
 
 from __future__ import annotations
@@ -41,13 +48,32 @@ def structure_pass(cfg) -> Tuple[Callable, dict]:
     return fn, kwargs
 
 
+def read_checkpoint(path: str, device="cpu") -> dict:
+    """The port's ``state_dict`` of a checkpoint: the Runner's ``.pt``, or a flat
+    ``.npz`` (the fine-tune's, or the JAX package's ``.ckpt.npz``), whose
+    ``params``/``state`` leaves it converts."""
+    if path.endswith(".pt"):
+        return torch.load(path, map_location=device)
+    return params_from_jax({k: v for k, v in load_flat(path).items()
+                            if k.split("/", 1)[0] in ("params", "state")})
+
+
 def _overrides(method: str, base: type, obj) -> bool:
     return getattr(type(obj), method) is not getattr(base, method)
 
 
 class Runner:
-    def __init__(self, device="cuda", generator: Optional[torch.Generator] = None):
+    def __init__(self, device="cuda", generator: Optional[torch.Generator] = None,
+                 deploy: bool = False, skip_optim: bool = False, skip_post: bool = False):
         cfg = get_cfg()
+        if deploy and not (skip_optim and skip_post):
+            raise ValueError("Runner(deploy=True) needs skip_optim and skip_post: a deploy "
+                             "site is the bare target, with nothing to solve or unwrap")
+        if deploy and not cfg.checkpoint:
+            raise ValueError("Runner(deploy=True) loads cfg.checkpoint, and the config has none")
+        self.deploy = deploy
+        self.skip_optim = skip_optim
+        self.skip_post = skip_post
         self.passes = [structure_pass(p) for p in cfg.structure_passes or []]
         self.cfg = cfg
         self.device = torch.device(device)
@@ -55,7 +81,7 @@ class Runner:
                           else torch.Generator().manual_seed(cfg.seed or 0))
         self.model = build_model(cfg.model)
         self.model_before_passes = None
-        self.app = build_app(cfg.app)
+        self.app = build_app(cfg.app, deploy=deploy)
         self.filters = [build_filter(f_cfg) for f_cfg in cfg.filters or []]
         self.hooks: List[Hook] = []
         self.output_path = None
@@ -88,14 +114,20 @@ class Runner:
             model.set_switchable_module(idx, sub.eval())
         self.call_hook("after_initialize")
 
-        logger.info("Optimize...")
-        for idx in range(model.length_switchable):
-            app.optimize(model.get_switchable_module(idx))
+        if self.deploy:
+            channels_last(model)
+            self.load_checkpoint(self.cfg.checkpoint)
+
+        if not self.skip_optim:
+            logger.info("Optimize...")
+            for idx in range(model.length_switchable):
+                app.optimize(model.get_switchable_module(idx))
         self.call_hook("after_optimize")
 
-        logger.info("PostProcess...")
-        for idx in range(model.length_switchable):
-            model.set_switchable_module(idx, app.postprocess(model.get_switchable_module(idx)))
+        if not self.skip_post:
+            logger.info("PostProcess...")
+            for idx in range(model.length_switchable):
+                model.set_switchable_module(idx, app.postprocess(model.get_switchable_module(idx)))
         channels_last(model)
 
         if self.output_path:
@@ -135,12 +167,13 @@ class Runner:
         replay, the load overwrites the values.  The load is strict: a key or
         shape that differs raises."""
         self.init_model()
-        if path.endswith(".pt"):
-            state = torch.load(path, map_location=self.device)
-        else:
-            state = params_from_jax({k: v for k, v in load_flat(path).items()
-                                     if k.split("/", 1)[0] in ("params", "state")})
-        self.model.load_state_dict(state)
+        self.load_checkpoint(path)
+
+    def load_checkpoint(self, path: str):
+        """Load ``path`` (a ``.pt`` state_dict, or a flat ``.npz`` of either
+        package) into the model as it stands, strictly."""
+        get_logger().info(f"loading checkpoint from {path}")
+        self.model.load_state_dict(read_checkpoint(path, self.device))
 
     # -- hook machinery --------------------------------------------------
     def register_hook(self, hook_cfg):

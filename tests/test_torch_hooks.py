@@ -12,7 +12,7 @@ tables of the port, on the CPU at small sizes.
   ``CHANNEL_MIX`` ranges.  On the CPU the tables hold operators' CPU time; the
   attribution of kernels to their launching scopes is held on recorded events
   shaped as the card's.
-* The refusals: ``Dummy(deploy=True)``, ``bf16`` and an unknown option.
+* The refusals: ``ClassInference`` in bf16, the hook's ``bf16`` and an unknown option.
 """
 
 import os
@@ -217,8 +217,9 @@ def test_device_records_attribute_kernels_to_their_launching_scope():
 # -- refusals ----------------------------------------------------------------------------
 
 @pytest.mark.parametrize("build,match", [
-    (lambda: __import__("convnet_approximater_tpu_torch.core", fromlist=["Dummy"])
-     .Dummy(deploy=True), "deploy mode"),
+    # deploy mode (the Dummy app's too) is ported; serving it in bf16 is not
+    (lambda: __import__("convnet_approximater_tpu_torch.runner", fromlist=["ClassInference"])
+     .ClassInference("unused.pt", dtype="bfloat16"), "item 7"),
     (lambda: _hook(bf16=True), "bf16"),
     (lambda: _hook(table_args=dict(sort_by="cpu_time")), "table_args.sort_by"),
 ], ids=["dummy-deploy", "bf16", "unknown-table-arg"])
