@@ -14,7 +14,11 @@
   form the timed model prefers;
 * :func:`arbitrated_apply` applies an app only at the sites where the timed
   model gains, and replays a persisted decision table;
-* :func:`compile_serving` captures the eval forward into a CUDA graph.
+* :func:`compile_serving` captures the eval forward into a CUDA graph;
+* :func:`export_serving` and :func:`load_serving` write and read the eval
+  forward as a ``torch.export`` artifact, and :func:`pad_batch`,
+  :func:`pad_batch_to_multiple` and :func:`chunk_batch` wrap a serving forward
+  at the small and the large end of the batch sizes.
 
 The names are the JAX package's, so a config's ``structure_passes`` find them.
 """
@@ -22,15 +26,17 @@ The names are the JAX package's, so a config's ``structure_passes`` find them.
 from __future__ import annotations
 
 import copy
+import io
 import json
 import os
 import zlib
-from typing import Callable, Dict, Iterable, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterable, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from convnet_approximater_tpu_torch.layers.depth_separable_conv import CascadeConv, ParallelConv
 from convnet_approximater_tpu_torch.layers.low_rank_conv import (LowRankExpConvV1,
@@ -43,7 +49,7 @@ from convnet_approximater_tpu_torch.layers.substitution import Substitution
 from convnet_approximater_tpu_torch.models.switchable import set_submodule
 from convnet_approximater_tpu_torch.nn import (GELU, AdaptiveAvgPool2d, BatchNorm2d, Conv2d,
                                                Dropout, Identity, Linear, MaxPool2d, ReLU,
-                                               channels_last)
+                                               channels_last, frozen_params_keys)
 from convnet_approximater_tpu_torch.utils.logger import get_logger
 
 # class name -> (conv, bn) attribute pairs of a module known to call the conv
@@ -931,8 +937,10 @@ def never_lose_deploy(model: nn.Module, input_shape, time_fn: Optional[Callable]
     is edited in place to the chosen forms.
 
     ``time_fn(model, input_shape) -> seconds`` times the model (a test injects
-    one); the default is the median of ``num_iters`` CUDA-event-timed forwards
-    of a ones batch of the NHWC ``input_shape`` after 2 warm-ups.  Returns the
+    one); the default is ``hooks.forward_seconds`` on a ones batch of the NHWC
+    ``input_shape``: on the card the slope of a CUDA graph replayed back to
+    back (``num_iters`` and 4x as many replays after 2 warm-ups), captured anew
+    for each timing, the eager median logged beside it.  Returns the
     JAX package's table: ``t_decomposed``, ``t_dense``, ``t_final`` (seconds),
     ``layers`` (``name``, ``kept``: ``decomposed`` or ``dense``) and
     ``kept_decomposed``.
@@ -1024,8 +1032,8 @@ def arbitrated_apply(model: nn.Module, app, filters, input_shape, seed: int = 0,
     ``decisions_path`` (keys sorted).
 
     ``time_fn(model, input_shape) -> seconds`` times the model (a test injects
-    one); the default is the median of ``num_iters`` CUDA-event-timed forwards
-    of a ones batch of the NHWC ``input_shape`` after 2 warm-ups.  Returns
+    one); the default is ``hooks.forward_seconds``, as :func:`never_lose_deploy`
+    times.  Returns
     ``t_applied``, ``t_original``, ``t_final`` (seconds; None on a replay),
     ``layers`` (``name``, ``kept``), ``kept_applied``, ``decisions``, and
     ``replayed`` on a replay.
@@ -1159,6 +1167,34 @@ class _Snapshot:
                 and [(t.data_ptr(), t._version) for t in self.tensors] == self.versions)
 
 
+def _capture(graph, model: nn.Module, static):
+    """The capture of ``model(*static)`` into ``graph``; a forward that cannot
+    be captured (one that waits on the card: ``.item()``, a bool of a tensor)
+    raises naming the innermost module it was in."""
+    entered: List[Tuple[str, nn.Module]] = []
+
+    def leave(mod, args, out):
+        entered.pop()  # returns None: a forward hook's value would replace the output
+
+    handles = []
+    for name, m in model.named_modules():
+        handles.append(m.register_forward_pre_hook(
+            lambda mod, args, name=name: entered.append((name, mod))))
+        handles.append(m.register_forward_hook(leave))
+    try:
+        with torch.no_grad(), torch.cuda.graph(graph):
+            out = model(*static)
+    except Exception as e:
+        name, mod = entered[-1] if entered else ("", model)
+        raise RuntimeError(f"compile_serving: the forward cannot be captured as a CUDA graph: "
+                           f"it failed in module '{name or '<model>'}' "
+                           f"({type(mod).__name__}): {e}") from e
+    finally:
+        for h in handles:
+            h.remove()
+    return out
+
+
 def compile_serving(model: nn.Module, *example_args: torch.Tensor):
     """The eval forward of ``model`` as a serving session: returns ``(compiled, put)``.
 
@@ -1168,22 +1204,24 @@ def compile_serving(model: nn.Module, *example_args: torch.Tensor):
     caller owns.  This is the counterpart of the JAX package's
     ``compile_serving`` (an executable compiled with XLA's input layouts).
 
-    On a CUDA model the forward is one ``torch.cuda.CUDAGraph``, captured under
-    ``torch.no_grad()`` (with autograd on, the kernel layers would take their
-    module paths).  Three eval forwards on a side stream first fill every
-    per-weight-version cache (the kernels' packed weights and layouts, the
-    border-fix maps) and build and load the kernels, so that the capture
-    records the steady-state forward; the kernels launch on the current
-    stream, which is the capture stream.  A capture that fails raises; nothing
-    runs eager in its place.  The graph reads the weights, the caches and the
-    tensor maps it froze by address, so ``compiled`` raises once a parameter
-    or buffer has been modified or replaced, or a module swapped: compile
-    again after that.
+    On a CUDA model the forward is one ``torch.cuda.CUDAGraph``
+    (``compiled.graph``), captured under ``torch.no_grad()`` (with autograd on,
+    the kernel layers would take their module paths).  Three eval forwards on a
+    side stream first fill every per-weight-version cache (the kernels' packed
+    weights and layouts, the border-fix maps) and build and load the kernels,
+    so that the capture records the steady-state forward; the kernels launch
+    on the current stream, which is the capture stream.  A capture that fails
+    raises naming the module it failed in; nothing runs eager in its place.
+    The graph reads the weights, the caches and the tensor maps it froze by
+    address, so ``compiled`` raises once a parameter or buffer has been
+    modified or replaced, or a module swapped: compile again after that.  The
+    graph's memory pool is freed with the last reference to ``compiled``.
 
     On a CPU model ``compiled`` runs the eager forward under ``torch.no_grad()``,
     with the same contract.
     """
-    model.eval()
+    if model.training:
+        model.eval()
     device = next(model.parameters()).device
     static = [torch.empty_like(a, device=device).copy_(a) for a in example_args]
     graph, out = None, None
@@ -1195,8 +1233,7 @@ def compile_serving(model: nn.Module, *example_args: torch.Tensor):
                 model(*static)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph):
-            out = model(*static)
+        out = _capture(graph, model, static)
     snapshot = _Snapshot(model)
 
     def put(*args: torch.Tensor):
@@ -1222,4 +1259,228 @@ def compile_serving(model: nn.Module, *example_args: torch.Tensor):
         graph.replay()
         return out.clone()
 
+    compiled.graph = graph
     return compiled, put
+
+
+# -- serving artifacts and batch wrappers ---------------------------------
+SERVING_META = "serving.json"  # the artifact's input and output contract, beside the program
+MAX_SYMBOLIC_BATCH = 65535     # the card's convolutions take at most 65535 images in a call
+
+
+class Aval(NamedTuple):
+    """One input or output of a serving artifact: its shape (``None`` for the
+    symbolic batch), dtype and memory format: the JAX ``in_avals``/``out_avals``."""
+    shape: Tuple[Optional[int], ...]
+    dtype: torch.dtype
+    memory_format: str
+
+
+def _channels_last(t: torch.Tensor) -> bool:
+    return (t.dim() == 4 and not t.is_contiguous()
+            and t.is_contiguous(memory_format=torch.channels_last))
+
+
+def _aval(t: torch.Tensor, symbolic: bool) -> dict:
+    shape = [None if symbolic and i == 0 else int(d) for i, d in enumerate(t.shape)]
+    return dict(shape=shape, dtype=str(t.dtype).removeprefix("torch."),
+                memory_format="channels_last" if _channels_last(t) else "contiguous")
+
+
+def check_platforms(platforms, device_type: str) -> None:
+    """Raise unless every platform of ``platforms`` (None: the model's own) is
+    ``device_type``: a ``torch.export`` program holds one device's weights."""
+    if platforms is not None and any(p != device_type for p in platforms):
+        raise ValueError(
+            f"export_serving: platforms {list(platforms)}: the JAX package lowers one "
+            f"StableHLO module for several platforms, but a torch.export program holds "
+            f"the weights of the model's device ({device_type}); export once per device")
+
+
+def export_serving(model: nn.Module, example_args: Sequence[torch.Tensor], path=None,
+                   symbolic_batch: bool = False, platforms=None) -> bytes:
+    """Serialize the eval forward of ``model`` to a ``torch.export`` artifact.
+
+    The counterpart of the JAX package's ``export_serving`` (a StableHLO module
+    from ``jax.export``).  ``torch.export`` traces ``model(*example_args)``
+    once under ``torch.no_grad()`` in eval mode, so the kernel layers take
+    their kernels, and ``torch.export.save`` writes the program with its
+    weights; the result is returned as bytes and, with ``path``, written there.
+    The kernels are the port's custom ops: loading the artifact needs the
+    port's ``ops`` registered (:func:`load_serving` imports them), not the
+    model code, config or checkpoint loader.
+
+    An eval forward runs first, to fill every per-weight-version cache; the
+    trace then reads the caches as they are (``nn.frozen_params_keys``), so
+    the program holds the kernels' packed layouts and the border maps as
+    constants, computed once, as the live model holds them.
+
+    ``symbolic_batch``: dim 0 of the last argument (the input batch) is
+    exported as a ``torch.export.Dim`` up to ``MAX_SYMBOLIC_BATCH``, so one
+    artifact serves any batch size in its ``batch_range``.  On the card the
+    range starts at 2: tracing a convolution there picks its cuDNN backend
+    from the batch, which guards b != 1 (and b <= 65535), so a batch of 1 is
+    served padded to 2 (:func:`pad_batch`, as ``serve`` does by default); on
+    the CPU it starts at 1.  ``platforms``: the JAX package lowers one module for
+    several platforms (e.g. ``("tpu", "cpu")``); a ``torch.export`` program
+    holds the weights of one device, so any platform other than the model's
+    device type raises: export once per device.
+    """
+    device = next(model.parameters()).device
+    check_platforms(platforms, device.type)
+    example_args = tuple(example_args)
+    dynamic_shapes, batch_range = None, None
+    if symbolic_batch:
+        batch_range = (2 if device.type == "cuda" else 1, MAX_SYMBOLIC_BATCH)
+        dynamic_shapes = tuple(None for _ in example_args[:-1]) + (
+            {0: torch.export.Dim("batch", min=batch_range[0], max=batch_range[1])},)
+    if model.training:
+        model.eval()
+    with torch.no_grad():
+        outs = model(*example_args)
+        with frozen_params_keys():
+            program = torch.export.export(model, example_args, dynamic_shapes=dynamic_shapes,
+                                          strict=False)
+    outs = outs if isinstance(outs, (tuple, list)) else (outs,)
+    meta = dict(inputs=[_aval(a, symbolic_batch and i == len(example_args) - 1)
+                        for i, a in enumerate(example_args)],
+                outputs=[_aval(o, symbolic_batch) for o in outs], device=device.type,
+                batch_range=batch_range)
+    buf = io.BytesIO()
+    torch.export.save(program, buf, extra_files={SERVING_META: json.dumps(meta)})
+    data = buf.getvalue()
+    if path is not None:
+        with open(path, "wb") as f:
+            f.write(data)
+    return data
+
+
+def load_serving(path_or_bytes) -> nn.Module:
+    """Load an :func:`export_serving` artifact; returns its module.
+
+    The port's ``ops`` are imported first, so that the kernels' custom ops are
+    registered.  The module takes the positional inputs the exported forward
+    took, and exposes its contract as ``in_avals``/``out_avals`` (tuples of
+    :class:`Aval`), as the JAX package's loaded artifact does, and
+    ``batch_range``, the least and the largest batch of a symbolic-batch
+    artifact (None for a static one).  Its parameters
+    take no gradient; serve it on the card through :func:`compile_serving`
+    (one CUDA graph per batch size, as XLA compiles once per size).
+    """
+    from convnet_approximater_tpu_torch.ops import (lowrank_conv, msca_fused,  # noqa: F401
+                                                    parallel_cascade, qmatmul)
+
+    data = path_or_bytes
+    if not isinstance(data, (bytes, bytearray)):
+        with open(data, "rb") as f:
+            data = f.read()
+    extra = {SERVING_META: ""}
+    program = torch.export.load(io.BytesIO(bytes(data)), extra_files=extra)
+    module = program.module()
+    module.requires_grad_(False)
+    for m in module.modules():  # exported in eval mode; the loaded module refuses .eval()
+        m.training = False
+    meta = json.loads(extra[SERVING_META])
+
+    def avals(entries):
+        return tuple(Aval(tuple(e["shape"]), getattr(torch, e["dtype"]), e["memory_format"])
+                     for e in entries)
+
+    module.in_avals, module.out_avals = avals(meta["inputs"]), avals(meta["outputs"])
+    module.batch_range = tuple(meta["batch_range"]) if meta.get("batch_range") else None
+    return module
+
+
+def custom_op_counts(program_or_module) -> Dict[str, int]:
+    """Calls of each of the port's kernel ops in an exported program's (or a
+    loaded module's) graph: one forward's launches of each kernel."""
+    from convnet_approximater_tpu_torch.ops.build import NAMESPACE
+
+    graph = program_or_module.graph
+    counts: Dict[str, int] = {}
+    for node in graph.nodes:
+        target = getattr(node.target, "namespace", None)
+        if node.op == "call_function" and target == NAMESPACE:
+            name = node.target.overloadpacket.__name__
+            counts[name] = counts.get(name, 0) + 1
+    return counts
+
+
+def _batch_major(name: str, n: int):
+    def check(a):
+        if getattr(a, "ndim", 0) < 1 or a.shape[0] != n:
+            raise ValueError(f"{name}: output leaf of shape {tuple(getattr(a, 'shape', ()))} "
+                             f"has no leading batch dim == {n}; {name} only wraps forwards "
+                             f"whose outputs are all batch-major")
+        return a
+    return check
+
+
+def _padded(name: str, fn: Callable, args, n: int):
+    """``fn`` on the batch (the last of ``args``) with its rows repeated up to
+    ``n`` rows, in the batch's memory format; every output leaf sliced back."""
+    x = args[-1]
+    fmt = torch.channels_last if _channels_last(x) else torch.contiguous_format
+    tiled = torch.cat([x] * -(-n // x.shape[0]), dim=0)[:n].contiguous(memory_format=fmt)
+    check = _batch_major(name, n)
+    return tree_map(lambda a: check(a)[:x.shape[0]], fn(*args[:-1], tiled))
+
+
+def pad_batch(fn: Callable, min_batch: int = 2) -> Callable:
+    """Serving wrapper: run sub-``min_batch`` inputs at ``min_batch``.
+
+    The last positional argument is the input batch (dim 0 of an NCHW
+    ``channels_last`` tensor); a batch below ``min_batch`` is tiled up to
+    ``min_batch`` rows and every output leaf (a pytree of tensors) is sliced
+    back.  Every output leaf must carry the batch as its leading dim, or a
+    ``ValueError`` says so.  The JAX package found b=1 degenerate on the v5e's
+    batch tiling; whether b=1 pays on the card is measured, not assumed.
+    """
+
+    def wrapped(*args):
+        if args[-1].shape[0] >= min_batch:
+            return fn(*args)
+        return _padded("pad_batch", fn, args, min_batch)
+
+    return wrapped
+
+
+def pad_batch_to_multiple(fn: Callable, multiple: int) -> Callable:
+    """Serving wrapper: pad any batch up to the next multiple of ``multiple``
+    (a data-parallel serve shards the batch over the cards), tiling rows as
+    :func:`pad_batch` does and slicing every batch-major output leaf back."""
+    if multiple < 1:
+        raise ValueError(f"pad_batch_to_multiple: multiple={multiple}")
+
+    def wrapped(*args):
+        b = args[-1].shape[0]
+        if b % multiple == 0:
+            return fn(*args)
+        return _padded("pad_batch_to_multiple", fn, args, -(-b // multiple) * multiple)
+
+    return wrapped
+
+
+def chunk_batch(fn: Callable, max_batch: int = 128) -> Callable:
+    """Serving wrapper: run an over-``max_batch`` input as sequential chunks of
+    ``max_batch`` rows (the last one smaller) and concatenate every output
+    leaf along dim 0; each chunk's leaves must be batch-major.  Compose as
+    ``chunk_batch(pad_batch(fn, 2), knee)`` to clamp both ends (pad inside
+    chunk, so a remainder chunk of one row is padded too)."""
+
+    def wrapped(*args):
+        x = args[-1]
+        b = x.shape[0]
+        if b <= max_batch:
+            return fn(*args)
+        starts = range(0, b, max_batch)
+        ys = [fn(*args[:-1], x[i:i + max_batch]) for i in starts]
+        leaves, spec = zip(*(tree_flatten(y) for y in ys))
+        cat = []
+        for parts in zip(*leaves):
+            for a, i in zip(parts, starts):
+                _batch_major("chunk_batch", min(max_batch, b - i))(a)
+            cat.append(torch.cat(parts, dim=0))
+        return tree_unflatten(cat, spec[0])
+
+    return wrapped

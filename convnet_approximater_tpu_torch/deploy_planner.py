@@ -323,8 +323,9 @@ def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
         calibration (4 batches, scale 0.8) and probe batches (``probe_batches``
         of them), each of at most 8 images of the serving shape.
       time_fn: ``time_fn(name, model, input_shape, dtype) -> seconds`` (a test
-        injects one); the default is the median of ``num_iters``
-        CUDA-event-timed forwards after ``warmup``.
+        injects one); the default is ``hooks.forward_seconds``: on the card
+        the slope of a CUDA graph replayed back to back (``num_iters`` and 4x
+        as many replays after ``warmup``), the eager median logged beside it.
       reuse_plan: a plan persisted by :func:`plan_to_json`.  When its winner is
         among the candidates, only that surface is rebuilt (its agreement
         checked again) and nothing is timed; a winner that is gone, finds no

@@ -1,11 +1,14 @@
 """Forward timing and a profiler capture (port of
 ``convnet_approximater_tpu/hooks/inference_time_hook.py``).
 
-The forward time is the median over ``num_iters`` forwards after ``warmup``
-ones, each bracketed by CUDA events on the card, or by the host clock on the
-CPU.  With ``capture_trace`` (or ``profile_args=dict(capture=True)``) one more
-forward runs under ``torch.profiler`` after the timed ones, so the profiler's
-cost never enters the median: its Chrome trace goes to ``work_dir/traces/``,
+The forward time is the JAX package's: on the card the slope of a compiled
+forward dispatched back to back (:func:`graph_ms`: a ``compile_serving`` CUDA
+graph replayed n and 4n times between CUDA events), with the median of
+``num_iters`` eager forwards after ``warmup`` reported beside it; on the CPU
+the eager median (host clock).  With ``capture_trace`` (or
+``profile_args=dict(capture=True)``) one more forward runs under
+``torch.profiler`` after the timed ones, so the profiler's cost never enters
+the times: its Chrome trace goes to ``work_dir/traces/``,
 and one device-time table per ``table_args`` ``group_by`` (``op``, ``source``,
 ``category``; ``row_limit`` rows, without the names that hold an ``exclude``
 substring) and one of the ``record_function`` ranges are logged
@@ -27,6 +30,10 @@ from convnet_approximater_tpu_torch.utils.trace import GROUPS, summarize_ranges,
 
 from .hook import HOOK, Hook
 
+EVENT_RESOLUTION_MS = 0.5e-3  # CUDA events' resolution: about half a microsecond
+MAX_REPLAYS = 4096            # the JAX package's cap on the slope's longer run
+CAPTURE_FORWARDS = 4          # compile_serving's forwards: three warm-ups and the capture
+
 
 def nhwc_size(size):
     """``input_size`` as (B, H, W, C); reference configs give NCHW tuples."""
@@ -36,12 +43,18 @@ def nhwc_size(size):
     return size
 
 
-def time_forward(model, input_size, device, num_iters: int = 10, warmup: int = 3):
-    """Milliseconds of each of ``num_iters`` eval forwards of ``model`` on a
-    (B, H, W, C) input of ones in ``channels_last``, after ``warmup`` forwards."""
+def _ones(input_size, device) -> torch.Tensor:
     B, H, W, C = input_size
+    return torch.ones(B, C, H, W, device=device).contiguous(memory_format=torch.channels_last)
+
+
+def eager_times(model, input_size, device, num_iters: int = 10, warmup: int = 3) -> np.ndarray:
+    """Milliseconds of each of ``num_iters`` eval forwards of ``model`` on a
+    (B, H, W, C) input of ones in ``channels_last``, after ``warmup`` forwards:
+    each between two CUDA events and synchronized on the card (so the host's
+    launch cost enters every reading), on the host clock on the CPU."""
     device = torch.device(device)
-    x = torch.ones(B, C, H, W, device=device).contiguous(memory_format=torch.channels_last)
+    x = _ones(input_size, device)
     model.eval()
     times = []
     with torch.no_grad():
@@ -63,11 +76,81 @@ def time_forward(model, input_size, device, num_iters: int = 10, warmup: int = 3
     return np.asarray(times)
 
 
-def forward_seconds(model, input_size, num_iters: int = 10, warmup: int = 3) -> float:
-    """Seconds of one eval forward of ``model`` on its parameters' device: the
-    median of :func:`time_forward`'s ``num_iters`` after ``warmup``."""
+def graph_ms(model, input_size, num_iters: int = 10, warmup: int = 3) -> float:
+    """Milliseconds per forward of ``model`` on the card, as the JAX package's
+    ``time_forward`` times a compiled forward: the forward captured as a
+    ``deploy.compile_serving`` CUDA graph, then n and 4n replays back to back,
+    each run between two CUDA events; the slope between the two runs (the
+    least of two of each) cancels the cost of starting and ending a run.
+    While the two differ by no more than the events' resolution the runs
+    widen 4x, up to 4096 replays.  The graph, and its memory pool, is freed
+    before the return, so that a caller that swaps modules between timings
+    (the arbiters) captures anew each time.  A forward that cannot be
+    captured raises, naming the module."""
+    from convnet_approximater_tpu_torch.deploy import compile_serving
+
+    compiled, _ = compile_serving(model, _ones(input_size, next(model.parameters()).device))
+    replay = compiled.graph.replay
+
+    def run(n: int) -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    try:
+        for _ in range(max(warmup, 1)):
+            run(1)
+        n1, n2 = num_iters, 4 * num_iters
+        while True:
+            t1 = min(run(n1) for _ in range(2))
+            t2 = min(run(n2) for _ in range(2))
+            if t2 - t1 > EVENT_RESOLUTION_MS or n2 >= MAX_REPLAYS:
+                break
+            n1, n2 = 4 * n1, 4 * n2
+    finally:
+        del compiled, replay
+    return max((t2 - t1) / (n2 - n1), 1e-6)
+
+
+def forward_times(model, input_size, num_iters: int = 10, warmup: int = 3) -> dict:
+    """Both figures of one timing of ``model`` on its parameters' device:
+    ``ms`` (the graph slope of :func:`graph_ms` on the card, the eager median
+    on the CPU), ``eager_median_ms`` and the eager ``times``, and
+    ``forwards``, the eager forwards run (the capture's included)."""
     device = next(model.parameters()).device
-    return float(np.median(time_forward(model, input_size, device, num_iters, warmup))) / 1e3
+    times = eager_times(model, input_size, device, num_iters, warmup)
+    eager = float(np.median(times))
+    if device.type != "cuda":
+        return dict(ms=eager, eager_median_ms=eager, times=times, forwards=warmup + num_iters)
+    return dict(ms=graph_ms(model, input_size, num_iters, warmup), eager_median_ms=eager,
+                times=times, forwards=warmup + num_iters + CAPTURE_FORWARDS)
+
+
+def time_forward(model, input_size, device, num_iters: int = 10, warmup: int = 3):
+    """Milliseconds per eval forward of ``model`` on a (B, H, W, C) input of
+    ones in ``channels_last``: on the card one entry, :func:`graph_ms`'s slope
+    (as the JAX package's ``time_forward`` returns one); on the CPU the
+    ``num_iters`` eager times after ``warmup``, as :func:`eager_times`."""
+    if torch.device(device).type == "cuda":
+        return np.asarray([graph_ms(model, input_size, num_iters, warmup)])
+    return eager_times(model, input_size, device, num_iters, warmup)
+
+
+def forward_seconds(model, input_size, num_iters: int = 10, warmup: int = 3) -> float:
+    """Seconds of one eval forward of ``model`` on its parameters' device, the
+    default timer of ``ClassInference``, the arbiters and the planner: the
+    graph slope on the card (the eager median logged beside it), the eager
+    median on the CPU."""
+    t = forward_times(model, input_size, num_iters, warmup)
+    if next(model.parameters()).device.type == "cuda":
+        get_logger().info(f"forward at {tuple(input_size)}: {t['ms']:.3f} ms as a graph back to "
+                          f"back, eager median {t['eager_median_ms']:.3f} ms")
+    return t["ms"] / 1e3
 
 
 @HOOK.register_module()
@@ -100,15 +183,18 @@ class InferenceTimeHook(Hook):
 
     def after_run(self):
         device = self.runner.device
-        times = time_forward(self.runner.model, self.input_size, device, self.num_iters,
-                             self.warmup)
-        self.forwards = self.warmup + self.num_iters
+        t = forward_times(self.runner.model, self.input_size, self.num_iters, self.warmup)
+        self.forwards = t["forwards"]
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-        med = float(np.median(times))
-        get_logger().info(
-            f"Forward time (batch {self.input_size[0]}): median {med:.3f} ms, "
-            f"min {times.min():.3f} ms over {self.num_iters} iters on {name}")
-        self.result = dict(median_ms=med, times=times, device=name)
+        times = t["times"]
+        eager = (f"median {t['eager_median_ms']:.3f} ms, min {times.min():.3f} ms over "
+                 f"{self.num_iters} iters")
+        if device.type == "cuda":
+            eager = (f"median {t['ms']:.3f} ms per forward as a graph replayed back to back "
+                     f"(eager {eager})")
+        get_logger().info(f"Forward time (batch {self.input_size[0]}): {eager} on {name}")
+        self.result = dict(median_ms=t["ms"], eager_median_ms=t["eager_median_ms"],
+                           times=times, device=name)
         if self.capture_trace:
             self.result.update(self.capture())
 

@@ -181,11 +181,13 @@ class QuantConv2d(_QuantBase):
         if self.patchify:
             cols = x.permute(0, 2, 3, 1)[:, :Ho * kh, :Wo * kw]  # NHWC view
             cols = cols.reshape(B, Ho, kh, Wo, kw, C).permute(0, 1, 3, 2, 4, 5)
-            cols = cols.reshape(B * Ho * Wo, kh * kw * C)
+            # the copy comes before the reshape: a trace with a symbolic batch then
+            # keeps it, where a reshape at batch 1 could give a strided view
+            cols = cols.contiguous().reshape(B * Ho * Wo, kh * kw * C)
         else:
             cols = F.unfold(x, self.kernel_size, dilation=self.dilation, padding=self.padding,
                             stride=self.stride)  # (B, C kh kw, L)
-            cols = cols.transpose(1, 2).reshape(B * Ho * Wo, -1)
+            cols = cols.transpose(1, 2).contiguous().reshape(B * Ho * Wo, -1)
         y = self._matmul(cols).reshape(B, Ho, Wo, self.out_channels)
         return y.permute(0, 3, 1, 2)  # NCHW, channels_last in memory
 

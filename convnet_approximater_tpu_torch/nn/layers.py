@@ -24,6 +24,8 @@ NCHW tensor is an NHWC block of memory, the layout of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import os
 
 import torch
@@ -158,12 +160,38 @@ class GELU(nn.Module):
         return gelu(x, self.approximate)
 
 
+_frozen_keys = contextvars.ContextVar("frozen_params_keys", default=False)
+
+
 def params_key(module: nn.Module) -> tuple:
     """Address, version counter, shape and type of every parameter of ``module``:
     a cache key that changes whenever a parameter is replaced, moved or
-    modified in place."""
-    return tuple((p.data_ptr(), p._version, tuple(p.shape), p.dtype)
-                 for p in module.parameters())
+    modified in place.  Inside :func:`frozen_params_keys` it is the key last
+    computed for ``module``, the parameters unread."""
+    if _frozen_keys.get():
+        key = module.__dict__.get("_params_key")
+        if key is None:
+            raise RuntimeError(f"{type(module).__name__}: no per-weight-version cache was "
+                               f"filled; run an eval forward before freezing the keys")
+        return key
+    key = tuple((p.data_ptr(), p._version, tuple(p.shape), p.dtype)
+                for p in module.parameters())
+    module.__dict__["_params_key"] = key
+    return key
+
+
+@contextlib.contextmanager
+def frozen_params_keys():
+    """Within the block, every per-weight-version cache (the kernels' packed
+    weights, the border maps) is read as the last eval forward left it.  An
+    export trace needs this: it swaps the parameters for FakeTensors, which
+    have no address, and the exported program holds the cached layouts as its
+    constants instead of packing them again on every call."""
+    token = _frozen_keys.set(True)
+    try:
+        yield
+    finally:
+        _frozen_keys.reset(token)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator):

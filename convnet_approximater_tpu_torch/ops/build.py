@@ -2,10 +2,14 @@
 
 Each source compiles on its own into a shared library with a plain C interface
 (no PyTorch headers, so a build takes seconds).  :func:`launch_range` names a
-launch for ``torch.profiler``.  The library lands in
-``build/torch_kernels/`` at the repository root, named by a hash of the source
-and the flags, so an edited source is rebuilt and an unchanged one is reused.
-:func:`build_all` starts one nvcc per source, all at once.
+launch for ``torch.profiler``.  Each kernel is a ``torch.library`` custom op
+under ``NAMESPACE`` (its module in ``ops/`` registers it), so that
+``torch.export`` traces through it: the op's CPU implementation is the plain
+version, its CUDA implementation the launch, its fake kernel the output's
+shape.  The library lands in ``build/torch_kernels/`` at the repository root,
+named by a hash of the source and the flags, so an edited source is rebuilt and
+an unchanged one is reused.  :func:`build_all` starts one nvcc per source, all
+at once.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Dict, Sequence
 
 import torch
 
+NAMESPACE = "convnet_approximater_tpu_torch"  # the custom ops' torch.ops.<NAMESPACE>.<op>
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -96,6 +101,13 @@ def load(source: str) -> ctypes.CDLL:
     """Build ``csrc/<source>`` if needed and load it."""
     build_all([source])
     return ctypes.CDLL(str(library_path(source)))
+
+
+def check_device(name: str, x: torch.Tensor) -> None:
+    """Raise unless ``x`` lies on the CPU (the op's plain version) or a CUDA
+    card (its kernel); the meta device would reach the fake kernel."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x.device}")
 
 
 def launch_range(name: str):

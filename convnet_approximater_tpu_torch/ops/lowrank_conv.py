@@ -6,9 +6,10 @@ package's Pallas kernel of the same name does
 (``convnet_approximater_tpu/ops/pallas/lowrank_kernels.py``): M bases shared
 by every input channel, as a separable pair (a kw-tap horizontal pass, then a
 kh-tap vertical pass) or as full kh x kw filters, give Z (B, Ho, Wo, M, C);
-then ``Z @ A_mc + b`` mixes it to N channels.  On a CUDA tensor it launches
-``csrc/lowrank_conv.cu`` (built with nvcc at first use) or raises; on a CPU
-tensor it runs :func:`lowrank_conv_ref`.
+then ``Z @ A_mc + b`` mixes it to N channels.  It is the custom op
+``lowrank_conv_op``: on a CUDA tensor it launches ``csrc/lowrank_conv.cu``
+(built with nvcc at first use), on a CPU tensor it runs
+:func:`lowrank_conv_ref`, and on any other device the dispatcher raises.
 
 The kernel is one launch and keeps Z out of device memory: producer warps
 compute it from an x window in shared memory into a shared-memory ring, and
@@ -22,12 +23,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from .build import launch_range, load
+from .build import NAMESPACE, check_device, launch_range, load
 
 # the kernel's shared-memory plan (csrc/lowrank_conv.cu: smem_bytes) and the card's
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -318,23 +319,45 @@ def lowrank_conv(x, A_mc, b, *, v=None, h=None, bases=None, kernel_size, stride=
     ``stride`` and ``padding`` are (h, w) pairs.  ``packed``: the kernel's
     layout of these weights (:func:`pack_kernel_weights`), which a caller that
     runs them again keeps; without it a CUDA call packs them first.  Returns a
-    new (B, Ho, Wo, N) tensor.
+    new (B, Ho, Wo, N) tensor.  Runs the custom op
+    ``torch.ops.convnet_approximater_tpu_torch.lowrank_conv``.
     """
+    check_device("lowrank_conv", x)
+    packed = packed or {}
+    return lowrank_conv_op(x, A_mc, b, v, h, bases, packed.get("w"), packed.get("taps"),
+                           [int(k) for k in kernel_size], [int(s) for s in stride],
+                           [int(p) for p in padding])
+
+
+lowrank_conv.launches = 0
+
+
+@torch.library.custom_op(f"{NAMESPACE}::lowrank_conv", mutates_args=(), device_types="cpu")
+def lowrank_conv_op(x: torch.Tensor, A_mc: torch.Tensor, b: torch.Tensor,
+                    v: Optional[torch.Tensor], h: Optional[torch.Tensor],
+                    bases: Optional[torch.Tensor], w: Optional[torch.Tensor],
+                    taps: Optional[torch.Tensor], kernel_size: List[int], stride: List[int],
+                    padding: List[int]) -> torch.Tensor:
+    """The op: ``w`` and ``taps`` are the packed layout the CUDA kernel reads
+    (None: packed on the way in); the CPU's plain version reads the rest."""
     kernel_size, stride, padding = tuple(kernel_size), tuple(stride), tuple(padding)
     _check(x, A_mc, b, v, h, bases, kernel_size, stride, padding)
-    if x.device.type == "cpu":
-        return lowrank_conv_ref(x, A_mc, b, v=v, h=h, bases=bases, kernel_size=kernel_size,
-                                stride=stride, padding=padding)
-    if x.device.type != "cuda":
-        raise ValueError(f"lowrank_conv: unsupported device {x.device}")
+    return lowrank_conv_ref(x, A_mc, b, v=v, h=h, bases=bases, kernel_size=kernel_size,
+                            stride=stride, padding=padding).contiguous()
+
+
+@lowrank_conv_op.register_kernel("cuda")
+def _launch(x, A_mc, b, v, h, bases, w, taps, kernel_size, stride, padding):
+    kernel_size, stride, padding = tuple(kernel_size), tuple(stride), tuple(padding)
+    _check(x, A_mc, b, v, h, bases, kernel_size, stride, padding)
     B, H, W, C = x.shape
     M = v.shape[0] if bases is None else bases.shape[0]
     N = A_mc.shape[1]
-    if packed is None:
+    if w is None or taps is None:
         packed = pack_kernel_weights(A_mc, v=v, h=h, bases=bases)
+        w, taps = packed["w"], packed["taps"]
     p = plan(B, H, W, C, M, N, kernel_size, stride, padding)
     kp = 4 * -(-C // 4) * p.ms * p.slabs
-    w, taps = packed["w"], packed["taps"]
     for name, t, shape in (("w", w, (2, N, kp)),
                            ("taps", taps, (kernel_size[0] * kernel_size[1], p.ms * p.slabs))):
         if (tuple(t.shape) != shape or t.dtype != torch.float32 or t.device != x.device
@@ -356,4 +379,8 @@ def lowrank_conv(x, A_mc, b, *, v=None, h=None, bases=None, kernel_size, stride=
     return y
 
 
-lowrank_conv.launches = 0
+@lowrank_conv_op.register_fake
+def _fake(x, A_mc, b, v, h, bases, w, taps, kernel_size, stride, padding):
+    B, H, W = x.shape[0], x.shape[1], x.shape[2]
+    Ho, Wo = out_size(H, W, kernel_size, stride, padding)
+    return x.new_empty((B, Ho, Wo, A_mc.shape[1]))

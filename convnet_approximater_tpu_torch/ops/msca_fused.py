@@ -3,9 +3,10 @@ the tap packing they share.
 
 ``msca_fused`` computes ``x * (Wm . fix(bank(dw_k0(x) + b0)) + bm)`` on an NHWC
 map, the whole MSCA block of the JAX package's Pallas kernel of the same name
-(``convnet_approximater_tpu/ops/pallas/msca_kernels.py``).  On a CUDA tensor it
-launches ``csrc/msca_fused.cu`` (built with nvcc at first use) or raises; on a
-CPU tensor it runs :func:`msca_fused_ref`.  The kernel is two launches: a row
+(``convnet_approximater_tpu/ops/pallas/msca_kernels.py``).  It is the custom op
+``msca_fused_op``: on a CUDA tensor it launches ``csrc/msca_fused.cu`` (built
+with nvcc at first use), on a CPU tensor it runs :func:`msca_fused_ref`, and on
+any other device the dispatcher raises.  The kernel is two launches: a row
 march that keeps conv0's output and the strip bank's horizontal pass on chip and
 writes the block's attention map, then the channel mix with the gate.
 :func:`plan` chooses the march's tiles and bands for each shape, in plain
@@ -22,12 +23,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from .build import launch_range, load
+from .build import NAMESPACE, check_device, launch_range, load
 
 MAX_BRANCHES = 8  # kMaxBranches in csrc/msca_fused.cu
 
@@ -247,14 +248,30 @@ def msca_fused(x, w0, b0, w1, b1, w2, b2, wm, bm, res=None, *,
     from :func:`pack_cascade_weights`; wm: (C, C) channel mix, input dim
     first; bm, b0: (C,); res: (2, fix_p, C) border strips when ``fix_p > 0``.
     ``ks`` are the branches' true sizes; ``identity`` adds the conv0 output to
-    the bank.  Returns a new (B, H, W, C) tensor.
+    the bank.  Returns a new (B, H, W, C) tensor.  Runs the custom op
+    ``torch.ops.convnet_approximater_tpu_torch.msca_fused``.
     """
+    check_device("msca_fused", x)
+    return msca_fused_op(x, w0, b0, w1, b1, w2, b2, wm, bm, res, [int(k) for k in ks],
+                         bool(identity), int(fix_p))
+
+
+msca_fused.launches = 0
+
+
+@torch.library.custom_op(f"{NAMESPACE}::msca_fused", mutates_args=(), device_types="cpu")
+def msca_fused_op(x: torch.Tensor, w0: torch.Tensor, b0: torch.Tensor, w1: torch.Tensor,
+                  b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor, wm: torch.Tensor,
+                  bm: torch.Tensor, res: Optional[torch.Tensor], ks: List[int], identity: bool,
+                  fix_p: int) -> torch.Tensor:
     _check(x, w0, b0, w1, b1, w2, b2, wm, bm, res, ks, fix_p)
-    if x.device.type == "cpu":
-        return msca_fused_ref(x, w0, b0, w1, b1, w2, b2, wm, bm, res,
-                              ks=ks, identity=identity, fix_p=fix_p)
-    if x.device.type != "cuda":
-        raise ValueError(f"msca_fused: unsupported device {x.device}")
+    return msca_fused_ref(x, w0, b0, w1, b1, w2, b2, wm, bm, res, ks=ks, identity=identity,
+                          fix_p=fix_p).contiguous()
+
+
+@msca_fused_op.register_kernel("cuda")
+def _launch(x, w0, b0, w1, b1, w2, b2, wm, bm, res, ks, identity, fix_p):
+    _check(x, w0, b0, w1, b1, w2, b2, wm, bm, res, ks, fix_p)
     B, H, W, C = x.shape
     k0, nb, k_max = w0.shape[0], w1.shape[0], w1.shape[1]
     p = plan(B, H, W, C, k0, tuple(ks))
@@ -276,4 +293,6 @@ def msca_fused(x, w0, b0, w1, b1, w2, b2, wm, bm, res=None, *,
     return out
 
 
-msca_fused.launches = 0
+@msca_fused_op.register_fake
+def _fake(x, w0, b0, w1, b1, w2, b2, wm, bm, res, ks, identity, fix_p):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)

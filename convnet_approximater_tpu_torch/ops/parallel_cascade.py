@@ -4,8 +4,10 @@
 an NHWC map, as the JAX package's Pallas kernel of the same name does
 (``convnet_approximater_tpu/ops/pallas/msca_kernels.py``), on the taps packed
 by :func:`~convnet_approximater_tpu_torch.ops.msca_fused.pack_cascade_weights`.
-On a CUDA tensor it launches ``csrc/parallel_cascade.cu`` (built with nvcc at
-first use) or raises; on a CPU tensor it runs :func:`parallel_cascade_ref`.
+It is the custom op ``parallel_cascade_op``: on a CUDA tensor it launches
+``csrc/parallel_cascade.cu`` (built with nvcc at first use), on a CPU tensor it
+runs :func:`parallel_cascade_ref`, and on any other device the dispatcher
+raises.
 
 The kernel is one launch per call that keeps the horizontal result on chip
 (in registers when every branch has k = k_max, else in a ring of k_max rows
@@ -19,12 +21,12 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from .build import launch_range, load
+from .build import NAMESPACE, check_device, launch_range, load
 from .msca_fused import MAX_BRANCHES
 
 MAX_BANK_ROWS = 128  # kMaxBankRows in csrc/parallel_cascade.cu: nb * k_max
@@ -108,13 +110,26 @@ def parallel_cascade(x, w1, b1, w2, b2, *, ks: Sequence[int], identity: bool):
     x: (B, H, W, C) float32, contiguous; w1/w2: (nb, k_max, C) horizontal/
     vertical taps and b1/b2: (nb, C), from ``pack_cascade_weights``; ``ks``
     the branches' true (odd) sizes, each padded by k // 2; ``identity`` adds
-    x.  Returns a new (B, H, W, C) tensor.
+    x.  Returns a new (B, H, W, C) tensor.  Runs the custom op
+    ``torch.ops.convnet_approximater_tpu_torch.parallel_cascade``.
     """
+    check_device("parallel_cascade", x)
+    return parallel_cascade_op(x, w1, b1, w2, b2, [int(k) for k in ks], bool(identity))
+
+
+parallel_cascade.launches = 0
+
+
+@torch.library.custom_op(f"{NAMESPACE}::parallel_cascade", mutates_args=(), device_types="cpu")
+def parallel_cascade_op(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                        b2: torch.Tensor, ks: List[int], identity: bool) -> torch.Tensor:
     _check(x, w1, b1, w2, b2, ks)
-    if x.device.type == "cpu":
-        return parallel_cascade_ref(x, w1, b1, w2, b2, ks=ks, identity=identity)
-    if x.device.type != "cuda":
-        raise ValueError(f"parallel_cascade: unsupported device {x.device}")
+    return parallel_cascade_ref(x, w1, b1, w2, b2, ks=ks, identity=identity).contiguous()
+
+
+@parallel_cascade_op.register_kernel("cuda")
+def _launch(x, w1, b1, w2, b2, ks, identity):
+    _check(x, w1, b1, w2, b2, ks)
     B, H, W, C = x.shape
     nb, k_max = w1.shape[0], w1.shape[1]
     out = torch.empty_like(x)
@@ -130,4 +145,6 @@ def parallel_cascade(x, w1, b1, w2, b2, *, ks: Sequence[int], identity: bool):
     return out
 
 
-parallel_cascade.launches = 0
+@parallel_cascade_op.register_fake
+def _fake(x, w1, b1, w2, b2, ks, identity):
+    return torch.empty_like(x, memory_format=torch.contiguous_format)

@@ -5,9 +5,10 @@ plain PyTorch version, and the weight packing they share.
 ``q(v) = clip(round(v / a), -127, 127)`` as int8 (round half to even) and an
 exact integer sum, the int8 ``QuantLinear`` of the JAX package
 (``convnet_approximater_tpu/layers/quant.py``) and its fused Pallas probe
-``pallas_qmatmul`` (``scripts/exp_pallas_qmatmul.py``).  On a CUDA tensor it
-launches ``csrc/qmatmul.cu`` (built with nvcc at first use) or raises; on a
-CPU tensor it runs :func:`qmatmul_ref`.  :func:`plan` chooses the kernel's
+``pallas_qmatmul`` (``scripts/exp_pallas_qmatmul.py``).  It is the custom op
+``qmatmul_op``: on a CUDA tensor it launches ``csrc/qmatmul.cu`` (built with
+nvcc at first use), on a CPU tensor it runs :func:`qmatmul_ref`, and on any
+other device the dispatcher raises.  :func:`plan` chooses the kernel's
 tiles and rings for each shape, in plain Python, so the CPU tests reach it.
 """
 
@@ -20,7 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .build import launch_range, load
+from .build import NAMESPACE, check_device, launch_range, load
 
 INT8_MAX = 127.0
 K_ALIGN = 32  # the kernel's K step (one wgmma k32); the packed weight's rows are padded to it
@@ -185,12 +186,25 @@ def qmatmul(x, w_packed, a_scale, w_scale, bias: Optional[torch.Tensor] = None):
     x: (M, K) float32, contiguous; w_packed: (N, Kp) int8 from
     :func:`pack_qweight`; a_scale: a 0-d float32 tensor on x's device (read
     there, no host sync); w_scale, bias: (N,) float32.  Returns (M, N) float32.
+    Runs the custom op ``torch.ops.convnet_approximater_tpu_torch.qmatmul``.
     """
+    check_device("qmatmul", x)
+    return qmatmul_op(x, w_packed, a_scale, w_scale, bias)
+
+
+qmatmul.launches = 0
+
+
+@torch.library.custom_op(f"{NAMESPACE}::qmatmul", mutates_args=(), device_types="cpu")
+def qmatmul_op(x: torch.Tensor, w_packed: torch.Tensor, a_scale: torch.Tensor,
+               w_scale: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
     _check(x, w_packed, a_scale, w_scale, bias)
-    if x.device.type == "cpu":
-        return qmatmul_ref(x, w_packed, a_scale, w_scale, bias)
-    if x.device.type != "cuda":
-        raise ValueError(f"qmatmul: unsupported device {x.device}")
+    return qmatmul_ref(x, w_packed, a_scale, w_scale, bias).contiguous()
+
+
+@qmatmul_op.register_kernel("cuda")
+def _launch(x, w_packed, a_scale, w_scale, bias):
+    _check(x, w_packed, a_scale, w_scale, bias)
     M, K = x.shape
     N, Kp = w_packed.shape
     if w_packed.data_ptr() % 16:
@@ -211,4 +225,6 @@ def qmatmul(x, w_packed, a_scale, w_scale, bias: Optional[torch.Tensor] = None):
     return y
 
 
-qmatmul.launches = 0
+@qmatmul_op.register_fake
+def _fake(x, w_packed, a_scale, w_scale, bias):
+    return x.new_empty((x.shape[0], w_packed.shape[0]))

@@ -4,7 +4,7 @@
     python -m convnet_approximater_tpu_torch.plan_serving --config <cfg> \\
         [--checkpoint ckpt] [--batch 64] [--input-size 224 224 3] [--min-agree 0.9] \\
         [--only SUBSTR,...] [--skip SUBSTR,...] [--retime] [--out serving_plan.json] \\
-        [--emit-recovery DIR] [--device cuda]
+        [--emit-recovery DIR] [--export ARTIFACT] [--device cuda]
 
 builds every candidate serving surface of the config's model
 (``deploy_planner.default_candidates``), times them, gates each rewritten one
@@ -13,10 +13,14 @@ winner, and writes the plan to ``--out``.  An existing plan of the same model,
 shape and type is replayed (only its winner rebuilt, nothing timed) unless
 ``--retime``.  ``--emit-recovery`` writes one fine-tune config per lossy stage
 of the winner and of every surface below ``--min-agree``, chained through
-``model.init_cfg``.  ``--device`` defaults to ``cuda`` and fails when no CUDA
-device is present; the CPU runs only when asked for with ``--device cpu``.
-The port plans float32 only, and ``--export`` waits for the serving export
-(ROADMAP.md queue 1).
+``model.init_cfg``.  ``--export ARTIFACT`` writes the winning surface as a
+``torch.export`` artifact at the planned batch, held against the live
+forward and with the ``.params.npz`` and ``.meta.json`` sidecars (the
+``--norm-mean``/``--norm-std`` that ``serve --ship-uint8`` applies), as
+``export_model`` writes them; ``serve`` serves it.
+``--device`` defaults to ``cuda`` and fails when no CUDA device is present;
+the CPU runs only when asked for with ``--device cpu``.  The port plans
+float32 only.
 """
 
 from __future__ import annotations
@@ -29,13 +33,12 @@ import torch
 
 from convnet_approximater_tpu_torch.deploy_planner import (default_candidates, plan_serving,
                                                            plan_to_json, recovery_plan)
+from convnet_approximater_tpu_torch.export_model import serving_meta, write_artifact
 from convnet_approximater_tpu_torch.models import build_model
 from convnet_approximater_tpu_torch.nn import channels_last, init_weights
 from convnet_approximater_tpu_torch.runner.runner import read_checkpoint
 from convnet_approximater_tpu_torch.utils import build_logger, get_cfg, init_cfg
 
-EXPORT_TODO = ("the serving export (torch.export with the four kernels as torch.library "
-               "custom ops) is ROADMAP.md queue 1's next item")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
@@ -140,7 +143,10 @@ def parse_args(argv=None):
     ap.add_argument("--v3-energy", type=float, default=0.9)
     ap.add_argument("--out", default="serving_plan.json")
     ap.add_argument("--export", default=None, metavar="ARTIFACT",
-                    help="export the winning surface (not in the port yet)")
+                    help="export the winning surface as a torch.export artifact")
+    ap.add_argument("--norm-mean", type=float, nargs=3, default=(0.485, 0.456, 0.406),
+                    help="preprocessing mean recorded in the exported .meta.json")
+    ap.add_argument("--norm-std", type=float, nargs=3, default=(0.229, 0.224, 0.225))
     ap.add_argument("--emit-recovery", default=None, metavar="DIR",
                     help="write recovery fine-tune configs for the winner and every "
                          "needs_recovery surface")
@@ -162,8 +168,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.export:
-        raise NotImplementedError(f"--export: {EXPORT_TODO}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
@@ -225,6 +229,16 @@ def main(argv=None) -> dict:
     logger.info(f"plan -> {args.out}")
     if args.emit_recovery:
         emit_recovery_configs(args, plan, logger)
+    if args.export:
+        H, W, C = args.input_size
+        x = torch.randn(args.batch, C, H, W, generator=torch.Generator().manual_seed(seed))
+        meta = serving_meta(args.norm_mean, args.norm_std, plan["dtype"], [args.batch, C, H, W],
+                            surface=plan["winner"], speedup_vs_dense=plan["speedup_vs_dense"])
+        data, _, err = write_artifact(plan["model"], x.to(device).contiguous(
+            memory_format=torch.channels_last), args.export, meta)
+        logger.info(f"winner '{plan['winner']}' exported -> {args.export} ({len(data)} bytes, + "
+                    f".params.npz, .meta.json; artifact max err {err:.2e})")
+        plan["export"] = args.export
     return plan
 
 

@@ -4,8 +4,9 @@
 :class:`ClassInference` builds the config's model twice from one seed: the
 original, and the approximated one in deploy mode (the app's sites as their
 bare targets, the config's ``structure_passes`` replayed first, then the
-compressed checkpoint loaded strictly).  Each report times the forward (the
-median of 10 CUDA-event-timed forwards after 3), counts its MACs and
+compressed checkpoint loaded strictly).  Each report times the forward
+(``hooks.forward_times``: on the card a CUDA graph replayed back to back, with
+the median of 10 eager forwards after 3 beside it), counts its MACs and
 parameters, and evaluates it when ``eval_cfg`` is given.  Optional reports
 follow on the approximated model: ``decomposed`` (every ``LowRankExpConvV1``
 split into its separable form), ``never-lose`` (``deploy.never_lose_deploy``;
@@ -32,7 +33,7 @@ from convnet_approximater_tpu_torch import deploy
 from convnet_approximater_tpu_torch.classification.validate import ValidateHelper
 from convnet_approximater_tpu_torch.core import build_app
 from convnet_approximater_tpu_torch.filters import build_filter
-from convnet_approximater_tpu_torch.hooks.inference_time_hook import forward_seconds
+from convnet_approximater_tpu_torch.hooks.inference_time_hook import forward_times
 from convnet_approximater_tpu_torch.hooks.model_analysis import count_macs, count_params
 from convnet_approximater_tpu_torch.layers import LowRankExpConvV1
 from convnet_approximater_tpu_torch.models import build_model
@@ -53,8 +54,8 @@ class ClassInference(BaseRunner):
     checkpoints fine-tuned in torch were trained; the JAX package's default
     form is tanh.  ``fold_bn`` folds BatchNorm (and runs the 1x1 convs as
     matmuls) before each report; off by default in float32, as in the JAX
-    package.  ``reports`` holds each report's ``ms``, ``macs``, ``params`` and
-    ``eval`` (None without ``eval_cfg``) by tag."""
+    package.  ``reports`` holds each report's ``ms``, ``eager_ms``, ``macs``,
+    ``params`` and ``eval`` (None without ``eval_cfg``) by tag."""
 
     def __init__(self, checkpoint: str, batch_size: int = 16, input_size=(224, 224, 3),
                  do_decomp: bool = False, eval_cfg=None, device="cuda",
@@ -152,18 +153,20 @@ class ClassInference(BaseRunner):
             deploy.fold_batchnorm(model)
             deploy.enable_pw_matmul(model)
         shape = (self.batch_size,) + self.input_size
-        ms = forward_seconds(model, shape, num_iters=10, warmup=3) * 1e3
+        timing = forward_times(model, shape, num_iters=10, warmup=3)
+        ms, eager_ms = timing["ms"], timing["eager_median_ms"]
         B, H, W, C = shape
         x = torch.zeros(B, C, H, W, device=self.device).contiguous(
             memory_format=torch.channels_last)
         macs, params = count_macs(model.eval(), x), count_params(model)
-        logger.info(f"[{tag}] fwd median {ms:.3f} ms | MACs {macs / 1e6:.2f} M | "
-                    f"params {params / 1e6:.2f} M")
+        logger.info(f"[{tag}] fwd median {ms:.3f} ms (eager median {eager_ms:.3f} ms) | "
+                    f"MACs {macs / 1e6:.2f} M | params {params / 1e6:.2f} M")
         result = None
         if self.eval_cfg:
             result = ValidateHelper(model, self.eval_cfg, device=self.device).validate()
             logger.info(f"[{tag}] eval: {result}")
-        self.reports[tag] = dict(ms=ms, macs=macs, params=params, eval=result)
+        self.reports[tag] = dict(ms=ms, eager_ms=eager_ms, macs=macs, params=params,
+                                 eval=result)
 
     def run(self) -> Dict[str, dict]:
         logger = get_logger()
