@@ -238,8 +238,9 @@ From the root of a checkout, with no arguments:
     same structure and logits bit for bit; the two calls' decisions agree, or
     the first decision they take apart was, in each call, a reading within 2 %
     of its bar (the best time so far less the margin), both lists printed;
-17. P17, the serving planner: ``plan_serving`` on MSCAN-t, then ConvNeXt-T
-    (layer scales 1), at b=64, 224^2, float32, the default candidates (without
+17. P17, the serving planner: ``plan_serving`` on MSCAN-t at the planner's
+    default type (bfloat16), then ConvNeXt-T (layer scales 1) in float32, at
+    b=64, 224^2, the default candidates (without
     ConvNeXt-T's MlpPrune ones: their greedy selection runs on the host), each
     timed as the default timer times with its launches per forward counted:
     the report rows (graph ms and eager ms) and the winner, dense/float32
@@ -249,7 +250,8 @@ From the root of a checkout, with no arguments:
     the plan again: the same winner, or in each call the two winners' rows
     within 2 %;
 18. P18, the serving export: ``torch.library.opcheck`` of the four kernels'
-    custom ops on the card at one shape of each path; the MSCAN-t headline
+    custom ops on the card at one shape of each path, in float32 and in bf16;
+    the MSCAN-t headline
     surface at b=64 (``msca_fused``), its dconv0 form at b=128
     (``parallel_cascade``), the dodecomp AlexNet with phase 5's checkpoint
     through ``export_model`` (``lowrank_conv``) and
@@ -269,9 +271,26 @@ From the root of a checkout, with no arguments:
     32 batches each, their end-to-end img/s against 128 / the graph's
     back-to-back ms, and a b=128 batch of the served int8 graph bit-equal to
     the live model and within 1e-3 of it through ``qmatmul_ref``;
-19. prints one JSON line of kernel results (each kernel's entry lists the later
-    paths' launches and sums per forward under ``paths``), then
-    ``{"ok": true, "device": ...}``.
+19. P19, bf16 serving: P19a each kernel with bf16 x and out against its
+    bf16 plain version at its path's shapes (``parallel_cascade`` at ConvNeXt-T
+    r1's and the dconv0 cascades' shapes and ``qmatmul`` at int8 ConvNeXt-T's
+    13 and 3 ragged shapes bit for bit; ``msca_fused`` at MSCAN-t's 8 block
+    shapes and ``lowrank_conv`` at the dodecomp AlexNet's 4 sites the float32
+    kernel's result rounded once, bit for bit, and within one bf16 ulp of the
+    plain version, or one ulp plus the float32 results' own difference where
+    the result is a cancellation), each timed beside its plain version, its
+    bound (2-byte activations) and one PyTorch call in bf16; P19b the headline
+    surface cast to bf16 through ``InferenceTimeHook(bf16=True)`` at b=64 (13
+    ``msca_fused`` per forward and per replay, logits within 1e-2 of the plain
+    versions, their distance from float32, no copy kernel beside a port kernel)
+    and dense MSCAN-t in bf16; P19e that surface exported (bf16 avals,
+    bit-equal); P19c ``serve_mscan`` at its defaults (bf16, b=128, 26
+    ``parallel_cascade`` per forward); P19d the inference CLI with ``--dtype
+    bfloat16 --decomp --quantize int8`` on phase 5's AlexNet (4
+    ``lowrank_conv`` per forward, ``qmatmul`` once per int8 module);
+20. prints one JSON line of kernel results (each kernel's entry lists the later
+    paths' launches and sums per forward under ``paths``, the bf16 ones among
+    them), then ``{"ok": true, "device": ...}``.
 
 Phases 4-14 run ``InferenceTimeHook`` with its graph slope at HOOK_GRAPH_ITERS
 (2 and 8 replays, a fifth of the default; the eager median that their gates
@@ -825,8 +844,10 @@ def ptxas_summary(source: str, name: str) -> str:
     stats, entry = {}, None
     for line in log.read_text().splitlines():
         if "Compiling entry function" in line:
-            m = re.search(name + r"I((?:Li\d+E)+)E", line)
-            entry = f"{name}<{', '.join(re.findall(r'Li(\d+)E', m.group(1)))}>" if m else None
+            m = re.search(name + r"I((?:Li\d+E)+)(f|13__nv_bfloat16)?E", line)
+            types = {"f": ["float"], "13__nv_bfloat16": ["bf16"]}.get(m.group(2), []) if m else []
+            entry = (f"{name}<{', '.join(re.findall(r'Li(\d+)E', m.group(1)) + types)}>"
+                     if m else None)
         elif entry and "spill stores" in line:
             stats.setdefault(entry, []).append(line.strip().replace("bytes ", ""))
         elif entry and "Used" in line and "registers" in line:
@@ -1084,8 +1105,8 @@ def hook_graphs_cut():
     from convnet_approximater_tpu_torch.hooks import inference_time_hook as timer
 
     real = timer.graph_ms
-    with mock.patch.object(timer, "graph_ms", lambda model, size, num_iters=10, warmup=3:
-                           real(model, size, HOOK_GRAPH_ITERS, 1)):
+    with mock.patch.object(timer, "graph_ms", lambda model, size, num_iters=10, warmup=3,
+                           *dtype: real(model, size, HOOK_GRAPH_ITERS, 1, *dtype)):
         yield
 
 
@@ -4169,6 +4190,9 @@ ARBITER_MARGIN = 0.03      # never_lose_deploy's default margin: t_final against
 REMAT_TOL = 1e-5           # a rematerialized dense conv against its factored layer's plain version
 REMAT_BATCH = 8            # images whose site inputs the per-site gate takes
 PLANNER_SKIP = {"ConvNeXt-T": ("mlpprune",)}
+# P17's serving types: MSCAN-t at the planner's default (bfloat16), ConvNeXt-T in float32, so
+# that both types stay planned
+PLAN_DTYPES = {"MSCAN-t": "bfloat16", "ConvNeXt-T": "float32"}
 DECISION_SPREAD = 0.02     # two calls may decide apart only where the rows lie this close
 BOUNDARY_BAND = 0.02       # arbitrated_apply's default: a group this near its bar is timed twice
 DEVICE = "cuda"  # where P15-P17 run: the card
@@ -4621,6 +4645,7 @@ def plan_model(name):
     if name == "MSCAN-t":
         return (lambda: mscan_base(random_norms=False),
                 {"dense/float32": {"msca_fused": 13, "parallel_cascade": 0},
+                 "dense/bfloat16": {"msca_fused": 13, "parallel_cascade": 0},
                  "v3/e=0.9": {"msca_fused": 13}, "tucker/e=0.9": {"msca_fused": 13},
                  "mscarep/d1+fix+dconv0+arb-ffnrep": {"msca_fused": 0, "parallel_cascade": 26},
                  "ffnprune/0.5+mscarep": {"msca_fused": 0, "parallel_cascade": 26},
@@ -4650,19 +4675,20 @@ def print_plan(name, plan, eager, call):
         print(f"P17 {name} call {call} {r['name']:<42}{ms:>10}{em:>10}{ips:>10}{agree:>8}"
               f"{str(r['qualified']):>10}  {r['note']}")
     print(f"P17 {name} call {call} winner: {plan['winner']} ({plan['speedup_vs_dense']:.4f}x "
-          f"dense/float32)")
+          f"dense/{plan['dtype']})")
 
 
 def run_plan(name):
-    """P17 on one model, called twice: plan_serving at b=64, 224^2, float32,
+    """P17 on one model, called twice: plan_serving at b=64, 224^2, at the
+    model's type of PLAN_DTYPES (MSCAN-t at the planner's default, bfloat16),
     with the default candidates (less PLANNER_SKIP's), each timed as the
     default time_fn times (a graph replayed back to back, 10 and 40 replays
     after 3, the eager median of 10 after 3 beside it) and its
-    launches per forward counted there.  Gates on the first call: dense/float32 qualifies,
-    every built row has a time, the kernels' launches per forward of each
-    candidate, int8's qmatmul once per int8 module; reuse_plan of plan_to_json
-    rebuilds the winner with no timing call, its logits within 1e-4 of the
-    plan's.  The second call's winner is the first's, or in each call the two
+    launches per forward counted there.  Gates on the first call: the dense
+    candidate of that type qualifies, every built row has a time, the kernels'
+    launches per forward of each candidate, int8's qmatmul once per int8
+    module; reuse_plan of plan_to_json rebuilds the winner with no timing
+    call, its logits within 1e-4 of the plan's (bf16: within BF16_REL_TOL).  The second call's winner is the first's, or in each call the two
     winners' rows lie within 2 %.  Returns ({candidate: launches per forward},
     the first plan, the second call's winner)."""
     import torch
@@ -4673,7 +4699,9 @@ def run_plan(name):
 
     make, gates = plan_model(name)
     skip = PLANNER_SKIP.get(name, ())
-    cands = [c for c in planner.default_candidates(make(), input_shape=INPUT)
+    dtype = getattr(torch, PLAN_DTYPES[name])
+    dense_name = f"dense/{PLAN_DTYPES[name]}"
+    cands = [c for c in planner.default_candidates(make(), dtype=dtype, input_shape=INPUT)
              if not any(s in c[0] for s in skip)]
     plans = []
     for call in (1, 2):
@@ -4686,7 +4714,7 @@ def run_plan(name):
             calls.append(cand)
             reset_counts()
             with forwards_counted(model) as forwards:
-                t = forward_times(model, shape, 10, 3)
+                t = forward_times(model, shape, 10, 3, dtype=dtype)
             eager[cand] = t["eager_median_ms"]
             per_forward[cand] = {k: v / len(forwards) for k, v in kernel_counts().items()}
             int8_modules[cand] = sum(isinstance(m, (QuantConv2d, QuantLinear))
@@ -4696,10 +4724,11 @@ def run_plan(name):
 
         torch.cuda.reset_peak_memory_stats()
         t0 = last[0] = time.perf_counter()
-        plan = planner.plan_serving(make, INPUT, candidates=cands, time_fn=time_fn)
+        plan = planner.plan_serving(make, INPUT, dtype=dtype, candidates=cands, time_fn=time_fn)
         torch.cuda.synchronize()
         plan_s = time.perf_counter() - t0
-        print(f"P17 plan_serving {name} at {INPUT} float32, call {call}: {len(cands)} candidates"
+        print(f"P17 plan_serving {name} at {INPUT} {plan['dtype']}, call {call}: {len(cands)} "
+              f"candidates"
               + (f" (skipped: the {', '.join(skip)} candidates)" if skip else "")
               + f", {plan_s:.2f} s of host time, {len(calls)} timing calls, peak memory "
                 f"{peak_gib():.2f} GiB [{smi_line()}]")
@@ -4713,8 +4742,8 @@ def run_plan(name):
                 f"{k} {v:g}" for k, v in per.items()) + f"; {int8_modules[cand]} int8 modules; "
                   f"built and graded in {built_s[cand]:.2f} s of host time")
         rows = plan["report"][1:]
-        if not any(r["name"] == "dense/float32" and r["qualified"] for r in rows):
-            fail(f"P17 {name}: dense/float32 did not qualify")
+        if not any(r["name"] == dense_name and r["qualified"] for r in rows):
+            fail(f"P17 {name}: {dense_name} did not qualify")
         if any(r["ms"] is None and not r["note"].startswith("skipped") for r in rows):
             fail(f"P17 {name}: a candidate that built has no time")
         for cand, want in gates.items():
@@ -4728,19 +4757,20 @@ def run_plan(name):
                      f"{int8_modules[cand]} int8 modules")
 
         replay_calls = []
-        again = planner.plan_serving(make, INPUT, candidates=cands,
+        again = planner.plan_serving(make, INPUT, dtype=dtype, candidates=cands,
                                      time_fn=lambda *a: replay_calls.append(1) or 1.0,
                                      reuse_plan=json.loads(json.dumps(
                                          planner.plan_to_json(plan))))
-        x = seeded_batch(170)
+        x = seeded_batch(170).to(dtype)
         with torch.no_grad(), uncounted():
-            err = rel_err(again["model"](x), plan["model"](x))
+            err = f32_rel(again["model"](x), plan["model"](x))
+        tol = LOGITS_TOL if dtype == torch.float32 else BF16_REL_TOL
         print(f"P17 {name} reuse_plan: winner {again['winner']}, replayed "
               f"{again.get('replayed')}, {len(replay_calls)} timing calls; logits against the "
-              f"plan's winner rel err {err:.3e} (bound {LOGITS_TOL})")
+              f"plan's winner rel err {err:.3e} (bound {tol})")
         if replay_calls or not again.get("replayed") or again["winner"] != plan["winner"]:
             fail(f"P17 {name}: reuse_plan timed, or rebuilt another winner")
-        if err > LOGITS_TOL:
+        if err > tol:
             fail(f"P17 {name}: the rebuilt winner's logits differ from the plan's")
         del again
         torch.cuda.empty_cache()
@@ -4823,6 +4853,8 @@ def run_opcheck():
             qmatmul_ops.qmatmul_op, (u(200704, 64), qmatmul_ops.pack_qweight(w_q),
                                      torch.tensor(0.02, device="cuda"), u(64).abs(), u(64))),
     }
+    for name, (op, op_args) in list(cases.items()):  # each op again on bf16 x
+        cases[f"{name}, bf16 x"] = (op, (op_args[0].bfloat16(),) + tuple(op_args[1:]))
     t0 = time.perf_counter()
     with uncounted():
         for name, (op, op_args) in cases.items():
@@ -4832,7 +4864,7 @@ def run_opcheck():
                 fail(f"P18a opcheck of {name}: {type(e).__name__}: {e}")
             print(f"P18a torch.library.opcheck on the card: {name}: passed")
     torch.cuda.synchronize()
-    print(f"P18a the four ops' opcheck in {time.perf_counter() - t0:.2f} s")
+    print(f"P18a the four ops' opcheck (float32 and bf16 x) in {time.perf_counter() - t0:.2f} s")
 
 
 def export_artifact(name, model, x, symbolic: bool = False):
@@ -4977,7 +5009,8 @@ def run_exports():
     t0 = time.perf_counter()
     with uncounted():
         res = export_model.main(["--config", ALEX_DODECOMP, "--checkpoint", ckpt, "--out",
-                                 alex_path, "--batch", str(BATCH), "--seed", "0"])
+                                 alex_path, "--batch", str(BATCH), "--seed", "0",
+                                 "--dtype", "float32"])
     cli_s = time.perf_counter() - t0
     out["AlexNet dodecomp artifact"], _ = hold_artifact(
         "AlexNet dodecomp (export_model)", res["model"], res["artifact"],
@@ -4991,7 +5024,7 @@ def run_exports():
     with uncounted():
         res = export_model.main(["--config", RESNET50_INT8, "--out", r50_path, "--batch",
                                  str(BATCH), "--quantize", "int8", "--symbolic-batch",
-                                 "--seed", "0"])
+                                 "--seed", "0", "--dtype", "float32"])
     cli_s = time.perf_counter() - t0
     out["int8 ResNet-50 artifact"], _ = hold_artifact(
         "int8 ResNet-50 (export_model --quantize int8)", res["model"], res["artifact"],
@@ -5053,7 +5086,8 @@ def run_exports():
     # P18d: the serving loops
     t0 = time.perf_counter()
     reset_counts()
-    res = serve_mscan.main(["--batch", str(SERVE_BATCH), "--batches", str(P18_SERVE_BATCHES)])
+    res = serve_mscan.main(["--batch", str(SERVE_BATCH), "--batches", str(P18_SERVE_BATCHES),
+                            "--dtype", "float32"])
     out["serve_mscan, b=128, 32 batches"] = kernel_counts()["parallel_cascade"]
     b2b = back_to_back_ms(res["compiled"])
     loops = [("serve_mscan (MSCAN-t dconv0 surface)", res["img_per_s"], b2b)]
@@ -5094,14 +5128,485 @@ def run_exports():
     return out
 
 
+# -- P19: bf16 serving -----------------------------------------------------
+P19_DIR = os.path.join(REPO, "build", "chip_smoke_p19")
+BF16_REL_TOL = 1e-2   # plan_serving's bf16 gate: relative Frobenius norm of the logits
+P19_SERVE_BATCHES = 8
+
+
+def f32_rel(a, b) -> float:
+    """Relative Frobenius norm of ``a - b`` against ``b``, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).norm() / b.norm())
+
+
+def bf16_ulps(a, b) -> int:
+    """The most bf16 ulps between two bf16 tensors, element by element: the bit
+    patterns mapped to integers in the order of the values they encode."""
+    import torch
+
+    def ordered(t):
+        u = t.contiguous().view(torch.int16).to(torch.int32) & 0xFFFF
+        mag = u & 0x7FFF
+        return torch.where(u >= 0x8000, -mag, mag)
+
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def bf16_row(name, shape, kernel, plain, library, exact, cost, peak=PEAK_F32, weight: int = 1):
+    """One bf16 kernel call against its bf16 plain version, timed beside it and
+    beside ``library`` (one PyTorch call in bf16, or None); the row.  ``cost``
+    holds the call's ``bytes`` (x and out at 2 bytes an element) and its
+    ``flops`` (lowrank_conv: ``basis_flops`` and ``mix_flops``), bounded as the
+    float32 rows are (:func:`rows_bound`).
+
+    ``exact`` True: ``torch.equal``.  Otherwise ``exact`` is (the float32
+    kernel, the float32 plain version) on the same inputs upcast, and the bf16
+    kernel must give the float32 kernel's result rounded to bf16, bit for bit
+    (the same arithmetic, one rounding); each element then lies within one bf16
+    ulp of the plain version's, or, where the float32 result is a cancellation
+    (a value far below its terms), within one ulp plus the two float32 results'
+    own difference there.  The elements beyond one ulp are counted."""
+    import torch
+
+    y, y_ref = kernel(), plain()
+    torch.cuda.synchronize()
+    if y.dtype != torch.bfloat16 or y_ref.dtype != torch.bfloat16:
+        fail(f"P19a {name} {shape}: outputs {y.dtype} and {y_ref.dtype}, not bfloat16")
+    ulps, same = bf16_ulps(y, y_ref), torch.equal(y, y_ref)
+    abs_err = float((y.float() - y_ref.float()).abs().max())
+    if not torch.isfinite(y.float()).all() or (exact is True and not same):
+        fail(f"P19a {name} {shape}: {ulps} bf16 ulps from its plain version; bit-equal "
+             f"required")
+    over = 0
+    if exact is not True:
+        k32, r32 = exact[0](), exact[1]()
+        rounded = torch.equal(y, k32.to(torch.bfloat16))
+        diff = (y.float() - y_ref.float()).abs()
+        scale = torch.maximum(y.float().abs(), y_ref.float().abs())
+        over = int((diff > scale * 2 ** -7).sum())  # one bf16 ulp is at most |v| 2^-7
+        allowed = scale * 2 ** -7 + (k32 - r32).abs()
+        worst = float((diff - allowed).max())
+        print(f"P19a {name} bf16 {shape}: the float32 kernel rounded once "
+              f"{'gives' if rounded else 'does NOT give'} its bits; {over} of {y.numel()} "
+              f"elements beyond one ulp of the plain version (the most {ulps} ulps), each "
+              f"within one ulp plus the float32 results' own difference: "
+              f"{'yes' if worst <= 0 else f'no, by {worst:.3e}'}")
+        if not rounded or worst > 0:
+            fail(f"P19a {name} {shape}: the bf16 kernel is not the float32 kernel rounded once, "
+                 f"or an element lies beyond its bound")
+        del k32, r32, diff, scale, allowed
+    ms, plain_ms = time_pair(kernel, plain)
+    lib_ms = library_time(library) if library is not None else None
+    b_ms, b_by = rows_bound([cost], lambda r: 1, peak)
+    lib = f"library {lib_ms:.4f} ms" if lib_ms is not None else "no single library call"
+    print(f"P19a {name} bf16 {shape}: {'bit-equal' if same else f'{ulps} ulp'} to its bf16 "
+          f"plain version (max abs {abs_err:.3e}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"{lib}; bound {b_ms:.4f} ms by {b_by} (2-byte activations), roofline share "
+          f"{b_ms / ms:.1%}")
+    return dict(cost, name=name, shape=shape, calls=weight, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, peak=peak, max_abs_err=abs_err, ulps=ulps,
+                beyond_one_ulp=over, bound_ms=b_ms)
+
+
+def bf16_msca_rows(gen):
+    """msca_fused in bf16 at MSCAN-t's four stage shapes in both bank forms."""
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    rows = []
+    for form in ("dense", "d1fix"):
+        for H, C, blocks in STAGES:
+            args, kw = kernel_inputs(form, H, C, gen)
+            args[0] = args[0].bfloat16()
+            up = [args[0].float()] + args[1:]
+            nbytes, flops = msca_cost(H, C, kw["ks"], kw["identity"], kw["fix_p"])
+            nx = 2 * 2 * BATCH * H * H * C
+            row = bf16_row(f"msca_fused {form}", (BATCH, H, H, C),
+                           lambda: fused_ops.msca_fused(*args, **kw),
+                           lambda: fused_ops.msca_fused_ref(*args, **kw), None,
+                           (lambda: fused_ops.msca_fused(*up, **kw),
+                            lambda: fused_ops.msca_fused_ref(*up, **kw)),
+                           dict(bytes=nbytes - nx, flops=flops), weight=blocks)
+            rows.append(dict(row, form=form))
+            del args
+    return rows
+
+
+def bf16_cascade_rows(gen):
+    """parallel_cascade in bf16 at ConvNeXt-T's r1 shapes and MSCAN-t's dconv0
+    cascades (k = 5 and 21), beside cuDNN's bf16 depthwise conv of the merged kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.ops.msca_fused import pack_cascade_weights
+
+    def u(*shape, scale=1.0):
+        return (torch.rand(*shape, generator=gen) * 2 - 1) * scale
+
+    cases = [("r1", H, C, 7, blocks) for H, C, blocks in CONVNEXT_STAGES]
+    cases += [(form, H, C, k, blocks) for form, k in (("d0k5", 5), ("d0k21", 21))
+              for H, C, blocks in STAGES]
+    rows = []
+    for form, H, C, k, blocks in cases:
+        w1, b1, w2, b2, ks = pack_cascade_weights([u(k, C, scale=k ** -0.5)], [None],
+                                                  [u(k, C, scale=k ** -0.5)], [u(C, scale=0.2)])
+        w1, b1, w2, b2 = (t.cuda() for t in (w1, b1, w2, b2))
+        x = u(BATCH, H, H, C).cuda().bfloat16()
+        merged = torch.einsum("bic,bjc->cij", w2, w1)[:, None].bfloat16()
+        xc, bias = x.permute(0, 3, 1, 2), b2.sum(0).bfloat16()
+        nbytes, flops = cascade_cost(H, C, ks, False)
+        nx = 2 * 2 * BATCH * H * H * C
+        row = bf16_row(f"parallel_cascade {form}", (BATCH, H, H, C),
+                       lambda: cascade_ops.parallel_cascade(x, w1, b1, w2, b2, ks=ks,
+                                                            identity=False),
+                       lambda: cascade_ops.parallel_cascade_ref(x, w1, b1, w2, b2, ks=ks,
+                                                                identity=False),
+                       lambda: F.conv2d(xc, merged, bias, padding=k // 2, groups=C), True,
+                       dict(bytes=nbytes - nx, flops=flops), weight=blocks)
+        rows.append(dict(row, form=form))
+        del x, xc
+    return rows
+
+
+def bf16_lowrank_rows(gen):
+    """lowrank_conv in bf16 at the dodecomp AlexNet's four sites, beside cuDNN's
+    bf16 conv of W_eff."""
+    import torch
+    import torch.nn.functional as F
+
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
+    rows = []
+    for H, C, k, pad, M, N in ALEX_CONVS:
+        x, A, b, taps = lowrank_inputs(BATCH, H, H, C, M, N, (k, k), "sep", gen)
+        x = x.bfloat16()
+        kw = dict(kernel_size=(k, k), stride=(1, 1), padding=(pad, pad), **taps)
+        packed = lowrank_ops.pack_kernel_weights(A, **taps)
+        basis = taps["v"][:, :, None] * taps["h"][:, None]
+        w_eff = torch.einsum("mcn,mij->ncij", A.reshape(M, C, N), basis).bfloat16().contiguous()
+        xc, bb = x.permute(0, 3, 1, 2), b.bfloat16()
+        nbytes, basis_flops, mix_flops = lowrank_cost(BATCH, H, H, C, M, N, (k, k), (1, 1),
+                                                      (pad, pad), "sep")
+        Ho = H + 2 * pad - k + 1
+        nx = 2 * (BATCH * H * H * C + BATCH * Ho * Ho * N)
+        xf = x.float()
+        row = bf16_row("lowrank_conv sep", (BATCH, H, H, C),
+                       lambda: lowrank_ops.lowrank_conv(x, A, b, packed=packed, **kw),
+                       lambda: lowrank_ops.lowrank_conv_ref(x, A, b, **kw),
+                       lambda: F.conv2d(xc, w_eff, bb, padding=pad),
+                       (lambda: lowrank_ops.lowrank_conv(xf, A, b, packed=packed, **kw),
+                        lambda: lowrank_ops.lowrank_conv_ref(xf, A, b, **kw)),
+                       dict(bytes=nbytes - nx, basis_flops=basis_flops, mix_flops=mix_flops))
+        rows.append(row)
+        del x, xc, xf, packed
+    return rows
+
+
+def bf16_qmatmul_rows(gen):
+    """qmatmul in bf16 at int8 ConvNeXt-T's 13 shapes (beside torch._int_mm on
+    the same int8 operands) and the three ragged ones."""
+    import torch
+
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    for M, K, N in QMM_RAGGED:
+        x = torch.randn(M, K, generator=gen).cuda().bfloat16()
+        w = qmatmul_ops.pack_qweight(
+            torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).cuda())
+        a = torch.tensor(float(x.float().abs().max()) / 127.0, device="cuda")
+        s, b = (torch.rand(N, generator=gen) * 0.01).cuda(), torch.randn(N, generator=gen).cuda()
+        for bias in (b, None):
+            y, y_ref = qmatmul_ops.qmatmul(x, w, a, s, bias), qmatmul_ops.qmatmul_ref(x, w, a, s,
+                                                                                       bias)
+            torch.cuda.synchronize()
+            if y.dtype != torch.bfloat16 or not torch.equal(y, y_ref):
+                fail(f"P19a qmatmul bf16 ragged {(M, K, N)} (bias {bias is not None}): "
+                     f"{bf16_ulps(y, y_ref)} ulps from qmatmul_ref; bit-equal required")
+        print(f"P19a qmatmul bf16 ragged (M, K, N)={(M, K, N)}: bit-equal with and without a bias")
+    rows = []
+    for (M, K, N), calls in QMM_SHAPES:
+        x = torch.randn(M, K, generator=gen).cuda().bfloat16()
+        w_q = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).cuda()
+        w = qmatmul_ops.pack_qweight(w_q)
+        a = torch.tensor(float(x.float().abs().max()) / 127.0, device="cuda")
+        s = (torch.rand(N, generator=gen) * 0.01).cuda()
+        b = torch.randn(N, generator=gen).cuda()
+        x_q, w_t = qmatmul_ops.quantize_activation(x, a), w_q.t().contiguous()
+        nx = 2 * (M * K + M * N)
+        rows.append(bf16_row("qmatmul", (M, K, N), lambda: qmatmul_ops.qmatmul(x, w, a, s, b),
+                             lambda: qmatmul_ops.qmatmul_ref(x, w, a, s, b),
+                             lambda: torch._int_mm(x_q, w_t), True,
+                             dict(bytes=nx + K * N + 4 * (2 * N + 1), flops=2 * M * N * K),
+                             PEAK_INT8, weight=calls))
+        del x, x_q
+    return rows
+
+
+def bf16_sum(label, rows):
+    total = {k: sum(r[k] * r["calls"] for r in rows) for k in ("ms", "plain_ms", "bound_ms")}
+    lib = [r["library_ms"] for r in rows]
+    lib_s = (f"library {sum(t * r['calls'] for t, r in zip(lib, rows)):.4f} ms"
+             if None not in lib else "no library call")
+    print(f"P19a {label} in bf16 ({sum(r['calls'] for r in rows)} calls): kernel "
+          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, {lib_s}, bound "
+          f"{total['bound_ms']:.4f} ms [{smi_line()}]")
+
+
+def run_bf16_kernels():
+    """P19a: each kernel in bf16 against its bf16 plain version at its path's
+    shapes, timed beside its plain version, its bound and its library call in
+    bf16.  Returns {kernel: rows}."""
+    import torch
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(19)
+    with uncounted():
+        rows = dict(msca_fused=bf16_msca_rows(gen), parallel_cascade=bf16_cascade_rows(gen),
+                    lowrank_conv=bf16_lowrank_rows(gen), qmatmul=bf16_qmatmul_rows(gen))
+    bf16_sum("msca_fused per MSCAN-t d1+fix forward",
+             [r for r in rows["msca_fused"] if r["form"] == "d1fix"])
+    bf16_sum("parallel_cascade per ConvNeXt-T r1 forward",
+             [r for r in rows["parallel_cascade"] if r["form"] == "r1"])
+    bf16_sum("parallel_cascade per MSCAN-t dconv0 forward",
+             [r for r in rows["parallel_cascade"] if r["form"] != "r1"])
+    bf16_sum("lowrank_conv per dodecomp AlexNet forward", rows["lowrank_conv"])
+    bf16_sum("qmatmul per int8 ConvNeXt-T forward", rows["qmatmul"])
+    print(f"P19a in {time.perf_counter() - t0:.2f} s")
+    return rows
+
+
+def copies_beside_kernels(names):
+    """(copy kernels in the list, copy kernels right before or after a port kernel):
+    a cast or layout copy shows as an elementwise copy kernel."""
+    port = [any(k in n for ks in KERNEL_NAMES.values() for k in ks) for n in names]
+    copy = ["copy" in n.lower() for n in names]
+    beside = sum(1 for i, c in enumerate(copy) if c and (
+        (i > 0 and port[i - 1]) or (i + 1 < len(names) and port[i + 1])))
+    return sum(copy), beside
+
+
+def run_bf16_headline():
+    """P19b: the headline d1+fix surface cast to bf16 (``cast_floating``) timed
+    through ``InferenceTimeHook(bf16=True)`` at b=64, 224^2 (13 msca_fused
+    launches per forward and per replay), its logits against the same bf16
+    model through the plain versions and against the float32 surface, no copy
+    kernel beside a port kernel in a profiled forward; dense MSCAN-t in bf16
+    timed beside it.  Returns (msca_fused launches per forward, the bf16 surface)."""
+    import copy
+    from types import SimpleNamespace
+
+    import torch
+
+    from convnet_approximater_tpu_torch.hooks import InferenceTimeHook
+    from convnet_approximater_tpu_torch.hooks.inference_time_hook import forward_times
+    from convnet_approximater_tpu_torch.utils.dtype import cast_floating, serving_dtype
+
+    t0 = time.perf_counter()
+    base = mscan_base(random_norms=True)
+    _, surface32 = serving_surface(base, False)
+    surface = cast_floating(copy.deepcopy(surface32), torch.bfloat16)
+    x = seeded_batch(192)
+    xb = x.to(torch.bfloat16)
+    reset_counts()
+    with torch.no_grad():
+        y = surface(xb)
+    eager = kernel_counts()["msca_fused"]
+    with torch.no_grad(), uncounted():
+        plain_err = f32_rel(y, through_all_plain(surface, xb))
+        f32_err = f32_rel(y, surface32(x))
+    work = os.path.join(P19_DIR, "headline")
+    runner = SimpleNamespace(model=surface, device=torch.device("cuda"),
+                             cfg=SimpleNamespace(work_dir=work, config_name="bf16", name="bf16"))
+    hook = InferenceTimeHook(runner, 50, infer_cfg=dict(input_size=INPUT, bf16=True))
+    reset_counts()
+    with forwards_counted(surface) as forwards:
+        hook.after_run()
+    per_forward = kernel_counts()["msca_fused"] / len(forwards)
+    _, _, replay = captured(surface, xb)
+    with torch.no_grad(), uncounted():
+        names = kernels_of(lambda: surface(xb))
+    copies, beside = copies_beside_kernels(names)
+    print(f"P19b MSCAN-t headline surface in bf16 (serving type {serving_dtype(surface)}): "
+          f"InferenceTimeHook(bf16=True) at {INPUT}: {hook.result['median_ms']:.3f} ms as a "
+          f"graph back to back, eager median {hook.result['eager_median_ms']:.3f} ms "
+          f"({BATCH / hook.result['median_ms'] * 1e3:.1f} img/s); msca_fused {per_forward:g} "
+          f"per forward over {len(forwards)} forwards, {eager} in one eager forward, "
+          f"{replay.get('msca_fused')} per replay; logits {tuple(y.shape)} {y.dtype} against "
+          f"the bf16 model through the plain versions rel norm {plain_err:.3e} (bound "
+          f"{BF16_REL_TOL}), against the float32 surface {f32_err:.3e}; a profiled forward: "
+          f"{len(names)} kernels, {copies} copy kernels, {beside} beside a port kernel "
+          f"[{smi_line()}]")
+    if eager != 13 or per_forward != 13 or replay.get("msca_fused") != 13:
+        fail("P19b: the bf16 headline surface does not launch msca_fused 13 times a forward")
+    if not torch.isfinite(y.float()).all() or y.dtype != torch.bfloat16 or \
+            plain_err > BF16_REL_TOL or beside:
+        fail("P19b: the bf16 headline logits, or a copy beside a kernel")
+    dense = cast_floating(copy.deepcopy(base), torch.bfloat16)
+    reset_counts()
+    t = forward_times(dense, INPUT, 10, 3, dtype=torch.bfloat16)
+    t32 = forward_times(base, INPUT, 10, 3)
+    s32 = forward_times(surface32, INPUT, 10, 3)
+    print(f"P19b dense MSCAN-t in bf16: {t['ms']:.3f} ms as a graph back to back, eager median "
+          f"{t['eager_median_ms']:.3f} ms, msca_fused {kernel_counts()['msca_fused']} launches "
+          f"over {t['forwards']} forwards; dense bf16 over the bf16 surface "
+          f"{t['ms'] / hook.result['median_ms']:.3f}x; in float32 in the same run: dense "
+          f"{t32['ms']:.3f} ms, surface {s32['ms']:.3f} ms (graph back to back) [{smi_line()}]")
+    print(f"P19b in {time.perf_counter() - t0:.2f} s")
+    del dense, base, surface32
+    torch.cuda.empty_cache()
+    return per_forward, surface, hook.result["median_ms"]
+
+
+def run_bf16_serve_mscan():
+    """P19c: ``serve_mscan`` at its defaults (bfloat16, b=128, the dconv0
+    surface) for P19_SERVE_BATCHES batches: 26 parallel_cascade per capture
+    forward, img/s end to end against the graph back to back."""
+    import torch
+
+    from convnet_approximater_tpu_torch import serve_mscan
+    from convnet_approximater_tpu_torch.utils.dtype import serving_dtype
+
+    t0 = time.perf_counter()
+    reset_counts()
+    res = serve_mscan.main(["--batches", str(P19_SERVE_BATCHES)])
+    launches = kernel_counts()["parallel_cascade"]
+    b2b = back_to_back_ms(res["compiled"])
+    device_ips = res["batch"] / b2b * 1e3
+    print(f"P19c serve_mscan at its defaults ({serving_dtype(res['model'])}, b={res['batch']}, "
+          f"{P19_SERVE_BATCHES} batches): {res['img_per_s']:.1f} img/s end to end against "
+          f"{device_ips:.1f} img/s from the graph back to back ({b2b:.3f} ms per batch): the "
+          f"host side (loader, H2D, the cast) costs "
+          f"{max(0.0, 1 - res['img_per_s'] / device_ips):.1%}; "
+          f"parallel_cascade {launches} launches in the capture's 4 forwards "
+          f"[{smi_line()}]")
+    if serving_dtype(res["model"]) != torch.bfloat16 or launches != 26 * 4:
+        fail("P19c: serve_mscan did not serve bf16 through 26 parallel_cascade a forward")
+    print(f"P19c in {time.perf_counter() - t0:.2f} s")
+    out = dict(launches=launches, img_per_s=res["img_per_s"], b2b=b2b)
+    del res
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_bf16_inference():
+    """P19d: the inference CLI with ``--dtype bfloat16 --decomp --quantize
+    int8`` on phase 5's dodecomp AlexNet at b=64: every report tagged
+    ``/bfloat16``, lowrank_conv 4 per forward in approximated and decomposed,
+    qmatmul once per int8 module per forward in int8.  Returns {tag: launches}."""
+    import torch
+
+    from convnet_approximater_tpu_torch import inference as inference_cli
+    from convnet_approximater_tpu_torch.layers import QuantConv2d, QuantLinear
+    from convnet_approximater_tpu_torch.runner import ClassInference
+
+    t0 = time.perf_counter()
+    ckpt = checkpoint_in(os.path.join(REPO, "build", "chip_smoke_alexnet"))
+    seen = {}
+    report = ClassInference._report
+
+    def counted(self, tag, model):
+        reset_counts()
+        with forwards_counted(model) as forwards:
+            report(self, tag, model)
+        seen[tag] = dict(forwards=len(forwards), launches=kernel_counts())
+
+    with mock.patch.object(ClassInference, "_report", counted):
+        run = inference_cli.main(["--config", ALEX_DODECOMP, "--checkpoint", ckpt, "--batch",
+                                  str(BATCH), "--decomp", "--quantize", "int8", "--dtype",
+                                  "bfloat16", "--device", DEVICE, "--seed", "0", "--work-dir",
+                                  os.path.join(P19_DIR, "inference")])
+    int8_modules = sum(isinstance(m, (QuantConv2d, QuantLinear)) for m in run.new_model.modules())
+    want = ["original/bfloat16", "approximated/bfloat16", "decomposed/bfloat16", "int8/bfloat16"]
+    out = {}
+    for (tag, r), s in zip(run.reports.items(), seen.values()):
+        per = {k: v / s["forwards"] for k, v in s["launches"].items() if v}
+        out[tag] = per
+        print(f"P19d ClassInference report {tag}: {r['ms']:.3f} ms as a graph back to back "
+              f"({BATCH / r['ms'] * 1e3:.1f} img/s), eager median {r['eager_ms']:.3f} ms, MACs "
+              f"{r['macs'] / 1e6:.2f} M; launches per forward over {s['forwards']} forwards: "
+              + (", ".join(f"{k} {v:g}" for k, v in per.items()) or "none"))
+    if list(run.reports) != want or run.fold_bn is not True:
+        fail(f"P19d: ClassInference(dtype='bfloat16') made the reports {list(run.reports)}")
+    for tag in want[1:3]:
+        if out[tag].get("lowrank_conv") != 4:
+            fail(f"P19d {tag}: lowrank_conv {out[tag]} per forward, expected 4")
+    if int8_modules == 0 or out[want[3]].get("qmatmul") != int8_modules:
+        fail(f"P19d int8: qmatmul {out[want[3]]} per forward for {int8_modules} int8 modules")
+    print(f"P19d in {time.perf_counter() - t0:.2f} s [{smi_line()}]")
+    del run
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_bf16_export(surface):
+    """P19e: the bf16 headline surface exported at b=64 (``deploy.export_serving``,
+    as ``export_model`` writes it): bf16 avals, 13 msca_fused nodes and
+    launches, the artifact's logits bit-equal to the live bf16 model's."""
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+
+    t0 = time.perf_counter()
+    xb = seeded_batch(193).to(torch.bfloat16)
+    loaded, export_s, load_s, size, _ = export_artifact("MSCAN-t headline bf16", surface, xb)
+    ops = deploy.custom_op_counts(loaded)
+    reset_counts()
+    with torch.no_grad():
+        y_art = loaded(xb)
+    launches = kernel_counts()["msca_fused"]
+    with torch.no_grad(), uncounted():
+        y_live = surface(xb)
+    same = torch.equal(y_art, y_live)
+    avals = (loaded.in_avals[-1].dtype, loaded.out_avals[0].dtype)
+    print(f"P19e the bf16 headline surface exported at b={BATCH}: export {export_s:.2f} s, load "
+          f"{load_s:.2f} s, {size / 2 ** 20:.1f} MiB; avals in/out {avals}; custom-op nodes "
+          f"{ops}, msca_fused {launches} per forward; logits against the live bf16 model "
+          f"{'bit-equal' if same else 'NOT bit-equal'}; {time.perf_counter() - t0:.2f} s")
+    if avals != (torch.bfloat16, torch.bfloat16) or ops != {"msca_fused": 13} or \
+            launches != 13 or not same:
+        fail("P19e: the bf16 artifact's avals, ops or logits differ from the live model's")
+    del loaded
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_bf16():
+    """P19: bf16 serving, a-e.  Returns what the kernels line reads."""
+    t0 = time.perf_counter()
+    rows = run_bf16_kernels()
+    headline, surface, headline_ms = run_bf16_headline()
+    exported = run_bf16_export(surface)
+    del surface
+    serve = run_bf16_serve_mscan()
+    inference = run_bf16_inference()
+    print(f"P19 in {time.perf_counter() - t0:.2f} s")
+    return dict(rows=rows, headline=headline, exported=exported, serve=serve,
+                inference=inference)
+
+
+def bf16_path(name, rows, **counts):
+    """A kernels-line path entry of a kernel's bf16 form: its P19a rows per
+    forward of their path (calls per forward as weights), the bound at 2-byte
+    activations, the most error and ulps."""
+    return dict(per_forward(rows, lambda r: r["calls"], dict(path=name, **counts)),
+                max_abs_err=max(r["max_abs_err"] for r in rows),
+                max_ulps=max(r["ulps"] for r in rows))
+
+
+def rows_bound(rows, weight, peak: float = PEAK_F32):
+    """(ms, "bytes" or "operations") of rows weighted by ``weight``; lowrank_conv's
+    rows (``mix_flops``) with the mix on its 3xTF32 route."""
+    nbytes = sum(r["bytes"] * weight(r) for r in rows)
+    if "mix_flops" in rows[0]:
+        return lowrank_bound(nbytes, sum(r["basis_flops"] * weight(r) for r in rows),
+                             sum(r["mix_flops"] * weight(r) for r in rows))
+    return bound(nbytes, sum(r["flops"] * weight(r) for r in rows), peak)
+
+
 def per_forward(rows, weight, kernel, peak: float = PEAK_F32):
     """The kernels-line entry of one forward: rows weighted by calls per forward."""
-    nbytes = sum(r["bytes"] * weight(r) for r in rows)
-    if "mix_flops" in rows[0]:  # lowrank_conv: the mix on its 3xTF32 route
-        b_ms, b_by = lowrank_bound(nbytes, sum(r["basis_flops"] * weight(r) for r in rows),
-                                   sum(r["mix_flops"] * weight(r) for r in rows))
-    else:
-        b_ms, b_by = bound(nbytes, sum(r["flops"] * weight(r) for r in rows), peak)
+    b_ms, b_by = rows_bound(rows, weight, rows[0].get("peak", peak))
     library = [r.get("library_ms") for r in rows]
     return dict(kernel, ms=sum(r["ms"] * weight(r) for r in rows),
                 plain_ms=sum(r["plain_ms"] * weight(r) for r in rows),
@@ -5245,6 +5750,10 @@ def main():
     run_opcheck()
     p18 = run_exports()
     lap("18. P18")
+
+    # -- 19. P19: bf16 serving --------------------------------------------
+    p19 = run_bf16()
+    lap("19. P19")
     print(f"wall time in all: {lap.total():.2f} s from the check for the card")
 
     # -- 18. results ------------------------------------------------------
@@ -5371,6 +5880,38 @@ def main():
     kernels[3]["max_abs_err"] = max([kernels[3]["max_abs_err"]] + [
         r["max_abs_err"] for r in r50_rows + qat_rows + p11[2]
         + [r for _, _, rows in pruning["p12"] for r in rows]])
+    # P19: each kernel's bf16 form, per forward of its path, beside its float32 paths
+    bf16 = p19["rows"]
+    # (where the bf16 path a CLI runs has other shapes than P19a's rows, the rows stand alone,
+    # with their calls per forward, and the CLI path's launches beside them)
+    cascade_bf16 = lambda r1: [r for r in bf16["parallel_cascade"] if (r["form"] == "r1") == r1]  # noqa: E731,E501
+    kernels[0]["paths"] += [
+        bf16_path("bf16: MSCAN-t d1+fix at b=64, 224^2 (P19a rows), launches per forward of the "
+                  "same bf16 surface under InferenceTimeHook(bf16=True) (P19b)",
+                  [r for r in bf16["msca_fused"] if r["form"] == "d1fix"],
+                  launches=p19["headline"]),
+        dict(path="bf16: the exported headline surface, per forward (P19e)",
+             launches=p19["exported"])]
+    kernels[1]["paths"] += [
+        bf16_path("bf16: dodecomp AlexNet's 4 sites at b=64, 224^2 (P19a rows), launches per "
+                  "forward of the same model in ClassInference approximated/bfloat16 (P19d)",
+                  bf16["lowrank_conv"],
+                  launches=p19["inference"]["approximated/bfloat16"]["lowrank_conv"])]
+    kernels[2]["paths"] += [
+        bf16_path("bf16: MSCAN-t dconv0 cascades at b=64, 224^2 (P19a, the kernel alone)",
+                  cascade_bf16(False), launches=None,
+                  calls_per_forward=sum(r["calls"] for r in cascade_bf16(False))),
+        dict(path="bf16: serve_mscan at its defaults, b=128: the capture's 4 forwards (P19c)",
+             launches=p19["serve"]["launches"]),
+        bf16_path("bf16: ConvNeXt-T DwSepRep r1 at b=64, 224^2 (P19a, the kernel alone)",
+                  cascade_bf16(True), launches=None,
+                  calls_per_forward=sum(r["calls"] for r in cascade_bf16(True)))]
+    kernels[3]["paths"] += [
+        bf16_path("bf16: int8 ConvNeXt-T's 13 shapes at b=64, 224^2 (P19a, the kernel alone)",
+                  bf16["qmatmul"], launches=None,
+                  calls_per_forward=sum(r["calls"] for r in bf16["qmatmul"])),
+        dict(path="bf16: ClassInference int8/bfloat16 on the dodecomp AlexNet, per forward "
+                  "(P19d)", launches=p19["inference"]["int8/bfloat16"]["qmatmul"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

@@ -4,10 +4,15 @@
 :class:`ValidateHelper` evaluates a runner's model (read at validate time) or
 a given model: loss and top-1/top-5 over a loader, with the model in
 ``eval()`` under ``torch.no_grad()``, so the kernel layers take their kernels.
+The images enter in the model's serving type (``utils.dtype.serving_dtype``:
+a bf16 surface reads bf16); ``amp=True`` evaluates a bf16 copy of the model
+(``cast_floating``: the parameters, not the running statistics) on bf16
+images, the logits reduced in float32, as the JAX helper's autocast eval does.
 """
 
 from __future__ import annotations
 
+import copy
 import time
 from typing import Optional
 
@@ -18,6 +23,7 @@ import torch.nn.functional as F
 from convnet_approximater_tpu_torch.data import (IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD,
                                                  Loader, Synthetic, build_dataset)
 from convnet_approximater_tpu_torch.utils.config import Config
+from convnet_approximater_tpu_torch.utils.dtype import cast_floating, serving_dtype
 from convnet_approximater_tpu_torch.utils.logger import get_logger
 
 _default_eval_cfg = dict(
@@ -37,7 +43,7 @@ _default_eval_cfg = dict(
     test_input_size=None,  # (H, W): eval at another resolution
 )
 
-AMP_TODO = "bf16 is ROADMAP.md queue 1 item 7"
+AMP_TODO = "bf16 training is ROADMAP.md queue 1 item 7 (its training half)"
 MESH_TODO = "more than one device is ROADMAP.md queue 1 item 12"
 
 
@@ -128,8 +134,6 @@ class ValidateHelper:
         self.cfg = Config()
         self.cfg.update(_default_eval_cfg)
         self.cfg.update(eval_cfg or {})
-        if self.cfg.amp:
-            raise NotImplementedError(f"ValidateHelper amp=True: {AMP_TODO}")
         # a runner (its model is read at validate time) or a model
         self._runner = None
         if hasattr(runner_or_model, "model") and hasattr(runner_or_model, "device"):
@@ -174,13 +178,16 @@ class ValidateHelper:
             n_batches = min(n_batches, self.cfg.num_batches)
         was_training = model.training
         model.eval()
+        served, dtype = model, serving_dtype(model)
+        if self.cfg.amp:  # autocast eval: bf16 compute over the float32 weights
+            served, dtype = cast_floating(copy.deepcopy(model), torch.bfloat16), torch.bfloat16
         cursor = 0
         end = time.time()
         try:
             for i, (images, labels) in enumerate(loader):
                 if i >= n_batches:
                     break
-                loss, c1, c5, top5 = eval_batch(model, images, labels, valid_mask)
+                loss, c1, c5, top5 = eval_batch(served, images.to(dtype), labels, valid_mask)
                 bs = images.shape[0]
                 if real is not None:
                     real.add(top5.cpu().numpy(), cursor)

@@ -74,11 +74,13 @@ def params_to_jax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     (OIHW -> HWIO, ``(out, in)`` -> ``(in, out)``, a norm's 1-d ``weight`` ->
     ``scale``, ``running_mean``/``running_var`` -> state ``mean``/``var``, a QAT
     twin's ``act_absmax`` and the Hamburger's ``nmf_init`` -> state leaves of
-    those names)."""
+    those names).  A bfloat16 tensor comes out as its exact float32 upcast:
+    numpy has no bfloat16 without ``ml_dtypes``, which the port does not need."""
     out = {}
     for key, t in state_dict.items():
         *prefix, name = key.split(".")
-        v = t.detach().cpu().numpy()
+        t = t.detach().cpu()
+        v = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
         collection = "params"
         if name in ("running_mean", "running_var"):
             collection, name = "state", name[len("running_"):]

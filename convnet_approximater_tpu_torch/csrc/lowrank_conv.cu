@@ -1,4 +1,5 @@
-// Scheme-1 low-rank conv for Hopper (sm_90a), float32, NHWC, one launch per call:
+// Scheme-1 low-rank conv for Hopper (sm_90a), NHWC, x and y float32 or bfloat16, one launch
+// per call:
 //
 //   Z[p, (m, c)] = basis_m (*) x[b, :, :, c] at output pixel p = (b, ho, wo)   (zero padded)
 //   Y[p, n]      = sum_{m, c} Z[p, (m, c)] * A_mc[m * C + c, n] + bias[n]
@@ -48,6 +49,13 @@
 //   whole 128-byte lines.
 // Per-shape choices (MS, BN, qpg, stages, chain and the window's rows Rw) come from the planner
 // in ops/lowrank_conv.py.
+//
+// bfloat16 (lowrank_conv_bf16): the kernel is templated on the element type T of x and y.  The
+// x window in shared memory stays float32, in the layout above: the producers fill it from bf16
+// x by plain loads, converting each value (exactly) on the way in, and arrive on the window's
+// mbarrier themselves, so Z, the 3xTF32 mix and the float32 sums are the float32 kernel's.  The
+// epilogue rounds each result to bf16 once (__float2bfloat16_rn) as it writes y.  The weights
+// and taps stay float32 (the wrapper packs them so).
 //
 // The C entry point launches on the caller's stream, does not synchronise, allocates
 // nothing and returns cudaGetLastError() of the launch (0 on success).  A tile whose rows
@@ -203,7 +211,27 @@ __device__ __forceinline__ int window_at(int f, int ql, const Conv& s) {
 // The cp.async copy of the x window of channel quads [q0, q0 + qpg) that a TMA copy would
 // make: window row r is row vbase + r of x's stack of B H rows, column c is column c - pw; zero
 // outside x and past C.  Each producer thread then arrives on `bar` when its copies land.
-// `t` is the calling producer thread (0 .. kProducers - 1).
+// `t` is the calling producer thread (0 .. kProducers - 1).  bf16 x is read by plain loads and
+// converted into the same float32 window; each thread arrives once its stores are made.
+__device__ __forceinline__ void load_window(uint8_t* dst, const __nv_bfloat16* __restrict__ x,
+                                            const Conv& s, int vbase, int q0, int t,
+                                            uint32_t bar) {
+  const int total = s.qpg * s.Rw * s.Wv;
+  for (int idx = t; idx < total; idx += kProducers) {
+    const int ql = idx % s.qpg;
+    const int f = idx / s.qpg;
+    const int v = vbase + f / s.Wv, win = f % s.Wv - s.pw;
+    const int c = 4 * (q0 + ql);
+    const bool ok = (unsigned)v < (unsigned)(s.B * s.H) && (unsigned)win < (unsigned)s.W;
+    const __nv_bfloat16* src = x + (ok ? ((int64_t)v * s.W + win) * s.C + c : 0);
+    float e[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = ok && c + i < s.C ? __bfloat162float(src[i]) : 0.f;
+    *reinterpret_cast<float4*>(dst + window_at(f, ql, s)) = make_float4(e[0], e[1], e[2], e[3]);
+  }
+  mbar_arrive(bar);
+}
+
 __device__ __forceinline__ void load_window(uint8_t* dst, const float* __restrict__ x,
                                             const Conv& s, int vbase, int q0, int t,
                                             uint32_t bar) {
@@ -294,12 +322,12 @@ __device__ __forceinline__ void produce_z(const uint8_t* wb, int ql, int cell0, 
   }
 }
 
-template <int MS, int BN>
+template <int MS, int BN, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 lowrank_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__ CUtensorMap lmap,
-               const __grid_constant__ CUtensorMap xmap, const float* __restrict__ x,
+               const __grid_constant__ CUtensorMap xmap, const T* __restrict__ x,
                const float* __restrict__ taps,
-               const float* __restrict__ bias, float* __restrict__ y, const Conv s) {
+               const float* __restrict__ bias, T* __restrict__ y, const Conv s) {
   constexpr int H2 = MS / 2;               // k-steps of a group
   constexpr int RB = row_bytes<MS>();
   constexpr int kZPart = kBM * RB;         // a stage: Z high, Z low, weight high, weight low
@@ -471,14 +499,14 @@ lowrank_kernel(const __grid_constant__ CUtensorMap hmap, const __grid_constant__
       const int n = n0 + cc * 32 + c;
       if (p < s.P && n < s.N) {
         const float4 v = *reinterpret_cast<const float4*>(&stage[r * kStageLd + c]);
-        float* dst = y + (int64_t)p * s.N + n;
+        T* dst = y + (int64_t)p * s.N + n;
         if ((s.N & 3) == 0) {
-          *reinterpret_cast<float4*>(dst) = v;
+          store4(dst, v);
         } else {
-          dst[0] = v.x;
-          if (n + 1 < s.N) dst[1] = v.y;
-          if (n + 2 < s.N) dst[2] = v.z;
-          if (n + 3 < s.N) dst[3] = v.w;
+          store1(dst, v.x);
+          if (n + 1 < s.N) store1(dst + 1, v.y);
+          if (n + 2 < s.N) store1(dst + 2, v.z);
+          if (n + 3 < s.N) store1(dst + 3, v.w);
         }
       }
     }
@@ -513,17 +541,72 @@ int smem_bytes(int ms, int bn, int stages, int qpg, int rw, int wv, int ntaps, i
          ((row_b + 1023) & ~1023) + 4 * ((ntaps * mp + 3) & ~3) + 16 * stages + 32;
 }
 
-template <int MS, int BN>
+template <int MS, int BN, typename T>
 int launch(const CUtensorMap& hmap, const CUtensorMap& lmap, const CUtensorMap& xmap,
-           const float* x, const float* taps, const float* bias, float* y, const Conv& s,
+           const T* x, const float* taps, const float* bias, T* y, const Conv& s,
            int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(lowrank_kernel<MS, BN>,
+  cudaError_t err = cudaFuncSetAttribute(lowrank_kernel<MS, BN, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s.P + kBM - 1) / kBM, (s.N + BN - 1) / BN);
-  lowrank_kernel<MS, BN><<<grid, kThreads, smem, stream>>>(hmap, lmap, xmap, x, taps, bias, y,
-                                                           s);
+  lowrank_kernel<MS, BN, T><<<grid, kThreads, smem, stream>>>(hmap, lmap, xmap, x, taps, bias,
+                                                              y, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One call of either type: the checks, the tensor maps and the instantiation the plan names.
+template <typename T>
+int run(const T* x, const float* w, const float* taps, const float* bias, T* y, int B, int H,
+        int W, int C, int N, int ms, int nslab, int kh, int kw, int sh, int sw, int ph, int pw,
+        int bn, int qpg, int rw, int stages, int chain, void* stream_handle) {
+  Conv s;
+  s.B = B; s.H = H; s.W = W; s.C = C; s.N = N;
+  s.kh = kh; s.kw = kw; s.sh = sh; s.sw = sw; s.ph = ph; s.pw = pw;
+  s.Ho = sh > 0 ? (H + 2 * ph - kh) / sh + 1 : 0;
+  s.Wo = sw > 0 ? (W + 2 * pw - kw) / sw + 1 : 0;
+  s.Wv = (s.Wo - 1) * sw + kw;
+  s.Rw = rw; s.qpg = qpg;
+  s.nquads = (C + 3) / 4;
+  s.nslab = nslab; s.Mp = ms * nslab;
+  s.Kp = 4 * s.nquads * s.Mp;
+  s.stages = stages;
+  s.chain = chain;
+  const int64_t P = (int64_t)B * s.Ho * s.Wo;
+  s.P = (int)P;
+  s.vec = sizeof(T) == 4 && C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  s.xtma = s.vec && s.Wv <= 256 && rw <= 256;
+  s.zsh = qpg == 8 ? 0 : qpg == 4 ? 1 : 2;  // 128-, 64- or 32-byte swizzle; none for one quad
+  s.zmask = qpg == 8 ? 7 : qpg == 4 ? 3 : qpg == 2 ? 1 : 0;
+  const int smem = smem_bytes(ms, bn, stages, qpg, rw, s.Wv, kh * kw, s.Mp);
+  if (B < 1 || C < 1 || N < 1 || s.Ho < 1 || s.Wo < 1 || nslab < 1 || stages < 2 || chain < 1 ||
+      (qpg != 1 && qpg != 2 && qpg != 4 && qpg != 8) || rw < kh ||
+      P + kBM > INT32_MAX || smem > kSmemMax || stages * stage_bytes(ms, bn) < kStageBytes ||
+      (N + bn - 1) / bn > 65535 || (int64_t)B * H + rw > INT32_MAX ||
+      (int64_t)(rw + 2) * 16 * qpg * s.Wv > INT32_MAX || reinterpret_cast<uintptr_t>(w) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int rb = ms == 4 ? 64 : 128;
+  const CUtensorMapSwizzle swizzle = rb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
+  CUtensorMap hmap, lmap, xmap;
+  if (!make_map(&hmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w, 4, N, s.Kp, bn, rb / 4, swizzle) ||
+      !make_map(&lmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w + (int64_t)N * s.Kp, 4, N, s.Kp, bn,
+                rb / 4, swizzle) ||
+      (s.xtma && !make_window_map(&xmap, reinterpret_cast<const float*>(x), s)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+#define LOWRANK_LAUNCH(MS_, BN_)                                                 \
+  if (ms == MS_ && bn == BN_)                                                    \
+    return launch<MS_, BN_, T>(hmap, lmap, xmap, x, taps, bias, y, s, smem, stream);
+  LOWRANK_LAUNCH(8, 128)
+  LOWRANK_LAUNCH(8, 96)
+  LOWRANK_LAUNCH(8, 64)
+  LOWRANK_LAUNCH(6, 128)
+  LOWRANK_LAUNCH(6, 96)
+  LOWRANK_LAUNCH(6, 64)
+  LOWRANK_LAUNCH(4, 128)
+  LOWRANK_LAUNCH(4, 96)
+  LOWRANK_LAUNCH(4, 64)
+#undef LOWRANK_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -543,52 +626,16 @@ extern "C" int lowrank_conv_f32(const float* x, const float* w, const float* tap
                                 int ms, int nslab, int kh, int kw, int sh, int sw, int ph,
                                 int pw, int bn, int qpg, int rw, int stages, int chain,
                                 void* stream_handle) {
-  Conv s;
-  s.B = B; s.H = H; s.W = W; s.C = C; s.N = N;
-  s.kh = kh; s.kw = kw; s.sh = sh; s.sw = sw; s.ph = ph; s.pw = pw;
-  s.Ho = sh > 0 ? (H + 2 * ph - kh) / sh + 1 : 0;
-  s.Wo = sw > 0 ? (W + 2 * pw - kw) / sw + 1 : 0;
-  s.Wv = (s.Wo - 1) * sw + kw;
-  s.Rw = rw; s.qpg = qpg;
-  s.nquads = (C + 3) / 4;
-  s.nslab = nslab; s.Mp = ms * nslab;
-  s.Kp = 4 * s.nquads * s.Mp;
-  s.stages = stages;
-  s.chain = chain;
-  const int64_t P = (int64_t)B * s.Ho * s.Wo;
-  s.P = (int)P;
-  s.vec = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  s.xtma = s.vec && s.Wv <= 256 && rw <= 256;
-  s.zsh = qpg == 8 ? 0 : qpg == 4 ? 1 : 2;  // 128-, 64- or 32-byte swizzle; none for one quad
-  s.zmask = qpg == 8 ? 7 : qpg == 4 ? 3 : qpg == 2 ? 1 : 0;
-  const int smem = smem_bytes(ms, bn, stages, qpg, rw, s.Wv, kh * kw, s.Mp);
-  if (B < 1 || C < 1 || N < 1 || s.Ho < 1 || s.Wo < 1 || nslab < 1 || stages < 2 || chain < 1 ||
-      (qpg != 1 && qpg != 2 && qpg != 4 && qpg != 8) || rw < kh ||
-      P + kBM > INT32_MAX || smem > kSmemMax || stages * stage_bytes(ms, bn) < kStageBytes ||
-      (N + bn - 1) / bn > 65535 || (int64_t)B * H + rw > INT32_MAX ||
-      (int64_t)(rw + 2) * 16 * qpg * s.Wv > INT32_MAX || reinterpret_cast<uintptr_t>(w) % 16 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int rb = ms == 4 ? 64 : 128;
-  const CUtensorMapSwizzle swizzle = rb == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  CUtensorMap hmap, lmap, xmap;
-  if (!make_map(&hmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w, 4, N, s.Kp, bn, rb / 4, swizzle) ||
-      !make_map(&lmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, w + (int64_t)N * s.Kp, 4, N, s.Kp, bn,
-                rb / 4, swizzle) ||
-      (s.xtma && !make_window_map(&xmap, x, s)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-#define LOWRANK_LAUNCH(MS_, BN_)                                                 \
-  if (ms == MS_ && bn == BN_)                                                    \
-    return launch<MS_, BN_>(hmap, lmap, xmap, x, taps, bias, y, s, smem, stream);
-  LOWRANK_LAUNCH(8, 128)
-  LOWRANK_LAUNCH(8, 96)
-  LOWRANK_LAUNCH(8, 64)
-  LOWRANK_LAUNCH(6, 128)
-  LOWRANK_LAUNCH(6, 96)
-  LOWRANK_LAUNCH(6, 64)
-  LOWRANK_LAUNCH(4, 128)
-  LOWRANK_LAUNCH(4, 96)
-  LOWRANK_LAUNCH(4, 64)
-#undef LOWRANK_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(x, w, taps, bias, y, B, H, W, C, N, ms, nslab, kh, kw, sh, sw, ph, pw, bn, qpg, rw,
+             stages, chain, stream_handle);
+}
+
+// x and y bf16; w, taps and bias float32.
+extern "C" int lowrank_conv_bf16(const __nv_bfloat16* x, const float* w, const float* taps,
+                                 const float* bias, __nv_bfloat16* y, int B, int H, int W, int C,
+                                 int N, int ms, int nslab, int kh, int kw, int sh, int sw, int ph,
+                                 int pw, int bn, int qpg, int rw, int stages, int chain,
+                                 void* stream_handle) {
+  return run(x, w, taps, bias, y, B, H, W, C, N, ms, nslab, kh, kw, sh, sw, ph, pw, bn, qpg, rw,
+             stages, chain, stream_handle);
 }

@@ -1,4 +1,4 @@
-// Fused MSCA block for Hopper (sm_90a), float32, NHWC:
+// Fused MSCA block for Hopper (sm_90a), NHWC, x and out float32 or bfloat16:
 //
 //   out = x * (Wm . fix(bank(dw_k0(x) + b0)) + bm)
 //   bank(a) = sum_br [vconv_k(hconv_k(a) + b1) + b2]  (+ a when `identity`)
@@ -60,6 +60,15 @@
 // arithmetic inside a row; divisions only per block.  The plan (kernel, tile, bands) comes from
 // ops/msca_fused.py::plan; msca_fused_smem_bytes gives this file's shared memory for it.
 //
+// bfloat16 (msca_fused_bf16): both kernels are templated on the element type T of x and out.
+// The march's x ring holds T, so a bf16 row is staged by 16-byte cp.async of 8 channels a lane
+// (C % 8 == 0, x 16-byte aligned; else plain 2-byte copies) and converted to float32 (exact)
+// as conv0 reads it; the ring's shared memory is planned at 4 bytes an element either way, so
+// one plan serves both types.  attn between the two launches stays float32, as the TPU kernel
+// never rounds it; the mix reads bf16 x, computes in float32 and rounds its output to bf16
+// once (__float2bfloat16_rn).  The taps and the mix weight stay float32 (the wrapper packs
+// them so).
+//
 // The C entry point launches on the caller's stream, does not synchronise, allocates nothing
 // and returns cudaGetLastError() of the first failing launch (0 on success), or
 // cudaErrorInvalidValue for a plan it does not take.
@@ -98,33 +107,41 @@ int smem_bytes(int K, int k0, int nb, int G, int warps, int tw) {
 
 // Stage x row r, columns x_left .. x_left + xw - 1, into its ring slot r mod xr; zeros outside
 // the map (rows and columns) and for channels past C.  One cp.async group.  Where C is a
-// multiple of 4 (and x 16-byte aligned: `vec`), each lane copies 16 bytes (4 channels), so a
-// warp stages 4 columns at once.
-__device__ __forceinline__ void stage_x_row(float* xs, const float* __restrict__ x, const Tile& t,
+// multiple of V = 16 / sizeof(T) (and x 16-byte aligned: `vec`), each lane copies 16 bytes (V
+// channels: 4 float32 or 8 bf16), so a warp stages 32 / V columns at once.  Otherwise float32
+// copies 4 bytes a lane by cp.async and bf16 its 2 bytes by a plain load.
+template <typename T>
+__device__ __forceinline__ void stage_x_row(T* xs, const T* __restrict__ x, const Tile& t,
                                             int r, int H, int W, int C, int x_left, int xw,
                                             int xr, int vec) {
-  float* dst = xs + ((r % xr + xr) % xr) * xw * kLanes;
+  constexpr int V = 16 / sizeof(T), L = kLanes / V;  // channels a lane, lanes a column
+  T* dst = xs + ((r % xr + xr) % xr) * xw * kLanes;
   const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
   const bool row_ok = r >= 0 && r < H;
   if (vec) {
-    const int quad = (lane & 7) * 4, cc = t.c - lane + quad;  // channels cc .. cc + 3
-    const float* src = x + (row_ok ? (t.image + r) * W * C + cc : 0);
-    for (int col = (threadIdx.x >> 5) * 4 + (lane >> 3); col < xw; col += nwarps * 4) {
+    const int quad = (lane % L) * V, cc = t.c - lane + quad;  // channels cc .. cc + V - 1
+    const T* src = x + (row_ok ? (t.image + r) * W * C + cc : 0);
+    for (int col = (threadIdx.x >> 5) * V + lane / L; col < xw; col += nwarps * V) {
       const int ww = x_left + col;
-      float* d = dst + col * kLanes + quad;
+      T* d = dst + col * kLanes + quad;
       if (row_ok && cc < C && ww >= 0 && ww < W)
-        cp_async16(d, src + ww * C);
+        cp_async16(reinterpret_cast<float*>(d), reinterpret_cast<const float*>(src + ww * C));
       else
-        *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
     }
   } else {
-    const float* src = x + (row_ok && t.c_ok ? (t.image + r) * W * C + t.c : 0);
+    const T* src = x + (row_ok && t.c_ok ? (t.image + r) * W * C + t.c : 0);
     for (int col = threadIdx.x >> 5; col < xw; col += nwarps) {
       const int ww = x_left + col;
-      if (row_ok && t.c_ok && ww >= 0 && ww < W)
-        cp_async4(dst + col * kLanes + lane, src + ww * C);
-      else
-        dst[col * kLanes + lane] = 0.f;
+      T* d = dst + col * kLanes + lane;
+      if (row_ok && t.c_ok && ww >= 0 && ww < W) {
+        if constexpr (sizeof(T) == 4)
+          cp_async4(reinterpret_cast<float*>(d), reinterpret_cast<const float*>(src + ww * C));
+        else
+          *d = src[ww * C];
+      } else {
+        store(d, 0.f);
+      }
     }
   }
   cp_async_commit();
@@ -133,9 +150,9 @@ __device__ __forceinline__ void stage_x_row(float* xs, const float* __restrict__
 // One march over a band.  K: the bank's tap count (k_max <= K, zero-embedded at the centre);
 // K0: conv0's size; G: output columns per thread.  Every tap is read from shared memory, so the
 // registers hold the running sums and little else.  Instantiated once, at MSCAN-t's banks.
-template <int K, int K0, int G>
+template <int K, int K0, int G, typename T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-march_kernel(const float* __restrict__ x, const float* __restrict__ w0,
+march_kernel(const T* __restrict__ x, const float* __restrict__ w0,
              const float* __restrict__ b0, const float* __restrict__ w1,
              const float* __restrict__ b1, const float* __restrict__ w2,
              const float* __restrict__ b2, const float* __restrict__ res,
@@ -152,7 +169,8 @@ march_kernel(const float* __restrict__ x, const float* __restrict__ w0,
   float* b1s = wvs + nb * K * kLanes;   // [nb][32]
   float* w0s = b1s + nb * kLanes;       // [k0 k0][32]
   float* a0s = w0s + K0 * K0 * kLanes;  // [aw][32]: a0 at columns w0 - P + i
-  float* xs = a0s + aw * kLanes;        // [K0 + kAhead][xw][32]: x at columns w0 - P - p0 + i
+  T* xs = reinterpret_cast<T*>(a0s + aw * kLanes);  // [K0 + kAhead][xw][32]: x at columns
+                                                    // w0 - P - p0 + i
 
   const int c0 = t.c - lane, d = (K - k_max) / 2;
   for (int i = threadIdx.x; i < nb * K * kLanes; i += blockDim.x) {
@@ -211,10 +229,10 @@ march_kernel(const float* __restrict__ x, const float* __restrict__ w0,
         int sl = slot0;
 #pragma unroll
         for (int i = 0; i < K0; ++i) {
-          const float* xp = xs + (sl * xw + cb) * kLanes + lane;
+          const T* xp = xs + (sl * xw + cb) * kLanes + lane;
           float win[kRun + K0 - 1];
 #pragma unroll
-          for (int s = 0; s < kRun + K0 - 1; ++s) win[s] = xp[s * kLanes];
+          for (int s = 0; s < kRun + K0 - 1; ++s) win[s] = to_f32(xp[s * kLanes]);
 #pragma unroll
           for (int j = 0; j < K0; ++j) {
             const float w = w0s[(i * K0 + j) * kLanes + lane];
@@ -288,8 +306,9 @@ march_kernel(const float* __restrict__ x, const float* __restrict__ w0,
 // ring, so shared memory does not grow with k0; the running sums live in a ring of K rows in
 // shared memory (output row o in slot o mod K), so K need not be known to the compiler.  Rows
 // outside the map, the identity, b2 and the fix as in march_kernel.
+template <typename T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-march_any_kernel(const float* __restrict__ x, const float* __restrict__ w0,
+march_any_kernel(const T* __restrict__ x, const float* __restrict__ w0,
                  const float* __restrict__ b0, const float* __restrict__ w1,
                  const float* __restrict__ b1, const float* __restrict__ w2,
                  const float* __restrict__ b2, const float* __restrict__ res,
@@ -337,11 +356,11 @@ march_any_kernel(const float* __restrict__ x, const float* __restrict__ w0,
           for (int di = 0; di < k0; ++di) {
             const int rr = r - p0 + di;
             if (rr < 0 || rr >= H) continue;
-            const float* xrow = x + (t.image + rr) * W * C + t.c;
+            const T* xrow = x + (t.image + rr) * W * C + t.c;
             const float* wrow = w0 + di * k0 * C + t.c;
             for (int dj = 0; dj < k0; ++dj) {
               const int wc = ww - p0 + dj;
-              if (wc >= 0 && wc < W) a = fmaf(__ldg(wrow + dj * C), __ldg(xrow + wc * C), a);
+              if (wc >= 0 && wc < W) a = fmaf(__ldg(wrow + dj * C), to_f32(__ldg(xrow + wc * C)), a);
             }
           }
         }
@@ -401,11 +420,11 @@ constexpr int kMixThreads = 256;
 constexpr int kTM = 128;
 constexpr int kTK = 16;
 
-template <int TN>
+template <int TN, typename T>
 __global__ void __launch_bounds__(kMixThreads)
 mix_kernel(const float* __restrict__ attn, const float* __restrict__ wm,
-           const float* __restrict__ bm, const float* __restrict__ x,
-           float* __restrict__ out, int M, int C) {
+           const float* __restrict__ bm, const T* __restrict__ x,
+           T* __restrict__ out, int M, int C) {
   constexpr int NX = 8, RN = TN / NX, NY = kMixThreads / NX, RM = kTM / NY;
   static_assert(RN % 4 == 0 && kTM % NY == 0, "tile");
   __shared__ __align__(16) float As[kTK][kTM + 4];  // As[k][m]
@@ -473,7 +492,7 @@ mix_kernel(const float* __restrict__ attn, const float* __restrict__ wm,
       const int n = n0 + tx * RN + j;
       if (n >= C) continue;
       const int64_t o = (int64_t)m * C + n;
-      out[o] = x[o] * (acc[i][j] + bm[n]);
+      store(out + o, to_f32(x[o]) * (acc[i][j] + bm[n]));
     }
   }
 }
@@ -484,15 +503,16 @@ extern "C" int msca_fused_smem_bytes(int K, int k0, int nb, int G, int warps, in
   return smem_bytes(K, k0, nb, G, warps, tw);
 }
 
+namespace {
+
 // G = 4: march_kernel<21, 5, 4> (K = 21, k0 = 5, k_max <= 21 zero-embedded); G = 1:
 // march_any_kernel (K = k_max).  ops/msca_fused.py::plan chooses.
-extern "C" int msca_fused_f32(const float* x, const float* w0, const float* b0,
-                              const float* w1, const float* b1, const float* w2,
-                              const float* b2, const float* wm, const float* bm,
-                              const float* res, float* attn, float* out, int B, int H, int W,
-                              int C, int k0, int nb, int k_max, int identity, int fix_p, int K,
-                              int G, int warps, int tw, int ntiles, int rows, int bands,
-                              int mix_tn, void* stream_handle) {
+template <typename T>
+int run(const T* x, const float* w0, const float* b0, const float* w1, const float* b1,
+        const float* w2, const float* b2, const float* wm, const float* bm, const float* res,
+        float* attn, T* out, int B, int H, int W, int C, int k0, int nb, int k_max, int identity,
+        int fix_p, int K, int G, int warps, int tw, int ntiles, int rows, int bands, int mix_tn,
+        void* stream_handle) {
   const bool fast = G == kFastG;
   if ((fast ? K != kFastK || k0 != kFastK0 || warps * G < tw : G != 1 || K != k_max) ||
       nb < 1 || nb > kMaxBranches || k_max < 1 || k_max > K || (K - k_max) % 2 || k0 < 1 ||
@@ -505,27 +525,53 @@ extern "C" int msca_fused_f32(const float* x, const float* w0, const float* b0,
   const int64_t blocks = (int64_t)B * cdiv(C, kLanes) * ntiles * bands;
   if (smem > kSmemMax || blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const void* march = fast ? (const void*)march_kernel<kFastK, kFastK0, kFastG>
-                           : (const void*)march_any_kernel;
+  const void* march = fast ? (const void*)march_kernel<kFastK, kFastK0, kFastG, T>
+                           : (const void*)march_any_kernel<T>;
   cudaError_t err;
   if (smem > 48 * 1024 &&
       (err = cudaFuncSetAttribute(march, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
           cudaSuccess)
     return (int)err;
   if (fast)
-    march_kernel<kFastK, kFastK0, kFastG><<<(unsigned)blocks, warps * 32, smem, stream>>>(
+    march_kernel<kFastK, kFastK0, kFastG, T><<<(unsigned)blocks, warps * 32, smem, stream>>>(
         x, w0, b0, w1, b1, w2, b2, res, attn, H, W, C, nb, k_max, identity, fix_p, tw, rows,
-        bands, ntiles, cdiv(C, kLanes), C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0);
+        bands, ntiles, cdiv(C, kLanes),
+        C % (16 / sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0);
   else
-    march_any_kernel<<<(unsigned)blocks, warps * 32, smem, stream>>>(
+    march_any_kernel<T><<<(unsigned)blocks, warps * 32, smem, stream>>>(
         x, w0, b0, w1, b1, w2, b2, res, attn, H, W, C, k0, nb, K, identity, fix_p, tw, rows,
         bands, ntiles, cdiv(C, kLanes));
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int M = B * H * W;
   const dim3 grid((unsigned)cdiv(M, kTM), (unsigned)cdiv(C, mix_tn));
   if (mix_tn == 64)
-    mix_kernel<64><<<grid, kMixThreads, 0, stream>>>(attn, wm, bm, x, out, M, C);
+    mix_kernel<64, T><<<grid, kMixThreads, 0, stream>>>(attn, wm, bm, x, out, M, C);
   else
-    mix_kernel<32><<<grid, kMixThreads, 0, stream>>>(attn, wm, bm, x, out, M, C);
+    mix_kernel<32, T><<<grid, kMixThreads, 0, stream>>>(attn, wm, bm, x, out, M, C);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int msca_fused_f32(const float* x, const float* w0, const float* b0,
+                              const float* w1, const float* b1, const float* w2,
+                              const float* b2, const float* wm, const float* bm,
+                              const float* res, float* attn, float* out, int B, int H, int W,
+                              int C, int k0, int nb, int k_max, int identity, int fix_p, int K,
+                              int G, int warps, int tw, int ntiles, int rows, int bands,
+                              int mix_tn, void* stream_handle) {
+  return run(x, w0, b0, w1, b1, w2, b2, wm, bm, res, attn, out, B, H, W, C, k0, nb, k_max,
+             identity, fix_p, K, G, warps, tw, ntiles, rows, bands, mix_tn, stream_handle);
+}
+
+// x and out bf16; attn, the taps and the mix weight float32.
+extern "C" int msca_fused_bf16(const __nv_bfloat16* x, const float* w0, const float* b0,
+                               const float* w1, const float* b1, const float* w2,
+                               const float* b2, const float* wm, const float* bm,
+                               const float* res, float* attn, __nv_bfloat16* out, int B, int H,
+                               int W, int C, int k0, int nb, int k_max, int identity, int fix_p,
+                               int K, int G, int warps, int tw, int ntiles, int rows, int bands,
+                               int mix_tn, void* stream_handle) {
+  return run(x, w0, b0, w1, b1, w2, b2, wm, bm, res, attn, out, B, H, W, C, k0, nb, k_max,
+             identity, fix_p, K, G, warps, tw, ntiles, rows, bands, mix_tn, stream_handle);
 }

@@ -1,4 +1,4 @@
-// The strip-conv bank alone for Hopper (sm_90a), float32, NHWC:
+// The strip-conv bank alone for Hopper (sm_90a), NHWC, x and out float32 or bfloat16:
 //
 //   out = sum_br [vconv_k(hconv_k(x) + b1) + b2]  (+ x when `identity`)
 //
@@ -47,6 +47,14 @@
 // loops over its own k taps only; shorter branches are zero-embedded at the centre of k_max
 // in the packed (nb, k_max, C) tap arrays.
 //
+// bfloat16 (parallel_cascade_bf16): the kernels are templated on the element type T of x and
+// out.  Staging converts each bf16 input to float32 (exact) as it lands in the float32 row
+// buffers, with a plain load instead of cp.async (a lane's channel is 2 bytes, below cp.async's
+// 4), so everything after it is the float32 kernel; the identity term is converted the same
+// way, and the output is rounded to bf16 once at the store (__float2bfloat16_rn, to nearest
+// even), which is the plain version's `.to(torch.bfloat16)` of its float32 result: the bits
+// still agree.  The taps and biases stay float32 (the wrapper packs them so).
+//
 // The C entry point launches on the caller's stream, does not synchronise, allocates nothing
 // and returns cudaGetLastError() after the launch (0 on success), or cudaErrorInvalidValue
 // for a bank it does not take.
@@ -68,18 +76,24 @@ struct Bank {
 };
 
 // Stage input row r, columns w0 - P .. w0 - P + xw - 1 (zeros outside the map), into the
-// buffer `dst` ([xw][32]); a row outside the map stages nothing.  One cp.async group.
-__device__ __forceinline__ void stage_row(float* dst, const float* __restrict__ x, const Tile& t,
+// float32 buffer `dst` ([xw][32]); a row outside the map stages nothing.  One cp.async group
+// (empty for bf16, whose inputs are converted by plain loads).
+template <typename T>
+__device__ __forceinline__ void stage_row(float* dst, const T* __restrict__ x, const Tile& t,
                                           int r, int H, int W, int C, int P, int xw) {
   if (r >= 0 && r < H) {
     const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
-    const float* src = x + (t.image + r) * W * C + t.c;
+    const T* src = x + (t.image + r) * W * C + t.c;
     for (int col = threadIdx.x >> 5; col < xw; col += nwarps) {
       const int ww = t.w0 - P + col;
-      if (t.c_ok && ww >= 0 && ww < W)
-        cp_async4(dst + col * kLanes + lane, src + ww * C);
-      else
+      if (t.c_ok && ww >= 0 && ww < W) {
+        if constexpr (sizeof(T) == 4)
+          cp_async4(dst + col * kLanes + lane, src + ww * C);
+        else
+          dst[col * kLanes + lane] = to_f32(src[ww * C]);
+      } else {
         dst[col * kLanes + lane] = 0.f;
+      }
     }
   }
   cp_async_commit();
@@ -87,11 +101,11 @@ __device__ __forceinline__ void stage_row(float* dst, const float* __restrict__ 
 
 // Banks whose nb = NB branches all have k = K; each thread computes G neighbouring columns
 // of its channel.
-template <int K, int NB, int G>
+template <int K, int NB, int G, typename T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-uniform_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+uniform_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                const float* __restrict__ b1, const float* __restrict__ w2,
-               const float* __restrict__ b2, float* __restrict__ out,
+               const float* __restrict__ b2, T* __restrict__ out,
                int H, int W, int C, int identity,
                int tw, int rows, int bands, int ntiles, int nchunks) {
   constexpr int P = K / 2, XN = G + K - 1;
@@ -161,16 +175,16 @@ uniform_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
       const int o = r - P;  // its sum took its last tap with row r
       if (o < t.h0) continue;
-      const float* xo = x + (t.image + o) * W * C + t.c;
-      float* dst = out + (t.image + o) * W * C + t.c;
+      const T* xo = x + (t.image + o) * W * C + t.c;
+      T* dst = out + (t.image + o) * W * C + t.c;
 #pragma unroll
       for (int q = 0; q < G; ++q) {
         const int col = col0 + q, ww = t.w0 + col;
         if (!t.c_ok || col >= tw || ww >= W) continue;
-        float y = identity ? xo[ww * C] : 0.f;
+        float y = identity ? to_f32(xo[ww * C]) : 0.f;
 #pragma unroll
         for (int br = 0; br < NB; ++br) y = __fadd_rn(y, acc[br][(u - P + K) % K][q]);
-        dst[ww * C] = y;
+        store(dst + ww * C, y);
       }
     }
   }
@@ -178,10 +192,11 @@ uniform_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 
 // Any bank: branches of their own k <= k_max, the horizontal results in a shared-memory ring
 // of k_max rows per branch.  One column per thread.
+template <typename T>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-ring_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+ring_kernel(const T* __restrict__ x, const float* __restrict__ w1,
             const float* __restrict__ b1, const float* __restrict__ w2,
-            const float* __restrict__ b2, float* __restrict__ out,
+            const float* __restrict__ b2, T* __restrict__ out,
             int H, int W, int C, Bank bank, int identity,
             int tw, int rows, int bands, int ntiles, int nchunks) {
   extern __shared__ float smem[];
@@ -238,7 +253,7 @@ ring_kernel(const float* __restrict__ x, const float* __restrict__ w1,
     // vertical pass: output row o = r - P once the ring holds rows o - P .. o + P
     const int o = r - P, ww = t.w0 + col;
     if (o < t.h0 || !t.c_ok || col >= tw || ww >= W) continue;
-    float y = identity ? x[(t.image + o) * W * C + ww * C + t.c] : 0.f;
+    float y = identity ? to_f32(x[(t.image + o) * W * C + ww * C + t.c]) : 0.f;
     for (int br = 0; br < nb; ++br) {
       const int k = bank.ks[br], off = (K - k) / 2;
       const float* wt = w2s + br * K * kLanes + lane;
@@ -251,7 +266,7 @@ ring_kernel(const float* __restrict__ x, const float* __restrict__ w1,
       }
       y = __fadd_rn(y, s);
     }
-    out[(t.image + o) * W * C + ww * C + t.c] = y;
+    store(out + (t.image + o) * W * C + ww * C + t.c, y);
   }
 }
 
@@ -293,22 +308,20 @@ cudaError_t launch(Kernel kernel, const Grid& d, size_t smem, cudaStream_t strea
   return cudaGetLastError();
 }
 
-template <int K, int NB, int G>
-cudaError_t launch_uniform(const float* x, const float* w1, const float* b1, const float* w2,
-                           const float* b2, float* out, int B, int H, int W, int C,
+template <int K, int NB, int G, typename T>
+cudaError_t launch_uniform(const T* x, const float* w1, const float* b1, const float* w2,
+                           const float* b2, T* out, int B, int H, int W, int C,
                            int identity, cudaStream_t stream) {
   const Grid d = grid_for(B, H, W, C, K, G);
   const size_t smem = sizeof(float) * kLanes * kStages * (d.warps * G + K - 1);
-  return launch(uniform_kernel<K, NB, G>, d, smem, stream, x, w1, b1, w2, b2, out, H, W, C,
+  return launch(uniform_kernel<K, NB, G, T>, d, smem, stream, x, w1, b1, w2, b2, out, H, W, C,
                 identity);
 }
 
-}  // namespace
-
-extern "C" int parallel_cascade_f32(const float* x, const float* w1, const float* b1,
-                                    const float* w2, const float* b2, float* out,
-                                    int B, int H, int W, int C, int nb, int k_max,
-                                    const int* ks, int identity, void* stream_handle) {
+template <typename T>
+int run(const T* x, const float* w1, const float* b1, const float* w2, const float* b2, T* out,
+        int B, int H, int W, int C, int nb, int k_max, const int* ks, int identity,
+        void* stream_handle) {
   if (nb < 1 || nb > kMaxBranches || k_max < 1 || k_max % 2 == 0 || nb * k_max > kMaxBankRows ||
       B < 1 || H < 1 || W < 1 || C < 1 || (int64_t)W * C > INT32_MAX)
     return (int)cudaErrorInvalidValue;
@@ -337,6 +350,22 @@ extern "C" int parallel_cascade_f32(const float* x, const float* w1, const float
   const size_t smem = sizeof(float) * kLanes *
                       ((size_t)2 * nb * k_max + 2 * nb + (size_t)kStages * (d.warps + k_max - 1) +
                        (size_t)nb * k_max * d.warps);
-  return (int)launch(ring_kernel, d, smem, stream, x, w1, b1, w2, b2, out, H, W, C, bank,
+  return (int)launch(ring_kernel<T>, d, smem, stream, x, w1, b1, w2, b2, out, H, W, C, bank,
                      identity);
+}
+
+}  // namespace
+
+extern "C" int parallel_cascade_f32(const float* x, const float* w1, const float* b1,
+                                    const float* w2, const float* b2, float* out,
+                                    int B, int H, int W, int C, int nb, int k_max,
+                                    const int* ks, int identity, void* stream_handle) {
+  return run(x, w1, b1, w2, b2, out, B, H, W, C, nb, k_max, ks, identity, stream_handle);
+}
+
+extern "C" int parallel_cascade_bf16(const __nv_bfloat16* x, const float* w1, const float* b1,
+                                     const float* w2, const float* b2, __nv_bfloat16* out,
+                                     int B, int H, int W, int C, int nb, int k_max,
+                                     const int* ks, int identity, void* stream_handle) {
+  return run(x, w1, b1, w2, b2, out, B, H, W, C, nb, k_max, ks, identity, stream_handle);
 }

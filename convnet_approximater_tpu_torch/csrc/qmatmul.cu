@@ -3,9 +3,9 @@
 //   y[m, n] = f32(sum_k q(x[m, k]) w[n, k]) * (a * w_scale[n]) + bias[n]
 //   q(v)    = clip(rint(v / a), -127, 127) as int8,  a = *a_scale
 //
-// x is (M, Kx) float32 (Kx a multiple of 4, 16-byte aligned rows: the wrapper pads a ragged
-// K), w the int8 weight packed as (N, Kp), K zero-padded to Kp, a multiple of 32; the sums
-// are exact in int32.  Replaces the Pallas TPU kernel `pallas_qmatmul` / `_qmm_kernel` in
+// x is (M, Kx) float32 or bfloat16 (16-byte aligned rows, Kx a multiple of 4 or 8: the wrapper
+// pads a ragged K), y (M, N) of x's type, w the int8 weight packed as (N, Kp), K zero-padded
+// to Kp, a multiple of 32; the sums are exact in int32.  Replaces the Pallas TPU kernel `pallas_qmatmul` / `_qmm_kernel` in
 // scripts/exp_pallas_qmatmul.py, the fused form of the JAX package's QuantLinear
 // (layers/quant.py).  Like it, this kernel quantizes x on its way into the product, so the
 // float32 activation is read once and no int8 copy of it reaches device memory.
@@ -40,6 +40,15 @@
 // a * w_scale[n] and adds the bias, each step rounded on its own (__fmul_rn / __fadd_rn: no
 // contraction into an FMA), so the result equals the plain version's bits.
 //
+// bfloat16 (qmatmul_bf16): the kernel is templated on the element type T of x and y.  An x box
+// is BM rows x 32 bf16 (64 bytes a row, one wgmma k-step as in float32), under a BFLOAT16
+// tensor map; each consumer reads its groups of 4 values as 8 bytes and converts them to
+// float32, which is exact, so the quantize (and its quotient's bits) is the float32 one.  The
+// epilogue computes y in float32 as before and rounds each value to bf16 once
+// (__float2bfloat16_rn, to nearest even) as it writes the staged lines, which is the plain
+// version's `.to(torch.bfloat16)` of its float32 y: the bits still agree.  The x ring's shared
+// memory is planned at 4 bytes an element either way, so one plan serves both types.
+//
 // The C entry point launches on the caller's stream, does not synchronise, allocates
 // nothing and returns cudaGetLastError() of the launch (0 on success).  The tensor maps
 // are encoded on the host through the driver entry point, so the library needs no -lcuda.
@@ -47,6 +56,7 @@
 // The mbarrier, TMA, descriptor and tensor-map helpers live in tma_ring.cuh.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -58,7 +68,7 @@ namespace {
 constexpr int kConsumers = 256;            // two warpgroups
 constexpr int kThreads = kConsumers + 32;  // and one producer warp
 constexpr int kChunk = 128;                // K bytes of a panel chunk / weight box row
-constexpr int kXCols = 32;                 // floats of an x box row: one wgmma k-step
+constexpr int kXCols = 32;                 // values of an x box row: one wgmma k-step
 constexpr int kStageLd = 40;               // epilogue staging row stride in floats
 constexpr int kStageBytes = 8 * 16 * kStageLd * 4;
 constexpr int kSmemMax = 232448;           // dynamic shared memory a block may use
@@ -205,22 +215,34 @@ __device__ __forceinline__ bool in_fast_range(float4 v) {
   return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w))) <= 0x1p60f;
 }
 
+// Values 4 i .. 4 i + 3 of a staged x box as float32 (bf16 converted exactly).
+__device__ __forceinline__ float4 load4(const float* xs, int i) {
+  return reinterpret_cast<const float4*>(xs)[i];
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* xs, int i) {
+  const uint2 u = reinterpret_cast<const uint2*>(xs)[i];
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // The byte offset of (row r, byte kb of the chunk) in a 128-byte-swizzled panel chunk.
 __device__ __forceinline__ int swz(int r, int kb) {
   return r * kChunk + ((((kb >> 4) ^ (r & 7)) << 4) | (kb & 15));
 }
 
-template <int BM, int BNW>
+template <int BM, int BNW, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 qmatmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__ CUtensorMap wmap,
                const float* __restrict__ a_scale, const float* __restrict__ w_scale,
-               const float* __restrict__ bias, float* __restrict__ y, int M, int N, int Kx,
+               const float* __restrict__ bias, T* __restrict__ y, int M, int N, int Kx,
                int Kp, int n_tiles, int ntpb, int ra, int sx, int sb) {
   constexpr int BN = BM == 128 ? BNW : 2 * BNW;
   constexpr int kSlot = BM * kChunk;
   constexpr int kBStage = BN * kChunk;
-  constexpr int kXStage = BM * kXCols * 4;
-  constexpr int kXVecs = BM * kXCols / 4 / kConsumers;  // float4 of an x box per thread
+  constexpr int kXStage = BM * kXCols * sizeof(T);
+  constexpr int kXVecs = BM * kXCols / 4 / kConsumers;  // groups of 4 values of an x box per thread
   extern __shared__ uint8_t smem_raw[];
   uint8_t* A = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* B = A + ra * kSlot;
@@ -292,12 +314,12 @@ qmatmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
           if (k < Kx) {
             const int st = xi % sx;
             mbar_wait(xf + 8 * st, (xi / sx) & 1);
-            const float4* xs = reinterpret_cast<const float4*>(U + st * kXStage);
+            const T* xs = reinterpret_cast<const T*>(U + st * kXStage);
             float4 xv[kXVecs];
             bool fast = a_fast;
 #pragma unroll
             for (int i = 0; i < kXVecs; ++i) {
-              xv[i] = xs[tid + kConsumers * i];
+              xv[i] = load4(xs, tid + kConsumers * i);
               fast = fast && in_fast_range(xv[i]);
             }
             int words[kXVecs];
@@ -386,14 +408,14 @@ qmatmul_kernel(const __grid_constant__ CUtensorMap xmap, const __grid_constant__
         const int n = n_base + cc * CW + c;
         if (m < M && n < N) {
           const float4 v = *reinterpret_cast<const float4*>(&stage[r * kStageLd + c]);
-          float* dst = y + m * N + n;
+          T* dst = y + m * N + n;
           if ((N & 3) == 0) {
-            *reinterpret_cast<float4*>(dst) = v;
+            store4(dst, v);
           } else {
-            dst[0] = v.x;
-            if (n + 1 < N) dst[1] = v.y;
-            if (n + 2 < N) dst[2] = v.z;
-            if (n + 3 < N) dst[3] = v.w;
+            store1(dst, v.x);
+            if (n + 1 < N) store1(dst + 1, v.y);
+            if (n + 2 < N) store1(dst + 2, v.z);
+            if (n + 3 < N) store1(dst + 3, v.w);
           }
         }
       }
@@ -408,20 +430,57 @@ int smem_bytes(int bm, int bn, int ra, int sx, int sb) {
          (x_ring > kStageBytes ? x_ring : kStageBytes) + 16 * (sx + sb);
 }
 
-template <int BM, int BNW>
+template <int BM, int BNW, typename T>
 int launch(const CUtensorMap& xmap, const CUtensorMap& wmap, const float* a_scale,
-           const float* w_scale, const float* bias, float* y, int M, int N, int Kx, int Kp,
+           const float* w_scale, const float* bias, T* y, int M, int N, int Kx, int Kp,
            int ntpb, int ra, int sx, int sb, cudaStream_t stream) {
   constexpr int BN = BM == 128 ? BNW : 2 * BNW;
   const int n_tiles = (N + BN - 1) / BN;
   const int smem = smem_bytes(BM, BN, ra, sx, sb);
-  cudaError_t err = cudaFuncSetAttribute(qmatmul_kernel<BM, BNW>,
+  cudaError_t err = cudaFuncSetAttribute(qmatmul_kernel<BM, BNW, T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((n_tiles + ntpb - 1) / ntpb, (M + BM - 1) / BM);
-  qmatmul_kernel<BM, BNW><<<grid, kThreads, smem, stream>>>(
+  qmatmul_kernel<BM, BNW, T><<<grid, kThreads, smem, stream>>>(
       xmap, wmap, a_scale, w_scale, bias, y, M, N, Kx, Kp, n_tiles, ntpb, ra, sx, sb);
   return static_cast<int>(cudaGetLastError());
+}
+
+// x (M, Kx) of type T, y (M, N) of type T; everything else as qmatmul_f32 takes it.
+template <typename T>
+int run(const T* x, const int8_t* w, const float* a_scale, const float* w_scale,
+        const float* bias, T* y, int M, int Kx, int Kp, int N, int bm, int bnw, int ntpb, int ra,
+        int sx, int sb, void* stream_handle) {
+  const int bn = bm == 128 ? bnw : 2 * bnw;
+  const int Kc = (Kp + kChunk - 1) / kChunk;
+  if (Kp % 32 != 0 || Kp < Kx || Kx % (16 / sizeof(T)) != 0 || M < 1 || N < 1 || ntpb < 1 ||
+      sx < 1 || sb < 1 || ra < 1 || ra > Kc || (ra < Kc && (ra < 2 || ntpb != 1)) ||
+      smem_bytes(bm, bn, ra, sx, sb) > kSmemMax ||
+      (M + bm - 1) / bm > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap xmap, wmap;
+  if (!make_map(&xmap,
+                sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                x, sizeof(T), M, Kx, bm, kXCols, CU_TENSOR_MAP_SWIZZLE_NONE) ||
+      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 1, N, Kp, bn, kChunk,
+                CU_TENSOR_MAP_SWIZZLE_128B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+#define QMM_LAUNCH(BM_, BNW_)                                                                \
+  if (bm == BM_ && bnw == BNW_)                                                              \
+    return launch<BM_, BNW_, T>(xmap, wmap, a_scale, w_scale, bias, y, M, N, Kx, Kp, ntpb,  \
+                                ra, sx, sb, stream);
+  QMM_LAUNCH(128, 128)
+  QMM_LAUNCH(128, 96)
+  QMM_LAUNCH(128, 64)
+  QMM_LAUNCH(64, 128)
+  QMM_LAUNCH(64, 96)
+  QMM_LAUNCH(64, 64)
+  QMM_LAUNCH(64, 32)
+  QMM_LAUNCH(64, 16)
+  QMM_LAUNCH(64, 8)
+#undef QMM_LAUNCH
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -435,33 +494,15 @@ extern "C" int qmatmul_f32(const float* x, const int8_t* w, const float* a_scale
                            const float* w_scale, const float* bias, float* y, int M, int Kx,
                            int Kp, int N, int bm, int bnw, int ntpb, int ra, int sx, int sb,
                            void* stream_handle) {
-  const int bn = bm == 128 ? bnw : 2 * bnw;
-  const int Kc = (Kp + kChunk - 1) / kChunk;
-  if (Kp % 32 != 0 || Kp < Kx || Kx % 4 != 0 || M < 1 || N < 1 || ntpb < 1 || sx < 1 ||
-      sb < 1 || ra < 1 || ra > Kc || (ra < Kc && (ra < 2 || ntpb != 1)) ||
-      smem_bytes(bm, bn, ra, sx, sb) > kSmemMax ||
-      (M + bm - 1) / bm > 65535)
-    return static_cast<int>(cudaErrorInvalidValue);
-  CUtensorMap xmap, wmap;
-  if (!make_map(&xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, x, 4, M, Kx, bm, kXCols,
-                CU_TENSOR_MAP_SWIZZLE_NONE) ||
-      !make_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, 1, N, Kp, bn, kChunk,
-                CU_TENSOR_MAP_SWIZZLE_128B))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-#define QMM_LAUNCH(BM_, BNW_)                                                                \
-  if (bm == BM_ && bnw == BNW_)                                                              \
-    return launch<BM_, BNW_>(xmap, wmap, a_scale, w_scale, bias, y, M, N, Kx, Kp, ntpb, ra, \
-                             sx, sb, stream);
-  QMM_LAUNCH(128, 128)
-  QMM_LAUNCH(128, 96)
-  QMM_LAUNCH(128, 64)
-  QMM_LAUNCH(64, 128)
-  QMM_LAUNCH(64, 96)
-  QMM_LAUNCH(64, 64)
-  QMM_LAUNCH(64, 32)
-  QMM_LAUNCH(64, 16)
-  QMM_LAUNCH(64, 8)
-#undef QMM_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run(x, w, a_scale, w_scale, bias, y, M, Kx, Kp, N, bm, bnw, ntpb, ra, sx, sb,
+             stream_handle);
+}
+
+// x (M, Kx) and y (M, N) bf16, Kx a multiple of 8.
+extern "C" int qmatmul_bf16(const __nv_bfloat16* x, const int8_t* w, const float* a_scale,
+                            const float* w_scale, const float* bias, __nv_bfloat16* y, int M,
+                            int Kx, int Kp, int N, int bm, int bnw, int ntpb, int ra, int sx,
+                            int sb, void* stream_handle) {
+  return run(x, w, a_scale, w_scale, bias, y, M, Kx, Kp, N, bm, bnw, ntpb, ra, sx, sb,
+             stream_handle);
 }

@@ -1,11 +1,13 @@
-// Pieces shared by the kernels that march down a band of rows of an NHWC float32 map
-// (parallel_cascade.cu, msca_fused.cu): the block's tile of the map and cp.async.
+// Pieces shared by the kernels that march down a band of rows of an NHWC map of float32 or
+// bfloat16 (parallel_cascade.cu, msca_fused.cu): the block's tile of the map, cp.async, and
+// the element loads and stores that convert to and from the float32 the kernels compute in.
 //
 // A block owns 32 channels (one per lane, so every warp access is 128 contiguous bytes), a
 // tile of tw columns and a band of rows of one image.  Divisions happen once per block.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -56,6 +58,13 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// An element of x as float32 (exact), and a float32 result stored as the map's type (bfloat16
+// rounded to nearest even, once).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 

@@ -1,6 +1,7 @@
 // Pieces shared by the kernels that feed wgmma from TMA rings (qmatmul.cu, lowrank_conv.cu):
 // mbarrier waits and arrivals, 2-d and 3-d TMA copies, the 128-byte-swizzle operand descriptor,
-// register fences around asynchronous wgmma operands, and the host-side tensor-map encode.
+// register fences around asynchronous wgmma operands, the epilogue's stores of float32 results
+// as the output's type (float32 or bfloat16), and the host-side tensor-map encode.
 //
 // A wait on an mbarrier that does not complete within about 10 s traps instead of hanging the
 // card.  The tensor maps are encoded through the driver entry point, so no library that
@@ -9,6 +10,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -90,6 +92,23 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+
+// Four float32 results written at dst as the output's type: one 16-byte store (float32) or
+// one 8-byte store of four values each rounded to bf16 (dst aligned to its size).
+__device__ __forceinline__ void store4(float* dst, float4 v) {
+  *reinterpret_cast<float4*>(dst) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* dst, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const uint32_t*>(&lo);
+  u.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
+__device__ __forceinline__ void store1(float* dst, float v) { *dst = v; }
+__device__ __forceinline__ void store1(__nv_bfloat16* dst, float v) { *dst = __float2bfloat16_rn(v); }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,

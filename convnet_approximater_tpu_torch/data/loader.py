@@ -139,6 +139,7 @@ class Loader:
         device="cuda",
         prefetch: int = 2,
         aug=None,
+        dtype=torch.float32,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -150,6 +151,7 @@ class Loader:
         self.seed = seed
         self.device = torch.device(device)
         self.prefetch = prefetch
+        self.dtype = dtype  # the normalised images' type (float32, or bfloat16 to serve)
         # hflip, crop_pad, rrc_scale; None or {} = no augmentation
         self.aug = check_aug(aug)
         if self.aug and np.ndim(dataset.labels) > 1:
@@ -199,7 +201,7 @@ class Loader:
     def _put(self, batch):
         images, labels = batch
         x = images.to(self.device, non_blocking=True)
-        x = (x.float() - self._mean) / self._std
+        x = ((x.float() - self._mean) / self._std).to(self.dtype)  # normalised in float32
         return x.permute(0, 3, 1, 2), labels.to(self.device, non_blocking=True)
 
     def _indices(self) -> np.ndarray:

@@ -50,6 +50,7 @@ from convnet_approximater_tpu_torch.models.switchable import set_submodule
 from convnet_approximater_tpu_torch.nn import (GELU, AdaptiveAvgPool2d, BatchNorm2d, Conv2d,
                                                Dropout, Identity, Linear, MaxPool2d, ReLU,
                                                channels_last, frozen_params_keys)
+from convnet_approximater_tpu_torch.utils.dtype import cast_floating, dtype_of, serving_dtype
 from convnet_approximater_tpu_torch.utils.logger import get_logger
 
 # class name -> (conv, bn) attribute pairs of a module known to call the conv
@@ -917,16 +918,25 @@ def rematerialize_dense(module: nn.Module) -> Optional[Conv2d]:
                        groups=module.dim)
 
 
-def _timer(num_iters: int) -> Callable:
-    """The arbiters' default ``time_fn(model, input_shape) -> seconds``."""
+def _timer(num_iters: int, dtype=torch.float32) -> Callable:
+    """The arbiters' default ``time_fn(model, input_shape) -> seconds`` at the
+    serving type ``dtype``: a model whose weights are of another type is timed
+    as a cast copy (``cast_floating``), so that the working model keeps its
+    float32 weights for the exact rewrites that follow (the JAX planner's
+    ``timed``)."""
     from convnet_approximater_tpu_torch.hooks.inference_time_hook import forward_seconds
 
-    return lambda model, input_shape: forward_seconds(model, input_shape, num_iters, warmup=2)
+    def timed(model, input_shape):
+        if serving_dtype(model) != dtype:
+            model = cast_floating(copy.deepcopy(model), dtype)
+        return forward_seconds(model, input_shape, num_iters, warmup=2, dtype=dtype)
+
+    return timed
 
 
 def never_lose_deploy(model: nn.Module, input_shape, time_fn: Optional[Callable] = None,
                       num_iters: int = 10, margin: float = 0.03, greedy: bool = True,
-                      verbose: bool = True) -> dict:
+                      verbose: bool = True, dtype=torch.float32) -> dict:
     """Serve each factored switchable site factored only where the model gains.
 
     Every site that :func:`rematerialize_dense` rebuilds is a candidate.  Time
@@ -938,14 +948,16 @@ def never_lose_deploy(model: nn.Module, input_shape, time_fn: Optional[Callable]
 
     ``time_fn(model, input_shape) -> seconds`` times the model (a test injects
     one); the default is ``hooks.forward_seconds`` on a ones batch of the NHWC
-    ``input_shape``: on the card the slope of a CUDA graph replayed back to
-    back (``num_iters`` and 4x as many replays after 2 warm-ups), captured anew
-    for each timing, the eager median logged beside it.  Returns the
+    ``input_shape`` in ``dtype``, the serving type the decisions are made at
+    (a float32 model is timed as a cast copy): on the card the slope of a CUDA
+    graph replayed back to back (``num_iters`` and 4x as many replays after 2
+    warm-ups), captured anew for each timing, the eager median logged beside
+    it.  Returns the
     JAX package's table: ``t_decomposed``, ``t_dense``, ``t_final`` (seconds),
     ``layers`` (``name``, ``kept``: ``decomposed`` or ``dense``) and
     ``kept_decomposed``.
     """
-    time_fn = time_fn if time_fn is not None else _timer(num_iters)
+    time_fn = time_fn if time_fn is not None else _timer(num_iters, dtype_of(dtype))
     logger = get_logger()
     sites = []  # (idx, name, factored module, dense module)
     for idx in range(model.length_switchable):
@@ -1007,7 +1019,7 @@ def arbitrated_apply(model: nn.Module, app, filters, input_shape, seed: int = 0,
                      group_fn: Optional[Callable[[str], object]] = None, verbose: bool = True,
                      decisions: Optional[Dict[str, str]] = None,
                      decisions_path: Optional[str] = None, retime: bool = False,
-                     boundary_band: float = 0.02) -> dict:
+                     boundary_band: float = 0.02, dtype=torch.float32) -> dict:
     """Apply ``app`` only at the sites where the timed model gains, in place.
 
     The sites are ``model``'s switchables of ``app.src_type`` that pass
@@ -1032,13 +1044,13 @@ def arbitrated_apply(model: nn.Module, app, filters, input_shape, seed: int = 0,
     ``decisions_path`` (keys sorted).
 
     ``time_fn(model, input_shape) -> seconds`` times the model (a test injects
-    one); the default is ``hooks.forward_seconds``, as :func:`never_lose_deploy`
-    times.  Returns
+    one); the default is ``hooks.forward_seconds`` at the serving type
+    ``dtype``, as :func:`never_lose_deploy` times.  Returns
     ``t_applied``, ``t_original``, ``t_final`` (seconds; None on a replay),
     ``layers`` (``name``, ``kept``), ``kept_applied``, ``decisions``, and
     ``replayed`` on a replay.
     """
-    time_fn = time_fn if time_fn is not None else _timer(num_iters)
+    time_fn = time_fn if time_fn is not None else _timer(num_iters, dtype_of(dtype))
     logger = get_logger()
     model.register_switchable(app.src_type, list(filters))
     names = model.switchable_names

@@ -10,9 +10,13 @@ JAX package's candidates, by the same names and gates; :func:`recovery_plan`
 maps a candidate's name to the fine-tune stages that would recover its lossy
 rewrites.
 
-The port plans in float32 only: another serving type raises
-``NotImplementedError`` (bf16 is ROADMAP.md queue 1, item 7; the JAX planner's
-default is bf16).
+The serving type defaults to bfloat16, as the JAX planner's does: each
+candidate is built on a float32 model (the exact rewrites and the BN fold in
+float32), then its floating parameters are cast (``cast_floating``; an int8
+candidate is cast before ``quantize_int8`` calibrates it on bf16 batches, and
+its scales stay float32); the agreement and the timings run at that type, and
+the baseline is named ``dense/bfloat16``.  The float32 dense reference row is
+timed in float32.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from convnet_approximater_tpu_torch.core import Approximater
 from convnet_approximater_tpu_torch.filters import (DenseKxKFilter, DepthwiseConvFilter,
                                                     ModuleFilter)
 from convnet_approximater_tpu_torch.nn import Conv2d, channels_last
+from convnet_approximater_tpu_torch.utils.dtype import cast_floating, dtype_name, dtype_of
 from convnet_approximater_tpu_torch.utils.logger import get_logger
 
 
@@ -77,17 +82,6 @@ class _NoTargets(Exception):
     """A candidate found nothing to rewrite: skip it, do not fail the plan."""
 
 
-def _dtype_name(dtype: torch.dtype) -> str:
-    return str(dtype).replace("torch.", "")
-
-
-def _check_dtype(dtype: torch.dtype):
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            f"serving type {_dtype_name(dtype)}: the port plans float32 surfaces only "
-            f"(bf16 end to end is ROADMAP.md queue 1, item 7)")
-
-
 def _has_module(model: nn.Module, pred) -> bool:
     return any(isinstance(m, Conv2d) and pred(m) for m in model.modules())
 
@@ -96,16 +90,17 @@ def _nhwc(x: torch.Tensor) -> tuple:
     return (x.shape[0], x.shape[2], x.shape[3], x.shape[1])
 
 
-def _build_int8(model, calib_batches):
+def _build_int8(model, calib_batches, dtype):
     from convnet_approximater_tpu_torch.deploy import fold_batchnorm, quantize_int8
 
     fold_batchnorm(model)
-    if quantize_int8(model, calib_batches) == 0:
+    cast_floating(model, dtype)  # the int8 weights and scales come from the served weights
+    if quantize_int8(model, [x.to(dtype) for x in calib_batches]) == 0:
         raise _NoTargets("no dense convs/Linears to quantize")
     return model
 
 
-def default_candidates(probe_model: nn.Module, dtype: torch.dtype = torch.float32,
+def default_candidates(probe_model: nn.Module, dtype: torch.dtype = torch.bfloat16,
                        v3_energy: float = 0.9, dwsep_rank: int = 1, input_shape=None):
     """The candidate surfaces that apply to ``probe_model``'s structure: a list of
     ``(name, build)``, where ``build(model, generator, calib_batches) -> model``
@@ -127,7 +122,7 @@ def default_candidates(probe_model: nn.Module, dtype: torch.dtype = torch.float3
     from convnet_approximater_tpu_torch.models.convnext import ConvNeXtBlock
     from convnet_approximater_tpu_torch.models.mscan import FFN
 
-    _check_dtype(dtype)
+    dtype = dtype_of(dtype)
     has_dw = _has_module(probe_model, DepthwiseConvFilter().filter)
     has_dense = _has_module(probe_model, DenseKxKFilter().filter)
     mods = list(probe_model.modules())
@@ -140,7 +135,7 @@ def default_candidates(probe_model: nn.Module, dtype: torch.dtype = torch.float3
         return model
 
     def build_int8(model, generator, calib):
-        return _build_int8(model, calib)
+        return _build_int8(model, calib, dtype)
 
     def build_v3(model, generator, calib):
         if apply_app(model, LowRankExpV3(energy=v3_energy), [DenseKxKFilter()], generator) == 0:
@@ -164,18 +159,17 @@ def default_candidates(probe_model: nn.Module, dtype: torch.dtype = torch.float3
         if apply_app(model, DwSepRep(ranks=dwsep_rank), [DepthwiseConvFilter()], generator) == 0:
             raise _NoTargets("no depthwise convs")
         # disjoint layers: the depthwise rewrite leaves the dense remainder to int8
-        return _build_int8(model, calib)
+        return _build_int8(model, calib, dtype)
 
     def build_mscarep(model, generator, calib):
         # MscaRep d1+fix+dconv0, then FfnRep arbitrated per stage at the serving
         # shape, then the BN fold (and the 1x1s as matmuls off float32)
         if apply_app(model, MscaRep(decomp=1, fix=True, decomp_conv0=True), [], generator) == 0:
             raise _NoTargets("no MSCA attention modules")
-        from convnet_approximater_tpu_torch.hooks.inference_time_hook import forward_seconds
-
+        # each decision timed at the serving type, on a cast copy (6 iterations, 2 warm-ups)
         shape = tuple(input_shape) if input_shape is not None else _nhwc(calib[0])
         arbitrated_apply(model, FfnRep(fix=True), [], shape, seed=generator.initial_seed(),
-                         time_fn=lambda m, s: forward_seconds(m, s, num_iters=6, warmup=2),
+                         num_iters=6, dtype=dtype,
                          group_fn=lambda name: name.rsplit(".", 3)[0], verbose=False)
         fold_batchnorm(model)
         if dtype != torch.float32:
@@ -207,7 +201,7 @@ def default_candidates(probe_model: nn.Module, dtype: torch.dtype = torch.float3
         if apply_app(model, MlpPrune(keep_ratio=0.5, round_to=128), [], generator,
                      calib_batches=calib) == 0:
             raise _NoTargets("no ConvNeXt blocks")
-        return _build_int8(model, calib)
+        return _build_int8(model, calib, dtype)
 
     def build_chainprune(model, generator, calib):
         if prune_chains(model, keep_ratio=0.5, round_to=64) == 0:
@@ -218,14 +212,14 @@ def default_candidates(probe_model: nn.Module, dtype: torch.dtype = torch.float3
     def build_chainprune_int8(model, generator, calib):
         if prune_chains(model, keep_ratio=0.5, round_to=64) == 0:
             raise _NoTargets("no prunable junctions")
-        return _build_int8(model, calib)
+        return _build_int8(model, calib, dtype)
 
     def build_dwsep_mlpprune_int8(model, generator, calib):
         if apply_app(model, MlpPrune(keep_ratio=0.5, round_to=128), [], generator,
                      calib_batches=calib) == 0:
             raise _NoTargets("no ConvNeXt blocks")
         apply_app(model, DwSepRep(ranks=dwsep_rank), [DepthwiseConvFilter()], generator)
-        return _build_int8(model, calib)
+        return _build_int8(model, calib, dtype)
 
     def build_trunk_dwsep_mlpprune_int8(model, generator, calib):
         if prune_trunks(model, keep_ratio=0.5, round_to=128) == 0:
@@ -243,9 +237,9 @@ def default_candidates(probe_model: nn.Module, dtype: torch.dtype = torch.float3
         if prune_trunks(model, keep_ratio=0.5, round_to=64) == 0:
             raise _NoTargets("no residual trunks")
         prune_chains(model, keep_ratio=0.5, round_to=64)
-        return _build_int8(model, calib)
+        return _build_int8(model, calib, dtype)
 
-    out = [(f"dense/{_dtype_name(dtype)}", build_dense), ("int8", build_int8)]
+    out = [(f"dense/{dtype_name(dtype)}", build_dense), ("int8", build_int8)]
     if has_dense:
         out.append((f"v3/e={v3_energy}", build_v3))
         out.append((f"tucker/e={v3_energy}", build_tucker))
@@ -285,10 +279,11 @@ def _top1(model: nn.Module, x: torch.Tensor) -> torch.Tensor:
 
 
 def _agreement(model: nn.Module, probe_xs: Sequence[torch.Tensor],
-               ref_top1: Sequence[torch.Tensor]) -> float:
+               ref_top1: Sequence[torch.Tensor], dtype=torch.float32) -> float:
+    """Top-1 agreement with the float32 reference, the probes at the serving type."""
     hits = total = 0
     for x, ref in zip(probe_xs, ref_top1):
-        hits += int((_top1(model, x) == ref).sum())
+        hits += int((_top1(model, x.to(dtype)) == ref).sum())
         total += ref.numel()
     return hits / max(total, 1)
 
@@ -303,7 +298,7 @@ def _batches(shape, n: int, seed: int, device, scale: float = 1.0) -> List[torch
 
 
 def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
-                 dtype: torch.dtype = torch.float32, candidates=None, min_agree: float = 0.9,
+                 dtype: torch.dtype = torch.bfloat16, candidates=None, min_agree: float = 0.9,
                  seed: int = 0, calib_batches: Optional[List[torch.Tensor]] = None,
                  probe_batches: int = 2, num_iters: int = 10, warmup: int = 3,
                  time_fn: Optional[Callable] = None, verbose: bool = True,
@@ -314,7 +309,8 @@ def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
       make: returns a fresh model (weights drawn or loaded), on its device, in
         eval mode: the rewrites edit it in place, so each candidate gets its own.
       input_shape: the NHWC serving shape with the batch, e.g. ``(64, 224, 224, 3)``.
-      dtype: the serving type; float32 only in the port.
+      dtype: the serving type (bfloat16, as the JAX planner's default, or float32):
+        each built candidate is cast to it, and probed and timed at it.
       candidates: ``[(name, build), ...]`` in place of :func:`default_candidates`.
       min_agree: the least top-1 agreement with the dense float32 model on the
         probe batches for a rewritten surface to qualify (the dense candidate
@@ -323,7 +319,8 @@ def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
         calibration (4 batches, scale 0.8) and probe batches (``probe_batches``
         of them), each of at most 8 images of the serving shape.
       time_fn: ``time_fn(name, model, input_shape, dtype) -> seconds`` (a test
-        injects one); the default is ``hooks.forward_seconds``: on the card
+        injects one); the default is ``hooks.forward_seconds`` on an input of
+        ``dtype``: on the card
         the slope of a CUDA graph replayed back to back (``num_iters`` and 4x
         as many replays after ``warmup``), the eager median logged beside it.
       reuse_plan: a plan persisted by :func:`plan_to_json`.  When its winner is
@@ -337,14 +334,14 @@ def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
     ``speedup_vs_dense`` (the winner against the dense candidate, whose BN is
     folded); ``replayed`` when a persisted plan was replayed.
     """
-    _check_dtype(dtype)
+    dtype = dtype_of(dtype)
     logger = get_logger()
     input_shape = tuple(input_shape)
     if time_fn is None:
         from convnet_approximater_tpu_torch.hooks.inference_time_hook import forward_seconds
 
         def time_fn(name, model, shape, dt):
-            return forward_seconds(model, shape, num_iters, warmup)
+            return forward_seconds(model, shape, num_iters, warmup, dtype=dt)
 
     ref_model = make()
     device = next(ref_model.parameters()).device
@@ -357,7 +354,8 @@ def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
         candidates = default_candidates(ref_model, dtype=dtype, input_shape=input_shape)
 
     def build(build_fn):
-        return build_fn(make(), torch.Generator().manual_seed(seed), calib_batches)
+        model = build_fn(make(), torch.Generator().manual_seed(seed), calib_batches)
+        return cast_floating(model, dtype)
 
     if reuse_plan is not None:
         winner = reuse_plan.get("winner")
@@ -373,7 +371,7 @@ def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
                 logger.warning(f"[plan] persisted winner {winner} found nothing to rewrite "
                                f"({e}); timing the candidates again")
             if model is not None:
-                agree = _agreement(model, probe_xs, ref_top1)
+                agree = _agreement(model, probe_xs, ref_top1, dtype)
                 if not winner.startswith("dense/") and agree < min_agree:
                     logger.warning(f"[plan] persisted winner {winner} rebuilt with agreement "
                                    f"{agree:.3f} < min_agree {min_agree}; timing the "
@@ -383,7 +381,7 @@ def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
                         logger.info(f"[plan] replayed persisted winner {winner} "
                                     f"(agree {agree:.3f}; retime to measure again)")
                     return {"report": reuse_plan["report"], "winner": winner, "model": model,
-                            "dtype": reuse_plan.get("dtype", _dtype_name(dtype)),
+                            "dtype": reuse_plan.get("dtype", dtype_name(dtype)),
                             "speedup_vs_dense": reuse_plan.get("speedup_vs_dense"),
                             "replayed": True}
 
@@ -401,7 +399,7 @@ def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
             report.append({"name": name, "ms": None, "img_per_s": None, "agree": None,
                            "qualified": False, "note": f"skipped: {e}"})
             continue
-        agree = _agreement(model, probe_xs, ref_top1)
+        agree = _agreement(model, probe_xs, ref_top1, dtype)
         qualified = name == dense_name or agree >= min_agree
         t = time_fn(name, model, input_shape, dtype)
         note = "" if qualified else "needs_recovery (below min_agree)"
@@ -428,7 +426,7 @@ def plan_serving(make: Callable[[], nn.Module], input_shape: Sequence[int],
     if verbose:
         logger.info(f"[plan] winner: {winner} ({dense_row['ms'] / winner_row['ms']:.3f}x vs "
                     f"{dense_name})")
-    return {"report": report, "winner": winner, "model": best[2], "dtype": _dtype_name(dtype),
+    return {"report": report, "winner": winner, "model": best[2], "dtype": dtype_name(dtype),
             "speedup_vs_dense": dense_row["ms"] / winner_row["ms"]}
 
 

@@ -12,7 +12,9 @@ targets, the config's ``structure_passes`` first, each site initialized from
 the seed), loads the checkpoint (the Runner's ``.pt`` or a flat ``.npz``;
 without one it warns and exports random weights), then applies the serving
 rewrites in the JAX CLI's order: ``never_lose_deploy``, the BN fold, and
-``quantize_int8`` on synthetic calibration batches (``--quantize int8``) or,
+the cast to ``--dtype`` (``cast_floating``; bfloat16 by default, as the JAX
+CLI's), and ``quantize_int8`` on synthetic calibration batches of that type
+(``--quantize int8``; its scales stay float32) or,
 for a QAT fine-tune's checkpoint (``--quantize int8-qat``), the replay of
 ``prepare_qat`` before the strict load and ``convert_qat_to_int8`` after it.
 It exports the eval forward with ``deploy.export_serving``, loads the artifact
@@ -20,11 +22,9 @@ back and holds its output against the live forward (max-abs below 1e-3, as the
 JAX CLI does; the error is logged), and writes ``<out>`` (the program),
 ``<out>.params.npz`` (the served weights in the flat npz that both packages
 read) and ``<out>.meta.json`` (the JAX CLI's preprocessing keys, plus the
-input's shape and layout).  The artifact takes NCHW float32 batches that are
-``channels_last`` in memory.
-
-The port serves float32 (``--dtype`` other than float32 waits for ROADMAP.md
-queue 1, item 7).  ``--device`` defaults to ``cuda`` and fails when no CUDA
+input's shape and layout).  The artifact takes NCHW batches of ``--dtype``
+that are ``channels_last`` in memory; its input and output avals carry the
+type.  ``--device`` defaults to ``cuda`` and fails when no CUDA
 device is present; the CPU runs only when asked for with ``--device cpu``.
 """
 
@@ -43,9 +43,11 @@ from convnet_approximater_tpu_torch.models import build_model
 from convnet_approximater_tpu_torch.nn import channels_last, init_weights
 from convnet_approximater_tpu_torch.runner.runner import read_checkpoint, structure_pass
 from convnet_approximater_tpu_torch.utils import build_logger, get_cfg, init_cfg, save_model
+from convnet_approximater_tpu_torch.utils.dtype import DTYPES, cast_floating
 
 ARTIFACT_TOL = 1e-3  # the JAX CLI's gate: max-abs of the artifact against the live forward
-DTYPE_TODO = "the port serves float32 only (bf16 end to end is ROADMAP.md queue 1, item 7)"
+# plan_serving's gate: relative Frobenius norm (bf16 and int8 surfaces differ by ULPs)
+ARTIFACT_REL_TOL = 1e-2
 
 
 def parse_args(argv=None):
@@ -55,7 +57,8 @@ def parse_args(argv=None):
                     help="omit for a random-init artifact (serving demos only; logged)")
     ap.add_argument("--out", required=True)
     ap.add_argument("--batch", type=int, default=64)
-    ap.add_argument("--dtype", default="float32", help="serving type (float32 only)")
+    ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
+                    help="serving type (bfloat16 by default, as the JAX CLI's)")
     ap.add_argument("--input-size", type=int, nargs=3, default=(224, 224, 3))
     ap.add_argument("--quantize", default=None, choices=["int8", "int8-qat"],
                     help="int8: PTQ on synthetic calibration batches; int8-qat: the "
@@ -94,9 +97,10 @@ def serving_meta(mean, std, dtype: str, input_shape, **extra) -> dict:
 
 
 def write_artifact(model, x, out: str, meta: dict, symbolic_batch: bool = False,
-                   platforms=None):
+                   platforms=None, relative: bool = False):
     """Export ``model``'s eval forward at ``x`` to ``out``, load it back and
-    hold its output against the live forward (max-abs below ARTIFACT_TOL),
+    hold its output against the live forward (max-abs below ARTIFACT_TOL, or
+    with ``relative`` the relative Frobenius norm below ARTIFACT_REL_TOL),
     then write ``<out>.params.npz`` (the served weights in the flat npz that
     both packages read) and ``<out>.meta.json`` (``meta``).  Returns (the
     program's bytes, the loaded module, the error)."""
@@ -105,10 +109,15 @@ def write_artifact(model, x, out: str, meta: dict, symbolic_batch: bool = False,
     served = deploy.load_serving(out)
     with torch.no_grad():
         y_live, y_art = model(x), served(x)
-    err = float((y_art.float() - y_live.float()).abs().max())
-    if not err < ARTIFACT_TOL:
+    diff = y_art.float() - y_live.float()
+    if relative:
+        err, tol, kind = float(diff.norm() / (y_live.float().norm() + 1e-12)), \
+            ARTIFACT_REL_TOL, "relative norm"
+    else:
+        err, tol, kind = float(diff.abs().max()), ARTIFACT_TOL, "max-abs"
+    if not err < tol:
         raise SystemExit(f"the artifact's output differs from the live forward's by {err:.3e} "
-                         f"(max-abs; gate {ARTIFACT_TOL})")
+                         f"({kind}; gate {tol})")
     save_model(variables_of(model), out + ".params.npz")
     with open(out + ".meta.json", "w") as f:
         json.dump(meta, f)
@@ -135,8 +144,7 @@ def build_deploy_model(cfg, device, seed: int):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.dtype != "float32":
-        raise NotImplementedError(f"--dtype {args.dtype}: {DTYPE_TODO}")
+    dtype = DTYPES[args.dtype]
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
@@ -178,23 +186,24 @@ def main(argv=None) -> dict:
 
     shape = (args.batch,) + tuple(args.input_size)
     if args.never_lose:
-        res = deploy.never_lose_deploy(model, shape)
+        res = deploy.never_lose_deploy(model, shape, dtype=dtype)
         logger.info(f"never-lose: {res['kept_decomposed']}/{len(res['layers'])} kept decomposed")
     if not args.no_fold_bn and not qat:
         logger.info(f"fold_batchnorm: {deploy.fold_batchnorm(model)} pairs")
+    cast_floating(model, dtype)
     if qat:
         logger.info(f"convert_qat_to_int8: {deploy.convert_qat_to_int8(model)}/{nq} modules "
                     f"(learned observer scales)")
     H, W, C = args.input_size
     gen = torch.Generator().manual_seed(seed)
     if args.quantize == "int8":
-        calib = [torch.randn(8, C, H, W, generator=gen).to(device).contiguous(
+        calib = [torch.randn(8, C, H, W, generator=gen).to(device, dtype).contiguous(
             memory_format=torch.channels_last) for _ in range(4)]
         logger.info(f"quantize_int8: {deploy.quantize_int8(model, calib)} modules (synthetic "
                     f"calibration: pass real batches through deploy.quantize_int8 for "
                     f"accuracy-grade scales)")
 
-    x = torch.randn(args.batch, C, H, W, generator=gen).to(device).contiguous(
+    x = torch.randn(args.batch, C, H, W, generator=gen).to(device, dtype).contiguous(
         memory_format=torch.channels_last)
     meta = serving_meta(args.norm_mean, args.norm_std, args.dtype,
                         [None if args.symbolic_batch else args.batch, C, H, W],

@@ -5,7 +5,12 @@ The forward time is the JAX package's: on the card the slope of a compiled
 forward dispatched back to back (:func:`graph_ms`: a ``compile_serving`` CUDA
 graph replayed n and 4n times between CUDA events), with the median of
 ``num_iters`` eager forwards after ``warmup`` reported beside it; on the CPU
-the eager median (host clock).  With ``capture_trace`` (or
+the eager median (host clock).  The input is a batch of ones in ``dtype``
+(``infer_cfg=dict(bf16=True)``: bfloat16), made as the JAX ``time_forward``
+makes it; the model is timed as it is, as the JAX hook times its variables:
+a bfloat16 forward needs a model cast first (``utils.dtype.cast_floating``),
+and a float32 model under a bfloat16 input raises torch's type error where the
+JAX package raises its own.  With ``capture_trace`` (or
 ``profile_args=dict(capture=True)``) one more forward runs under
 ``torch.profiler`` after the timed ones, so the profiler's cost never enters
 the times: its Chrome trace goes to ``work_dir/traces/``,
@@ -43,18 +48,20 @@ def nhwc_size(size):
     return size
 
 
-def _ones(input_size, device) -> torch.Tensor:
+def _ones(input_size, device, dtype=torch.float32) -> torch.Tensor:
     B, H, W, C = input_size
-    return torch.ones(B, C, H, W, device=device).contiguous(memory_format=torch.channels_last)
+    return torch.ones(B, C, H, W, device=device, dtype=dtype).contiguous(
+        memory_format=torch.channels_last)
 
 
-def eager_times(model, input_size, device, num_iters: int = 10, warmup: int = 3) -> np.ndarray:
+def eager_times(model, input_size, device, num_iters: int = 10, warmup: int = 3,
+                dtype=torch.float32) -> np.ndarray:
     """Milliseconds of each of ``num_iters`` eval forwards of ``model`` on a
-    (B, H, W, C) input of ones in ``channels_last``, after ``warmup`` forwards:
+    (B, H, W, C) input of ones in ``channels_last`` and ``dtype``, after ``warmup`` forwards:
     each between two CUDA events and synchronized on the card (so the host's
     launch cost enters every reading), on the host clock on the CPU."""
     device = torch.device(device)
-    x = _ones(input_size, device)
+    x = _ones(input_size, device, dtype)
     model.eval()
     times = []
     with torch.no_grad():
@@ -76,7 +83,8 @@ def eager_times(model, input_size, device, num_iters: int = 10, warmup: int = 3)
     return np.asarray(times)
 
 
-def graph_ms(model, input_size, num_iters: int = 10, warmup: int = 3) -> float:
+def graph_ms(model, input_size, num_iters: int = 10, warmup: int = 3,
+             dtype=torch.float32) -> float:
     """Milliseconds per forward of ``model`` on the card, as the JAX package's
     ``time_forward`` times a compiled forward: the forward captured as a
     ``deploy.compile_serving`` CUDA graph, then n and 4n replays back to back,
@@ -89,7 +97,8 @@ def graph_ms(model, input_size, num_iters: int = 10, warmup: int = 3) -> float:
     captured raises, naming the module."""
     from convnet_approximater_tpu_torch.deploy import compile_serving
 
-    compiled, _ = compile_serving(model, _ones(input_size, next(model.parameters()).device))
+    compiled, _ = compile_serving(model, _ones(input_size, next(model.parameters()).device,
+                                               dtype))
     replay = compiled.graph.replay
 
     def run(n: int) -> float:
@@ -117,36 +126,40 @@ def graph_ms(model, input_size, num_iters: int = 10, warmup: int = 3) -> float:
     return max((t2 - t1) / (n2 - n1), 1e-6)
 
 
-def forward_times(model, input_size, num_iters: int = 10, warmup: int = 3) -> dict:
-    """Both figures of one timing of ``model`` on its parameters' device:
+def forward_times(model, input_size, num_iters: int = 10, warmup: int = 3,
+                  dtype=torch.float32) -> dict:
+    """Both figures of one timing of ``model`` on its parameters' device, on an
+    input of ``dtype``:
     ``ms`` (the graph slope of :func:`graph_ms` on the card, the eager median
     on the CPU), ``eager_median_ms`` and the eager ``times``, and
     ``forwards``, the eager forwards run (the capture's included)."""
     device = next(model.parameters()).device
-    times = eager_times(model, input_size, device, num_iters, warmup)
+    times = eager_times(model, input_size, device, num_iters, warmup, dtype)
     eager = float(np.median(times))
     if device.type != "cuda":
         return dict(ms=eager, eager_median_ms=eager, times=times, forwards=warmup + num_iters)
-    return dict(ms=graph_ms(model, input_size, num_iters, warmup), eager_median_ms=eager,
+    return dict(ms=graph_ms(model, input_size, num_iters, warmup, dtype), eager_median_ms=eager,
                 times=times, forwards=warmup + num_iters + CAPTURE_FORWARDS)
 
 
-def time_forward(model, input_size, device, num_iters: int = 10, warmup: int = 3):
+def time_forward(model, input_size, device, num_iters: int = 10, warmup: int = 3,
+                 dtype=torch.float32):
     """Milliseconds per eval forward of ``model`` on a (B, H, W, C) input of
     ones in ``channels_last``: on the card one entry, :func:`graph_ms`'s slope
     (as the JAX package's ``time_forward`` returns one); on the CPU the
     ``num_iters`` eager times after ``warmup``, as :func:`eager_times`."""
     if torch.device(device).type == "cuda":
-        return np.asarray([graph_ms(model, input_size, num_iters, warmup)])
-    return eager_times(model, input_size, device, num_iters, warmup)
+        return np.asarray([graph_ms(model, input_size, num_iters, warmup, dtype)])
+    return eager_times(model, input_size, device, num_iters, warmup, dtype)
 
 
-def forward_seconds(model, input_size, num_iters: int = 10, warmup: int = 3) -> float:
+def forward_seconds(model, input_size, num_iters: int = 10, warmup: int = 3,
+                    dtype=torch.float32) -> float:
     """Seconds of one eval forward of ``model`` on its parameters' device, the
     default timer of ``ClassInference``, the arbiters and the planner: the
     graph slope on the card (the eager median logged beside it), the eager
     median on the CPU."""
-    t = forward_times(model, input_size, num_iters, warmup)
+    t = forward_times(model, input_size, num_iters, warmup, dtype)
     if next(model.parameters()).device.type == "cuda":
         get_logger().info(f"forward at {tuple(input_size)}: {t['ms']:.3f} ms as a graph back to "
                           f"back, eager median {t['eager_median_ms']:.3f} ms")
@@ -162,6 +175,7 @@ class InferenceTimeHook(Hook):
         self.num_iters = infer_cfg.pop("num_iters", 10)
         self.warmup = max(infer_cfg.pop("warmup", 3), 1)
         self.capture_trace = bool(infer_cfg.pop("capture_trace", False))
+        self.dtype = torch.bfloat16 if infer_cfg.pop("bf16", False) else torch.float32
         profile_args = dict(infer_cfg.pop("profile_args", None) or {})
         self.capture_trace |= bool(profile_args.pop("capture", False))
         table_args = dict(infer_cfg.pop("table_args", None) or {})
@@ -176,14 +190,14 @@ class InferenceTimeHook(Hook):
             + [f"table_args.{k}" for k in sorted(table_args)]
         if rest:
             raise NotImplementedError(
-                f"InferenceTimeHook options {rest} are not ported to the PyTorch port yet "
-                f"(float32 timing only: bf16 is ROADMAP.md queue 1 item 7)")
+                f"InferenceTimeHook options {rest} are not options of the JAX hook")
         self.forwards = 0
         self.result = None
 
     def after_run(self):
         device = self.runner.device
-        t = forward_times(self.runner.model, self.input_size, self.num_iters, self.warmup)
+        t = forward_times(self.runner.model, self.input_size, self.num_iters, self.warmup,
+                          self.dtype)
         self.forwards = t["forwards"]
         name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
         times = t["times"]
@@ -192,9 +206,10 @@ class InferenceTimeHook(Hook):
         if device.type == "cuda":
             eager = (f"median {t['ms']:.3f} ms per forward as a graph replayed back to back "
                      f"(eager {eager})")
-        get_logger().info(f"Forward time (batch {self.input_size[0]}): {eager} on {name}")
+        kind = "" if self.dtype == torch.float32 else ", bfloat16"
+        get_logger().info(f"Forward time (batch {self.input_size[0]}{kind}): {eager} on {name}")
         self.result = dict(median_ms=t["ms"], eager_median_ms=t["eager_median_ms"],
-                           times=times, device=name)
+                           times=times, device=name, dtype=self.dtype)
         if self.capture_trace:
             self.result.update(self.capture())
 
@@ -203,8 +218,7 @@ class InferenceTimeHook(Hook):
         Chrome trace under ``work_dir/traces/`` and the logged tables."""
         logger = get_logger()
         device = self.runner.device
-        B, H, W, C = self.input_size
-        x = torch.ones(B, C, H, W, device=device).contiguous(memory_format=torch.channels_last)
+        x = _ones(self.input_size, device, self.dtype)
         activities = [ProfilerActivity.CPU]
         if device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)

@@ -34,7 +34,8 @@ def parse_args(argv=None):
                     help="serve each low-rank layer factored only where the model gains")
     ap.add_argument("--eval-dataset", default=None, help="DATASET registry type, e.g. CIFAR10")
     ap.add_argument("--eval-root", default=None)
-    ap.add_argument("--dtype", default="float32", help="serving type (float32 only)")
+    ap.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="serving type: float32 (the default, as the JAX CLI's) or bfloat16")
     ap.add_argument("--quantize", default=None, choices=["int8"],
                     help="int8 post-training quantization of the approximated model")
     ap.add_argument("--device", default="cuda", help="torch device: cuda (default), cuda:N or cpu")

@@ -5,7 +5,8 @@
 (k, 1) one; the order matters to MscaRep's border algebra.
 
 An eval-mode forward of a ``CascadeConv`` or ``ParallelConv`` whose structure
-the kernel expresses (depthwise, stride 1, odd k padded by k // 2, float32,
+the kernel expresses (depthwise, stride 1, odd k padded by k // 2, float32 or
+bfloat16 weights (packed as float32; the kernel reads and writes x's type),
 at most ``MAX_BRANCHES`` cascades, with branches times the largest k at most
 ``MAX_BANK_ROWS``, plus an optional identity) runs as one
 :func:`~convnet_approximater_tpu_torch.ops.parallel_cascade.parallel_cascade`
@@ -41,14 +42,16 @@ def no_grad_eval(module: nn.Module) -> bool:
 
 
 def _strip_fits(conv: nn.Conv2d, k: int, vertical: bool) -> bool:
-    """Whether ``conv`` is the depthwise (1, k) or (k, 1) strip the kernel runs."""
+    """Whether ``conv`` is the depthwise (1, k) or (k, 1) strip the kernel runs
+    (float32 or bfloat16 weights: any other type, such as a float64 copy, takes
+    the module path)."""
     p = k // 2
     return (conv.groups == conv.in_channels == conv.out_channels
             and conv.kernel_size == ((k, 1) if vertical else (1, k))
             and conv.padding == ((p, 0) if vertical else (0, p))
             and conv.stride == (1, 1) and conv.dilation == (1, 1)
             and conv.padding_mode == "zeros"
-            and all(t.dtype == torch.float32 for t in conv.parameters()))
+            and all(t.dtype in (torch.float32, torch.bfloat16) for t in conv.parameters()))
 
 
 class _StripBank(nn.Module):
@@ -67,8 +70,9 @@ class _StripBank(nn.Module):
 
     @torch.no_grad()
     def packed(self) -> Optional[dict]:
-        """The kernel's arguments, or None when the structure does not fit it;
-        packed again only after the weights changed."""
+        """The kernel's arguments (taps and biases as float32 copies of the
+        weights), or None when the structure does not fit it; packed again only
+        after the weights changed."""
         key = self._weights_key()
         if key != getattr(self, "_pack_key", None):
             cascades, identity = self.bank()

@@ -96,9 +96,9 @@ class LowRankExpConvV1(nn.Module):
         if isinstance(self.s_conv, SeparableConv):
             v = self.s_conv.v_conv.weight[:, 0, :, 0].reshape(C, M, -1)
             h = self.s_conv.h_conv.weight[:, 0, 0, :].reshape(C, M, -1)
-            per_c = v[..., :, None] * h[..., None, :]
+            per_c = v[..., :, None].float() * h[..., None, :].float()
         else:
-            per_c = self.s_conv.weight[:, 0].reshape(C, M, *self.kernel_size)
+            per_c = self.s_conv.weight[:, 0].reshape(C, M, *self.kernel_size).float()
         return bool(torch.allclose(per_c, per_c[:1].expand_as(per_c), rtol=SHARED_RTOL,
                                    atol=SHARED_ATOL))
 

@@ -68,12 +68,14 @@ class MSCA(nn.Module):
             res, fix_p = None, 0
             if fix is not None:
                 res, fix_p = fix.res.transpose(1, 2).contiguous(), fix.p  # (2, p, C)
+                res = res.float()
+            # the kernel's weights are float32 copies of bf16 ones
             self._kernel_args = dict(
-                w0=self.conv0.weight[:, 0].permute(1, 2, 0).contiguous(),  # (k0, k0, C)
-                b0=self.conv0.bias,
+                w0=self.conv0.weight[:, 0].permute(1, 2, 0).float().contiguous(),  # (k0, k0, C)
+                b0=self.conv0.bias.float(),
                 w1=packed["w1"], b1=packed["b1"], w2=packed["w2"], b2=packed["b2"],
-                wm=self.channel_mix.weight[:, :, 0, 0].t().contiguous(),  # (C in, C out)
-                bm=self.channel_mix.bias, res=res,
+                wm=self.channel_mix.weight[:, :, 0, 0].t().float().contiguous(),  # (C in, C out)
+                bm=self.channel_mix.bias.float(), res=res,
                 ks=packed["ks"], identity=packed["identity"], fix_p=fix_p)
             self._kernel_key = key
         return self._kernel_args

@@ -14,6 +14,13 @@ package does:
   fixed, so the counter is never read), so its ``state_dict`` maps one to one
   onto the JAX params (``scale``/``bias``) and state (``mean``/``var``);
 * ``LayerNorm`` normalises the channel axis of an NCHW map;
+* the norms normalise a bfloat16 map in float32 and return bfloat16, as the
+  JAX package's norms do (bf16 serving stays bf16 end to end), with no cast
+  copy of the map: ``BatchNorm2d`` passes its affine parameters as float32
+  beside its float32 running statistics (torch's mixed-type batch norm);
+  ``LayerNorm`` and ``GroupNorm`` take parameters of the map's type (bf16
+  after ``utils.dtype.cast_floating``), and torch's kernels accumulate a bf16
+  map's statistics and affine in float32;
 * ``GELU`` defaults to the tanh form, as the JAX package does;
 * ``Dropout`` draws its training mask from its ``generator`` (one the trainer
   owns, seeded from the run's seed), not from torch's global generator.
@@ -125,8 +132,14 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
-                            self.training, self.momentum, self.eps)
+        return F.batch_norm(x, self.running_mean, self.running_var, _f32(self.weight),
+                            _f32(self.bias), self.training, self.momentum, self.eps)
+
+
+def _f32(t):
+    """A batch norm's affine parameter beside its float32 running statistics
+    (bf16 after ``cast_floating``; a float64 one, on a float64 map, stays)."""
+    return t if t is None or t.dtype == torch.float64 else t.float()
 
 
 class LayerNorm(nn.LayerNorm):

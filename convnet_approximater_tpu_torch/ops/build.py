@@ -6,9 +6,12 @@ launch for ``torch.profiler``.  Each kernel is a ``torch.library`` custom op
 under ``NAMESPACE`` (its module in ``ops/`` registers it), so that
 ``torch.export`` traces through it: the op's CPU implementation is the plain
 version, its CUDA implementation the launch, its fake kernel the output's
-shape.  The library lands in ``build/torch_kernels/`` at the repository root,
-named by a hash of the source and the flags, so an edited source is rebuilt and
-an unchanged one is reused.  :func:`build_all` starts one nvcc per source, all
+shape.  Each kernel takes x and writes its output as float32 or bfloat16
+(``X_TYPES``), through one C entry point per type (``<name>_f32``,
+``<name>_bf16``), and computes in float32 either way; weights, scales and
+biases stay float32.  The library lands in ``build/torch_kernels/`` at the
+repository root, named by a hash of the source and the flags, so an edited
+source is rebuilt and an unchanged one is reused.  :func:`build_all` starts one nvcc per source, all
 at once.
 """
 
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -29,6 +33,7 @@ import torch
 NAMESPACE = "convnet_approximater_tpu_torch"  # the custom ops' torch.ops.<NAMESPACE>.<op>
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+X_TYPES = (torch.float32, torch.bfloat16)  # the kernels' activation types
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -108,6 +113,29 @@ def check_device(name: str, x: torch.Tensor) -> None:
     card (its kernel); the meta device would reach the fake kernel."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{name}: unsupported device {x.device}")
+
+
+def check_x_type(name: str, x: torch.Tensor) -> None:
+    """Raise unless ``x`` is of a type the kernels read and write (``X_TYPES``)."""
+    if x.dtype not in X_TYPES:
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+
+
+def entry(lib: ctypes.CDLL, name: str, x: torch.Tensor):
+    """The C entry point of ``name`` for x's type: ``<name>_f32`` or ``<name>_bf16``."""
+    return getattr(lib, f"{name}_{'bf16' if x.dtype == torch.bfloat16 else 'f32'}")
+
+
+def in_float32(ref):
+    """A plain version that takes bfloat16 x as the kernels do: x is upcast (exactly),
+    the float32 function runs on it, and its result is rounded to bfloat16 once;
+    any other type runs as it is."""
+    @functools.wraps(ref)
+    def run(x, *args, **kwargs):
+        if x.dtype != torch.bfloat16:
+            return ref(x, *args, **kwargs)
+        return ref(x.float(), *args, **kwargs).to(x.dtype)
+    return run
 
 
 def launch_range(name: str):

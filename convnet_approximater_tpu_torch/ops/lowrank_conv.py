@@ -28,7 +28,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from .build import NAMESPACE, check_device, launch_range, load
+from .build import NAMESPACE, check_device, check_x_type, entry, in_float32, launch_range, load
 
 # the kernel's shared-memory plan (csrc/lowrank_conv.cu: smem_bytes) and the card's
 SMS = 132               # streaming multiprocessors of an H100 SXM
@@ -63,13 +63,15 @@ def lowrank_params_from_module(module) -> dict:
     out["A_mc"] = dw.t().reshape(C, M, N).transpose(0, 1).reshape(M * C, N).contiguous()
     b = module.d_conv.bias
     out["b"] = b.contiguous() if b is not None else dw.new_zeros(N)
-    return {k: t.detach() for k, t in out.items()}
+    return {k: t.detach().float() for k, t in out.items()}  # float32 copies of bf16 weights
 
 
+@in_float32
 def lowrank_conv_ref(x, A_mc, b, *, v=None, h=None, bases=None, kernel_size, stride=(1, 1),
                      padding=(0, 0)):
     """Plain PyTorch version of :func:`lowrank_conv`: grouped convs for the
-    basis passes (horizontal first), then one matrix product for the mix."""
+    basis passes (horizontal first), then one matrix product for the mix (a
+    bfloat16 x: in float32 on its exact upcast, the result rounded once)."""
     B, H, W, C = x.shape
     (kh, kw), (sh, sw), (ph, pw) = kernel_size, stride, padding
     xc = x.permute(0, 3, 1, 2)
@@ -278,8 +280,9 @@ def _check(x, A_mc, b, v, h, bases, kernel_size, stride, padding):
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"lowrank_conv: {name} must be {shape}, got "
                              f"{tuple(tensors[name].shape)}")
+    check_x_type("lowrank_conv", x)
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
+        if name != "x" and t.dtype != torch.float32:
             raise TypeError(f"lowrank_conv: {name} must be float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"lowrank_conv: {name} is on {t.device}, x on {x.device}")
@@ -296,9 +299,9 @@ def _check(x, A_mc, b, v, h, bases, kernel_size, stride, padding):
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load("lowrank_conv.cu")
-    fn = lib.lowrank_conv_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.lowrank_conv_f32, lib.lowrank_conv_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.lowrank_conv_smem_bytes.argtypes = [ctypes.c_int] * 8
     lib.lowrank_conv_smem_bytes.restype = ctypes.c_int
     return lib
@@ -313,13 +316,14 @@ def lowrank_conv(x, A_mc, b, *, v=None, h=None, bases=None, kernel_size, stride=
                  padding=(0, 0), packed: Optional[dict] = None):
     """Scheme-1 conv on an NHWC map.
 
-    x: (B, H, W, C) float32, contiguous; either ``v`` (M, kh) + ``h`` (M, kw)
+    x: (B, H, W, C) float32 or bfloat16, contiguous; the weights float32:
+    either ``v`` (M, kh) + ``h`` (M, kw)
     separable taps or ``bases`` (M, kh, kw) full filters; ``A_mc`` (M*C, N)
     mixing matrix with rows ordered ``m*C + c``; b: (N,).  ``kernel_size``,
     ``stride`` and ``padding`` are (h, w) pairs.  ``packed``: the kernel's
     layout of these weights (:func:`pack_kernel_weights`), which a caller that
     runs them again keeps; without it a CUDA call packs them first.  Returns a
-    new (B, Ho, Wo, N) tensor.  Runs the custom op
+    new (B, Ho, Wo, N) tensor of x's type.  Runs the custom op
     ``torch.ops.convnet_approximater_tpu_torch.lowrank_conv``.
     """
     check_device("lowrank_conv", x)
@@ -369,7 +373,7 @@ def _launch(x, A_mc, b, v, h, bases, w, taps, kernel_size, stride, padding):
     y = x.new_empty((B, Ho, Wo, N))
     with torch.cuda.device(x.device), launch_range("lowrank_conv"):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().lowrank_conv_f32(
+        err = entry(_library(), "lowrank_conv", x)(
             x.data_ptr(), w.data_ptr(), taps.data_ptr(), b.data_ptr(), y.data_ptr(),
             B, H, W, C, N, p.ms, p.slabs, *kernel_size, *stride, *padding, p.bn, p.qpg, p.rw,
             p.stages, p.chain, stream)

@@ -28,7 +28,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
-from .build import NAMESPACE, check_device, launch_range, load
+from .build import NAMESPACE, check_device, check_x_type, entry, in_float32, launch_range, load
 
 MAX_BRANCHES = 8  # kMaxBranches in csrc/msca_fused.cu
 
@@ -168,9 +168,11 @@ def fix_strip(res: torch.Tensor, H: int) -> torch.Tensor:
     return strip
 
 
+@in_float32
 def msca_fused_ref(x, w0, b0, w1, b1, w2, b2, wm, bm, res=None, *,
                    ks: Sequence[int], identity: bool, fix_p: int):
-    """Plain PyTorch version of :func:`msca_fused` on the same packed weights."""
+    """Plain PyTorch version of :func:`msca_fused` on the same packed weights
+    (a bfloat16 x: in float32 on its exact upcast, the result rounded once)."""
     B, H, W, C = x.shape
     k0 = w0.shape[0]
     k_max = w1.shape[1]
@@ -206,8 +208,9 @@ def _check(x, w0, b0, w1, b1, w2, b2, wm, bm, res, ks, fix_p):
         if tensors[name] is None or tuple(tensors[name].shape) != shape:
             got = None if tensors[name] is None else tuple(tensors[name].shape)
             raise ValueError(f"msca_fused: {name} must be {shape}, got {got}")
+    check_x_type("msca_fused", x)
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
+        if name != "x" and t.dtype != torch.float32:
             raise TypeError(f"msca_fused: {name} must be float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"msca_fused: {name} is on {t.device}, x on {x.device}")
@@ -226,9 +229,9 @@ def _check(x, w0, b0, w1, b1, w2, b2, wm, bm, res, ks, fix_p):
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load("msca_fused.cu")
-    fn = lib.msca_fused_f32
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.msca_fused_f32, lib.msca_fused_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 17 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.msca_fused_smem_bytes.argtypes = [ctypes.c_int] * 6
     lib.msca_fused_smem_bytes.restype = ctypes.c_int
     return lib
@@ -243,12 +246,13 @@ def msca_fused(x, w0, b0, w1, b1, w2, b2, wm, bm, res=None, *,
                ks: Sequence[int], identity: bool, fix_p: int):
     """Fused MSCA block ``x * (Wm . fix(bank(dw_k0(x) + b0)) + bm)``, NHWC.
 
-    x: (B, H, W, C) float32, contiguous; w0: (k0, k0, C) depthwise taps;
+    x: (B, H, W, C) float32 or bfloat16, contiguous; the weights float32:
+    w0: (k0, k0, C) depthwise taps;
     w1/w2: (nb, k_max, C) horizontal/vertical strip taps and b1/b2: (nb, C)
     from :func:`pack_cascade_weights`; wm: (C, C) channel mix, input dim
     first; bm, b0: (C,); res: (2, fix_p, C) border strips when ``fix_p > 0``.
     ``ks`` are the branches' true sizes; ``identity`` adds the conv0 output to
-    the bank.  Returns a new (B, H, W, C) tensor.  Runs the custom op
+    the bank.  Returns a new (B, H, W, C) tensor of x's type.  Runs the custom op
     ``torch.ops.convnet_approximater_tpu_torch.msca_fused``.
     """
     check_device("msca_fused", x)
@@ -278,10 +282,10 @@ def _launch(x, w0, b0, w1, b1, w2, b2, wm, bm, res, ks, identity, fix_p):
     if p is None:
         raise ValueError(f"msca_fused: no kernel plan for k0={k0}, ks={tuple(ks)}")
     out = torch.empty_like(x)
-    attn = torch.empty_like(x)  # the march's output, the mix's input
+    attn = torch.empty_like(x, dtype=torch.float32)  # the march's output, the mix's input
     with torch.cuda.device(x.device), launch_range("msca_fused"):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().msca_fused_f32(
+        err = entry(_library(), "msca_fused", x)(
             x.data_ptr(), w0.data_ptr(), b0.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), wm.data_ptr(), bm.data_ptr(),
             res.data_ptr() if fix_p > 0 else None, attn.data_ptr(), out.data_ptr(),

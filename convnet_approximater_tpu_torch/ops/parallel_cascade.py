@@ -26,12 +26,13 @@ from typing import List, Sequence
 import torch
 import torch.nn.functional as F
 
-from .build import NAMESPACE, check_device, launch_range, load
+from .build import NAMESPACE, check_device, check_x_type, entry, in_float32, launch_range, load
 from .msca_fused import MAX_BRANCHES
 
 MAX_BANK_ROWS = 128  # kMaxBankRows in csrc/parallel_cascade.cu: nb * k_max
 
 
+@in_float32
 def parallel_cascade_ref(x, w1, b1, w2, b2, *, ks: Sequence[int], identity: bool):
     """Plain PyTorch version of :func:`parallel_cascade` on the same packed weights.
 
@@ -40,7 +41,9 @@ def parallel_cascade_ref(x, w1, b1, w2, b2, *, ks: Sequence[int], identity: bool
     to right on the zero-padded map, the vertical pass starts at b2 and adds
     its taps top to bottom on the horizontal result padded with zero rows (so
     rows outside the map hold 0, not b1), and the branches add to x (identity)
-    or to 0 in order.  On the card it therefore gives the kernel's bits.
+    or to 0 in order.  On the card it therefore gives the kernel's bits.  A
+    bfloat16 x runs the float32 sums on its exact upcast and is rounded to
+    bfloat16 once, as the kernel's store is: the bits agree in both types.
     """
     B, H, W, C = x.shape
     k_max = w1.shape[1]
@@ -70,8 +73,9 @@ def _check(x, w1, b1, w2, b2, ks):
         if tuple(tensors[name].shape) != shape:
             raise ValueError(f"parallel_cascade: {name} must be {shape}, "
                              f"got {tuple(tensors[name].shape)}")
+    check_x_type("parallel_cascade", x)
     for name, t in tensors.items():
-        if t.dtype != torch.float32:
+        if name != "x" and t.dtype != torch.float32:
             raise TypeError(f"parallel_cascade: {name} must be float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"parallel_cascade: {name} is on {t.device}, x on {x.device}")
@@ -92,10 +96,10 @@ def _check(x, w1, b1, w2, b2, ks):
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load("parallel_cascade.cu")
-    fn = lib.parallel_cascade_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.parallel_cascade_f32, lib.parallel_cascade_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -107,10 +111,10 @@ def build() -> None:
 def parallel_cascade(x, w1, b1, w2, b2, *, ks: Sequence[int], identity: bool):
     """Strip-conv bank ``sum_br vconv_k(hconv_k(x) + b1) + b2 [+ x]``, NHWC.
 
-    x: (B, H, W, C) float32, contiguous; w1/w2: (nb, k_max, C) horizontal/
+    x: (B, H, W, C) float32 or bfloat16, contiguous; w1/w2: (nb, k_max, C) float32 horizontal/
     vertical taps and b1/b2: (nb, C), from ``pack_cascade_weights``; ``ks``
     the branches' true (odd) sizes, each padded by k // 2; ``identity`` adds
-    x.  Returns a new (B, H, W, C) tensor.  Runs the custom op
+    x.  Returns a new (B, H, W, C) tensor of x's type.  Runs the custom op
     ``torch.ops.convnet_approximater_tpu_torch.parallel_cascade``.
     """
     check_device("parallel_cascade", x)
@@ -136,7 +140,7 @@ def _launch(x, w1, b1, w2, b2, ks, identity):
     ks_arr = (ctypes.c_int * nb)(*ks)
     with torch.cuda.device(x.device), launch_range("parallel_cascade"):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().parallel_cascade_f32(
+        err = entry(_library(), "parallel_cascade", x)(
             x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             out.data_ptr(), B, H, W, C, nb, k_max, ks_arr, int(identity), stream)
     if err != 0:

@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from .build import NAMESPACE, check_device, launch_range, load
+from .build import NAMESPACE, check_device, check_x_type, entry, in_float32, launch_range, load
 
 INT8_MAX = 127.0
 K_ALIGN = 32  # the kernel's K step (one wgmma k32); the packed weight's rows are padded to it
@@ -129,11 +129,14 @@ def quantize_activation(x: torch.Tensor, scale) -> torch.Tensor:
     return torch.clamp(torch.round(x.float() / scale), -INT8_MAX, INT8_MAX).to(torch.int8)
 
 
+@in_float32
 def qmatmul_ref(x, w_packed, a_scale, w_scale, bias=None):
     """Plain PyTorch version of :func:`qmatmul` on the same packed weight.  The
     int8 product runs in float64, exact while the sums stay below 2^53 (torch
     has no integer matrix product on the card), and is converted to float32
-    once, as the int32 sum is."""
+    once, as the int32 sum is.  A bfloat16 x is quantized from its exact
+    float32 upcast and y is rounded to bfloat16 once, as the kernel does: the
+    bits agree in both types."""
     K = x.shape[1]
     acc = quantize_activation(x, a_scale).double() @ w_packed[:, :K].double().t()
     y = acc.float() * (a_scale * w_scale)
@@ -155,8 +158,9 @@ def _check(x, w_packed, a_scale, w_scale, bias):
             continue
         if name in expected and tuple(t.shape) != expected[name]:
             raise ValueError(f"qmatmul: {name} must be {expected[name]}, got {tuple(t.shape)}")
-        want = torch.int8 if name == "w" else torch.float32
-        if t.dtype != want:
+        if name == "x":
+            check_x_type("qmatmul", x)
+        elif t.dtype != (want := torch.int8 if name == "w" else torch.float32):
             raise TypeError(f"qmatmul: {name} must be {want}, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"qmatmul: {name} is on {t.device}, x on {x.device}")
@@ -167,9 +171,9 @@ def _check(x, w_packed, a_scale, w_scale, bias):
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load("qmatmul.cu")
-    fn = lib.qmatmul_f32
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for fn in (lib.qmatmul_f32, lib.qmatmul_bf16):
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.qmatmul_smem_bytes.argtypes = [ctypes.c_int] * 5
     lib.qmatmul_smem_bytes.restype = ctypes.c_int
     return lib
@@ -183,9 +187,10 @@ def build() -> None:
 def qmatmul(x, w_packed, a_scale, w_scale, bias: Optional[torch.Tensor] = None):
     """``f32(q(x) @ w_q^T) * (a_scale * w_scale) + bias``, quantizing x on the way in.
 
-    x: (M, K) float32, contiguous; w_packed: (N, Kp) int8 from
+    x: (M, K) float32 or bfloat16, contiguous; w_packed: (N, Kp) int8 from
     :func:`pack_qweight`; a_scale: a 0-d float32 tensor on x's device (read
-    there, no host sync); w_scale, bias: (N,) float32.  Returns (M, N) float32.
+    there, no host sync); w_scale, bias: (N,) float32.  Returns (M, N) of x's
+    type.
     Runs the custom op ``torch.ops.convnet_approximater_tpu_torch.qmatmul``.
     """
     check_device("qmatmul", x)
@@ -209,13 +214,14 @@ def _launch(x, w_packed, a_scale, w_scale, bias):
     N, Kp = w_packed.shape
     if w_packed.data_ptr() % 16:
         raise ValueError("qmatmul: the packed weight must be 16-byte aligned")
-    if K % 4 or x.data_ptr() % 16:  # the x tensor map needs 16-byte rows: a padded copy
-        x = F.pad(x, (0, -K % 4)) if K % 4 else x.clone()
+    align = 16 // x.element_size()  # the x tensor map needs 16-byte rows: a padded copy
+    if K % align or x.data_ptr() % 16:
+        x = F.pad(x, (0, -K % align)) if K % align else x.clone()
     p = plan(M, K, N)
     y = x.new_empty((M, N))
     with torch.cuda.device(x.device), launch_range("qmatmul"):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _library().qmatmul_f32(
+        err = entry(_library(), "qmatmul", x)(
             x.data_ptr(), w_packed.data_ptr(), a_scale.data_ptr(), w_scale.data_ptr(),
             bias.data_ptr() if bias is not None else None, y.data_ptr(), M, x.shape[1], Kp, N,
             p.bm, p.bnw, p.ntpb, p.ra, p.sx, p.sb, stream)

@@ -19,8 +19,9 @@ forward and with the ``.params.npz`` and ``.meta.json`` sidecars (the
 ``--norm-mean``/``--norm-std`` that ``serve --ship-uint8`` applies), as
 ``export_model`` writes them; ``serve`` serves it.
 ``--device`` defaults to ``cuda`` and fails when no CUDA device is present;
-the CPU runs only when asked for with ``--device cpu``.  The port plans
-float32 only.
+the CPU runs only when asked for with ``--device cpu``.  ``--dtype`` is the
+serving type, bfloat16 by default as the JAX CLI's; the exported winner is
+held to the JAX CLI's relative-norm gate (1e-2) against the live forward.
 """
 
 from __future__ import annotations
@@ -38,8 +39,7 @@ from convnet_approximater_tpu_torch.models import build_model
 from convnet_approximater_tpu_torch.nn import channels_last, init_weights
 from convnet_approximater_tpu_torch.runner.runner import read_checkpoint
 from convnet_approximater_tpu_torch.utils import build_logger, get_cfg, init_cfg
-
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+from convnet_approximater_tpu_torch.utils.dtype import DTYPES
 
 
 def emit_recovery_configs(args, plan, logger):
@@ -137,8 +137,8 @@ def parse_args(argv=None):
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--batch", type=int, default=64)
     ap.add_argument("--input-size", type=int, nargs=3, default=(224, 224, 3))
-    ap.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
-                    help="serving type (float32 only in the port)")
+    ap.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES),
+                    help="serving type (bfloat16 by default, as the JAX CLI's)")
     ap.add_argument("--min-agree", type=float, default=0.9)
     ap.add_argument("--v3-energy", type=float, default=0.9)
     ap.add_argument("--out", default="serving_plan.json")
@@ -234,8 +234,8 @@ def main(argv=None) -> dict:
         x = torch.randn(args.batch, C, H, W, generator=torch.Generator().manual_seed(seed))
         meta = serving_meta(args.norm_mean, args.norm_std, plan["dtype"], [args.batch, C, H, W],
                             surface=plan["winner"], speedup_vs_dense=plan["speedup_vs_dense"])
-        data, _, err = write_artifact(plan["model"], x.to(device).contiguous(
-            memory_format=torch.channels_last), args.export, meta)
+        data, _, err = write_artifact(plan["model"], x.to(device, dtype).contiguous(
+            memory_format=torch.channels_last), args.export, meta, relative=True)
         logger.info(f"winner '{plan['winner']}' exported -> {args.export} ({len(data)} bytes, + "
                     f".params.npz, .meta.json; artifact max err {err:.2e})")
         plan["export"] = args.export

@@ -13,14 +13,21 @@ split into its separable form), ``never-lose`` (``deploy.never_lose_deploy``;
 its table goes to ``work_dir/never_lose_decisions.json``) and ``int8``
 (``fold_batchnorm``, then ``quantize_int8`` on eval or synthetic batches).
 
-The port serves float32 on one card: ``dtype`` other than float32 (ROADMAP.md
-queue 1, item 7) and ``pipeline_parallel`` > 1 (item 12) raise
-``NotImplementedError``, and so does ``s2d_stem``, a TPU rewrite the port does
-not carry.
+``dtype="bfloat16"`` serves every report in bf16, as the JAX runner does:
+each report times, counts and evaluates a cast copy of the model
+(``cast_floating``; the model itself keeps its float32 weights for the
+reports after it) and is tagged ``<tag>/bfloat16``; ``never_lose_deploy``
+decides at that type; the int8 report casts the folded model before
+``quantize_int8`` calibrates it on bf16 batches, as the JAX runner does, and
+its int8 modules keep their float32 scales.  ``fold_bn`` is on by default for
+a type other than float32.  ``pipeline_parallel`` > 1 (ROADMAP.md queue 1,
+item 12) raises ``NotImplementedError``, and so does ``s2d_stem``, a TPU
+rewrite the port does not carry.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 from abc import ABC, abstractmethod
@@ -39,6 +46,8 @@ from convnet_approximater_tpu_torch.layers import LowRankExpConvV1
 from convnet_approximater_tpu_torch.models import build_model
 from convnet_approximater_tpu_torch.nn import GELU, channels_last, init_weights
 from convnet_approximater_tpu_torch.utils import get_cfg, get_logger
+from convnet_approximater_tpu_torch.utils.dtype import (cast_floating, dtype_name, dtype_of,
+                                                        serving_dtype)
 
 from .runner import read_checkpoint, structure_pass
 
@@ -54,8 +63,9 @@ class ClassInference(BaseRunner):
     checkpoints fine-tuned in torch were trained; the JAX package's default
     form is tanh.  ``fold_bn`` folds BatchNorm (and runs the 1x1 convs as
     matmuls) before each report; off by default in float32, as in the JAX
-    package.  ``reports`` holds each report's ``ms``, ``eager_ms``, ``macs``,
-    ``params`` and ``eval`` (None without ``eval_cfg``) by tag."""
+    package, on for any other ``dtype``.  ``reports`` holds each report's
+    ``ms``, ``eager_ms``, ``macs``, ``params`` and ``eval`` (None without
+    ``eval_cfg``) by tag."""
 
     def __init__(self, checkpoint: str, batch_size: int = 16, input_size=(224, 224, 3),
                  do_decomp: bool = False, eval_cfg=None, device="cuda",
@@ -63,9 +73,6 @@ class ClassInference(BaseRunner):
                  dtype: str = "float32", fold_bn=None, never_lose: bool = False,
                  s2d_stem: bool = False, pipeline_parallel: int = 1,
                  quantize: Optional[str] = None):
-        if str(dtype).replace("torch.", "") != "float32":
-            raise NotImplementedError(f"ClassInference dtype={dtype!r}: the port serves float32 "
-                                      f"only (bf16 end to end is ROADMAP.md queue 1, item 7)")
         if int(pipeline_parallel) > 1:
             raise NotImplementedError(f"ClassInference pipeline_parallel={pipeline_parallel}: "
                                       f"pipelining waits for a multi-GPU host (ROADMAP.md "
@@ -86,7 +93,8 @@ class ClassInference(BaseRunner):
         self.device = torch.device(device)
         self.seed = generator.initial_seed() if generator is not None else (cfg.seed or 0)
         self.exact_gelu = exact_gelu
-        self.fold_bn = bool(fold_bn)
+        self.dtype = dtype_of(str(dtype).replace("torch.", ""))
+        self.fold_bn = self.dtype != torch.float32 if fold_bn is None else bool(fold_bn)
         self.never_lose = never_lose
         self.quantize = quantize
         self.passes = [structure_pass(p) for p in cfg.structure_passes or []]
@@ -136,27 +144,35 @@ class ClassInference(BaseRunner):
                                split=self.eval_cfg.get("split", "validation"))
             out = []
             for i, (x, _) in enumerate(Loader(ds, batch, shuffle=False, image_size=(H, W),
-                                              device=self.device)):
+                                              device=self.device, dtype=self.dtype)):
                 if i >= num_batches:
                     break
                 out.append(x)
             if out:
                 return out
         gen = torch.Generator().manual_seed(self.seed + 1000)
-        return [(torch.randn(batch, C, H, W, generator=gen) * 0.8).to(self.device).contiguous(
-            memory_format=torch.channels_last) for _ in range(num_batches)]
+        return [(torch.randn(batch, C, H, W, generator=gen) * 0.8).to(
+            self.device, self.dtype).contiguous(memory_format=torch.channels_last)
+            for _ in range(num_batches)]
 
     # -- reports -----------------------------------------------------------
     def _report(self, tag: str, model: nn.Module):
+        """Time, count and evaluate ``model`` at the serving type: a cast copy
+        of a model of another type (the int8 surface is cast before it is
+        quantized, so it serves as it is)."""
         logger = get_logger()
         if self.fold_bn:
             deploy.fold_batchnorm(model)
             deploy.enable_pw_matmul(model)
+        if self.dtype != torch.float32:
+            if serving_dtype(model) != self.dtype:
+                model = cast_floating(copy.deepcopy(model), self.dtype)
+            tag = f"{tag}/{dtype_name(self.dtype)}"
         shape = (self.batch_size,) + self.input_size
-        timing = forward_times(model, shape, num_iters=10, warmup=3)
+        timing = forward_times(model, shape, num_iters=10, warmup=3, dtype=self.dtype)
         ms, eager_ms = timing["ms"], timing["eager_median_ms"]
         B, H, W, C = shape
-        x = torch.zeros(B, C, H, W, device=self.device).contiguous(
+        x = torch.zeros(B, C, H, W, device=self.device, dtype=self.dtype).contiguous(
             memory_format=torch.channels_last)
         macs, params = count_macs(model.eval(), x), count_params(model)
         logger.info(f"[{tag}] fwd median {ms:.3f} ms (eager median {eager_ms:.3f} ms) | "
@@ -182,7 +198,8 @@ class ClassInference(BaseRunner):
             self._report("decomposed", model)
 
         if self.never_lose:
-            res = deploy.never_lose_deploy(model, (self.batch_size,) + self.input_size)
+            res = deploy.never_lose_deploy(model, (self.batch_size,) + self.input_size,
+                                           dtype=self.dtype)
             for row in res["layers"]:
                 logger.info(f"[arbiter] {row['name']}: {row['kept']}")
             path = os.path.join(self.cfg.work_dir or ".", "never_lose_decisions.json")
@@ -193,6 +210,7 @@ class ClassInference(BaseRunner):
 
         if self.quantize == "int8":
             deploy.fold_batchnorm(model)
+            cast_floating(model, self.dtype)  # the int8 surface quantizes the served weights
             nq = deploy.quantize_int8(model, self._calib_batches())
             logger.info(f"quantize_int8: {nq} convs quantized")
             self._report("int8", model)

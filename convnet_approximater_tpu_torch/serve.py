@@ -68,7 +68,8 @@ def parse_args(argv=None):
 class HostNormLoader(Loader):
     """The ``Loader`` with the normalization moved to the host: the prefetch
     thread ships float32 batches, ``(x - 255 mean) / (255 std)`` in the same
-    order, pinned for a ``non_blocking`` copy."""
+    order, pinned for a ``non_blocking`` copy, cast to the loader's type on the
+    card."""
 
     def _prep(self, idx: np.ndarray):
         images, labels = self.gather(idx)
@@ -80,7 +81,7 @@ class HostNormLoader(Loader):
 
     def _put(self, batch):
         x, labels = batch
-        x = x.to(self.device, non_blocking=True)
+        x = x.to(self.device, non_blocking=True).to(self.dtype)
         return x.permute(0, 3, 1, 2), labels.to(self.device, non_blocking=True)
 
 
@@ -136,8 +137,7 @@ def main(argv=None) -> dict:
         print(f"note: artifact is batch-static at {B}: overriding --batch {args.batch}",
               flush=True)
         args.batch = B
-    if x_aval.dtype != torch.float32:
-        raise NotImplementedError(f"artifact input {x_aval.dtype}: the port serves float32")
+    dtype = x_aval.dtype  # the artifact's input type, as the JAX server reads it
 
     graphs = graph_per_batch_size(module)
     # pad inside chunk: a remainder chunk of one row is padded too; a symbolic
@@ -151,9 +151,9 @@ def main(argv=None) -> dict:
     ds = Synthetic(max(args.batch * 4, 64), size + (C,), 1000)
     loader_type = Loader if args.ship_uint8 else HostNormLoader
     loader = loader_type(ds, args.batch, shuffle=False, drop_last=True, mean=mean, std=std,
-                         device=device)
+                         device=device, dtype=dtype)
 
-    x0 = torch.zeros(args.batch, C, *size, device=device).contiguous(
+    x0 = torch.zeros(args.batch, C, *size, device=device, dtype=dtype).contiguous(
         memory_format=torch.channels_last)
     t0 = time.perf_counter()
     fwd(x0)
@@ -176,7 +176,8 @@ def main(argv=None) -> dict:
     kind = "uint8 shipped, normalized on the card" if args.ship_uint8 else \
         "float32 normalized on the host"
     print(f"served {served} images in {seconds:.3f}s = {served / seconds:.0f} img/s "
-          f"end-to-end (batch {args.batch}, float32, {kind})", flush=True)
+          f"end-to-end (batch {args.batch}, {str(dtype).removeprefix('torch.')}, {kind})",
+          flush=True)
     return dict(served=served, seconds=seconds, img_per_s=served / seconds, load_s=load_s,
                 first_s=first_s, checksum=checksum, batch=args.batch, module=module,
                 sessions=len(graphs.sessions))

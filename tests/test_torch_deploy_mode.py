@@ -360,11 +360,19 @@ def test_class_inference_matches_jax_on_mscarep(monkeypatch, mscan_run, tmp_path
         assert reports[tag]["params"] == n_j
 
 
-@pytest.mark.parametrize("kw,match", [(dict(dtype="bfloat16"), "item 7"),
+@pytest.mark.parametrize("kw,match", [(dict(dtype="bfloat16"), None),
                                       (dict(pipeline_parallel=2), "item 12"),
-                                      (dict(s2d_stem=True), "S2D stem")])
+                                      (dict(s2d_stem=True), "S2D stem")],
+                         ids=["kw0-item 7", "kw1-item 12", "kw2-S2D stem"])  # the ids as before
 def test_class_inference_refusals(mscan_run, kw, match):
+    """bf16 is taken now, its BN fold on by default as in the JAX runner (off
+    in float32); pipelining and the S2D stem are refused."""
     init_cfg(mscan_run["cfg"])
+    if match is None:
+        run = ClassInference(mscan_run["ckpt"], device="cpu", **kw)
+        assert run.dtype == torch.bfloat16 and run.fold_bn
+        assert not ClassInference(mscan_run["ckpt"], device="cpu").fold_bn
+        return
     with pytest.raises(NotImplementedError, match=match):
         ClassInference(mscan_run["ckpt"], device="cpu", **kw)
 
@@ -373,6 +381,10 @@ def test_inference_cli_on_cpu(mscan_run, tmp_path):
     run = inference_cli.main(["--config", mscan_run["cfg"], "--checkpoint", mscan_run["ckpt"],
                               "--batch", "2", "--device", "cpu", "--work-dir", str(tmp_path)])
     assert list(run.reports) == ["original", "approximated"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        inference_cli.main(["--config", mscan_run["cfg"], "--checkpoint", mscan_run["ckpt"],
-                            "--dtype", "bfloat16", "--device", "cpu"])
+    # bf16: every report tagged with the type, timed and counted on a bf16 copy
+    bf = inference_cli.main(["--config", mscan_run["cfg"], "--checkpoint", mscan_run["ckpt"],
+                             "--batch", "2", "--dtype", "bfloat16", "--device", "cpu",
+                             "--work-dir", str(tmp_path)])
+    assert list(bf.reports) == ["original/bfloat16", "approximated/bfloat16"]
+    assert bf.reports["approximated/bfloat16"]["macs"] == run.reports["approximated"]["macs"]
+    assert all(p.dtype == torch.float32 for p in bf.new_model.parameters())  # copies were cast

@@ -1,8 +1,8 @@
 """The port's serving planner (``deploy_planner``) against the JAX package's.
 
 * ``default_candidates``: the same names on small ConvNeXt, MSCAN and SegNeXt
-  models and on AlexNet, ResNet-18 and VGG-16 (float32 in both packages; the
-  JAX default is bf16, the port plans float32 only).
+  models and on AlexNet, ResNet-18 and VGG-16 (float32 in both packages,
+  passed explicitly: both default to bf16, whose names are held too).
 * ``plan_serving`` under the fake timers of ``tests/test_deploy_planner.py``
   (a time per candidate name): JAX's winner, report names, times and
   ``qualified`` flags, and the dense floor when nothing reaches
@@ -14,7 +14,8 @@
   and a winner that finds no target now (where the reference raises) plan
   again from scratch.
 * The CLI: ``--emit-recovery`` writes JAX's chain of configs, each of which
-  the port's Runner builds; ``--export`` and bf16 are refused.
+  the port's Runner builds; ``--export`` at the default bf16 writes an
+  artifact of bf16 avals.
 """
 
 import json
@@ -33,6 +34,7 @@ from convnet_approximater_tpu import deploy_planner as jplanner  # noqa: E402
 from convnet_approximater_tpu.models import build_model as jbuild  # noqa: E402
 from convnet_approximater_tpu.segmentation import SegNeXt as JSegNeXt  # noqa: E402
 from convnet_approximater_tpu.utils.serialize import unflatten_tree  # noqa: E402
+from convnet_approximater_tpu_torch import deploy  # noqa: E402
 from convnet_approximater_tpu_torch import deploy_planner as planner  # noqa: E402
 from convnet_approximater_tpu_torch import plan_serving as cli  # noqa: E402
 from convnet_approximater_tpu_torch.convert import params_to_jax  # noqa: E402
@@ -41,6 +43,7 @@ from convnet_approximater_tpu_torch.nn import channels_last, init_weights  # noq
 from convnet_approximater_tpu_torch.runner import Runner  # noqa: E402
 from convnet_approximater_tpu_torch.segmentation import SegNeXt  # noqa: E402
 from convnet_approximater_tpu_torch.utils import init_cfg, update_cfg  # noqa: E402
+from convnet_approximater_tpu_torch.utils.dtype import serving_dtype  # noqa: E402
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -154,7 +157,7 @@ def structures(name):
 def test_default_candidates_match_jax(name):
     jmodel, model = structures(name)
     want = [n for n, _ in jplanner.default_candidates(jmodel, dtype=jnp.float32)]
-    got = [n for n, _ in planner.default_candidates(model)]
+    got = [n for n, _ in planner.default_candidates(model, dtype=torch.float32)]
     assert got == want and got[0] == "dense/float32"
     for n in got:
         assert planner.recovery_plan(n) == jplanner.recovery_plan(n), n
@@ -171,11 +174,32 @@ def test_recovery_plan_matches_jax_for_every_name():
 
 
 def test_planner_refuses_other_types():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        planner.default_candidates(structures("MSCAN")[1], dtype=torch.bfloat16)
+    """bf16 plans now, and is both packages' default: JAX's bf16 names; a
+    plan at it casts every built surface (the int8 scales stay float32), the
+    reference row stays float32 and the baseline is dense/bfloat16.  A type
+    the kernels do not take is refused."""
+    jmodel, model = structures("MSCAN")
+    want = [n for n, _ in jplanner.default_candidates(jmodel)]
+    assert [n for n, _ in planner.default_candidates(model)] == want
+    assert want[0] == "dense/bfloat16"
     make, _ = factories(MSCAN)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        planner.plan_serving(make, SHAPE, dtype=torch.bfloat16)
+    seen = {}
+
+    def time(name, m, shape, dtype):
+        seen[name] = (dtype, serving_dtype(m))
+        return {"dense/float32": 0.02, "int8": 0.005}.get(name, 0.01)
+
+    cands = [c for c in planner.default_candidates(make()) if c[0] in ("dense/bfloat16", "int8")]
+    plan = planner.plan_serving(make, SHAPE, candidates=cands, time_fn=time, min_agree=0.0,
+                                verbose=False)
+    assert [r["name"] for r in plan["report"]] == ["dense/float32", "dense/bfloat16", "int8"]
+    assert plan["dtype"] == "bfloat16" and plan["winner"] == "int8"
+    assert seen["dense/float32"] == (torch.float32, torch.float32)
+    assert seen["dense/bfloat16"] == seen["int8"] == (torch.bfloat16, torch.bfloat16)
+    assert all(m.w_scale.dtype == torch.float32 for m in plan["model"].modules()
+               if hasattr(m, "w_scale"))
+    with pytest.raises(ValueError, match="float16"):
+        planner.plan_serving(make, SHAPE, dtype=torch.float16)
 
 
 # -- plan_serving --------------------------------------------------------------
@@ -187,11 +211,11 @@ def convnext_plans():
     jtime, time = fake(FAKE, reference=0.020)
     jcands = [c for c in jplanner.default_candidates(jmake()[0], dtype=jnp.float32)
               if c[0] in FAKE]
-    cands = [c for c in planner.default_candidates(make()) if c[0] in FAKE]
+    cands = [c for c in planner.default_candidates(make(), dtype=torch.float32) if c[0] in FAKE]
     want = jplanner.plan_serving(jmake, SHAPE, dtype=jnp.float32, candidates=jcands,
                                  time_fn=jtime, min_agree=0.0, verbose=False)
-    got = planner.plan_serving(make, SHAPE, candidates=cands, time_fn=time, min_agree=0.0,
-                               verbose=False)
+    got = planner.plan_serving(make, SHAPE, dtype=torch.float32, candidates=cands,
+                               time_fn=time, min_agree=0.0, verbose=False)
     return make, want, got
 
 
@@ -219,9 +243,10 @@ def test_min_agree_gate_falls_back_to_dense():
     make, _ = factories(CONVNEXT)
     _, time = fake({"dense/float32": 0.010, "int8": 0.001, "v3/e=0.9": 0.001,
                     "dwsep/r=1": 0.001, "dwsep/r=1+int8": 0.001})
-    cands = [c for c in planner.default_candidates(make()) if "prune" not in c[0]]
-    plan = planner.plan_serving(make, SHAPE, candidates=cands, time_fn=time, min_agree=1.1,
-                                verbose=False)
+    cands = [c for c in planner.default_candidates(make(), dtype=torch.float32)
+             if "prune" not in c[0]]
+    plan = planner.plan_serving(make, SHAPE, dtype=torch.float32, candidates=cands,
+                                time_fn=time, min_agree=1.1, verbose=False)
     assert plan["winner"] == "dense/float32"
     for r in plan["report"][2:]:
         assert not r["qualified"] and "needs_recovery" in r["note"]
@@ -236,17 +261,19 @@ def test_reuse_plan_replays_the_winner_without_timing(convnext_plans):
     def poisoned(*a, **k):
         raise AssertionError("reuse_plan must not time")
 
-    cands = [c for c in planner.default_candidates(make()) if c[0] in ("dense/float32", "int8")]
-    again = planner.plan_serving(make, SHAPE, candidates=cands, time_fn=poisoned, min_agree=0.0,
-                                 verbose=False, reuse_plan=stored)
+    cands = [c for c in planner.default_candidates(make(), dtype=torch.float32)
+             if c[0] in ("dense/float32", "int8")]
+    again = planner.plan_serving(make, SHAPE, dtype=torch.float32, candidates=cands,
+                                 time_fn=poisoned, min_agree=0.0, verbose=False,
+                                 reuse_plan=stored)
     assert again["replayed"] and again["winner"] == "int8" and again["report"] == stored["report"]
     x = images(SHAPE)
     np.testing.assert_array_equal(port_logits(again["model"], x), port_logits(plan["model"], x))
 
     _, time = fake(dict(FAKE, **{"dense/float32": 0.002}))
     stale = dict(stored, winner="gone/surface")
-    fresh = planner.plan_serving(make, SHAPE, candidates=cands, time_fn=time, min_agree=0.0,
-                                 verbose=False, reuse_plan=stale)
+    fresh = planner.plan_serving(make, SHAPE, dtype=torch.float32, candidates=cands,
+                                 time_fn=time, min_agree=0.0, verbose=False, reuse_plan=stale)
     assert fresh["winner"] == "dense/float32" and "replayed" not in fresh
 
 
@@ -263,14 +290,15 @@ def test_reuse_plan_falls_back_when_the_winner_finds_no_target():
     def jno_target(*a):
         raise jplanner._NoTargets("no dense kxk convs")
 
-    dense = dict(planner.default_candidates(make()))["dense/float32"]
+    dense = dict(planner.default_candidates(make(), dtype=torch.float32))["dense/float32"]
     jdense = dict(jplanner.default_candidates(jmake()[0], dtype=jnp.float32))["dense/float32"]
     jtime, time = fake({"dense/float32": 0.01})
     with pytest.raises(jplanner._NoTargets):
         jplanner.plan_serving(jmake, SHAPE, dtype=jnp.float32, time_fn=jtime, verbose=False,
                               candidates=[("dense/float32", jdense), ("v3/e=0.9", jno_target)],
                               reuse_plan=stored)
-    plan = planner.plan_serving(make, SHAPE, time_fn=time, verbose=False, reuse_plan=stored,
+    plan = planner.plan_serving(make, SHAPE, dtype=torch.float32, time_fn=time, verbose=False,
+                                reuse_plan=stored,
                                 candidates=[("dense/float32", dense), ("v3/e=0.9", no_target)])
     assert plan["winner"] == "dense/float32" and "replayed" not in plan
     assert plan["report"][-1]["note"] == "skipped: no dense kxk convs"
@@ -286,7 +314,7 @@ def test_cli_emits_recovery_configs_the_runner_builds(tmp_path):
     out = tmp_path / "plan.json"
     args = ["--config", str(cfg), "--batch", "2", "--input-size", "32", "32", "3",
             "--min-agree", "1.01", "--out", str(out), "--emit-recovery", str(rec),
-            "--device", "cpu", "--skip", "trunk+,tucker,dwsep"]
+            "--device", "cpu", "--skip", "trunk+,tucker,dwsep", "--dtype", "float32"]
     plan = cli.main(args)
     stored = json.loads(out.read_text())
     assert stored["winner"] == plan["winner"] == "dense/float32"  # nothing else qualifies
@@ -316,12 +344,15 @@ def test_cli_refuses_export_and_other_types(tmp_path):
     cfg.write_text("model = dict(type='MSCAN_Classifier', num_channels=(8, 16),\n"
                    "             num_blocks=(1, 1), exp_ratios=(4, 4), num_classes=7)\n")
     base = ["--config", str(cfg), "--device", "cpu", "--out", str(tmp_path / "p.json")]
-    # --export is ported (tests/test_torch_serve_cli.py); with a type the port does not
-    # serve it refuses before anything is planned or written
+    # --export at bf16 (the default) writes the winner with bf16 avals, held to the
+    # JAX CLI's relative-norm gate; a type the kernels do not take is refused
     art = tmp_path / "a"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli.main(base + ["--export", str(art), "--dtype", "bfloat16", "--batch", "2",
-                         "--input-size", "32", "32", "3"])
-    assert not art.exists()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        cli.main(base + ["--dtype", "bfloat16", "--batch", "2", "--input-size", "32", "32", "3"])
+    plan = cli.main(base + ["--export", str(art), "--dtype", "bfloat16", "--batch", "2",
+                            "--input-size", "32", "32", "3", "--only", "dense"])
+    assert plan["dtype"] == "bfloat16" and plan["winner"] == "dense/bfloat16"
+    loaded = deploy.load_serving(str(art))
+    assert loaded.in_avals[-1].dtype == loaded.out_avals[0].dtype == torch.bfloat16
+    with open(str(art) + ".meta.json") as f:
+        assert json.load(f)["dtype"] == "bfloat16"
+    with pytest.raises(SystemExit):
+        cli.main(base + ["--dtype", "float16", "--batch", "2", "--input-size", "32", "32", "3"])

@@ -61,6 +61,8 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OPT_TOL = 1e-6
 STEP_TOL = 1e-5
+# bf16 eval (amp) against the JAX helper's: both round to bf16, at other places (layer by layer)
+AMP_TOL = 2e-2
 # about 8 float32 ulps of 1: the rounding left by O(1) terms that cancel, as
 # in a BN running mean of normalised inputs, or a KL of near-equal softmaxes
 # (the KD loss of TinyNet, 7e-4, comes out 6e-8 apart)
@@ -635,8 +637,13 @@ def test_validate_helper_matches_jax(tmp_path):
         assert math.isclose(got["loss"], want["loss"], rel_tol=STEP_TOL)
         for k in set(want) - {"loss"}:
             assert got[k] == want[k], (extra, k)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        ValidateHelper(model, dict(amp=True), device="cpu")
+    # amp: eval of a bf16 copy on bf16 images (the JAX helper's autocast eval)
+    cfg = dict(batch_size=8, input_size=(16, 16, 3), num_classes=12, num_batches=3, amp=True)
+    want = JValidateHelper(jmodel, cfg, variables=jvars).validate()
+    got = ValidateHelper(model, cfg, device="cpu").validate()
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert math.isclose(got["loss"], want["loss"], rel_tol=AMP_TOL)
+    assert abs(got["top1"] - want["top1"]) <= 100 / 24 + 1e-9  # one image of 24 may flip
 
 
 # -- what the port refuses ---------------------------------------------------

@@ -210,10 +210,13 @@ def test_hooks_run_in_priority_order(tmp_path):
 
 
 def test_inference_time_hook_rejects_unported_options():
+    """``bf16`` is the JAX hook's option and is taken (a bf16 input); an option
+    the JAX hook does not have is refused."""
     from convnet_approximater_tpu_torch.hooks import InferenceTimeHook
 
-    with pytest.raises(NotImplementedError, match="bf16"):
-        InferenceTimeHook(None, 50, infer_cfg=dict(bf16=True))
+    assert InferenceTimeHook(None, 50, infer_cfg=dict(bf16=True)).dtype == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="fp8"):
+        InferenceTimeHook(None, 50, infer_cfg=dict(fp8=True))
 
 
 def test_model_analysis_counts_fused_msca():

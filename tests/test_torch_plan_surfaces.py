@@ -47,7 +47,7 @@ def test_exact_candidates_match_jax_logits(flat_timers):
     shape = (2, 32, 32, 3)
     x = images(shape, 5)
     calib = [torch.from_numpy(x).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)]
-    builds = dict(planner.default_candidates(make(), input_shape=shape))
+    builds = dict(planner.default_candidates(make(), dtype=torch.float32, input_shape=shape))
     jbuilds = dict(jplanner.default_candidates(jmake()[0], dtype=jnp.float32, input_shape=shape))
     for name in ("dense/float32", "mscarep/d1+fix+dconv0+arb-ffnrep"):
         model = builds[name](make(), torch.Generator().manual_seed(0), calib)
@@ -59,7 +59,7 @@ def test_segnext_agreement_is_per_pixel_as_jax(flat_timers):
     make, jmake = factories(None, seed=2)
     shape = (2, 64, 64, 3)
     name = "mscarep/d1+fix+dconv0+arb-ffnrep"
-    build = dict(planner.default_candidates(make(), input_shape=shape))[name]
+    build = dict(planner.default_candidates(make(), dtype=torch.float32, input_shape=shape))[name]
     jbuild_ = dict(jplanner.default_candidates(jmake()[0], dtype=jnp.float32,
                                                input_shape=shape))[name]
     x = images(shape, 6)

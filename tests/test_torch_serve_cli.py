@@ -6,9 +6,11 @@ no JAX, so that its card tests run where JAX is not installed:
   at b=2, 64², in process, int8 (8 ``qmatmul`` per forward): the artifact
   loads and serves, plain and with ``--ship-uint8``; exported with a symbolic
   batch it serves a batch of 1 padded to 2 and a batch of 5 in chunks of 2.
-* The refusals: ``--dtype bfloat16`` (bf16 waits for queue 1 item 7),
-  ``--data-parallel`` (item 12), ``--params`` (the artifact carries its
-  weights), a foreign ``--platforms``.
+  The float32 tests pass ``--dtype float32``: the CLIs serve bfloat16 by default.
+* The refusals: ``--data-parallel`` (item 12), ``--params`` (the artifact
+  carries its weights), a foreign ``--platforms``; and ``--dtype bfloat16``,
+  which serves now: ``export_model`` writes an artifact of bf16 avals that
+  gives the live bf16 model's bits, ``serve_mscan`` serves a bf16 surface.
 * ``serve_mscan --tiny`` on the CPU; ``plan_serving --export`` on a tiny
   MSCAN config under an injected timer: the winner's artifact gives the
   plan's logits, and its sidecars hold its weights and normalization.
@@ -46,7 +48,31 @@ def rel(a, b) -> float:
 def export(out, *extra):
     return export_model.main(["--config", DUMMY_ALEX, "--out", str(out), "--batch", "2",
                               "--input-size", "64", "64", "3", "--quantize", "int8",
-                              "--device", "cpu", *extra])
+                              "--device", "cpu", "--dtype", "float32", *extra])
+
+
+def bf16_artifact(res):
+    """An ``export_model --dtype bfloat16`` result: bf16 avals and meta, the
+    int8 modules' float32 scales, the live bf16 model's bits."""
+    assert res["ops"] == {"qmatmul": 8} and res["err"] < export_model.ARTIFACT_TOL
+    art = res["artifact"]
+    assert art.in_avals[-1].dtype == art.out_avals[0].dtype == torch.bfloat16
+    with open(res["out"] + ".meta.json") as f:
+        assert json.load(f)["dtype"] == "bfloat16"
+    scales = [p for n, p in res["model"].named_parameters() if n.endswith(("w_scale", "act_scale"))]
+    assert scales and all(p.dtype == torch.float32 for p in scales)
+    x = torch.randn(2, 3, 64, 64, generator=torch.Generator().manual_seed(3)).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        assert torch.equal(art(x), res["model"](x))
+
+
+def bf16_serve_mscan(res):
+    """``serve_mscan --tiny --dtype bfloat16``: a bf16 surface served."""
+    from convnet_approximater_tpu_torch.utils.dtype import serving_dtype
+
+    assert serving_dtype(res["model"]) == torch.bfloat16 and res["served"] == 4 * 8
+    assert res["preds"].shape == (8,)
 
 
 @pytest.fixture(scope="module")
@@ -96,9 +122,10 @@ def test_serve_overrides_a_batch_the_artifact_does_not_take(artifacts, capsys):
     assert res["batch"] == 2 and "batch-static at 2" in capsys.readouterr().out
 
 
+# an entry whose error is None runs, and its third item checks what it returns
 REFUSALS = {
     "export_model --dtype bfloat16": (lambda p: export(p / "x.pt2", "--dtype", "bfloat16"),
-                                      NotImplementedError, "item 7"),
+                                      None, bf16_artifact),
     "export_model --platforms cpu,tpu": (lambda p: export(p / "x.pt2", "--platforms", "cpu,tpu"),
                                          ValueError, "export once per device"),
     "serve --params": (lambda p: serve.main(["--artifact", "a.pt2", "--params", "a.npz"]),
@@ -107,19 +134,22 @@ REFUSALS = {
                               NotImplementedError, "item 12"),
     "serve_mscan --dtype bfloat16": (lambda p: serve_mscan.main(["--tiny", "--dtype", "bfloat16",
                                                                  "--device", "cpu"]),
-                                     NotImplementedError, "item 7"),
+                                     None, bf16_serve_mscan),
 }
 
 
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_refusals(tmp_path, name):
     run, error, match = REFUSALS[name]
+    if error is None:  # bf16 serves now
+        match(run(tmp_path))
+        return
     with pytest.raises(error, match=match):
         run(tmp_path)
 
 
 def test_serve_mscan_tiny_on_the_cpu(capsys):
-    res = serve_mscan.main(["--tiny", "--device", "cpu"])
+    res = serve_mscan.main(["--tiny", "--device", "cpu", "--dtype", "float32"])
     assert res["sites"]["mscarep"] == 4 and res["sites"]["fold"] == 5
     assert res["served"] == 4 * 8 and res["preds"].shape == (8,)
     assert "img/s end-to-end" in capsys.readouterr().out
@@ -138,7 +168,8 @@ def test_plan_serving_exports_the_winner(tmp_path, monkeypatch):
     plan = plan_serving.main(["--config", str(cfg), "--batch", "2", "--input-size", "32", "32",
                               "3", "--only", "mscarep/d1", "--out", str(tmp_path / "plan.json"),
                               "--export", str(art), "--norm-mean", "0.5", "0.5", "0.5",
-                              "--norm-std", "0.25", "0.25", "0.25", "--device", "cpu"])
+                              "--norm-std", "0.25", "0.25", "0.25", "--device", "cpu",
+                              "--dtype", "float32"])
     assert plan["winner"].startswith("mscarep/") and plan["export"] == str(art)
     with open(str(art) + ".meta.json") as f:
         meta = json.load(f)
