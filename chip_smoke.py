@@ -288,7 +288,31 @@ From the root of a checkout, with no arguments:
     ``parallel_cascade`` per forward); P19d the inference CLI with ``--dtype
     bfloat16 --decomp --quantize int8`` on phase 5's AlexNet (4
     ``lowrank_conv`` per forward, ``qmatmul`` once per int8 module);
-20. prints one JSON line of kernel results (each kernel's entry lists the later
+20. P20 and F7, training: P20 ``TrainHelper`` on MSCAN-t (random weights from
+    seed 0, 10 classes) at b=64, 224^2 on Synthetic(512), epochs cut to 6 steps
+    and 2 validation batches, with Mixup 0.8, CutMix 1.0, label smoothing 0.1,
+    clipping 1.0, EMA 0.999 and ``grad_accum=2``, in float32 (2 epochs) and
+    with ``amp`` (1): every loss finite, no port kernel launched in a training
+    step, 13 ``msca_fused`` per validation forward on the EMA weights, the
+    masters, buffers and optimizer state float32, one loss with mixup and drop
+    paths off on the card within 1e-4 of the CPU's, the last checkpoint (weights,
+    EMA, optimizer) bit for bit, and a fresh model resumed from the epoch-0
+    checkpoint taking the run's next two steps (losses within 1e-6, weights
+    within 1e-5) before a preemption notice stops and saves it; the median ms
+    per step over steps 2-6 of both; F7 the F1 config with
+    ``other_args.amp=True`` for 8 steps: every loss finite, 13 ``msca_fused``
+    per step in the bf16 teacher, each teacher block's ``msca_fused`` against
+    ``msca_fused_ref`` on its own bf16 input under P19a's gate, the masters
+    float32, a step's loss on 8 images on the card within 2e-2 of the CPU's,
+    its median step ms beside F1's;
+21. P21, the training CLIs: ``train_baseline`` (AlexNet, 224^2, b=128, 1
+    epoch: a finite summary and checkpoint, no port kernel) and
+    ``demo_experiment --app v1 --int8 --int8-qat`` at its 64^2 with 1/1/1
+    epochs and 256 samples: the table, and per row the launches per validation
+    forward, ``lowrank_conv`` once per LowRankExpConvV1 whose bases all input
+    channels share (the fine-tuned rows' differ: the module path) and
+    ``qmatmul`` 8 per int8 forward;
+22. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``, the bf16 ones among
     them), then ``{"ok": true, "device": ...}``.
 
@@ -2356,7 +2380,7 @@ def run_ft_d0():
               f"{100 * msca_ms / prof_ms:.2f} % of it")
     del runner, hook
     torch.cuda.empty_cache()
-    return launches
+    return launches, step_ms
 
 
 def profile_share(name, fn, n: int = 2):
@@ -2536,7 +2560,8 @@ def summary_rows(path):
 
 
 def run_finetune():
-    """F1-F3, each driven with the launch counts at 0 and read after it."""
+    """F1-F3, each driven with the launch counts at 0 and read after it; F1's
+    launches and median step ms first."""
     return run_ft_d0(), run_ft_d1(), run_ft_alexnet()
 
 
@@ -5585,6 +5610,508 @@ def run_bf16():
                 inference=inference)
 
 
+# -- P20, F7 and P21: training from scratch, bf16 training, the training CLIs ----------
+MSCAN_T = os.path.join(REPO, "configs", "_base_", "models", "mscan", "mscan-t.py")
+P20_STEPS = 6       # steps per epoch (Synthetic(512) at b=64 has 8)
+P20_EVAL = 2        # validation batches per epoch
+P20_CLASSES = 10    # TrainHelper's default Synthetic classes
+P20_CFG = dict(batch_size=BATCH, image_size=(224, 224), num_classes=P20_CLASSES, epochs=1,
+               max_steps_per_epoch=P20_STEPS, max_eval_batches=P20_EVAL, mixup=0.8, cutmix=1.0,
+               label_smoothing=0.1, clip_grad=1.0, ema_decay=0.999, grad_accum=2, seed=0)
+RESUME_TOL = 1e-6   # the resumed run's first loss against the same step of the run it resumes
+F7_CPU_TOL = 2e-2   # a bf16 step's loss on the card against the CPU's (AMP_TOL of the CPU tests)
+F7_EPOCHS = 2       # 2 x FT_STEPS = 8 steps, as F1
+DEMO_ARGS = ["--app", "v1", "--train-epochs", "1", "--ft-epochs", "1", "--ce-epochs", "1",
+             "--qat-epochs", "1", "--samples", "256", "--int8", "--int8-qat"]
+
+
+def mscan_t_model(**over):
+    """MSCAN-t (``configs/_base_/models/mscan/mscan-t.py``) with random weights from seed 0."""
+    import torch
+
+    from convnet_approximater_tpu_torch.models import build_model
+    from convnet_approximater_tpu_torch.nn import init_weights
+    from convnet_approximater_tpu_torch.utils import get_cfg, init_cfg
+
+    init_cfg(MSCAN_T)
+    model = build_model(dict(get_cfg().model, num_classes=P20_CLASSES, **over))
+    init_weights(model, torch.Generator().manual_seed(0))
+    return model
+
+
+def train_probe(helper, snapshot_at=None, stop_at=None):
+    """Wrap ``helper.train_step``: per step its CUDA-event pair, its loss and the
+    launches of every port kernel in it; after step ``snapshot_at`` a copy of
+    the weights and of the accumulated gradients, and after step ``stop_at`` a
+    preemption notice (the helper stops and saves at the next boundary)."""
+    import torch
+
+    rec = dict(events=[], losses=[], launches=[], params=None, acc=None)
+    step = helper.train_step
+
+    def wrapped(images, labels, i):
+        before = sum(kernel_counts().values())
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(images, labels, i)
+        end.record()
+        rec["launches"].append(sum(kernel_counts().values()) - before)
+        rec["events"].append((start, end))
+        rec["losses"].append(loss)
+        if len(rec["losses"]) == snapshot_at:
+            rec["params"] = {k: v.detach().clone() for k, v in helper.model.state_dict().items()}
+            rec["acc"] = {k: st["acc"].clone() for k, st in helper.optimizer.state.items()}
+        if len(rec["losses"]) == stop_at:
+            helper._guard.trigger()
+        return loss
+
+    helper.train_step = wrapped
+    return rec
+
+
+@contextlib.contextmanager
+def eval_launches(helper):
+    """A list of (msca_fused launches, whether the EMA model ran) per validation batch."""
+    from convnet_approximater_tpu_torch.classification import train as train_mod
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    calls, real = [], train_mod.eval_batch
+
+    def counting(model, *args, **kwargs):
+        n = fused_ops.msca_fused.launches
+        out = real(model, *args, **kwargs)
+        calls.append((fused_ops.msca_fused.launches - n, model is helper.ema))
+        return out
+
+    with mock.patch.object(train_mod, "eval_batch", counting):
+        yield calls
+
+
+def check_float32(label, model, optimizer):
+    import torch
+
+    bad = [n for n, p in model.named_parameters() if p.dtype != torch.float32]
+    bad += [n for n, b in model.named_buffers() if b.is_floating_point() and b.dtype != torch.float32]
+    bad += [f"opt/{n}/{k}" for n, st in optimizer.state.items() for k, v in st.items()
+            if v.dtype != torch.float32]
+    if bad:
+        fail(f"{label}: {len(bad)} masters, buffers or optimizer leaves are not float32, "
+             f"{bad[:3]}")
+
+
+def check_train_ckpt(helper, path, label):
+    """``path`` holds the helper's weights, EMA and optimizer bit for bit, and
+    a fresh model loads them back unchanged."""
+    import copy
+
+    from convnet_approximater_tpu_torch.convert import load_jax_flat, params_to_jax
+    from convnet_approximater_tpu_torch.hooks.finetune import opt_state_to_tree
+    from convnet_approximater_tpu_torch.utils import flatten_tree, load_flat
+
+    flat = load_flat(path)
+    want = dict(params_to_jax(helper.model.state_dict()))
+    want.update({f"ema/{k}": v for k, v in params_to_jax(helper.ema.state_dict()).items()})
+    want.update({f"opt/{k}": v for k, v in
+                 flatten_tree(opt_state_to_tree(helper.optimizer)).items()})
+    if set(k for k in flat if not k.startswith("meta/")) != set(want):
+        fail(f"{label} {path}: its keys differ from the helper's weights, EMA and optimizer")
+    if any(not np.array_equal(flat[k], v) for k, v in want.items()):
+        fail(f"{label} {path}: a leaf does not load back bit for bit")
+    clone = copy.deepcopy(helper.model)
+    load_jax_flat(clone, flat)
+    if any(not (a == b).all() for a, b in zip(helper.model.state_dict().values(),
+                                               clone.state_dict().values())):
+        fail(f"{label} {path}: loading it into the model changes a weight")
+    print(f"{label} checkpoint {os.path.relpath(path, REPO)}: {len(want)} leaves (weights, EMA, "
+          f"optimizer), epoch {int(flat['meta/epoch'])}; loads back bit for bit")
+
+
+def p20_cpu_step(model, x, y):
+    """A P20 training loss with mixup off on the card and on the CPU, from copies
+    of ``model`` with drop paths off (the two devices draw other masks)."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.classification import TrainHelper
+    from convnet_approximater_tpu_torch.layers.drop import DropPath
+
+    cfg = dict(P20_CFG, mixup=0.0, cutmix=0.0)
+    losses = []
+    for device, xs, ys in (("cuda", x, y), ("cpu", x.cpu(), y.cpu())):
+        copy_ = copy.deepcopy(model)
+        for m in copy_.modules():
+            if isinstance(m, DropPath):
+                m.drop_prob = 0.0
+        helper = TrainHelper(copy_, cfg, device=device)
+        with torch.no_grad():
+            losses.append(float(helper.loss(xs, ys)))
+        del copy_, helper
+    return losses
+
+
+def run_p20_case(amp: bool, work_dir: str, check: bool):
+    """One P20 run: TrainHelper on MSCAN-t, 6 steps an epoch, 2 validation batches
+    (f32: 2 epochs, the second for the resume gate; amp: 1).  Returns the step
+    times (ms, steps 2-6 of the first epoch), the validation launches and the
+    run's msca_fused launches."""
+    import torch
+
+    from convnet_approximater_tpu_torch.classification import TrainHelper
+    from convnet_approximater_tpu_torch.data import Loader, Synthetic
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    label = f"P20 {'amp' if amp else 'f32'}"
+    cfg = dict(P20_CFG, amp=amp, epochs=2 if check else 1, work_dir=work_dir)
+    model = mscan_t_model()
+    helper = TrainHelper(model, cfg, device="cuda")
+    size = tuple(cfg["image_size"])
+    ds = Synthetic(512, size + (3,), P20_CLASSES, split="train")
+    loader = Loader(ds, cfg["batch_size"], shuffle=True, mean=helper.cfg.mean,
+                    std=helper.cfg.std, image_size=size, device="cuda", prefetch=0)
+    xb, yb = next(iter(loader))  # the run's first training batch
+    if check:
+        x, y = xb[:FT_CPU_BATCH], yb[:FT_CPU_BATCH]
+        card, cpu = p20_cpu_step(model, x, y)
+        err = abs(card - cpu) / abs(cpu)
+        print(f"{label} the first training batch's first {FT_CPU_BATCH} images, mixup off, "
+              f"drop paths off: loss {card:.7g} on the card, {cpu:.7g} on the CPU (rel err "
+              f"{err:.3e}, bound {FT_CPU_TOL})")
+        if not err <= FT_CPU_TOL:
+            fail(f"{label}: a loss on the card disagrees with the same loss on the CPU")
+    rec = train_probe(helper, snapshot_at=P20_STEPS + 1 if check else None)
+    reset_counts()
+    t0 = time.perf_counter()
+    with eval_launches(helper) as evals:
+        result = helper.train()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = fused_ops.msca_fused.launches
+    losses = [float(v) for v in rec["losses"]]
+    ms = [a.elapsed_time(b) for a, b in rec["events"]]
+    steps = len(losses)
+    print(f"{label} TrainHelper on MSCAN-t (random weights, seed 0) in {run_s:.2f} s: {steps} "
+          f"steps at b = {cfg['batch_size']}, {cfg['image_size'][0]}^2 (mixup 0.8, cutmix 1.0, "
+          f"label smoothing 0.1, clip 1.0, "
+          f"EMA 0.999, grad_accum 2), losses {', '.join(f'{v:.6g}' for v in losses)}; best "
+          f"{result['best_metric']}; port kernel launches per training step "
+          f"{rec['launches']}; msca_fused per validation forward "
+          f"{[n for n, _ in evals]} (EMA weights: {all(e for _, e in evals)}); {launches} "
+          f"in the run")
+    if steps != cfg["epochs"] * P20_STEPS or not all(np.isfinite(losses)):
+        fail(f"{label}: a loss is not finite, or the run took another number of steps")
+    if any(rec["launches"]):
+        fail(f"{label}: a port kernel launched in a training step (training takes the module "
+             f"path)")
+    if [n for n, _ in evals] != [MSCA_BLOCKS] * P20_EVAL * cfg["epochs"] or not all(
+            e for _, e in evals):
+        fail(f"{label}: the validation forward must run the EMA weights through msca_fused "
+             f"{MSCA_BLOCKS} times")
+    check_float32(label, helper.model, helper.optimizer)
+    check_float32(f"{label} EMA", helper.ema, helper.optimizer)
+    if check:
+        check_train_ckpt(helper, os.path.join(work_dir, "last.ckpt.npz"), label)
+        resume_gate(helper, rec, cfg, work_dir, label)
+    step_ms = float(np.median(ms[1:P20_STEPS]))
+    print(f"{label} [{smi_line()}]: median {step_ms:.3f} ms per training step over steps 2-"
+          f"{P20_STEPS} (CUDA events; every second step updates), {BATCH / step_ms * 1e3:.1f} "
+          f"img/s")
+    # where a step's time goes: device time under the profiler against the host's wall
+    # time of the same steps between two synchronizes (2 steps: one accumulation, one update)
+    with uncounted():
+        step = lambda: [TrainHelper.train_step(helper, xb, yb, i) for i in range(2)]  # noqa: E731
+        device_ms, _ = profile_share(f"two {label} training steps", step)
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / 3 * 1e3
+    if device_ms is not None:
+        print(f"{label} two training steps (an accumulation and an update) [{smi_line()}]: "
+              f"{device_ms:.3f} device ms under torch.profiler, {wall_ms:.3f} ms on the host's "
+              f"clock between synchronizes: the card idle {1 - device_ms / wall_ms:.1%} of it")
+    del helper, model, result
+    torch.cuda.empty_cache()
+    return step_ms, launches
+
+
+def global_rel(got, want) -> float:
+    """The norm of the differences over the norm of ``want``, over all the tensors
+    together (a conv bias before a BatchNorm has a gradient of rounding noise
+    alone, so one tensor's own relative error says nothing)."""
+    import torch
+
+    pairs = [(a.float(), b.float()) for a, b in zip(got, want)]
+    num = torch.stack([(a - b).pow(2).sum() for a, b in pairs]).sum().sqrt()
+    return float(num / torch.stack([b.pow(2).sum() for _, b in pairs]).sum().sqrt())
+
+
+def resume_gate(helper, rec, cfg, work_dir, label):
+    """A fresh model resumed from the run's epoch-0 checkpoint takes the run's
+    next two steps (an accumulation, then an update): their losses within
+    RESUME_TOL, and after the first the weights and buffers bit-equal to the
+    run's and the accumulated gradients within 1e-5 of the run's, all together
+    (cuDNN's weight-gradient kernels sum in no fixed order); a preemption notice
+    then stops it, and it
+    saves its full state.  (After the update the weights differ more: Adam's
+    m / sqrt(v) turns the gradients' last-bit differences into whole steps
+    where a gradient is near 0.)"""
+    import torch
+
+    from convnet_approximater_tpu_torch.classification import TrainHelper
+
+    ckpt = os.path.join(work_dir, "checkpoint-0.ckpt.npz")
+    resume_dir = work_dir + "_resume"
+    resumed = TrainHelper(mscan_t_model(), dict(cfg, resume=ckpt, work_dir=resume_dir),
+                          device="cuda")
+    rec_b = train_probe(resumed, snapshot_at=1, stop_at=2)
+    resumed.train()
+    want = [float(v) for v in rec["losses"][P20_STEPS:P20_STEPS + 2]]
+    got = [float(v) for v in rec_b["losses"]]
+    errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    same = all(torch.equal(rec_b["params"][k], v) for k, v in rec["params"].items())
+    acc = global_rel(rec_b["acc"].values(), rec["acc"].values())
+    after = global_rel([v for v in resumed.model.state_dict().values() if v.is_floating_point()],
+                       [v for v in helper.model.state_dict().values() if v.is_floating_point()])
+    saved = os.path.exists(os.path.join(resume_dir, "last.ckpt.npz"))
+    print(f"{label} resumed from {os.path.relpath(ckpt, REPO)} (weights, EMA, optimizer, epoch "
+          f"1): its steps' losses {got} against the run's steps {P20_STEPS + 1}-"
+          f"{P20_STEPS + 2} {want} (rel err {max(errs):.3e}, bound {RESUME_TOL}; bit-equal: "
+          f"{got == want}); after the first, weights and buffers bit-equal: {same}, the "
+          f"accumulated gradients {acc:.3e} from the run's (bound 1e-5); stopped by a "
+          f"preemption notice, its state saved: {saved}; (the weights after its update "
+          f"{after:.3e} from the run's after {P20_STEPS - 1} more steps)")
+    if len(got) != 2 or not max(errs) <= RESUME_TOL or not same or not acc <= 1e-5 or not saved:
+        fail(f"{label}: the resumed run does not continue to the same next step")
+    del resumed
+    torch.cuda.empty_cache()
+
+
+def run_p20():
+    """P20: TrainHelper on MSCAN-t, f32 then amp."""
+    t0 = time.perf_counter()
+    f32_ms, f32_launches = run_p20_case(False, os.path.join(REPO, "build", "chip_smoke_p20"), True)
+    amp_ms, amp_launches = run_p20_case(True, os.path.join(REPO, "build", "chip_smoke_p20_amp"),
+                                        False)
+    print(f"P20 [{smi_line()}]: TrainHelper on MSCAN-t at b = {P20_CFG['batch_size']}, "
+          f"{P20_CFG['image_size'][0]}^2, median ms per "
+          f"step over steps 2-{P20_STEPS}: f32 {f32_ms:.3f} ({BATCH / f32_ms * 1e3:.1f} img/s), "
+          f"amp {amp_ms:.3f} ({BATCH / amp_ms * 1e3:.1f} img/s), amp / f32 "
+          f"{amp_ms / f32_ms:.3f}; P20 in {time.perf_counter() - t0:.2f} s")
+    return dict(f32=f32_launches, amp=amp_launches)
+
+
+def f7_taps_gate(hook, x):
+    """Each of the teacher's MSCA blocks on its own bf16 input from a teacher
+    pass: msca_fused against msca_fused_ref under P19a's bf16 gate (the float32
+    kernel rounded once, bit for bit; each element within one ulp of the plain
+    version, or one ulp plus the float32 results' own difference)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import MSCA, release_taps
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    blocks = [m for m in hook.teacher.modules() if isinstance(m, MSCA)]
+    inputs = []
+    handles = [m.register_forward_pre_hook(lambda m, i: inputs.append((m, i[0])))
+               for m in blocks]
+    try:
+        hook.teacher_pass(x)
+    finally:
+        for h in handles:
+            h.remove()
+        release_taps(hook.teacher)
+    worst_over, worst_ulps, dtypes = 0, 0, set()
+    for m, xin in inputs:
+        dtypes.add(xin.dtype)
+        with torch.no_grad():
+            nhwc = xin.permute(0, 2, 3, 1).contiguous()
+            w = m._kernel_weights()
+            y = fused_ops.msca_fused(nhwc, **w)
+            y_ref = fused_ops.msca_fused_ref(nhwc, **w)
+            k32 = fused_ops.msca_fused(nhwc.float(), **w)
+            r32 = fused_ops.msca_fused_ref(nhwc.float(), **w)
+        diff = (y.float() - y_ref.float()).abs()
+        scale = torch.maximum(y.float().abs(), y_ref.float().abs())
+        rounded = torch.equal(y, k32.to(torch.bfloat16))
+        worst = float((diff - (scale * 2 ** -7 + (k32 - r32).abs())).max())
+        over = int((diff > scale * 2 ** -7).sum())
+        worst_over, worst_ulps = max(worst_over, over), max(worst_ulps, bf16_ulps(y, y_ref))
+        if y.dtype != torch.bfloat16 or not rounded or worst > 0:
+            fail(f"F7: a teacher block's msca_fused is not its float32 kernel rounded once, or "
+                 f"lies beyond P19a's bound of msca_fused_ref ({tuple(nhwc.shape)})")
+    print(f"F7 the bf16 teacher's {len(inputs)} MSCA blocks on their own inputs "
+          f"({sorted(str(d) for d in dtypes)}): msca_fused the float32 kernel rounded once at "
+          f"each, at most {worst_over} elements beyond one ulp of msca_fused_ref (the most "
+          f"{worst_ulps} ulps), each within P19a's bound")
+    if len(inputs) != MSCA_BLOCKS or dtypes != {torch.bfloat16}:
+        fail(f"F7: the teacher pass must run {MSCA_BLOCKS} MSCA blocks on bf16 maps")
+
+
+def run_ft_amp(f1_ms):
+    """F7: the F1 config with other_args.amp=True, 8 steps."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.layers import drop_generator, release_taps
+    from convnet_approximater_tpu_torch.layers.drop import DropPath
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_ft_amp")
+    stats = {}
+
+    def first(hook, loader):
+        x, y = (t[:FT_CPU_BATCH] for t in next(iter(loader)))
+        f7_taps_gate(hook, x)
+        # copies of the student with drop paths off (the card and the CPU draw other masks)
+        with drop_generator(hook.runner.model, None):
+            card_nodrop = copy.deepcopy(hook.runner.model)
+        for m in card_nodrop.modules():
+            if isinstance(m, DropPath):
+                m.drop_prob = 0.0
+        cpu_model = copy.deepcopy(card_nodrop).cpu()
+        cpu_teacher = copy.deepcopy(hook.teacher).cpu()
+        # the loss alone (a bf16 depthwise 21x21 backward takes seconds per block on the CPU)
+        with torch.no_grad():
+            card = float(hook.loss(x, y, model=card_nodrop)[0])
+            cpu = float(hook.loss(x.cpu(), y.cpu(), model=cpu_model, teacher=cpu_teacher)[0])
+        for m in (card_nodrop, cpu_model, cpu_teacher, hook.teacher):
+            release_taps(m)
+        stats["cpu"] = (card, cpu)
+        del card_nodrop, cpu_model, cpu_teacher
+
+    def edit(h):
+        h["sche_args"].update(epochs=F7_EPOCHS)
+        h.setdefault("other_args", {})["amp"] = True
+
+    probe = FinetuneProbe(fused_ops.msca_fused, first=first)
+    reset_counts()
+    runner, run_s = run_finetune_cfg(FT_D0, work_dir, probe, edit)
+    launches = fused_ops.msca_fused.launches
+    hook = runner.hooks[0]
+    losses = [float(v) for v in probe.losses]
+    steps = len(losses)
+    card, cpu = stats["cpu"]
+    err = abs(card - cpu) / abs(cpu)
+    print(f"F7 {os.path.relpath(FT_D0, REPO)} with other_args.amp=True through the Runner in "
+          f"{run_s:.2f} s ({steps} steps, b = {BATCH}, 224^2): losses "
+          f"{', '.join(f'{v:.6g}' for v in losses)}; msca_fused launches {probe.step_calls} per "
+          f"training step, {probe.eval_calls} per validation forward (the float32 d0+fix "
+          f"student: the module path); the first batch's first {FT_CPU_BATCH} images, drop "
+          f"paths off: loss {card:.7g} on the card, {cpu:.7g} on the CPU (rel err {err:.3e}, "
+          f"bound {F7_CPU_TOL})")
+    if steps != F7_EPOCHS * FT_STEPS or not all(np.isfinite(losses)):
+        fail("F7: a loss is not finite, or the run took another number of steps")
+    if probe.step_calls != [MSCA_BLOCKS] * steps:
+        fail(f"F7: the bf16 teacher must launch msca_fused {MSCA_BLOCKS} times per step")
+    if not all(p.dtype == torch.bfloat16 for p in hook.teacher.parameters()):
+        fail("F7: the asym teacher is not a bf16 copy")
+    check_float32("F7", runner.model, hook.optimizer)
+    if not err <= F7_CPU_TOL:
+        fail("F7: the bf16 step on the card disagrees with the same step on the CPU")
+    step_ms = float(np.median(probe.step_ms()[1:]))
+    print(f"F7 [{smi_line()}]: median {step_ms:.3f} ms per amp training step over steps 2-"
+          f"{steps} (CUDA events), {BATCH / step_ms * 1e3:.1f} img/s; F1 (f32) in this run "
+          f"{f1_ms:.3f} ms, F7 / F1 {step_ms / f1_ms:.3f}")
+    del runner, hook
+    torch.cuda.empty_cache()
+    return launches
+
+
+def expected_lowrank(model) -> int:
+    """lowrank_conv launches per forward of ``model``: one per LowRankExpConvV1
+    whose bases every input channel shares (a fine-tuned layer's differ: the
+    module path)."""
+    from convnet_approximater_tpu_torch.layers import LowRankExpConvV1
+
+    return sum(m.bases_shared() for m in model.modules() if isinstance(m, LowRankExpConvV1))
+
+
+def run_training_clis():
+    """P21: train_baseline (AlexNet, 224^2, b=128, 1 epoch) and demo_experiment
+    --app v1 at its defaults cut to 1/1/1 epochs and 256 samples."""
+    import torch
+
+    from convnet_approximater_tpu_torch import demo_experiment, train_baseline
+    from convnet_approximater_tpu_torch.classification import validate
+    from convnet_approximater_tpu_torch.layers import QuantConv2d, QuantLinear
+    from convnet_approximater_tpu_torch.utils import load_flat
+
+    t0 = time.perf_counter()
+    work = os.path.join(REPO, "build", "chip_smoke_train_baseline")
+    reset_counts()
+    result = train_baseline.main(["--image-size", "224", "224", "--epochs", "1",
+                                  "--batch-size", "128", "--work-dir", work])
+    torch.cuda.synchronize()
+    base_s = time.perf_counter() - t0
+    rows = summary_rows(os.path.join(work, "summary.csv"))
+    flat = load_flat(os.path.join(work, "model_best.ckpt.npz"))
+    print(f"P21 train_baseline AlexNet (224^2, b = 128, 1 epoch of Synthetic(512): 4 steps, 1 "
+          f"validation batch) in {base_s:.2f} s: summary {rows}; model_best "
+          f"{len(flat)} leaves; port kernel launches {sum(kernel_counts().values())}")
+    if (len(rows) != 1 or not all(np.isfinite(v) for v in rows[0].values())
+            or result["best_metric"] is None or sum(kernel_counts().values())):
+        fail("P21: train_baseline did not train AlexNet to a finite checkpoint")
+    del result
+    torch.cuda.empty_cache()
+
+    evals, real = [], validate.eval_batch
+
+    def counting(model, *args, **kwargs):
+        before = kernel_counts()
+        out = real(model, *args, **kwargs)
+        after = kernel_counts()
+        evals.append((model, after["lowrank_conv"] - before["lowrank_conv"],
+                      after["qmatmul"] - before["qmatmul"]))
+        return out
+
+    t1 = time.perf_counter()
+    reset_counts()
+    with mock.patch.object(validate, "eval_batch", counting):
+        rows = demo_experiment.main(DEMO_ARGS + ["--work-dir", os.path.join(
+            REPO, "build", "chip_smoke_demo")])
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t1
+    demo_counts = kernel_counts()
+    # the rows' validation forwards, in order: each row's batches share one model
+    per_row, model = [], None
+    for m, lr, qm in evals:
+        if m is not model:
+            per_row.append([])
+            model = m
+        per_row[-1].append((lr, qm, m))
+    if len(per_row) != len(rows):
+        fail(f"P21: {len(rows)} table rows but {len(per_row)} evaluated models")
+    print(f"P21 demo_experiment {' '.join(DEMO_ARGS)} in {demo_s:.2f} s [{smi_line()}]; launches "
+          f"per validation forward, by row:")
+    for row, batches in zip(rows, per_row):
+        m = batches[0][2]
+        want_lr = expected_lowrank(m)
+        want_q = sum(isinstance(x, (QuantConv2d, QuantLinear)) for x in m.modules())
+        got = sorted({(lr, q) for lr, q, _ in batches})
+        print(f"  {row['tag']:<26} top-1 {row['top1']:6.2f}  MACs {row['macs']:8.1f} M  params "
+              f"{row['params']:6.2f} M  lowrank_conv / qmatmul per forward {got} (expected "
+              f"({want_lr}, {want_q}))")
+        if got != [(want_lr, want_q)]:
+            fail(f"P21: row {row['tag']} launches {got} per validation forward, not "
+                 f"({want_lr}, {want_q})")
+        if "int8" in row["tag"] and want_q != 8:
+            fail(f"P21: the int8 row {row['tag']} serves {want_q} int8 modules, not 8")
+    if per_row[3][0][0] != 4:
+        fail("P21: approx_none must run lowrank_conv at its 4 shared-bases sites")
+    print(f"P21 in {time.perf_counter() - t0:.2f} s; the demo's launches {demo_counts}")
+    import shutil
+
+    for d in (work, os.path.join(REPO, "build", "chip_smoke_demo")):  # about 6 GB of checkpoints
+        shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(per_row=[(r["tag"], b[0][0], b[0][1]) for r, b in zip(rows, per_row)],
+                run=demo_counts)
+
+
 def bf16_path(name, rows, **counts):
     """A kernels-line path entry of a kernel's bf16 form: its P19a rows per
     forward of their path (calls per forward as weights), the bound at 2-byte
@@ -5700,7 +6227,7 @@ def main():
     lap("9. eval-mode gradients")
 
     # -- 10. fine-tuning: F1-F3 -------------------------------------------
-    run_finetune()
+    (_, f1_ms), _, _ = run_finetune()
     lap("10. F1-F3")
 
     # -- 11. P1-P4: ResNet-18 and VGG-16 scheme-1, int8 ResNet-50, MSCAN-t configs
@@ -5754,6 +6281,15 @@ def main():
     # -- 19. P19: bf16 serving --------------------------------------------
     p19 = run_bf16()
     lap("19. P19")
+
+    # -- 20. P20 and F7: TrainHelper on MSCAN-t in f32 and amp, the F1 config in bf16
+    p20 = run_p20()
+    f7_launches = run_ft_amp(f1_ms)
+    lap("20. P20, F7")
+
+    # -- 21. P21: the training CLIs -----------------------------------------
+    p21 = run_training_clis()
+    lap("21. P21")
     print(f"wall time in all: {lap.total():.2f} s from the check for the card")
 
     # -- 18. results ------------------------------------------------------
@@ -5912,6 +6448,21 @@ def main():
                   calls_per_forward=sum(r["calls"] for r in bf16["qmatmul"])),
         dict(path="bf16: ClassInference int8/bfloat16 on the dodecomp AlexNet, per forward "
                   "(P19d)", launches=p19["inference"]["int8/bfloat16"]["qmatmul"])]
+    # P20, F7 and P21: the training paths (launches in the runs: validation forwards and teachers)
+    kernels[0]["paths"] += [
+        dict(path=f"TrainHelper on MSCAN-t, f32, 2 epochs of {P20_STEPS} steps: {P20_EVAL} "
+                  f"validation forwards an epoch on the EMA weights (P20)", launches=p20["f32"]),
+        dict(path=f"TrainHelper on MSCAN-t, amp, 1 epoch of {P20_STEPS} steps: {P20_EVAL} "
+                  f"validation forwards on the EMA weights (P20)", launches=p20["amp"]),
+        dict(path="F1 config with amp: the bf16 teacher, 8 steps (F7)", launches=f7_launches)]
+    kernels[1]["paths"] += [
+        dict(path=f"demo_experiment --app v1, row {tag}, per validation forward (P21)",
+             launches=lr) for tag, lr, _ in p21["per_row"] if "int8" not in tag] + [
+        dict(path="demo_experiment --app v1, the run (P21)", launches=p21["run"]["lowrank_conv"])]
+    kernels[3]["paths"] += [
+        dict(path=f"demo_experiment --app v1, row {tag}, per validation forward (P21)",
+             launches=q) for tag, _, q in p21["per_row"] if "int8" in tag] + [
+        dict(path="demo_experiment --app v1, the run (P21)", launches=p21["run"]["qmatmul"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

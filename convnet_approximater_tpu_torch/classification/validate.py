@@ -43,7 +43,6 @@ _default_eval_cfg = dict(
     test_input_size=None,  # (H, W): eval at another resolution
 )
 
-AMP_TODO = "bf16 training is ROADMAP.md queue 1 item 7 (its training half)"
 MESH_TODO = "more than one device is ROADMAP.md queue 1 item 12"
 
 

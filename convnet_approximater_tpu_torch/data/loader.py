@@ -11,11 +11,12 @@ package's layout) with int64 labels.
 
 The shuffle order and the augmentation draws come from ``RandomState``
 seeds of the same form as the JAX package's, so both loaders give the same
-batches.  The JAX package's C++ batch prep (``data/_native``) is a host
-speed-up that is not ported (``ROADMAP.md`` queue 1 item 5); RandAugment
-(``aug=dict(rand_aug=...)``) is not ported either.  Augmentation with dense
-labels (segmentation masks) is refused: it would move the images and not
-their masks.
+batches; ``aug=dict(rand_aug=dict(n=2, m=9))`` runs RandAugment
+(``data/randaug.py``) on the gathered uint8 batch first, from the same
+``RandomState``, as the JAX loader does.  The JAX package's C++ batch prep
+(``data/_native``) is a host speed-up that is not ported (``ROADMAP.md``
+queue 1 item 5).  Augmentation with dense labels (segmentation masks) is
+refused: it would move the images and not their masks.
 """
 
 from __future__ import annotations
@@ -28,8 +29,9 @@ import numpy as np
 import torch
 
 from .datasets import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, ArrayDataset
+from .randaug import rand_augment_batch
 
-AUG_KEYS = ("hflip", "crop_pad", "rrc_scale")
+AUG_KEYS = ("hflip", "crop_pad", "rrc_scale", "rand_aug")
 
 
 def _resize_nearest(images: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
@@ -97,12 +99,15 @@ def apply_aug(images: np.ndarray, params, out_hw) -> np.ndarray:
 
 def augment_batch(images: np.ndarray, rs: np.random.RandomState, *,
                   hflip: float = 0.0, crop_pad: int = 0, rrc_scale=None,
-                  out_size=None) -> np.ndarray:
-    """Train-time augmentation of a host batch: ``hflip`` (probability of a
-    horizontal flip per image), ``crop_pad`` (reflect-pad by N, then a random
-    crop back) and ``rrc_scale`` ((lo, hi) area fraction of a random resized
-    crop to ``out_size``, aspect 3/4..4/3, nearest resize).  The input
+                  out_size=None, rand_aug=None) -> np.ndarray:
+    """Train-time augmentation of a host batch: ``rand_aug`` (``dict(n=2,
+    m=9)``: RandAugment(n, m) per uint8 image, first), ``hflip`` (probability
+    of a horizontal flip per image), ``crop_pad`` (reflect-pad by N, then a
+    random crop back) and ``rrc_scale`` ((lo, hi) area fraction of a random
+    resized crop to ``out_size``, aspect 3/4..4/3, nearest resize).  The input
     resolution is kept unless ``rrc_scale`` is set."""
+    if rand_aug:
+        images = rand_augment_batch(images, rs, **rand_aug)
     H, W = images.shape[1:3]
     out_hw = tuple(out_size) if (rrc_scale is not None and out_size) else (H, W)
     params = draw_aug_params(rs, len(images), H, W, hflip=hflip, crop_pad=crop_pad,
@@ -111,13 +116,8 @@ def augment_batch(images: np.ndarray, rs: np.random.RandomState, *,
 
 
 def check_aug(aug) -> dict:
-    """The augmentation config as a dict; RandAugment is not ported."""
+    """The augmentation config as a dict, its keys checked."""
     aug = dict(aug or {})
-    if aug.get("rand_aug"):
-        raise NotImplementedError(
-            "aug=dict(rand_aug=...): RandAugment (data/randaug.py) is not ported to the "
-            "PyTorch port yet (ROADMAP.md queue 1 item 5, with TrainHelper and mixup.py)")
-    aug.pop("rand_aug", None)
     unknown = set(aug) - set(AUG_KEYS)
     if unknown:
         raise ValueError(f"unknown augmentation keys {sorted(unknown)}; known: {AUG_KEYS}")
@@ -152,7 +152,7 @@ class Loader:
         self.device = torch.device(device)
         self.prefetch = prefetch
         self.dtype = dtype  # the normalised images' type (float32, or bfloat16 to serve)
-        # hflip, crop_pad, rrc_scale; None or {} = no augmentation
+        # hflip, crop_pad, rrc_scale, rand_aug; None or {} = no augmentation
         self.aug = check_aug(aug)
         if self.aug and np.ndim(dataset.labels) > 1:
             # the JAX Loader crops and flips the images alone, so its dense masks
@@ -179,13 +179,17 @@ class Loader:
         labels = self.dataset.labels[idx].astype(np.int64)
         pool = self.dataset.images
         if self.aug:
+            aug = dict(self.aug)
+            rand_aug = aug.pop("rand_aug", None)
             H, W = pool.shape[1:3]
             out_hw = self.image_size or (H, W)
             rs = np.random.RandomState(
                 (self.seed * 1000003 + self._epoch * 9176
                  + (int(idx[0]) if len(idx) else 0)) % (2 ** 31))
-            images = apply_aug(pool[idx], draw_aug_params(rs, len(idx), H, W, **self.aug),
-                               out_hw)
+            images = pool[idx]
+            if rand_aug:  # on the gathered batch, before the crop and flip draws
+                images = rand_augment_batch(images, rs, **rand_aug)
+            images = apply_aug(images, draw_aug_params(rs, len(idx), H, W, **aug), out_hw)
         else:
             images = pool[idx]
             if self.image_size is not None:

@@ -29,6 +29,18 @@ Optimize phase:
   weight decay cannot move them.  ``old`` branches are always frozen.
 * DropPath and Dropout masks come from a generator the hook owns, seeded from
   the run's seed and the step count (the JAX hook's ``fold_in(rng, step)``).
+* ``other_args.amp`` computes in bf16 over float32 masters, as the JAX step
+  does: the student's forward runs on bf16 casts of its floating parameters
+  (``torch.func.functional_call`` with :func:`~convnet_approximater_tpu_torch.utils.dtype.cast_params`,
+  so the gradients reach the float32 masters through the casts) and on bf16
+  images; the logits go back to float32 before the loss and the tap
+  differences are taken in float32; the masters, their gradients, the
+  optimizer state and BatchNorm's running statistics stay float32, and there
+  is no loss scaling.  The asym teacher is a bf16 copy made once
+  (``cast_floating``: it is frozen); the sym teacher is the student's forward
+  on bf16 copies of its parameters, kept in one set of tensors that each step
+  overwrites, so the kernel layers' caches, keyed by address and version,
+  see each step's weights.
 * SIGTERM stops at the next step boundary and saves the full train state
   (:class:`~convnet_approximater_tpu_torch.utils.preempt.PreemptionGuard`);
   ``resume`` restores weights, optimizer and epoch from the port's own
@@ -53,8 +65,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from convnet_approximater_tpu_torch.classification import AverageMeter, eval_batch
-from convnet_approximater_tpu_torch.classification.validate import AMP_TODO, MESH_TODO
-from convnet_approximater_tpu_torch.convert import load_jax_flat, variables_of
+from convnet_approximater_tpu_torch.classification.validate import MESH_TODO
+from convnet_approximater_tpu_torch.convert import (load_jax_flat, params_from_jax, params_to_jax,
+                                                   variables_of)
 from convnet_approximater_tpu_torch.data import Loader, Synthetic, build_dataset
 from convnet_approximater_tpu_torch.data.loader import check_aug
 from convnet_approximater_tpu_torch.filters import build_filter
@@ -65,6 +78,7 @@ from convnet_approximater_tpu_torch.models.switchable import set_submodule
 from convnet_approximater_tpu_torch.utils import (get_logger, get_rank, load_flat, save_model,
                                                   unflatten_tree)
 from convnet_approximater_tpu_torch.utils.config import Config
+from convnet_approximater_tpu_torch.utils.dtype import cast_floating, cast_params
 from convnet_approximater_tpu_torch.utils.preempt import Preempted, PreemptionGuard
 
 from .hook import HOOK, Hook
@@ -180,7 +194,11 @@ class MaskedOptimizer:
     * the learning rate of update n is :func:`lr_schedule`'s lr(n);
     * ``clip_grad`` > 0 clips the masked gradients first, by ``clip_mode``:
       ``norm`` (global norm, with no epsilon added), ``value`` or ``agc``
-      (unit-wise, against the parameters' norms), as optax does.
+      (unit-wise, against the parameters' norms), as optax does;
+    * ``every_k`` > 1 is ``optax.MultiSteps(every_k_schedule=every_k)``: each
+      step adds its gradients into a running mean (``acc += (g - acc) / (n +
+      1)``, per parameter under ``acc``), and only every k-th step updates, on
+      the mean; the schedule counts updates.
 
     optax takes Adam's bias corrections ``1 - b^t`` in float32, where
     ``torch.optim.Adam`` takes them in float64: after 5 steps the two differ
@@ -192,7 +210,7 @@ class MaskedOptimizer:
     B1, B2 = 0.9, 0.999  # optax.adam(w)'s defaults
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]], optim_args: Config,
-                 sche_args: Config, steps_per_epoch: int):
+                 sche_args: Config, steps_per_epoch: int, every_k: int = 1):
         self.named = list(named_params)
         self.kind = optim_args.opt
         if self.kind == "adamw":
@@ -209,7 +227,11 @@ class MaskedOptimizer:
         if self.clip > 0 and self.clip_mode not in ("norm", "value", "agc"):
             raise ValueError(f"unknown clip_mode {self.clip_mode}")
         self.count = 0
+        self.every_k = int(every_k)
+        self.mini_step = 0
         names = ("trace",) if self.kind in ("sgd", "momentum") else ("mu", "nu")
+        if self.every_k > 1:
+            names += ("acc",)
         self.state = {name: {k: torch.zeros_like(p) for k in names} for name, p in self.named}
 
     def zero_grad(self):
@@ -240,11 +262,20 @@ class MaskedOptimizer:
         params = [p for _, p in self.named]
         grads = [p.grad.detach().clone() if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        states = [self.state[name] for name, _ in self.named]
+        if self.every_k > 1:  # optax.MultiSteps: the running mean of the micro-steps' gradients
+            acc = [s["acc"] for s in states]
+            torch._foreach_add_(acc, torch._foreach_div(torch._foreach_sub(grads, acc),
+                                                        float(self.mini_step + 1)))
+            self.mini_step = (self.mini_step + 1) % self.every_k
+            if self.mini_step:
+                return
+            grads = [a.clone() for a in acc]
+            torch._foreach_zero_(acc)
         frozen = [i for i, (name, _) in enumerate(self.named) if name not in trainable]
         for i in frozen:
             grads[i].zero_()
         self._clip(grads, params)
-        states = [self.state[name] for name, _ in self.named]
         if self.kind in ("sgd", "momentum"):
             trace = [s["trace"] for s in states]
             torch._foreach_mul_(trace, self.momentum)
@@ -272,17 +303,21 @@ class MaskedOptimizer:
 
 
 def make_optimizer(named_params, optim_args: Config, sche_args: Config,
-                   steps_per_epoch: int) -> Tuple[MaskedOptimizer, Callable[[int], float]]:
+                   steps_per_epoch: int, every_k: int = 1
+                   ) -> Tuple[MaskedOptimizer, Callable[[int], float]]:
     """The optimizer and its learning-rate schedule (timm's
     ``create_optimizer_v2``/``create_scheduler`` in the reference)."""
-    opt = MaskedOptimizer(named_params, optim_args, sche_args, steps_per_epoch)
+    opt = MaskedOptimizer(named_params, optim_args, sche_args, steps_per_epoch, every_k)
     return opt, opt.lr
 
 
 def opt_state_to_tree(opt: MaskedOptimizer) -> dict:
     """The optimizer's state as a tree of numpy arrays: its update count, and
-    per parameter name its moments (``mu``, ``nu``) or momentum ``trace``."""
+    per parameter name its moments (``mu``, ``nu``) or momentum ``trace``; with
+    ``every_k`` > 1 also the micro-step and each parameter's accumulated ``acc``."""
     tree = {"count": np.int64(opt.count)}
+    if opt.every_k > 1:
+        tree["mini_step"] = np.int64(opt.mini_step)
     for name, state in opt.state.items():
         tree[name] = {k: v.detach().cpu().numpy().copy() for k, v in state.items()}
     return tree
@@ -305,6 +340,68 @@ def opt_state_from_tree(tree: dict, opt: MaskedOptimizer) -> Optional[MaskedOpti
             for k, v in state.items():
                 v.copy_(torch.from_numpy(np.asarray(tree[name][k])))
     opt.count = int(tree["count"])
+    if opt.every_k > 1:
+        opt.mini_step = int(tree["mini_step"])
+    return opt
+
+
+def opt_state_from_jax(tree: dict, opt: MaskedOptimizer) -> Optional[MaskedOptimizer]:
+    """Restore into ``opt`` an optax state that the JAX package saved (its
+    leaves under ``00000``, ``00001``, ... in flattening order), laid out as the
+    JAX ``make_optimizer`` builds it for ``opt``'s kind: Adam's count, ``mu``
+    and ``nu`` or SGD's ``trace``, each over the parameters in the JAX tree's
+    order (keys sorted at every level), then a schedule's count if the
+    learning rate is one; wrapped in ``optax.MultiSteps``'s ``mini_step``,
+    ``gradient_step`` and ``acc_grads`` when ``every_k`` > 1.  Returns ``opt``,
+    or None, leaving ``opt`` as it was, when the leaves do not fit."""
+    if sorted(tree) != [f"{i:05d}" for i in range(len(tree))]:
+        return None
+    leaves = [np.asarray(tree[f"{i:05d}"]) for i in range(len(tree))]
+    params = dict(opt.named)
+    jax_names = {next(iter(params_to_jax({n: p.detach()}))): n for n, p in opt.named}
+    order = sorted(jax_names, key=lambda k: tuple(k.split("/")))
+    n = len(order)
+
+    def per_param(vals):
+        if len(vals) != n:
+            return None
+        out = {}
+        for key, v in zip(order, vals):
+            name = jax_names[key]
+            t = params_from_jax({key: v})[name]
+            if t.shape != params[name].shape:
+                return None
+            out[name] = t
+        return out
+
+    restored, mini_step = {}, None
+    if opt.every_k > 1:
+        if len(leaves) < 2 + n:
+            return None
+        mini_step, count = int(leaves[0]), int(leaves[1])
+        restored["acc"], leaves = per_param(leaves[-n:]), leaves[2:-n]
+    else:
+        count = 0
+    if opt.kind in ("sgd", "momentum"):
+        restored["trace"], rest = per_param(leaves[:n]), leaves[n:]
+    else:
+        if not leaves:
+            return None
+        count = int(leaves[0])
+        restored["mu"], restored["nu"] = per_param(leaves[1:1 + n]), per_param(leaves[1 + n:1 + 2 * n])
+        rest = leaves[1 + 2 * n:]
+    if len(rest) > 1 or any(v is None for v in restored.values()) or any(
+            np.shape(v) != () for v in rest):
+        return None
+    if rest:
+        count = int(rest[0])  # the schedule's count: updates
+    with torch.no_grad():
+        for k, vals in restored.items():
+            for name, v in vals.items():
+                opt.state[name][k].copy_(v)
+    opt.count = count
+    if mini_step is not None:
+        opt.mini_step = mini_step
     return opt
 
 
@@ -413,8 +510,7 @@ class L2Reconstruct(Hook):
         self.data_config = _combine(_default_data_config, data_config)
         self.other_args = _combine(_default_other_args, other_args)
         other = self.other_args
-        if other.amp:
-            raise NotImplementedError(f"L2Reconstruct amp=True: {AMP_TODO}")
+        self.amp = bool(other.amp)
         if int(other.model_parallel or 1) > 1:
             raise NotImplementedError(f"L2Reconstruct model_parallel > 1: {MESH_TODO}")
         if (other.use_mesh and torch.device(runner.device).type == "cuda"
@@ -429,6 +525,7 @@ class L2Reconstruct(Hook):
         self.optimizer: Optional[MaskedOptimizer] = None
         self.result = None
         self._guard = None
+        self._bf16 = None  # the sym teacher's bf16 parameters under amp
 
     @property
     def need_teacher(self) -> bool:
@@ -468,7 +565,27 @@ class L2Reconstruct(Hook):
         for path, m in list(teacher.named_modules()):
             if isinstance(m, (QATConv2d, QATLinear)):
                 set_submodule(teacher, path, m.dense())
-        return teacher.eval().requires_grad_(False)
+        teacher = teacher.eval().requires_grad_(False)
+        return cast_floating(teacher, torch.bfloat16) if self.amp else teacher
+
+    def _bf16_params(self, model) -> dict:
+        """bf16 copies of ``model``'s parameters for the sym teacher under amp,
+        overwritten in place each call (a version bump per copy)."""
+        if self._bf16 is None:
+            self._bf16 = {n: torch.empty_like(p, dtype=torch.bfloat16)
+                          for n, p in cast_params(model).items()}
+        params = dict(model.named_parameters())
+        for n, t in self._bf16.items():
+            t.copy_(params[n])
+        return self._bf16
+
+    def student_forward(self, model, images):
+        """The student's training forward: ``model(images)``, or under amp its
+        forward on bf16 casts of its parameters and of the images."""
+        if not self.amp:
+            return model(images)
+        return torch.func.functional_call(model, cast_params(model),
+                                          (images.to(torch.bfloat16),))
 
     @torch.no_grad()
     def teacher_pass(self, images, model=None, teacher=None):
@@ -478,6 +595,8 @@ class L2Reconstruct(Hook):
         state from before the step)."""
         model = model if model is not None else self.runner.model
         teacher = teacher if teacher is not None else self.teacher
+        if self.amp:
+            images = images.to(torch.bfloat16)
         if self.asym:
             logits = teacher(images)
             return logits.float(), taps(teacher)
@@ -485,7 +604,11 @@ class L2Reconstruct(Hook):
         model.eval()
         try:
             with forced_branch(model, "old"):
-                logits = model(images)
+                if self.amp:
+                    logits = torch.func.functional_call(model, self._bf16_params(model),
+                                                        (images,))
+                else:
+                    logits = model(images)
             return logits.float(), taps(model)
         finally:
             model.train(was_training)
@@ -500,7 +623,7 @@ class L2Reconstruct(Hook):
         if self.need_teacher:
             t_logits, t_taps = self.teacher_pass(images, model, teacher)
         model.train()
-        logits = model(images).float()
+        logits = self.student_forward(model, images).float()
         ce = self._ce_fn()(logits, labels)
         total_norm = logits.new_zeros(())
         if not self.no_norm:
@@ -508,7 +631,7 @@ class L2Reconstruct(Hook):
             keys = [f"{n}.out" for n in model.switchable_names]
             norm_vec = logits.new_zeros(images.shape[0])
             for key in keys:
-                diff = (s_taps[key] - t_taps[key]).float()
+                diff = s_taps[key].float() - t_taps[key].float()
                 norm_vec = norm_vec + torch.linalg.vector_norm(diff.flatten(1), dim=1)
             total_norm = (norm_vec / len(keys)).mean()
         loss = self.l2_weight * total_norm + self.cls_weight * ce

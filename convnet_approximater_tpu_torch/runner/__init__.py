@@ -1,2 +1,3 @@
-from .class_inference import BaseRunner, ClassInference
+from .base import BaseRunner
+from .class_inference import ClassInference
 from .runner import Runner

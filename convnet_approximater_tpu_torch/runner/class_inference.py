@@ -30,7 +30,6 @@ from __future__ import annotations
 import copy
 import json
 import os
-from abc import ABC, abstractmethod
 from typing import Dict, List, Optional
 
 import torch
@@ -49,13 +48,8 @@ from convnet_approximater_tpu_torch.utils import get_cfg, get_logger
 from convnet_approximater_tpu_torch.utils.dtype import (cast_floating, dtype_name, dtype_of,
                                                         serving_dtype)
 
+from .base import BaseRunner
 from .runner import read_checkpoint, structure_pass
-
-
-class BaseRunner(ABC):
-    @abstractmethod
-    def run(self):
-        ...
 
 
 class ClassInference(BaseRunner):

@@ -37,6 +37,8 @@ from convnet_approximater_tpu_torch.nn import channels_last, init_weights
 from convnet_approximater_tpu_torch.utils import (get_cfg, get_logger, get_rank, load_flat,
                                                   print_cfg, save_cfg)
 
+from .base import BaseRunner
+
 
 def structure_pass(cfg) -> Tuple[Callable, dict]:
     """``(function of deploy.py, keyword arguments)`` of one ``structure_passes`` entry."""
@@ -62,7 +64,7 @@ def _overrides(method: str, base: type, obj) -> bool:
     return getattr(type(obj), method) is not getattr(base, method)
 
 
-class Runner:
+class Runner(BaseRunner):
     def __init__(self, device="cuda", generator: Optional[torch.Generator] = None,
                  deploy: bool = False, skip_optim: bool = False, skip_post: bool = False):
         cfg = get_cfg()

@@ -12,6 +12,8 @@ rounds once, and the kernels read and write bf16 and compute in float32.
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 from torch import nn
 
@@ -47,6 +49,17 @@ def cast_floating(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
             if p.is_floating_point() and p.dtype != dtype:
                 p.data = p.data.to(dtype)
     return model
+
+
+def cast_params(model: nn.Module, dtype=torch.bfloat16) -> Dict[str, torch.Tensor]:
+    """``{name: parameter cast to dtype}`` for every parameter :func:`cast_floating`
+    would cast, the casts on the autograd graph, so that a gradient through a
+    cast reaches its float32 master: the parameters of a bf16 training forward
+    through ``torch.func.functional_call`` (the JAX trainers' ``amp``)."""
+    dtype = dtype_of(dtype)
+    skip = {id(p) for m in model.modules() if isinstance(m, _QuantBase) for p in m.parameters()}
+    return {n: p.to(dtype) for n, p in model.named_parameters()
+            if p.is_floating_point() and p.dtype != dtype and id(p) not in skip}
 
 
 def serving_dtype(model: nn.Module) -> torch.dtype:

@@ -35,6 +35,6 @@ setup(
     },
     include_package_data=True,
     package_data={"convnet_approximater_tpu.data": ["_native/*.cpp"],
-                  "convnet_approximater_tpu_torch": ["csrc/*.cu"]},
+                  "convnet_approximater_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     zip_safe=False,
 )

@@ -131,12 +131,12 @@ def test_loader_worker_failure_reaches_the_consumer():
         list(loader)
 
 
-def test_rand_aug_is_not_ported():
+def test_unknown_aug_keys_raise():
     ds = tdata.Synthetic(8, (8, 8, 3), 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 5"):
-        tdata.Loader(ds, 4, aug=dict(rand_aug=dict(n=2, m=9)), device="cpu")
-    with pytest.raises(ValueError, match="unknown augmentation"):
-        tdata.Loader(ds, 4, aug=dict(flip=0.5), device="cpu")
+    for aug in (dict(flip=0.5), dict(rand_aug=dict(n=2, m=9), auto_augment="rand-m9-n2")):
+        with pytest.raises(ValueError, match="unknown augmentation"):
+            tdata.Loader(ds, 4, aug=aug, device="cpu")
+    tdata.Loader(ds, 4, aug=dict(rand_aug=dict(n=2, m=9)), device="cpu")  # known since ported
 
 
 def test_datasets_registry_npz_and_missing_files(tmp_path):

@@ -648,7 +648,6 @@ def test_validate_helper_matches_jax(tmp_path):
 
 # -- what the port refuses ---------------------------------------------------
 @pytest.mark.parametrize("other,match", [
-    (dict(amp=True), "queue 1 item 7"),
     (dict(model_parallel=2), "queue 1 item 12"),
     (dict(ckpt_backend="sharded"), "sharded checkpoint backend"),
 ])
@@ -657,8 +656,6 @@ def test_unported_options_raise(tmp_path, other, match):
     runner = Runner(device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         ft.L2Reconstruct(runner, 50, other_args=other)
-    with pytest.raises(NotImplementedError, match="randaug"):
-        ft.L2Reconstruct(runner, 50, data_config=dict(aug=dict(rand_aug=dict(n=2, m=9))))
     with pytest.raises(NotImplementedError, match="sharded"):
         ft.CheckpointSaver(str(tmp_path / "sv"), backend="sharded")
 
