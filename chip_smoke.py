@@ -9,7 +9,7 @@ From the root of a checkout, with no arguments:
 2. builds the port's CUDA kernels (``msca_fused``, ``lowrank_conv``,
    ``parallel_cascade``, ``qmatmul``) from the sources in the checkout, one nvcc
    each, started together, and prints ptxas's registers and spills of
-   ``lowrank_conv``'s kernels;
+   ``lowrank_conv``'s kernels; then the native host batch prep with g++;
 3. holds each kernel against its plain PyTorch version, in float32 with TF32
    off, at the shapes its main path gives it at batch 64 and 224^2, and prints
    errors, median CUDA-event times and each call's bound (the larger of its
@@ -312,7 +312,25 @@ From the root of a checkout, with no arguments:
     forward, ``lowrank_conv`` once per LowRankExpConvV1 whose bases all input
     channels share (the fine-tuned rows' differ: the module path) and
     ``qmatmul`` 8 per int8 forward;
-22. prints one JSON line of kernel results (each kernel's entry lists the later
+22. P22, what was left for one card: P22a the native batch prep
+    (``data/native.py``) built with g++ on the card's host, its uint8 gather
+    bit-equal to numpy's at b=128, 224^2 (plain, and with crop and flip), its
+    float32 normalization within 1e-6 of numpy's, the host ms per batch of
+    each; ``serve`` on P18's int8 ResNet-50 artifact at b=128, 32 batches,
+    host-normalized through numpy and through the native prep and shipping
+    uint8 through either gather (img/s and host share), the native prep's
+    batch through the served graph bit-equal to the live model; P22b P20's
+    float32 run on ``ckpt_backend="sharded"`` with P20's resume gate from
+    ``checkpoint-0.ckpt.dcp``, the Loader's host ms inside its steps, F1's
+    train state from a sharded save loading back bit for bit, and the sharded
+    save's blocking ms against the npz save of the same state (P20's and
+    F1's); P22c ``low_rank_exp_spr`` at b=64: each served row's
+    LowRankExpConvV1 launching ``lowrank_conv`` once per forward, within 1e-5
+    of ``lowrank_conv_ref``, its measured and theoretical speed-up, refused rows
+    listed; P22d ``add_substitution`` then ``remove_substitution`` on phase 5's
+    dodecomp AlexNet checkpoint (npz and a sharded copy) bit-equal, and
+    ``visual_kernel`` on F2's MSCAN-t d1 checkpoint and a sharded copy;
+23. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``, the bf16 ones among
     them), then ``{"ok": true, "device": ...}``.
 
@@ -2272,12 +2290,13 @@ def smi_line() -> str:
     return smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
 
 
-def check_ckpt_loads_back(hook, model, work_dir, label="F1"):
-    """The last checkpoint the hook wrote holds the model's weights bit for bit."""
+def check_ckpt_loads_back(hook, model, work_dir, label="F1", name="last.ckpt.npz"):
+    """The last checkpoint the hook wrote (``name`` in ``work_dir``) holds the
+    model's weights bit for bit."""
     from convnet_approximater_tpu_torch.convert import load_jax_flat, params_to_jax
     from convnet_approximater_tpu_torch.utils import load_flat
 
-    path = os.path.join(work_dir, "last.ckpt.npz")
+    path = os.path.join(work_dir, name)
     flat = load_flat(path)
     want = params_to_jax(model.state_dict())
     if set(k for k in flat if k.split("/")[0] in ("params", "state")) != set(want):
@@ -2329,6 +2348,7 @@ def run_ft_d0():
     def last(hook):
         model = hook.runner.model
         check_ckpt_loads_back(hook, model, work_dir)
+        KEPT.update(f1_model=model, f1_optimizer=hook.optimizer)  # P22b saves it sharded
         stats["peak"] = torch.cuda.max_memory_allocated()
         # one steady step profiled, then its parts timed alone
         mask = hook.trainable(-1)
@@ -5141,7 +5161,7 @@ def run_exports():
                       res["img_per_s"], back_to_back_ms(compiled)))
         del res, compiled
         torch.cuda.empty_cache()
-    del r50_live
+    KEPT["r50_live"] = r50_live  # P22a serves the artifact again against it
     for name, ips, b2b in loops:
         device_ips = SERVE_BATCH / b2b * 1e3
         print(f"P18d {name}: {ips:.1f} img/s end to end at b={SERVE_BATCH} against "
@@ -5848,7 +5868,7 @@ def global_rel(got, want) -> float:
     return float(num / torch.stack([b.pow(2).sum() for _, b in pairs]).sum().sqrt())
 
 
-def resume_gate(helper, rec, cfg, work_dir, label):
+def resume_gate(helper, rec, cfg, work_dir, label, suffix=".ckpt.npz"):
     """A fresh model resumed from the run's epoch-0 checkpoint takes the run's
     next two steps (an accumulation, then an update): their losses within
     RESUME_TOL, and after the first the weights and buffers bit-equal to the
@@ -5862,7 +5882,7 @@ def resume_gate(helper, rec, cfg, work_dir, label):
 
     from convnet_approximater_tpu_torch.classification import TrainHelper
 
-    ckpt = os.path.join(work_dir, "checkpoint-0.ckpt.npz")
+    ckpt = os.path.join(work_dir, "checkpoint-0" + suffix)
     resume_dir = work_dir + "_resume"
     resumed = TrainHelper(mscan_t_model(), dict(cfg, resume=ckpt, work_dir=resume_dir),
                           device="cuda")
@@ -5875,7 +5895,7 @@ def resume_gate(helper, rec, cfg, work_dir, label):
     acc = global_rel(rec_b["acc"].values(), rec["acc"].values())
     after = global_rel([v for v in resumed.model.state_dict().values() if v.is_floating_point()],
                        [v for v in helper.model.state_dict().values() if v.is_floating_point()])
-    saved = os.path.exists(os.path.join(resume_dir, "last.ckpt.npz"))
+    saved = os.path.exists(os.path.join(resume_dir, "last" + suffix))
     print(f"{label} resumed from {os.path.relpath(ckpt, REPO)} (weights, EMA, optimizer, epoch "
           f"1): its steps' losses {got} against the run's steps {P20_STEPS + 1}-"
           f"{P20_STEPS + 2} {want} (rel err {max(errs):.3e}, bound {RESUME_TOL}; bit-equal: "
@@ -6112,6 +6132,356 @@ def run_training_clis():
                 run=demo_counts)
 
 
+# -- P22: the native batch prep, the sharded checkpoint, the spr CLI, the checkpoint tools -----
+P22_DIR = os.path.join(REPO, "build", "chip_smoke_p22")
+PREP_POOL = 512       # 224^2 uint8 images in P22a's pool (77 MB)
+PREP_REPEATS = 10     # host timings (host_ms): the median of this many calls after 3
+NORM_TOL = 1e-6       # native float32 normalization against numpy's (the JAX tests', test_data.py)
+SPR_TOL = 1e-5        # lowrank_conv against lowrank_conv_ref, relative (PERF.md §2)
+KEPT = {}             # what P22 reads from earlier phases: F1's model and optimizer, P18's live
+#                       int8 ResNet-50
+
+
+def run_p22_prep():
+    """P22a, the native batch prep (built on this host in phase 2): its uint8
+    gather bit-equal to numpy's at b=128, 224^2 (plain and with crop and flip),
+    its float32 normalization within NORM_TOL of numpy's; host ms of each; the
+    Loader's prep inside P20's step is read in P22b."""
+    import torch
+
+    from convnet_approximater_tpu_torch.data import Synthetic, native
+    from convnet_approximater_tpu_torch.data.loader import _resize_nearest, apply_aug, draw_aug_params
+
+    native.library()  # built in phase 2
+    print(f"P22a native batch prep {os.path.relpath(str(native.library_path()), REPO)}: "
+          f"{native.default_threads()} threads per call (torch.get_num_threads() "
+          f"{torch.get_num_threads()}, os.cpu_count() {os.cpu_count()})")
+    ds = Synthetic(PREP_POOL, (224, 224, 3), 1000, split="train")
+    pool = ds.images
+    idx = np.random.RandomState(0).permutation(PREP_POOL)[:SERVE_BATCH].astype(np.int64)
+    mean = np.asarray((0.485, 0.456, 0.406), np.float32) * 255.0
+    std = np.asarray((0.229, 0.224, 0.225), np.float32) * 255.0
+    params = draw_aug_params(np.random.RandomState(1), SERVE_BATCH, 224, 224, hflip=0.5,
+                             rrc_scale=(0.08, 1.0))
+    pinned = torch.empty((SERVE_BATCH, 224, 224, 3), dtype=torch.uint8, pin_memory=True)
+    pinned_f = torch.empty((SERVE_BATCH, 224, 224, 3), dtype=torch.float32, pin_memory=True)
+    u8, u8_aug = native.gather_batch(pool, idx, (224, 224)), native.gather_batch_aug(
+        pool, idx, (224, 224), params)
+    same = np.array_equal(u8, _resize_nearest(pool[idx], (224, 224)))
+    same_aug = np.array_equal(u8_aug, apply_aug(pool[idx], params, (224, 224)))
+    numpy_norm = lambda: (pool[idx].astype(np.float32) - mean) / std  # noqa: E731
+    f32 = native.prep_batch(pool, idx, (224, 224), mean, std)
+    norm_err = float(np.abs(f32 - numpy_norm()).max())
+    times = {
+        "numpy gather": host_ms(lambda: np.ascontiguousarray(pool[idx])),
+        "native gather into pinned memory": host_ms(
+            lambda: native.gather_batch(pool, idx, (224, 224), out=pinned.numpy())),
+        "numpy gather + crop/flip (apply_aug)": host_ms(
+            lambda: apply_aug(pool[idx], params, (224, 224))),
+        "native gather + crop/flip into pinned memory": host_ms(
+            lambda: native.gather_batch_aug(pool, idx, (224, 224), params, out=pinned.numpy())),
+        "numpy float32 host normalization (gather, cast, (x - mean) / std)": host_ms(
+            numpy_norm),
+        "native float32 prep_batch into pinned memory": host_ms(
+            lambda: native.prep_batch(pool, idx, (224, 224), mean, std, out=pinned_f.numpy())),
+    }
+    smi = smi_line()
+    print(f"P22a at b={SERVE_BATCH}, 224^2, uint8 ({SERVE_BATCH * 224 * 224 * 3 / 2**20:.1f} MiB "
+          f"a batch) from a pool of {PREP_POOL}: native uint8 gather bit-equal to numpy's: "
+          f"{same}, with crop and flip (rrc_scale, hflip) bit-equal to apply_aug: {same_aug}; "
+          f"native float32 against numpy's (x - mean) / std max-abs {norm_err:.3e} (bound "
+          f"{NORM_TOL})")
+    for name, ms in times.items():
+        print(f"P22a host ms per batch of {SERVE_BATCH}, median of {PREP_REPEATS} [{smi}]: "
+              f"{name} {ms:.3f}")
+    if not (same and same_aug) or not norm_err <= NORM_TOL:
+        fail("P22a: the native batch prep disagrees with numpy")
+    return times
+
+
+def run_p22_serve():
+    """P22a, serve of P18's int8 ResNet-50 artifact at b=128, 32 batches: host
+    normalization through numpy and through the native prep, uint8 shipped
+    through the numpy and the native gather; a batch of the native host
+    normalization through the served graph bit-equal to the live model's."""
+    import functools
+
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy, serve
+    from convnet_approximater_tpu_torch.data import Synthetic
+
+    r50_path = os.path.join(P18_DIR, "resnet50_int8.pt2")
+    live = KEPT.pop("r50_live")
+    rows, b2b = [], None
+    for name, native_prep, ship in (("host-normalized, numpy", False, False),
+                                    ("host-normalized, native prep", True, False),
+                                    ("--ship-uint8, numpy gather", False, True),
+                                    ("--ship-uint8, native gather", True, True)):
+        loader = functools.partial(serve.Loader if ship else serve.HostNormLoader,
+                                   native=native_prep)
+        with mock.patch.object(serve, "Loader" if ship else "HostNormLoader", loader), \
+                uncounted():
+            res = serve.main(["--artifact", r50_path, "--batch", str(SERVE_BATCH), "--batches",
+                              str(P18_SERVE_BATCHES)] + (["--ship-uint8"] if ship else []))
+        if b2b is None:  # the served graph, against the live model on the native prep's batch
+            mean, std = serve.read_meta(r50_path)
+            ds = Synthetic(max(SERVE_BATCH * 4, 64), (224, 224, 3), 1000)
+            x, _ = next(iter(serve.HostNormLoader(ds, SERVE_BATCH, mean=mean, std=std,
+                                                  device="cuda", prefetch=0)))
+            x = x.contiguous(memory_format=torch.channels_last)
+            with uncounted(), torch.no_grad():
+                compiled, _ = deploy.compile_serving(res["module"], x)
+                y, y_live = compiled(x), live(x)
+                same = torch.equal(y, y_live)
+                b2b = back_to_back_ms(compiled)
+            print(f"P22a serve int8 ResNet-50: the first b={SERVE_BATCH} batch of the native "
+                  f"host normalization through the served graph against the live int8 model: "
+                  f"{'bit-equal' if same else 'not bit-equal'}; the graph back to back "
+                  f"{b2b:.3f} ms per batch")
+            if not same:
+                fail("P22a: the served int8 ResNet-50 differs from the live model on the "
+                     "native prep's batch")
+            del compiled
+        rows.append((name, res["img_per_s"]))
+        del res
+        torch.cuda.empty_cache()
+    del live
+    device_ips = SERVE_BATCH / b2b * 1e3
+    smi = smi_line()
+    for name, ips in rows:
+        print(f"P22a serve --artifact int8 ResNet-50, {name}: {ips:.1f} img/s end to end at "
+              f"b={SERVE_BATCH}, {P18_SERVE_BATCHES} batches, against {device_ips:.1f} img/s "
+              f"from the graph back to back: host share {max(0.0, 1 - ips / device_ips):.1%} "
+              f"[{smi}]")
+    return rows
+
+
+def save_ms(saver, variables, optimizer):
+    """(ms the save blocks, ms until it is on disk) of one ``save_checkpoint``."""
+    t0 = time.perf_counter()
+    saver.save_checkpoint(variables, 0, 0.0, opt_state=optimizer)
+    blocked = (time.perf_counter() - t0) * 1e3
+    saver.wait()
+    return blocked, (time.perf_counter() - t0) * 1e3
+
+
+def compare_saves(label, tag, variables, optimizer, work_dir):
+    """The sharded save's blocking and committed ms against the npz save of the
+    same train state; the state's MiB."""
+    from convnet_approximater_tpu_torch.hooks.finetune import CheckpointSaver, opt_state_to_tree
+    from convnet_approximater_tpu_torch.utils import flatten_tree
+
+    mib = sum(np.asarray(v).nbytes for v in flatten_tree(
+        dict(variables, opt=opt_state_to_tree(optimizer))).values()) / 2**20
+    out = {}
+    for i, backend in enumerate(("npz", "sharded", "sharded", "npz")):  # alternated
+        saver = CheckpointSaver(os.path.join(work_dir, f"saves_{tag}_{i}"), backend=backend)
+        out.setdefault(backend, []).append(save_ms(saver, variables, optimizer))
+    smi = smi_line()
+    npz = [b for b, _ in out["npz"]]
+    sharded = [b for b, _ in out["sharded"]]
+    print(f"{label} save of the train state ({mib:.1f} MiB) [{smi}]: npz "
+          f"{', '.join(f'{b:.1f}' for b in npz)} ms (blocking: synchronous); sharded (async) "
+          f"blocks {', '.join(f'{b:.1f}' for b in sharded)} ms, on disk after "
+          f"{', '.join(f'{c:.1f}' for _, c in out['sharded'])} ms")
+    return dict(mib=mib, npz_ms=npz, sharded_block_ms=sharded,
+                sharded_commit_ms=[c for _, c in out["sharded"]])
+
+
+def run_p22_ckpt():
+    """P22b: P20's f32 run on the sharded backend with P20's resume gate, the
+    loader's host ms inside its steps; F1's checkpoint from a sharded save
+    loading back bit for bit; both train states' sharded save against npz."""
+    import torch
+
+    from convnet_approximater_tpu_torch.classification import TrainHelper
+    from convnet_approximater_tpu_torch.convert import variables_of
+    from convnet_approximater_tpu_torch.data import Synthetic
+    from convnet_approximater_tpu_torch.data import loader as loader_mod
+    from convnet_approximater_tpu_torch.hooks.finetune import CheckpointSaver
+
+    work_dir = os.path.join(P22_DIR, "p20_sharded")
+    cfg = dict(P20_CFG, epochs=2, work_dir=work_dir, ckpt_backend="sharded")
+    helper = TrainHelper(mscan_t_model(), cfg, device="cuda")
+    rec = train_probe(helper, snapshot_at=P20_STEPS + 1)
+    prep_ms, real_prep = [], loader_mod.Loader._prep
+
+    def timed_prep(self, idx):
+        t0 = time.perf_counter()
+        out = real_prep(self, idx)
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    t0 = time.perf_counter()
+    with mock.patch.object(loader_mod.Loader, "_prep", timed_prep), uncounted():
+        helper.train()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    losses = [float(v) for v in rec["losses"]]
+    step_ms = float(np.median([a.elapsed_time(b) for a, b in rec["events"]][1:P20_STEPS]))
+    links = {n: os.readlink(os.path.join(work_dir, f"{n}.ckpt.dcp")) for n in ("last",
+                                                                              "model_best")}
+    print(f"P22b TrainHelper on MSCAN-t, f32, ckpt_backend='sharded', 2 epochs of {P20_STEPS} "
+          f"steps in {run_s:.2f} s: losses {', '.join(f'{v:.6g}' for v in losses)}; median "
+          f"{step_ms:.3f} ms per step; the Loader's host prep (native gather into pinned "
+          f"memory, b={BATCH}, 224^2, in its prefetch thread) median {np.median(prep_ms):.3f} ms "
+          f"per batch over {len(prep_ms)} batches; links {links} [{smi_line()}]")
+    if len(losses) != 2 * P20_STEPS or not all(np.isfinite(losses)) \
+            or links["last"] != "checkpoint-1.ckpt.dcp" \
+            or links["model_best"] not in ("checkpoint-0.ckpt.dcp", "checkpoint-1.ckpt.dcp"):
+        fail("P22b: the sharded run's losses, or its last link, are not as they should be")
+    check_train_ckpt(helper, os.path.join(work_dir, "last.ckpt.dcp"), "P22b")
+    resume_gate(helper, rec, cfg, work_dir, "P22b", suffix=".ckpt.dcp")
+    p20_saves = compare_saves("P22b P20's", "p20", helper._variables(), helper.optimizer, P22_DIR)
+    loader = loader_mod.Loader(Synthetic(512, (224, 224, 3), P20_CLASSES, split="train"), BATCH,
+                               shuffle=True, image_size=(224, 224), device="cuda")
+    idx = loader._indices()[:BATCH]
+    loader_ms = {}
+    for native_prep in (False, True, True, False):
+        loader.native = native_prep
+        loader_ms.setdefault(native_prep, []).append(host_ms(lambda: loader._prep(idx)))
+    print(f"P22b P20's Loader._prep alone at b={BATCH}, 224^2 (gather into pinned memory), "
+          f"median ms of {PREP_REPEATS}: numpy {', '.join(f'{v:.3f}' for v in loader_ms[False])}, "
+          f"native {', '.join(f'{v:.3f}' for v in loader_ms[True])} [{smi_line()}]")
+    del helper
+    # F1's train state (the d0+fix student after 2 epochs, AdamW) from a sharded save
+    model, optimizer = KEPT.pop("f1_model"), KEPT.pop("f1_optimizer")
+    f1_dir = os.path.join(P22_DIR, "f1_sharded")
+    saver = CheckpointSaver(f1_dir, backend="sharded")
+    saver.save_checkpoint(variables_of(model), 1, 0.0, opt_state=optimizer)
+    saver.wait()
+    check_ckpt_loads_back(None, model, f1_dir, label="P22b F1", name="last.ckpt.dcp")
+    f1_saves = compare_saves("P22b F1's", "f1", variables_of(model), optimizer, P22_DIR)
+    del model, optimizer
+    torch.cuda.empty_cache()
+    return dict(p20=p20_saves, f1=f1_saves, prep_ms=float(np.median(prep_ms)),
+                loader_ms={k: float(np.median(v)) for k, v in loader_ms.items()})
+
+
+def run_p22_spr():
+    """P22c: the spr CLI at b=64 on the card: each served row's LowRankExpConvV1
+    launches lowrank_conv once per forward and is held against
+    lowrank_conv_ref; refused rows listed.  Returns the run's launches."""
+    import torch
+
+    from convnet_approximater_tpu_torch import low_rank_exp_spr as spr
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = spr.main(["--batch", str(BATCH), "--out", os.path.join(P22_DIR, "spr")])
+    run_s = time.perf_counter() - t0
+    launches = lowrank_ops.lowrank_conv.launches
+    served = [r for r in res["rows"] if r["refused"] is None]
+    gen = torch.Generator().manual_seed(22)
+    smi = smi_line()
+    errs = []
+    for r in served:
+        x = torch.randn(BATCH, r["C"], r["hw"], r["hw"], generator=gen).cuda().contiguous(
+            memory_format=torch.channels_last)
+        with torch.no_grad():
+            n = lowrank_ops.lowrank_conv.launches
+            y = r["module"](x)
+            per_forward = lowrank_ops.lowrank_conv.launches - n
+            with uncounted():
+                y_ref = through_lowrank_ref(r["module"], x)
+        errs.append(rel_err(y, y_ref))
+        print(f"P22c spr {r['shape']} M={r['num_bases']} at b={BATCH}, {r['hw']}^2 [{smi}]: "
+              f"dense conv (cuDNN) {r['dense_ms']:.4f} ms, LowRankExpConvV1 on lowrank_conv "
+              f"{r['lowrank_ms']:.4f} ms as graphs back to back (eager medians "
+              f"{r['dense_eager_ms']:.4f}, {r['lowrank_eager_ms']:.4f}); measured spr "
+              f"{r['measured_spr']:.3f}, theoretical {r['theoretical_spr']:.3f}; "
+              f"{per_forward} lowrank_conv per forward; against lowrank_conv_ref rel err "
+              f"{errs[-1]:.3e} (bound {SPR_TOL})")
+        if per_forward != 1 or not errs[-1] <= SPR_TOL:
+            fail(f"P22c: {r['shape']} M={r['num_bases']} must launch lowrank_conv once per "
+                 f"forward within {SPR_TOL} of its plain version")
+    for r in res["refused"]:
+        print(f"P22c spr {r['shape']} M={r['num_bases']}: refused ({r['refused']})")
+    print(f"P22c spr CLI in {run_s:.2f} s: {len(served)} rows served, {len(res['refused'])} "
+          f"refused; {launches} lowrank_conv launches in the run; wrote "
+          f"{os.path.relpath(res['csv'], REPO)}")
+    if not served:
+        fail("P22c: no spr row was served")
+    return dict(launches=launches, rows=len(served), refused=len(res["refused"]),
+                max_err=max(errs))
+
+
+def run_p22_tools():
+    """P22d: add_substitution -> remove_substitution on phase 5's dodecomp
+    AlexNet checkpoint (as npz and as a sharded copy), bit-equal; visual_kernel
+    on F2's MSCAN-t d1 checkpoint and a sharded copy of it."""
+    from convnet_approximater_tpu_torch.ckpt_converter import add_substitution, remove_substitution
+    from convnet_approximater_tpu_torch.convert import params_to_jax
+    from convnet_approximater_tpu_torch.runner.runner import read_checkpoint
+    from convnet_approximater_tpu_torch.utils import (flatten_tree, load_ckpt, save_model,
+                                                      unflatten_tree)
+    from convnet_approximater_tpu_torch.utils.sharded_ckpt import save_sharded
+    from convnet_approximater_tpu_torch.visualization import visual_kernel
+
+    out = os.path.join(P22_DIR, "tools")
+    pt = checkpoint_in(os.path.join(REPO, "build", "chip_smoke_alexnet"))
+    flat = params_to_jax(read_checkpoint(pt))
+    src = os.path.join(out, "alexnet_dodecomp.ckpt.npz")
+    save_model(unflatten_tree(flat), src)
+    shard = save_sharded(os.path.join(out, "alexnet_dodecomp.ckpt.dcp"), unflatten_tree(flat))
+    sites = sorted({k.split("/s_conv/")[0][len("params/"):].replace("/", ".")
+                    for k in flat if "/s_conv/" in k})
+    for path in (src, shard):
+        wrapped = os.path.join(out, "wrapped.npz")
+        add_substitution.main([path, wrapped, "--paths", *sites])
+        wkeys = flatten_tree(load_ckpt(wrapped))
+        back = os.path.join(out, "back.npz")
+        remove_substitution.main([wrapped, back])
+        got = flatten_tree(load_ckpt(back))
+        same = set(got) == set(flat) and all(
+            np.asarray(got[k]).tobytes() == flat[k].tobytes() and got[k].shape == flat[k].shape
+            for k in flat)
+        moved = sum("/new/" in k for k in wkeys)
+        print(f"P22d add_substitution -> remove_substitution on {os.path.relpath(path, REPO)} "
+              f"(phase 5's {os.path.basename(pt)}), sites {sites}: {moved} of {len(wkeys)} "
+              f"leaves under new/, round trip {'bit-equal' if same else 'NOT bit-equal'}")
+        if not same or moved == 0:
+            fail("P22d: the checkpoint tools do not round-trip the AlexNet checkpoint")
+    f2 = os.path.join(REPO, "build", "chip_smoke_ft_d1", "last.ckpt.npz")
+    tree = load_ckpt(f2)
+    keys = flatten_tree(tree)
+    path = next(k[len("params/"):-len("/conv1/weight")].replace("/", ".")
+                for k in sorted(keys, key=lambda k: ("/new/" not in k, k))  # the d1 site first
+                if k.startswith("params/") and k.endswith("/conv1/weight")
+                and k.replace("/conv1/", "/conv2/") in keys)
+    f2_shard = save_sharded(os.path.join(out, "f2_last.ckpt.dcp"), tree)
+    written = visual_kernel.main([f2, f2_shard, "--path", path, "--out", out])
+    kernels = [visual_kernel.extract_kernels(load_ckpt(p), path) for p in (f2, f2_shard)]
+    print(f"P22d visual_kernel on F2's {os.path.relpath(f2, REPO)} and a sharded copy, "
+          f"--path {path}: kernels {kernels[0].shape}, the two equal: "
+          f"{np.array_equal(*kernels)}; wrote {[os.path.relpath(w, REPO) for w in written]}")
+    if not np.array_equal(*kernels) or not all(os.path.getsize(w) > 0 for w in written):
+        fail("P22d: visual_kernel did not write the kernels of both checkpoints")
+
+
+def run_p22():
+    """P22a-d."""
+    import shutil
+
+    t0 = time.perf_counter()
+    os.makedirs(P22_DIR, exist_ok=True)
+    prep = run_p22_prep()
+    serve_rows = run_p22_serve()
+    t_a = time.perf_counter()
+    ckpt = run_p22_ckpt()
+    t_b = time.perf_counter()
+    spr = run_p22_spr()
+    t_c = time.perf_counter()
+    run_p22_tools()
+    t_d = time.perf_counter()
+    print(f"P22 in {t_d - t0:.2f} s: P22a {t_a - t0:.2f} s, P22b {t_b - t_a:.2f} s, P22c "
+          f"{t_c - t_b:.2f} s, P22d {t_d - t_c:.2f} s")
+    shutil.rmtree(P22_DIR, ignore_errors=True)
+    return dict(prep=prep, serve=serve_rows, ckpt=ckpt, spr=spr)
+
+
 def bf16_path(name, rows, **counts):
     """A kernels-line path entry of a kernel's bf16 form: its P19a rows per
     forward of their path (calls per forward as weights), the bound at 2-byte
@@ -6194,6 +6564,12 @@ def main():
     print(f"built {', '.join(f'{s} in {t:.2f} s' for s, t in seconds.items())} "
           f"(one nvcc each, in parallel; {time.perf_counter() - t0:.2f} s in all)")
     print(f"ptxas, lowrank_conv.cu: {ptxas_summary('lowrank_conv.cu', 'lowrank_kernel')}")
+    from convnet_approximater_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    lib = native.build()  # the Loader's host batch prep, before its first batch
+    print(f"built the native batch prep {os.path.relpath(str(lib), REPO)} with {native.CXX} "
+          f"{' '.join(native.CXX_FLAGS)} in {time.perf_counter() - t0:.2f} s")
 
     # -- 3. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)
@@ -6290,6 +6666,10 @@ def main():
     # -- 21. P21: the training CLIs -----------------------------------------
     p21 = run_training_clis()
     lap("21. P21")
+
+    # -- 22. P22: the native batch prep, the sharded checkpoint, the spr CLI, the tools
+    p22 = run_p22()
+    lap("22. P22")
     print(f"wall time in all: {lap.total():.2f} s from the check for the card")
 
     # -- 18. results ------------------------------------------------------
@@ -6458,7 +6838,10 @@ def main():
     kernels[1]["paths"] += [
         dict(path=f"demo_experiment --app v1, row {tag}, per validation forward (P21)",
              launches=lr) for tag, lr, _ in p21["per_row"] if "int8" not in tag] + [
-        dict(path="demo_experiment --app v1, the run (P21)", launches=p21["run"]["lowrank_conv"])]
+        dict(path="demo_experiment --app v1, the run (P21)", launches=p21["run"]["lowrank_conv"]),
+        dict(path=f"low_rank_exp_spr at b={BATCH}: {p22['spr']['rows']} rows served "
+                  f"({p22['spr']['refused']} refused), the timings' forwards and captures (P22c)",
+             launches=p22["spr"]["launches"])]
     kernels[3]["paths"] += [
         dict(path=f"demo_experiment --app v1, row {tag}, per validation forward (P21)",
              launches=q) for tag, _, q in p21["per_row"] if "int8" in tag] + [

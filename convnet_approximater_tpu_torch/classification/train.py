@@ -27,8 +27,10 @@ Drop masks come from a device generator seeded from the run's seed and the
 step (``layers/drop.py::drop_generator``).  The epoch checkpoints carry the
 optimizer state, so a resume continues the run exactly; the JAX helper's
 carry none (only its preemption save does).  ``model_parallel``,
-``pipeline_parallel``, ``use_mesh`` over more than one visible GPU and the
-sharded checkpoint backend raise ``NotImplementedError``.
+``pipeline_parallel`` and ``use_mesh`` over more than one visible GPU raise
+``NotImplementedError``.  ``ckpt_backend="sharded"`` saves the same train
+state as asynchronous ``torch.distributed.checkpoint`` directories
+(``hooks/finetune.py::CheckpointSaver``), which ``resume`` reads too.
 """
 
 from __future__ import annotations
@@ -132,8 +134,6 @@ def mix_seed(seed: int, step: int) -> int:
 
 class TrainHelper:
     def __init__(self, model: nn.Module, train_cfg=None, device="cuda"):
-        from convnet_approximater_tpu_torch.hooks.finetune import SHARDED_TODO
-
         self.cfg = Config()
         self.cfg.update(_default_train_cfg)
         self.cfg.update(train_cfg or {})
@@ -150,8 +150,6 @@ class TrainHelper:
             raise NotImplementedError(
                 f"TrainHelper use_mesh with {torch.cuda.device_count()} visible GPUs: "
                 f"{MESH_TODO}; set use_mesh=False or show the run one GPU")
-        if cfg.ckpt_backend == "sharded":
-            raise NotImplementedError(f"TrainHelper ckpt_backend='sharded': {SHARDED_TODO}")
         self.model = channels_last(model.to(self.device))
         self.ema: Optional[nn.Module] = None
         self.optimizer = None
@@ -273,6 +271,8 @@ class TrainHelper:
             self._guard = None
             guard.__exit__()
             model.eval()
+            if saver is not None:
+                saver.wait()  # the last asynchronous save commits before train returns
         best_metric, best_epoch = self._best
         logger.info(f"*** Best {cfg.eval_metric}: {best_metric} (epoch {best_epoch})")
         return dict(best_metric=best_metric, best_epoch=best_epoch, model=model, ema=self.ema)

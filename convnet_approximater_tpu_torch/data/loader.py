@@ -1,22 +1,25 @@
 """Batch loader (port of ``convnet_approximater_tpu/data/loader.py``).
 
 One route for every batch: the host gathers the batch's uint8 images from
-the dataset's array (with the nearest resize, or the crop/flip augmentation,
-as index arithmetic in numpy), a background thread keeps up to ``prefetch``
-such batches ready in pinned memory, and the consumer copies each to
-``device`` and normalises it there, ``(x - 255 mean) / (255 std)`` in
-float32, in the JAX package's order.  Batches come out as NCHW float32
-tensors that are ``channels_last`` in memory (an NHWC block, the JAX
-package's layout) with int64 labels.
+the dataset's array (with the nearest resize, or the crop/flip augmentation)
+through the native batch prep (``data/native.py``: C++ threads without the
+GIL, writing straight into pinned memory), a background thread keeps up to
+``prefetch`` such batches ready, and the consumer copies each to ``device``
+and normalises it there, ``(x - 255 mean) / (255 std)`` in float32, in the JAX
+package's order.  Batches come out as NCHW float32 tensors that are
+``channels_last`` in memory (an NHWC block, the JAX package's layout) with
+int64 labels.  ``native=False`` gathers in numpy instead, the plain version
+the tests hold the native one to (the same bytes); the native path raises
+where its library cannot be built, and takes uint8 pools only, which every
+dataset holds.
 
 The shuffle order and the augmentation draws come from ``RandomState``
 seeds of the same form as the JAX package's, so both loaders give the same
 batches; ``aug=dict(rand_aug=dict(n=2, m=9))`` runs RandAugment
-(``data/randaug.py``) on the gathered uint8 batch first, from the same
-``RandomState``, as the JAX loader does.  The JAX package's C++ batch prep
-(``data/_native``) is a host speed-up that is not ported (``ROADMAP.md``
-queue 1 item 5).  Augmentation with dense labels (segmentation masks) is
-refused: it would move the images and not their masks.
+(``data/randaug.py``) in numpy on the gathered uint8 batch first, from the
+same ``RandomState``, then the crop and flip in numpy, as the JAX loader does.
+Augmentation with dense labels (segmentation masks) is refused: it would move
+the images and not their masks.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from . import native
 from .datasets import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, ArrayDataset
 from .randaug import rand_augment_batch
 
@@ -140,6 +144,7 @@ class Loader:
         prefetch: int = 2,
         aug=None,
         dtype=torch.float32,
+        native: bool = True,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -152,6 +157,7 @@ class Loader:
         self.device = torch.device(device)
         self.prefetch = prefetch
         self.dtype = dtype  # the normalised images' type (float32, or bfloat16 to serve)
+        self.native = native  # the C++ batch prep; False: numpy (the plain version)
         # hflip, crop_pad, rrc_scale, rand_aug; None or {} = no augmentation
         self.aug = check_aug(aug)
         if self.aug and np.ndim(dataset.labels) > 1:
@@ -173,34 +179,64 @@ class Loader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def gather(self, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    def geometry(self, idx: np.ndarray):
+        """``(out_hw, params, augmented)`` of the batch at ``idx``: its output
+        size, its crop/flip draws (:func:`draw_aug_params`, None without
+        augmentation) and, with ``rand_aug``, the gathered batch RandAugment-ed
+        (else None), from the batch's ``RandomState`` as the JAX loader draws them."""
+        pool = self.dataset.images
+        H, W = pool.shape[1:3]
+        out_hw = self.image_size or (H, W)
+        if not self.aug:
+            return out_hw, None, None
+        aug = dict(self.aug)
+        rand_aug = aug.pop("rand_aug", None)
+        rs = np.random.RandomState(
+            (self.seed * 1000003 + self._epoch * 9176
+             + (int(idx[0]) if len(idx) else 0)) % (2 ** 31))
+        # rand_aug runs on the gathered batch, before the crop and flip draws
+        augmented = rand_augment_batch(pool[idx], rs, **rand_aug) if rand_aug else None
+        return out_hw, draw_aug_params(rs, len(idx), H, W, **aug), augmented
+
+    def gather(self, idx: np.ndarray, out: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
         """The batch at dataset indices ``idx`` on the host, before
-        normalisation: (B, H, W, C) images in the dataset's dtype, int64 labels."""
+        normalisation: (B, H, W, C) uint8 images (written into ``out`` when
+        given) and int64 labels."""
         labels = self.dataset.labels[idx].astype(np.int64)
         pool = self.dataset.images
-        if self.aug:
-            aug = dict(self.aug)
-            rand_aug = aug.pop("rand_aug", None)
-            H, W = pool.shape[1:3]
-            out_hw = self.image_size or (H, W)
-            rs = np.random.RandomState(
-                (self.seed * 1000003 + self._epoch * 9176
-                 + (int(idx[0]) if len(idx) else 0)) % (2 ** 31))
-            images = pool[idx]
-            if rand_aug:  # on the gathered batch, before the crop and flip draws
-                images = rand_augment_batch(images, rs, **rand_aug)
-            images = apply_aug(images, draw_aug_params(rs, len(idx), H, W, **aug), out_hw)
+        out_hw, params, augmented = self.geometry(idx)
+        if augmented is not None:
+            images = apply_aug(augmented, params, out_hw)
+        elif self.native and params is not None:
+            images = native.gather_batch_aug(pool, idx, out_hw, params, out=out)
+        elif self.native:
+            images = native.gather_batch(pool, idx, out_hw, out=out)
+        elif params is not None:
+            images = apply_aug(pool[idx], params, out_hw)
         else:
-            images = pool[idx]
-            if self.image_size is not None:
-                images = _resize_nearest(images, self.image_size)
+            images = _resize_nearest(pool[idx], out_hw)
+        if out is not None and images is not out:
+            out[...] = images
+            images = out
         return np.ascontiguousarray(images), labels
 
+    def pinned(self, shape, dtype) -> Optional[torch.Tensor]:
+        """A pinned host tensor to gather a batch into when the batch goes to a
+        card, else None (numpy allocates)."""
+        if self.device.type != "cuda":
+            return None
+        return torch.empty(shape, dtype=dtype, pin_memory=True)
+
     def _prep(self, idx: np.ndarray):
-        images, labels = (torch.from_numpy(a) for a in self.gather(idx))
-        if self.device.type == "cuda":
-            images, labels = images.pin_memory(), labels.pin_memory()
-        return images, labels
+        pool = self.dataset.images
+        out_hw = self.image_size or pool.shape[1:3]
+        buf = self.pinned((len(idx), *out_hw, pool.shape[3]), torch.from_numpy(pool[:0]).dtype)
+        if buf is None:
+            images, labels = self.gather(idx)
+            return torch.from_numpy(images), torch.from_numpy(labels)
+        _, labels = self.gather(idx, buf.numpy())
+        return buf, torch.from_numpy(labels).pin_memory()
 
     def _put(self, batch):
         images, labels = batch

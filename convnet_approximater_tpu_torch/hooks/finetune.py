@@ -47,7 +47,10 @@ Optimize phase:
   checkpoints, and weights only from the JAX package's.
 
 Checkpoints are the JAX package's flat npz layout, with the optimizer state
-under ``opt`` and the epoch and metric under ``meta``.  The model goes back to
+under ``opt`` and the epoch and metric under ``meta``, or with
+``other_args.ckpt_backend="sharded"`` the same tree in asynchronous
+``torch.distributed.checkpoint`` directories (:class:`CheckpointSaver`);
+``resume`` reads either.  The model goes back to
 ``eval()`` when the hook returns.
 """
 
@@ -80,10 +83,9 @@ from convnet_approximater_tpu_torch.utils import (get_logger, get_rank, load_fla
 from convnet_approximater_tpu_torch.utils.config import Config
 from convnet_approximater_tpu_torch.utils.dtype import cast_floating, cast_params
 from convnet_approximater_tpu_torch.utils.preempt import Preempted, PreemptionGuard
+from convnet_approximater_tpu_torch.utils.sharded_ckpt import save_sharded, wait_for_saves
 
 from .hook import HOOK, Hook
-
-SHARDED_TODO = "the sharded checkpoint backend is ROADMAP.md queue 1 item 5"
 
 _default_dataset_args = dict(
     dataset=None,  # DATASET registry cfg; None -> Synthetic data
@@ -421,54 +423,100 @@ def _link(src: str, dst: str):
     os.replace(tmp, dst)
 
 
+def _relink(target: str, link: str):
+    """Make ``link`` a symlink to ``target`` (a sibling in the same directory),
+    replacing what was there at once."""
+    tmp = link + ".tmp"
+    if os.path.lexists(tmp):
+        os.remove(tmp)
+    os.symlink(os.path.basename(target), tmp)
+    os.replace(tmp, link)
+
+
 class CheckpointSaver:
     """Best-k checkpoint keeper (timm ``CheckpointSaver`` analog).
 
     A checkpoint carries the full train state (weights, optimizer state,
-    epoch, metric), so a killed fine-tune resumes exactly.  ``last`` and
-    ``model_best`` name the same files as the epoch checkpoints they stand
-    for.  Loads for serving ignore the ``opt``/``meta`` collections."""
+    epoch, metric), so a killed fine-tune resumes exactly.  Loads for serving
+    ignore the ``opt``/``meta`` collections.  Two backends:
+
+    * ``npz``: one flat ``checkpoint-<epoch>.ckpt.npz`` per epoch; ``last`` and
+      ``model_best`` name the same files as the epoch checkpoints they stand
+      for (hard links where the file system has them);
+    * ``sharded``: a ``checkpoint-<epoch>.ckpt.dcp`` directory per epoch
+      (``utils/sharded_ckpt.py``), saved asynchronously (the next save, a
+      restore or :meth:`wait` waits for it), ``last.ckpt.dcp`` and
+      ``model_best.ckpt.dcp`` symlinks to epoch directories, and best-k
+      pruning that never removes the directory ``last`` points at; the
+      preemption save is synchronous, into ``checkpoint-preempt.ckpt.dcp``.
+      Its ``meta`` holds Python scalars, as the JAX saver's does."""
 
     def __init__(self, out_dir: str, decreasing: bool = False, max_history: int = 10,
                  backend: str = "npz"):
-        if backend == "sharded":
-            raise NotImplementedError(f"ckpt_backend='sharded': {SHARDED_TODO}")
-        if backend != "npz":
+        if backend not in ("npz", "sharded"):
             raise ValueError(f"unknown ckpt backend {backend!r}")
         self.out_dir = out_dir
         self.decreasing = decreasing
         self.max_history = max_history
+        self.backend = backend
+        self.suffix = ".ckpt.dcp" if backend == "sharded" else ".ckpt.npz"
         self.history = []  # (metric, path, epoch)
         os.makedirs(out_dir, exist_ok=True)
+
+    def _name(self, stem: str) -> str:
+        return os.path.join(self.out_dir, stem + self.suffix)
 
     def _tree(self, variables: dict, epoch: int, metric: float, opt_state) -> dict:
         tree = dict(variables)
         if opt_state is not None:
             tree["opt"] = opt_state_to_tree(opt_state)
-        tree["meta"] = {"epoch": np.int64(epoch), "metric": np.float64(metric)}
+        if self.backend == "sharded":
+            tree["meta"] = {"epoch": int(epoch), "metric": float(metric)}
+        else:
+            tree["meta"] = {"epoch": np.int64(epoch), "metric": np.float64(metric)}
         return tree
 
     def save_checkpoint(self, variables: dict, epoch: int, metric: float, opt_state=None):
-        path = os.path.join(self.out_dir, f"checkpoint-{epoch}.ckpt.npz")
-        save_model(self._tree(variables, epoch, metric, opt_state), path)
-        _link(path, os.path.join(self.out_dir, "last.ckpt.npz"))
+        path = self._name(f"checkpoint-{epoch}")
+        tree = self._tree(variables, epoch, metric, opt_state)
+        if self.backend == "sharded":
+            save_sharded(path, tree, wait=False)
+            _relink(path, self._name("last"))
+        else:
+            save_model(tree, path)
+            _link(path, self._name("last"))
         self.history.append((metric, path, epoch))
         self.history.sort(key=lambda t: t[0], reverse=not self.decreasing)
         while len(self.history) > self.max_history:
             _, stale, _ = self.history.pop()
-            if os.path.exists(stale):
-                os.remove(stale)
+            if self.backend == "npz":
+                if os.path.exists(stale):
+                    os.remove(stale)
+            elif (os.path.isdir(stale) and not os.path.islink(stale)
+                  and os.path.realpath(stale) != os.path.realpath(self._name("last"))):
+                shutil.rmtree(stale)
         best_metric, best_path, best_epoch = self.history[0]
-        _link(best_path, os.path.join(self.out_dir, "model_best.ckpt.npz"))
+        (_relink if self.backend == "sharded" else _link)(best_path, self._name("model_best"))
         return best_metric, best_epoch
 
     def save_last(self, variables: dict, epoch: int, opt_state=None) -> str:
         """Preemption save: only the ``last`` checkpoint (the best-k history is
         untouched).  ``epoch`` is the last completed epoch: a resume redoes the
         interrupted one from these weights."""
-        path = os.path.join(self.out_dir, "last.ckpt.npz")
-        save_model(self._tree(variables, epoch, float("nan"), opt_state), path)
+        tree = self._tree(variables, epoch, float("nan"), opt_state)
+        if self.backend == "sharded":
+            path = self._name("checkpoint-preempt")
+            save_sharded(path, tree, wait=True)
+            _relink(path, self._name("last"))
+            return path
+        path = self._name("last")
+        save_model(tree, path)
         return path
+
+    def wait(self):
+        """Block until the last asynchronous save has committed."""
+        if self.backend == "sharded":
+            wait_for_saves()
 
 
 def update_summary(epoch: int, train_metrics: dict, eval_metrics: dict, path: str,
@@ -518,8 +566,6 @@ class L2Reconstruct(Hook):
             raise NotImplementedError(
                 f"L2Reconstruct use_mesh with {torch.cuda.device_count()} visible GPUs: "
                 f"{MESH_TODO}; set other_args.use_mesh=False or show the run one GPU")
-        if other.ckpt_backend == "sharded":
-            raise NotImplementedError(f"L2Reconstruct ckpt_backend='sharded': {SHARDED_TODO}")
         check_aug(self.data_config.aug)
         self.teacher: Optional[nn.Module] = None
         self.optimizer: Optional[MaskedOptimizer] = None
@@ -764,6 +810,8 @@ class L2Reconstruct(Hook):
             guard.__exit__()
             release_taps(model)
             model.eval()
+            if saver is not None:
+                saver.wait()  # the last asynchronous save commits before the hook returns
         if best_metric is not None:
             logger.info(f"*** Best metric: {best_metric} (epoch {best_epoch})")
         self.result = dict(best_metric=best_metric, best_epoch=best_epoch, preempted=preempted)

@@ -12,7 +12,8 @@ when it overrides a flag), and serves ``Synthetic`` images through
 ``chunk_batch(pad_batch(forward, --min-batch), --max-batch)``, where the
 forward is one ``deploy.compile_serving`` CUDA graph per batch size.  The
 batches come through the port's ``Loader``: by default the host normalizes
-each batch to float32 in the prefetch thread and ships it pinned; with
+each batch to float32 in the prefetch thread, through the native batch prep
+(``data/native.py``), and ships it pinned; with
 ``--ship-uint8`` the uint8 batch ships and the card normalizes it with the
 mean and std of ``<artifact>.meta.json``.  Copies are ``non_blocking`` and the
 loop never waits on the card: one readback at the end.  It prints the JAX
@@ -36,7 +37,7 @@ import numpy as np
 import torch
 
 from convnet_approximater_tpu_torch import deploy
-from convnet_approximater_tpu_torch.data import Loader, Synthetic
+from convnet_approximater_tpu_torch.data import Loader, Synthetic, apply_aug, native
 from convnet_approximater_tpu_torch.data.datasets import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
 
 PARAMS_REFUSED = ("--params: the port's artifact carries its weights (torch.export saves them "
@@ -67,17 +68,33 @@ def parse_args(argv=None):
 
 class HostNormLoader(Loader):
     """The ``Loader`` with the normalization moved to the host: the prefetch
-    thread ships float32 batches, ``(x - 255 mean) / (255 std)`` in the same
-    order, pinned for a ``non_blocking`` copy, cast to the loader's type on the
-    card."""
+    thread writes float32 batches, ``(x - 255 mean) / (255 std)``, into pinned
+    memory for a ``non_blocking`` copy, cast to the loader's type on the card.
+    The native batch prep (``data/native.py::prep_batch``, the JAX ``Loader``'s
+    route) computes it as ``x * (1 / std) + (-mean / std)``, within 1e-6 of the
+    numpy version that ``native=False`` (or ``rand_aug``) takes."""
 
     def _prep(self, idx: np.ndarray):
-        images, labels = self.gather(idx)
-        x = (images.astype(np.float32) - self.mean) / self.std
-        x, labels = torch.from_numpy(np.ascontiguousarray(x)), torch.from_numpy(labels)
-        if self.device.type == "cuda":
-            x, labels = x.pin_memory(), labels.pin_memory()
-        return x, labels
+        pool = self.dataset.images
+        out_hw, params, augmented = self.geometry(idx)
+        labels = torch.from_numpy(self.dataset.labels[idx].astype(np.int64))
+        buf = self.pinned((len(idx), *out_hw, pool.shape[3]), torch.float32)
+        out = None if buf is None else buf.numpy()
+        if self.native and augmented is None:
+            if params is None:
+                x = native.prep_batch(pool, idx, out_hw, self.mean, self.std, out=out)
+            else:
+                x = native.prep_batch_aug(pool, idx, out_hw, self.mean, self.std, params,
+                                          out=out)
+        else:
+            images = (apply_aug(augmented, params, out_hw) if augmented is not None
+                      else self.gather(idx)[0])
+            x = (images.astype(np.float32) - self.mean) / self.std
+            if out is not None:
+                out[...] = x
+        if buf is None:
+            return torch.from_numpy(x), labels
+        return buf, labels.pin_memory()
 
     def _put(self, batch):
         x, labels = batch

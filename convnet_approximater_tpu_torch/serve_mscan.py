@@ -11,13 +11,12 @@ casts its parameters to ``--dtype`` after the fold (bfloat16 by default, as
 the JAX script's), captures its forward as one ``deploy.compile_serving``
 CUDA graph, and drives a steady-state loop: ``Synthetic`` images through the
 port's ``Loader`` (a prefetch thread gathers uint8 batches into pinned
-memory, the card normalizes them after a ``non_blocking`` copy; the session's
+memory through the native batch prep, ``data/native.py``, the card
+normalizes them after a ``non_blocking`` copy; the session's
 input copy casts them to ``--dtype``, as the JAX script casts inside the
 served function), the graph replayed per batch, the argmax kept on the card,
 one readback at the end.  ``--tiny`` is a narrow MSCAN with at most 8 images
-of at most 64² and 4 batches.  The JAX script's C++ host batch prep
-(``data/native.py``) is not ported: the ``Loader``'s prefetch thread stands
-in.  ``--device`` defaults to ``cuda`` and fails when no CUDA device is
+of at most 64² and 4 batches.  ``--device`` defaults to ``cuda`` and fails when no CUDA device is
 present; the CPU runs only when asked for with ``--device cpu``.
 """
 

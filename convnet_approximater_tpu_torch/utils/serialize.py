@@ -3,7 +3,10 @@
 A checkpoint is one ``.npz`` of flat ``/``-joined keys over a nested tree of
 numpy arrays (the JAX package's ``{'params': ..., 'state': ...}``).  Dtypes that
 npz cannot hold (bfloat16, float8) are stored bit-cast to a same-width integer
-under a ``<key>::<dtype>`` name and viewed back at load.  :func:`tree_get` /
+under a ``<key>::<dtype>`` name and viewed back at load.  :func:`load_flat` and
+:func:`load_ckpt` also read a sharded ``.ckpt.dcp`` directory
+(``utils/sharded_ckpt.py``), as the JAX ``load_ckpt`` reads its ``.oshard``
+ones.  :func:`tree_get` /
 :func:`tree_set` address subtrees by dotted path.
 """
 
@@ -70,7 +73,12 @@ def save_model(variables: Dict[str, Any], path: str):
 
 
 def load_flat(path: str) -> Dict[str, np.ndarray]:
-    """Load an ``.npz`` checkpoint as its flat ``/``-joined key -> array dict."""
+    """Load a checkpoint (an ``.npz`` file, or a sharded ``.ckpt.dcp`` directory of
+    ``utils/sharded_ckpt.py``) as its flat ``/``-joined key -> array dict."""
+    from .sharded_ckpt import is_sharded_ckpt, restore_sharded
+
+    if is_sharded_ckpt(path):
+        return flatten_tree(restore_sharded(path))
     flat = {}
     with np.load(path, allow_pickle=False) as data:
         for k in data.files:
@@ -85,7 +93,7 @@ def load_flat(path: str) -> Dict[str, np.ndarray]:
 
 
 def load_ckpt(path: str) -> Dict[str, Any]:
-    """Load an ``.npz`` checkpoint into a nested numpy tree."""
+    """Load a checkpoint (``.npz`` or sharded ``.ckpt.dcp``) into a nested numpy tree."""
     return unflatten_tree(load_flat(path))
 
 

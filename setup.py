@@ -35,6 +35,7 @@ setup(
     },
     include_package_data=True,
     package_data={"convnet_approximater_tpu.data": ["_native/*.cpp"],
-                  "convnet_approximater_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "convnet_approximater_tpu_torch": ["csrc/*.cu", "csrc/*.cuh",
+                                                     "data/_native/*.cpp"]},
     zip_safe=False,
 )

@@ -1,6 +1,7 @@
 """The port's package data: an installed (not editable) port builds its
-kernels from the ``csrc/`` it ships, so every file a kernel source includes
-must be matched by a glob of ``setup.py``'s ``package_data``."""
+kernels from the ``csrc/`` it ships, and its host batch prep from
+``data/_native/``, so every file a kernel source includes, and the native
+source, must be matched by a glob of ``setup.py``'s ``package_data``."""
 
 import ast
 import fnmatch
@@ -35,3 +36,11 @@ def test_every_kernel_include_is_shipped():
         rel = os.path.normpath(os.path.join("csrc", inc))
         assert os.path.isfile(os.path.join(REPO, PACKAGE, rel)), inc
         assert any(fnmatch.fnmatch(rel, g) for g in globs), f"{rel} is not in package_data"
+
+
+def test_the_native_batch_prep_source_is_shipped():
+    from convnet_approximater_tpu_torch.data import native
+
+    rel = os.path.relpath(native.SOURCE, os.path.join(REPO, PACKAGE))
+    assert rel == os.path.join("data", "_native", "batch_prep.cpp")
+    assert any(fnmatch.fnmatch(rel, g) for g in package_data()[PACKAGE]), rel

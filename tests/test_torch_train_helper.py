@@ -199,6 +199,10 @@ def test_ema_update_matches_jax():
 ])
 def test_unported_options_raise(cfg, match):
     model = build_model(dict(type="TinyNet", num_classes=4))
+    if cfg.get("ckpt_backend") == "sharded":
+        # ported (utils/sharded_ckpt.py): the helper takes the sharded backend
+        assert TrainHelper(model, cfg, device="cpu").cfg.ckpt_backend == "sharded"
+        return
     with pytest.raises(NotImplementedError, match=match):
         TrainHelper(model, cfg, device="cpu")
 
