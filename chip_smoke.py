@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --p23     # phase 23 alone, on a host with several cards
 
 From the root of a checkout, with no arguments:
 
@@ -268,7 +269,7 @@ From the root of a checkout, with no arguments:
     ``serve`` does); b=1 through ``pad_batch(., 2)`` against b=1 direct, as
     graphs of the live surface; ``serve_mscan`` at b=128 and ``serve
     --artifact`` of the int8 ResNet-50 at b=128 (plain and ``--ship-uint8``),
-    32 batches each, their end-to-end img/s against 128 / the graph's
+    16 batches each, their end-to-end img/s against 128 / the graph's
     back-to-back ms, and a b=128 batch of the served int8 graph bit-equal to
     the live model and within 1e-3 of it through ``qmatmul_ref``;
 19. P19, bf16 serving: P19a each kernel with bf16 x and out against its
@@ -316,7 +317,7 @@ From the root of a checkout, with no arguments:
     (``data/native.py``) built with g++ on the card's host, its uint8 gather
     bit-equal to numpy's at b=128, 224^2 (plain, and with crop and flip), its
     float32 normalization within 1e-6 of numpy's, the host ms per batch of
-    each; ``serve`` on P18's int8 ResNet-50 artifact at b=128, 32 batches,
+    each; ``serve`` on P18's int8 ResNet-50 artifact at b=128, 16 batches,
     host-normalized through numpy and through the native prep and shipping
     uint8 through either gather (img/s and host share), the native prep's
     batch through the served graph bit-equal to the live model; P22b P20's
@@ -330,7 +331,28 @@ From the root of a checkout, with no arguments:
     listed; P22d ``add_substitution`` then ``remove_substitution`` on phase 5's
     dodecomp AlexNet checkpoint (npz and a sharded copy) bit-equal, and
     ``visual_kernel`` on F2's MSCAN-t d1 checkpoint and a sharded copy;
-23. prints one JSON line of kernel results (each kernel's entry lists the later
+23. P23, serving across processes: a one-rank NCCL process group on the
+    card; the MSCAN-t headline surface and ConvNeXt-T DwSepRep r1 at b=64,
+    224^2, f32, each through ``ClassInference``'s stage pipeline
+    (``enable_stage_pipeline``) and the whole-model one
+    (``build_model_pipeline``) at one pipe rank and M = 4: bit-equal to the
+    plain forward on the same microbatch split, within 1e-5 of the plain
+    forward, the kernel's launches per forward counted (each pipelined block M
+    times), ms per forward between barriers beside the plain eager forward;
+    ``ValidateHelper(use_mesh=True)`` of the headline surface through its
+    stage pipeline (as ``ClassInference``'s stage report validates) against
+    the plain validation without the pipeline: counts equal, loss within
+    1e-6; ``serve --data-parallel`` of P18's int8 ResNet-50 and dodecomp
+    AlexNet artifacts (b=128, 8 batches) bit-equal to ``serve`` without the
+    flag.  With 2 or more cards the same paths run as NCCL ranks over 2 (and
+    4) cards at ``pipeline_parallel=2`` (a (world // 2, 2) mesh: over 4 cards
+    two data groups, each validating its half of every batch; ``serve`` puts
+    every rank on its data axis, each making and serving its share of a batch;
+    AlexNet, batch-static, on one process only), held to world size 1: logits
+    within 1e-5, int8 within 1e-3, validation counts equal and loss within
+    1e-6, each world size's serving img/s beside one card's; on one card it
+    says that it ran world size 1 only;
+24. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``, the bf16 ones among
     them), then ``{"ok": true, "device": ...}``.
 
@@ -340,6 +362,13 @@ and readings use keeps the config's iterations), and each phase group's wall
 time is printed.  Every failed check exits non-zero without the result lines,
 as does a run without a CUDA device or outside a checkout of the repository.  Random weights
 come from a seeded generator; no network is used.
+
+``--p23`` runs steps 1-2, the dodecomp AlexNet's CLI run of phase 5 for its
+checkpoint, P18's two ``export_model`` artifacts (the dodecomp AlexNet and
+the int8 ResNet-50) and then P23 alone, its ``serve --data-parallel`` loops
+P23_SCALING_BATCHES batches long: on a host with 2 or 4 cards it measures
+serving across them (the img/s of each world size against one card's).  It
+prints no result lines.
 """
 
 from __future__ import annotations
@@ -430,6 +459,9 @@ KERNEL_NAMES = {"msca_fused march": ("march_kernel<", "march_any_kernel"),
                 "parallel_cascade": ("uniform_kernel<", "ring_kernel"),
                 "lowrank_conv": ("lowrank_kernel<",),
                 "qmatmul": ("qmatmul_kernel<",)}
+# CUDA-event-timed runs per kernel timing (each behind a sleep kernel; time_pair takes four
+# such timings): 10, to keep the script well inside its time limit
+KERNEL_ITERS = 10
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3, bytes/s
 PEAK_F32 = 67e12      # H100 SXM float32 outside the tensor cores, FLOP/s
 PEAK_TF32 = 495e12    # H100 SXM TF32 tensor cores, dense, FLOP/s
@@ -510,7 +542,7 @@ def qmm_cost(M, K, N):
     return 4 * M * K + K * N + 4 * (2 * N + 1) + 4 * M * N, 2 * M * N * K
 
 
-def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
+def cuda_ms(fn, iters: int = KERNEL_ITERS, warmup: int = 3) -> float:
     """Median device milliseconds of ``fn()`` over ``iters`` CUDA-event-timed runs.
 
     Before each run a sleep kernel holds the stream for about twice the host
@@ -539,7 +571,7 @@ def cuda_ms(fn, iters: int = 25, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def time_pair(kernel, plain, iters: int = 25):
+def time_pair(kernel, plain, iters: int = KERNEL_ITERS):
     """Median ms of kernel and plain version, taken in turns: plain, kernel, kernel, plain."""
     p = [cuda_ms(plain, iters)]
     k = [cuda_ms(kernel, iters) for _ in range(2)]
@@ -627,7 +659,7 @@ def msca_row(form, H, C, blocks, gen, batch: int = BATCH):
                bound_ms=b_ms)
     print(f"msca_fused {form:5s} x{row['shape']}: rel err {err:.3e} (bound "
           f"{KERNEL_TOL}), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms (median of 25 CUDA-event runs, x2); bound {b_ms:.4f} ms "
+          f"{plain_ms:.4f} ms (median of {KERNEL_ITERS} CUDA-event runs, x2); bound {b_ms:.4f} ms "
           f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP), "
           f"roofline share {b_ms / ms:.1%}; plan G {p.g}, {p.ntiles} tiles of {p.tw}, "
           f"{p.bands} bands, {p.blocks} blocks, {p.smem} B, {p.launches} launches")
@@ -740,7 +772,7 @@ def check_lowrank_kernel(gen):
                              f32_bound_ms=f32_ms))
             print(f"lowrank_conv {form:4s} x{(BATCH, H, H, C)} k={k} M={M} N={N}: rel err "
                   f"{err:.3e} (bound {KERNEL_TOL}), max abs err {abs_err:.3e}, kernel {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms (median of 25 CUDA-event runs, x2), cuDNN conv of "
+                  f"plain {plain_ms:.4f} ms (median of {KERNEL_ITERS} CUDA-event runs, x2), cuDNN conv of "
                   f"W_eff {lib_ms:.4f} ms (rel diff {lib_err:.1e}); bound {b_ms:.4f} ms by {b_by} "
                   f"on the 3xTF32 route ({nbytes / 1e6:.1f} MB, {basis_flops / 1e9:.3f} + "
                   f"{mix_flops / 1e9:.3f} GFLOP), {f32_ms:.4f} ms in float32 at 67 TFLOP/s; "
@@ -897,7 +929,7 @@ def ptxas_summary(source: str, name: str) -> str:
     return "; ".join(f"{k}: {', '.join(v)}" for k, v in stats.items()) or "not measured"
 
 
-def library_time(fn, iters: int = 25) -> float:
+def library_time(fn, iters: int = KERNEL_ITERS) -> float:
     """Median ms of the yardstick library call, in two turns."""
     return float(np.median([cuda_ms(fn, iters) for _ in range(2)]))
 
@@ -4853,7 +4885,7 @@ P18_DIR = os.path.join(REPO, "build", "chip_smoke_p18")
 EXPORT_TOL = 1e-6   # an artifact's logits against its live model's: max-abs over the largest
 SYMBOLIC_BATCHES = (1, 2, 64, 65)
 SERVE_BATCH = 128
-P18_SERVE_BATCHES = 32
+P18_SERVE_BATCHES = 16  # cut from 32 for the script's time limit
 
 
 def max_rel(a, b) -> float:
@@ -5023,6 +5055,19 @@ def hold_artifact(name, model, loaded, x, want_ops, exact: bool, setup: str, pla
     return launches["artifact"], times
 
 
+def alex_export_argv(ckpt: str) -> list:
+    """``export_model``'s arguments for P18b's dodecomp AlexNet of ``ckpt``."""
+    return ["--config", ALEX_DODECOMP, "--checkpoint", ckpt, "--out",
+            os.path.join(P18_DIR, "alexnet_dodecomp.pt2"), "--batch", str(BATCH), "--seed", "0",
+            "--dtype", "float32"]
+
+
+# export_model's arguments for P18b's int8 ResNet-50 (a symbolic batch)
+R50_EXPORT_ARGV = ["--config", RESNET50_INT8, "--out", os.path.join(P18_DIR, "resnet50_int8.pt2"),
+                   "--batch", str(BATCH), "--quantize", "int8", "--symbolic-batch", "--seed", "0",
+                   "--dtype", "float32"]
+
+
 def run_exports():
     """P18b-d: the four exported surfaces at full width, the symbolic batch,
     and the serving loops.  Returns {path: launches per forward or in the run}."""
@@ -5050,12 +5095,9 @@ def run_exports():
         torch.cuda.empty_cache()
     # P18b: the dodecomp AlexNet through export_model, its checkpoint from phase 5
     ckpt = checkpoint_in(os.path.join(REPO, "build", "chip_smoke_alexnet"))
-    alex_path = os.path.join(P18_DIR, "alexnet_dodecomp.pt2")
     t0 = time.perf_counter()
     with uncounted():
-        res = export_model.main(["--config", ALEX_DODECOMP, "--checkpoint", ckpt, "--out",
-                                 alex_path, "--batch", str(BATCH), "--seed", "0",
-                                 "--dtype", "float32"])
+        res = export_model.main(alex_export_argv(ckpt))
     cli_s = time.perf_counter() - t0
     out["AlexNet dodecomp artifact"], _ = hold_artifact(
         "AlexNet dodecomp (export_model)", res["model"], res["artifact"],
@@ -5067,9 +5109,7 @@ def run_exports():
     r50_path = os.path.join(P18_DIR, "resnet50_int8.pt2")
     t0 = time.perf_counter()
     with uncounted():
-        res = export_model.main(["--config", RESNET50_INT8, "--out", r50_path, "--batch",
-                                 str(BATCH), "--quantize", "int8", "--symbolic-batch",
-                                 "--seed", "0", "--dtype", "float32"])
+        res = export_model.main(R50_EXPORT_ARGV)
     cli_s = time.perf_counter() - t0
     out["int8 ResNet-50 artifact"], _ = hold_artifact(
         "int8 ResNet-50 (export_model --quantize int8)", res["model"], res["artifact"],
@@ -5133,7 +5173,7 @@ def run_exports():
     reset_counts()
     res = serve_mscan.main(["--batch", str(SERVE_BATCH), "--batches", str(P18_SERVE_BATCHES),
                             "--dtype", "float32"])
-    out["serve_mscan, b=128, 32 batches"] = kernel_counts()["parallel_cascade"]
+    out[f"serve_mscan, b=128, {P18_SERVE_BATCHES} batches"] = kernel_counts()["parallel_cascade"]
     b2b = back_to_back_ms(res["compiled"])
     loops = [("serve_mscan (MSCAN-t dconv0 surface)", res["img_per_s"], b2b)]
     del res
@@ -5141,7 +5181,8 @@ def run_exports():
         reset_counts()
         res = serve.main(["--artifact", r50_path, "--batch", str(SERVE_BATCH), "--batches",
                           str(P18_SERVE_BATCHES)] + (["--ship-uint8"] if ship else []))
-        out[f"serve int8 ResNet-50, b=128, 32 batches{', --ship-uint8' if ship else ''}"] = \
+        out[f"serve int8 ResNet-50, b=128, {P18_SERVE_BATCHES} batches"
+            f"{', --ship-uint8' if ship else ''}"] = \
             kernel_counts()["qmatmul"]
         x = seeded_batch(191, batch=SERVE_BATCH)
         compiled, _ = deploy.compile_serving(res["module"], x)
@@ -6200,7 +6241,7 @@ def run_p22_prep():
 
 
 def run_p22_serve():
-    """P22a, serve of P18's int8 ResNet-50 artifact at b=128, 32 batches: host
+    """P22a, serve of P18's int8 ResNet-50 artifact at b=128, 16 batches: host
     normalization through numpy and through the native prep, uint8 shipped
     through the numpy and the native gather; a batch of the native host
     normalization through the served graph bit-equal to the live model's."""
@@ -6482,6 +6523,325 @@ def run_p22():
     return dict(prep=prep, serve=serve_rows, ckpt=ckpt, spr=spr)
 
 
+# -- P23: serving across processes --------------------------------------------
+P23_DIR = os.path.join(REPO, "build", "chip_smoke_p23")
+P23_M = 4                # microbatches of every P23 pipeline
+P23_PP = 2               # pipe ranks above one card (the mesh's model axis)
+P23_TOL = 1e-5           # pipelined logits against the plain forward (and world 1), relative
+P23_LOSS_TOL = 1e-6      # data-parallel validation's loss against one process's, relative
+P23_SERVE_BATCHES = 8
+P23_SCALING_BATCHES = 32  # the serving loops of ``--p23``, which measures serving across cards
+P23_INPUT = (BATCH, 224, 224, 3)
+P23_EVAL = dict(batch_size=BATCH, num_batches=2, input_size=(224, 224, 3), num_classes=1000,
+                log_freq=100)
+# each model's kernel and the layer that launches it once per forward
+P23_MODELS = {"MSCAN-t headline surface": ("msca_fused", "MSCA"),
+              "ConvNeXt-T r1": ("parallel_cascade", "CascadeConv")}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def p23_models() -> dict:
+    """The MSCAN-t headline surface (random norms, layer scales 1) and ConvNeXt-T
+    DwSepRep r1 (layer scales 1) at full width on this rank's card, eval."""
+    import torch
+
+    from convnet_approximater_tpu_torch.core import DwSepRep
+    from convnet_approximater_tpu_torch.deploy_planner import apply_app
+    from convnet_approximater_tpu_torch.filters import DepthwiseConvFilter
+    from convnet_approximater_tpu_torch.models import ConvNeXtTiny
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+
+    _, surface = serving_surface(mscan_base(random_norms=True), False)
+    convnext = ConvNeXtTiny()
+    init_weights(convnext, torch.Generator().manual_seed(0))
+    convnext = channels_last(convnext.cuda()).eval()
+    n = apply_app(convnext, DwSepRep(ranks=1), [DepthwiseConvFilter(min_kernel=3)],
+                  torch.Generator().manual_seed(0))
+    if n != 18:
+        fail(f"P23: DwSepRep r1 rewrote {n} ConvNeXt-T blocks, expected 18")
+    set_gamma(convnext)
+    return {"MSCAN-t headline surface": surface, "ConvNeXt-T r1": convnext}
+
+
+def p23_split(model, carrier, x, stages):
+    """``model(x)`` with the carrier's ``stages`` run on the P23_M microbatches
+    in turn: the plain forward on the pipeline's split."""
+    import torch
+
+    carrier._exec_stage = lambda s, stage, h: (torch.cat([stage(c) for c in h.chunk(P23_M)])
+                                                if s in stages else stage(h))
+    try:
+        return model(x)
+    finally:
+        del carrier._exec_stage
+
+
+def p23_pipelines(models: dict, mesh, pp: int) -> dict:
+    """Each model pipelined in ``ClassInference``'s two modes over the mesh's
+    model axis (``pp`` ranks), b=64, 224^2, M = P23_M: the stage pipeline
+    (``enable_stage_pipeline``) and the whole-model one
+    (``build_model_pipeline``).  Each is held on this rank, bit for bit, to the
+    plain forward on the same microbatch split and within P23_TOL to the plain
+    forward; its kernel's launches per forward against what this rank's
+    blocks run; its ms per forward (``pipelined_ms``) beside the plain eager
+    forward's, timed the same way."""
+    import torch
+
+    from convnet_approximater_tpu_torch.models.stage_exec import (is_stack,
+                                                                  resolve_pipeline_carrier)
+    from convnet_approximater_tpu_torch.parallel import build_model_pipeline
+    from convnet_approximater_tpu_torch.parallel.mesh import axis_ranks
+    from convnet_approximater_tpu_torch.runner import class_inference as ci
+
+    index = axis_ranks(mesh, "model")[0]
+    x = seeded_batch(230, batch=P23_INPUT[0], size=P23_INPUT[1])
+    out = {}
+    for name, model in models.items():
+        kernel, layer = P23_MODELS[name]
+        carrier = resolve_pipeline_carrier(model)
+        blocks = [len(s) for s in carrier.pipeline_stages()]
+        layers = lambda m: sum(type(k).__name__ == layer for k in m.modules())  # noqa: E731
+        stages = [s for s, st in enumerate(carrier.pipeline_stages())
+                  if is_stack(st) and len(st) % pp == 0]
+        with torch.no_grad(), uncounted():
+            plain = model(x)
+            split = p23_split(model, carrier, x, stages)
+            whole_split = torch.cat([model(c) for c in x.chunk(P23_M)])
+            plain_ms = ci.pipelined_ms(model, x)
+        # the stage pipeline: every rank runs the other stages, and its own blocks M times
+        ci.enable_stage_pipeline(model, mesh, P23_M)
+        if carrier.pipelined_stages() != stages:
+            fail(f"P23 {name}: stages {carrier.pipelined_stages()} pipelined, expected {stages}")
+        reset_counts()
+        with torch.no_grad():
+            y = model(x)
+        launches = kernel_counts()[kernel]
+        with uncounted():
+            ms = ci.pipelined_ms(model, x)
+        carrier.enable_pipeline(None)
+        expected = sum(layers(st) // pp * P23_M if s in stages else layers(st)
+                       for s, st in enumerate(carrier.pipeline_stages()))
+        rows = {"stage": dict(y=y, split=split, launches=launches, expected=expected, ms=ms,
+                              stages=stages)}
+        # the whole-model pipeline: this rank runs its units, M times
+        with uncounted():
+            forward, report = build_model_pipeline(model, P23_INPUT, mesh,
+                                                   num_microbatches=P23_M)
+        reset_counts()
+        with torch.no_grad():
+            y = forward(x)
+        launches = kernel_counts()[kernel]
+        with uncounted():
+            ms = ci.pipelined_ms(forward, x)
+        forward.close()
+        mine = set(report[index]["units"])
+        rows["whole"] = dict(y=y, split=whole_split, launches=launches, ms=ms, report=report,
+                             expected=P23_M * sum(layers(u.module) for u in model.pipeline_units()
+                                                  if u.name in mine))
+        for mode, r in rows.items():
+            err = rel_err(r["y"], plain)
+            same = torch.equal(r["y"], r["split"])
+            print(f"P23 {name} {mode} pipeline over {pp} pipe rank(s), M = {P23_M}, NHWC "
+                  f"{P23_INPUT}, f32: {r['ms']:.3f} ms per forward (eager between barriers, the "
+                  f"slowest rank; the plain eager forward {plain_ms:.3f} ms); {kernel} "
+                  f"{r['launches']} launches per forward on this rank (expected "
+                  f"{r['expected']}); against the plain forward on the same split "
+                  f"{'bit-equal' if same else 'NOT bit-equal'}, against the plain forward "
+                  f"rel err {err:.3e} (bound {P23_TOL}) [{smi_line()}]")
+            if not same or err > P23_TOL or r["launches"] != r["expected"]:
+                fail(f"P23 {name} {mode} pipeline: disagrees with the plain forward or "
+                     f"launched {r['launches']} {kernel}, expected {r['expected']}")
+            out[(name, mode)] = dict(y=r["y"].cpu(), launches=r["launches"], ms=r["ms"],
+                                     plain_ms=plain_ms)
+        for r in rows["whole"]["report"]:
+            print(f"P23 {name} whole pipeline stage {r['stage']}: {r['share']:.1%} of the MACs "
+                  f"({r['macs'] / 1e9:.3f} G per microbatch), {len(r['units'])} units "
+                  f"({r['units'][0]} .. {r['units'][-1]})")
+        print(f"P23 {name} stage pipeline: stages {stages} pipelined (block counts {blocks}; a "
+              f"stage pipelines when its blocks are identical and {pp} divides their count)")
+    return out
+
+
+def p23_serve(world: int, batches: int) -> dict:
+    """``serve --data-parallel`` of P18's int8 ResNet-50 (symbolic batch) and
+    dodecomp AlexNet (batch-static at 64: one process only) artifacts at b=128,
+    ``batches`` batches; on one process also ``serve`` without the flag,
+    which it must equal bit for bit."""
+    import torch
+
+    from convnet_approximater_tpu_torch import serve
+
+    out = {}
+    for name, artifact, kernel in (("int8 ResNet-50", "resnet50_int8.pt2", "qmatmul"),
+                                   ("dodecomp AlexNet", "alexnet_dodecomp.pt2", "lowrank_conv")):
+        if world > 1 and name == "dodecomp AlexNet":
+            print(f"P23 serve --data-parallel {name}: not run over {world} processes (the "
+                  f"artifact is batch-static at {BATCH}: a rank cannot serve a slice of it)")
+            continue
+        argv = ["--artifact", os.path.join(P18_DIR, artifact), "--batch", str(SERVE_BATCH),
+                "--batches", str(batches)]
+        reset_counts()
+        res = serve.main(argv + ["--data-parallel"])
+        row = dict(logits=res["logits"].cpu(), img_per_s=res["img_per_s"],
+                   launches=kernel_counts()[kernel], batch=res["batch"], rows=res["rows"])
+        if world == 1:
+            with uncounted():
+                alone = serve.main(argv)
+            same = torch.equal(res["logits"], alone["logits"])
+            print(f"P23 serve --data-parallel {name} over 1 process (b={res['batch']}, "
+                  f"{batches} batches): {res['img_per_s']:.1f} img/s against "
+                  f"{alone['img_per_s']:.1f} without the flag; the last batch's logits "
+                  f"{'bit-equal' if same else 'NOT bit-equal'} to serve without the flag; "
+                  f"{kernel} launched {row['launches']} times (the captures' forwards) "
+                  f"[{smi_line()}]")
+            if not same:
+                fail(f"P23: serve --data-parallel of {name} differs from serve without the flag")
+        out[name] = row
+        del res
+        torch.cuda.empty_cache()
+    return out
+
+
+def p23_world(pp: int, serve_batches: int) -> dict:
+    """P23's paths on the process group this process is in: the pipelines on a
+    (world // pp, pp) mesh, data-parallel validation of the headline surface
+    through its stage pipeline on that mesh, and ``serve --data-parallel``.
+    Returns what the ranks are compared by."""
+    import torch
+    import torch.distributed as dist
+
+    from convnet_approximater_tpu_torch.classification.validate import ValidateHelper
+    from convnet_approximater_tpu_torch.models.stage_exec import resolve_pipeline_carrier
+    from convnet_approximater_tpu_torch.runner import class_inference as ci
+
+    world = dist.get_world_size()
+    mesh = ci.pipeline_mesh(pp)
+    models = p23_models()
+    out = dict(pipelines=p23_pipelines(models, mesh, pp))
+    surface = models["MSCAN-t headline surface"]
+    device = next(surface.parameters()).device
+    with uncounted():
+        # as ClassInference's stage report validates: the pipe ranks of a data group
+        # load the same rows, the sums go over the data axis
+        ci.enable_stage_pipeline(surface, mesh, P23_M)
+        out["validate"] = ValidateHelper(surface, dict(P23_EVAL, use_mesh=True),
+                                         device=device).validate()
+        resolve_pipeline_carrier(surface).enable_pipeline(None)
+        if world == 1:
+            alone = ValidateHelper(surface, P23_EVAL, device=device).validate()
+            p23_hold_validation("one process without the mesh or the pipeline",
+                                out["validate"], alone)
+    del models
+    torch.cuda.empty_cache()
+    out["serve"] = p23_serve(world, serve_batches)
+    return out
+
+
+def p23_hold_validation(label, got, want):
+    loss_err = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    print(f"P23 ValidateHelper(use_mesh=True) on the headline surface through its stage "
+          f"pipeline ({P23_EVAL['num_batches']} "
+          f"batches of {P23_EVAL['batch_size']}) against {label}: loss {got['loss']:.6f} against "
+          f"{want['loss']:.6f} (rel {loss_err:.3e}, bound {P23_LOSS_TOL}), top-1 {got['top1']} "
+          f"against {want['top1']}, top-5 {got['top5']} against {want['top5']}")
+    if loss_err > P23_LOSS_TOL or (got["top1"], got["top5"]) != (want["top1"], want["top5"]):
+        fail(f"P23: data-parallel validation disagrees with {label}")
+
+
+def p23_rank(rank: int, world: int, port: int, serve_batches: int):
+    """One NCCL rank of P23 on card ``rank``: P23's paths at pipeline_parallel
+    P23_PP, its results saved for the first process to compare."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    if rank:
+        sys.stdout = open(os.path.join(P23_DIR, f"world{world}_rank{rank}.log"), "w")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from convnet_approximater_tpu_torch import parallel
+
+    parallel.initialize_distributed(f"localhost:{port}", world, rank, device="cuda")
+    try:
+        res = p23_world(P23_PP, serve_batches)
+    finally:
+        parallel.shutdown_distributed()
+    torch.save(res, os.path.join(P23_DIR, f"world{world}_rank{rank}.pt"))
+
+
+def run_p23(serve_batches: int = P23_SERVE_BATCHES) -> dict:
+    """P23: serving across processes.  World size 1 through a real NCCL process
+    group on this card (the pipelines at one pipe rank, M = P23_M), then, on a
+    host with 2 or more cards, NCCL ranks over 2 (and 4) cards at
+    pipeline_parallel P23_PP, held to world size 1; ``serve`` loops
+    ``serve_batches`` batches long."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from convnet_approximater_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    os.makedirs(P23_DIR, exist_ok=True)
+    parallel.initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        one = p23_world(1, serve_batches)
+    finally:
+        parallel.shutdown_distributed()
+    torch.cuda.empty_cache()
+    worlds = {1: time.perf_counter() - t0}
+    cards = torch.cuda.device_count()
+    for world in [w for w in (2, 4) if w <= cards]:
+        t1 = time.perf_counter()
+        try:
+            mp.start_processes(p23_rank, args=(world, free_port(), serve_batches), nprocs=world,
+                               join=True, start_method="spawn")
+        except mp.ProcessRaisedException as e:
+            fail(f"P23: a rank of world size {world} raised: {e}")
+        except mp.ProcessExitedException as e:
+            fail(f"P23: a rank of world size {world} died: {e}")
+        ranks = [torch.load(os.path.join(P23_DIR, f"world{world}_rank{r}.pt"),
+                            weights_only=False) for r in range(world)]
+        for r, res in enumerate(ranks):
+            for key, row in res["pipelines"].items():
+                err = rel_err(row["y"], one["pipelines"][key]["y"])
+                print(f"P23 world size {world}, rank {r}: {key[0]} {key[1]} pipeline over "
+                      f"{P23_PP} pipe ranks {row['ms']:.3f} ms per forward (plain eager "
+                      f"{row['plain_ms']:.3f}), against world size 1 rel err {err:.3e} "
+                      f"(bound {P23_TOL})")
+                if err > P23_TOL:
+                    fail(f"P23: world size {world} disagrees with world size 1 on {key}")
+            p23_hold_validation(f"world size 1 (rank {r} of {world})", res["validate"],
+                                one["validate"])
+            for name, row in res["serve"].items():
+                err = max_rel(row["logits"], one["serve"][name]["logits"])
+                print(f"P23 world size {world}, rank {r}: serve --data-parallel {name} "
+                      f"{row['img_per_s']:.1f} img/s, the last batch against world size 1 "
+                      f"max-abs rel {err:.3e} (bound {INT8_TOL})")
+                if err > INT8_TOL:
+                    fail(f"P23: serve --data-parallel over {world} disagrees with one process")
+        for name, row in one["serve"].items():
+            if name not in ranks[0]["serve"]:
+                continue
+            slowest = min(res["serve"][name]["img_per_s"] for res in ranks)
+            print(f"P23 serve --data-parallel {name}, b={row['batch']}, {serve_batches} "
+                  f"batches: {slowest:.1f} img/s over {world} cards (the slowest rank; each "
+                  f"made and served {ranks[0]['serve'][name]['rows']} rows of a batch), "
+                  f"{slowest / row['img_per_s']:.3f}x one card's {row['img_per_s']:.1f} "
+                  f"[{smi_line()}]")
+        worlds[world] = time.perf_counter() - t1
+    print(f"P23 world sizes run: {', '.join(f'{w} ({s:.2f} s)' for w, s in worlds.items())}")
+    if cards < 2:
+        print(f"P23: this host has {cards} card: world sizes above 1 were not run (NCCL puts "
+              f"one rank on a card)")
+    return one
+
+
 def bf16_path(name, rows, **counts):
     """A kernels-line path entry of a kernel's bf16 form: its P19a rows per
     forward of their path (calls per forward as weights), the bound at 2-byte
@@ -6527,12 +6887,13 @@ class Laps:
         return time.perf_counter() - self.start
 
 
-def main():
+def card_and_build() -> str:
+    """Steps 1-2: the card's name and power limit, the kernels and the native
+    batch prep built from the checkout.  Returns the card's name."""
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA device")
-    lap = Laps()
     if not all(os.path.isfile(os.path.join(REPO, PACKAGE, "csrc", s)) for s in SOURCES):
         fail(f"{PACKAGE}/ not found beside chip_smoke.py: run it from a checkout of the repository")
     sys.path.insert(0, REPO)
@@ -6570,6 +6931,31 @@ def main():
     lib = native.build()  # the Loader's host batch prep, before its first batch
     print(f"built the native batch prep {os.path.relpath(str(lib), REPO)} with {native.CXX} "
           f"{' '.join(native.CXX_FLAGS)} in {time.perf_counter() - t0:.2f} s")
+    return kind
+
+
+def main_p23():
+    """``--p23``: steps 1-2, the artifacts P23 serves, then P23 alone."""
+    lap = Laps()
+    card_and_build()
+    from convnet_approximater_tpu_torch import export_model
+
+    work_dir = os.path.join(REPO, "build", "chip_smoke_alexnet")
+    run_cli(ALEX_DODECOMP, work_dir)  # phase 5's run: the checkpoint P18 exports
+    os.makedirs(P18_DIR, exist_ok=True)
+    for argv in (alex_export_argv(checkpoint_in(work_dir)), R50_EXPORT_ARGV):
+        with uncounted():
+            export_model.main(argv)
+    lap("1.-2. the card and the build, P23's two artifacts")
+    run_p23(P23_SCALING_BATCHES)
+    lap("23. P23")
+
+
+def main():
+    import torch
+
+    lap = Laps()
+    kind = card_and_build()
 
     # -- 3. kernels against their plain versions at the main paths' shapes
     gen = torch.Generator().manual_seed(0)
@@ -6670,6 +7056,10 @@ def main():
     # -- 22. P22: the native batch prep, the sharded checkpoint, the spr CLI, the tools
     p22 = run_p22()
     lap("22. P22")
+
+    # -- 23. P23: serving across processes (NCCL) ---------------------------
+    p23 = run_p23()
+    lap("23. P23")
     print(f"wall time in all: {lap.total():.2f} s from the check for the card")
 
     # -- 18. results ------------------------------------------------------
@@ -6780,8 +7170,8 @@ def main():
     kernels[2]["paths"] += [
         dict(path="exported MSCAN-t dconv0 surface at b=128, per forward (P18b)",
              launches=p18["MSCAN-t dconv0 surface"]["parallel_cascade"]),
-        dict(path="serve_mscan at b=128, 32 batches: the capture's 4 forwards (P18d)",
-             launches=p18["serve_mscan, b=128, 32 batches"])]
+        dict(path=f"serve_mscan at b=128, {P18_SERVE_BATCHES} batches: the capture's 4 forwards "
+                  f"(P18d)", launches=p18[f"serve_mscan, b=128, {P18_SERVE_BATCHES} batches"])]
     kernels[3]["paths"] += [
         dict(path="exported int8 ResNet-50 (export_model --quantize int8), per forward (P18b)",
              launches=p18["int8 ResNet-50 artifact"]["qmatmul"])] + [
@@ -6846,10 +7236,28 @@ def main():
         dict(path=f"demo_experiment --app v1, row {tag}, per validation forward (P21)",
              launches=q) for tag, _, q in p21["per_row"] if "int8" in tag] + [
         dict(path="demo_experiment --app v1, the run (P21)", launches=p21["run"]["qmatmul"])]
+    # P23: the pipelines and serve --data-parallel at world size 1 (launches per forward on
+    # the one pipe rank; serve: the captures' forwards)
+    for k, name in ((0, "MSCAN-t headline surface"), (2, "ConvNeXt-T r1")):
+        kernels[k]["paths"] += [
+            dict(path=f"{name}, {mode} pipeline over 1 NCCL rank, M = {P23_M}, per forward "
+                      f"(P23)", launches=p23["pipelines"][(name, mode)]["launches"])
+            for mode in ("stage", "whole")]
+    kernels[3]["paths"].append(dict(
+        path=f"serve --data-parallel int8 ResNet-50 over 1 NCCL rank, b={SERVE_BATCH}: the "
+             f"capture's forwards (P23)", launches=p23["serve"]["int8 ResNet-50"]["launches"]))
+    kernels[1]["paths"].append(dict(
+        path="serve --data-parallel dodecomp AlexNet over 1 NCCL rank: the capture's forwards "
+             "(P23)", launches=p23["serve"]["dodecomp AlexNet"]["launches"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--p23"]:
+        main_p23()
+    elif sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]} (none, or --p23)")
+    else:
+        main()

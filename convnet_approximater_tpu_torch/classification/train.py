@@ -28,7 +28,8 @@ step (``layers/drop.py::drop_generator``).  The epoch checkpoints carry the
 optimizer state, so a resume continues the run exactly; the JAX helper's
 carry none (only its preemption save does).  ``model_parallel``,
 ``pipeline_parallel`` and ``use_mesh`` over more than one visible GPU raise
-``NotImplementedError``.  ``ckpt_backend="sharded"`` saves the same train
+``NotImplementedError``: training across processes is ROADMAP.md queue 1,
+item 12b.  ``ckpt_backend="sharded"`` saves the same train
 state as asynchronous ``torch.distributed.checkpoint`` directories
 (``hooks/finetune.py::CheckpointSaver``), which ``resume`` reads too.
 """
@@ -50,12 +51,13 @@ from convnet_approximater_tpu_torch.data import Loader, Synthetic, build_dataset
 from convnet_approximater_tpu_torch.data.mixup import apply_mix, draw_mix
 from convnet_approximater_tpu_torch.layers import drop_generator
 from convnet_approximater_tpu_torch.nn import channels_last
+from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
 from convnet_approximater_tpu_torch.utils import get_logger, get_rank, load_flat, unflatten_tree
 from convnet_approximater_tpu_torch.utils.config import Config
 from convnet_approximater_tpu_torch.utils.dtype import cast_params
 from convnet_approximater_tpu_torch.utils.preempt import Preempted, PreemptionGuard
 
-from .validate import MESH_TODO, AverageMeter, eval_batch
+from .validate import AverageMeter, eval_batch
 
 _default_train_cfg = dict(
     batch_size=128,

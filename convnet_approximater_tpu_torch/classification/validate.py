@@ -8,6 +8,17 @@ The images enter in the model's serving type (``utils.dtype.serving_dtype``:
 a bf16 surface reads bf16); ``amp=True`` evaluates a bf16 copy of the model
 (``cast_floating``: the parameters, not the running statistics) on bf16
 images, the logits reduced in float32, as the JAX helper's autocast eval does.
+
+``use_mesh=True`` in a process group of more than one rank evaluates
+data-parallel, as the JAX helper lays each batch over its mesh's data axis:
+each rank loads only its rows of every global batch (the ``Loader``'s
+``sharding=``; the batch must split evenly over the data ranks), and the
+loss, top-1, top-5 and row sums of each batch are summed over the data axis
+(``all_reduce``), so every rank returns what one process would.  The data
+axis is that of the mesh the model's stages are pipelined on
+(``enable_pipeline``): every pipe rank of a data group loads the same rows,
+as the pipeline feeds the first pipe rank's and returns its logits to all;
+a model that is not pipelined takes the whole process group as its data axis.
 """
 
 from __future__ import annotations
@@ -18,13 +29,16 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from convnet_approximater_tpu_torch.data import (IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD,
                                                  Loader, Synthetic, build_dataset)
+from convnet_approximater_tpu_torch.parallel.distributed import process_count
+from convnet_approximater_tpu_torch.parallel.mesh import DATA_AXIS, axis_ranks
 from convnet_approximater_tpu_torch.utils.config import Config
 from convnet_approximater_tpu_torch.utils.dtype import cast_floating, serving_dtype
-from convnet_approximater_tpu_torch.utils.logger import get_logger
+from convnet_approximater_tpu_torch.utils.logger import get_logger, get_rank
 
 _default_eval_cfg = dict(
     batch_size=128,
@@ -42,8 +56,6 @@ _default_eval_cfg = dict(
     real_labels=None,  # path to npz/json of per-sample label sets: real_top1/real_top5
     test_input_size=None,  # (H, W): eval at another resolution
 )
-
-MESH_TODO = "more than one device is ROADMAP.md queue 1 item 12"
 
 
 class AverageMeter:
@@ -101,6 +113,15 @@ class RealLabelsSets:
         self.correct = {k: 0 for k in topk}
         self.counted = 0
 
+    def sum_over_ranks(self, device, group=None):
+        """Sum the counts of a data-parallel evaluation over the data ranks
+        (``group``; None: the process group)."""
+        t = torch.tensor([self.counted] + [self.correct[k] for k in self.topk],
+                         dtype=torch.float64, device=device)
+        dist.all_reduce(t, group=group)
+        self.counted = int(t[0])
+        self.correct = {k: int(v) for k, v in zip(self.topk, t[1:].tolist())}
+
     def add(self, top: np.ndarray, start: int):
         """``top`` (B, maxk) predictions for samples [start, start + B)."""
         for i, row in enumerate(np.asarray(top)):
@@ -146,7 +167,7 @@ class ValidateHelper:
             return self._runner.model, self._runner.device
         return self._model, self._device
 
-    def _make_loader(self, device):
+    def _make_loader(self, device, sharding=None):
         size = tuple(self.cfg.test_input_size or self.cfg.input_size[:2])
         if self.cfg.dataset:
             ds = build_dataset(dict(self.cfg.dataset), split=self.cfg.split)
@@ -154,13 +175,28 @@ class ValidateHelper:
             ds = Synthetic(num_samples=self.cfg.batch_size * 4, image_size=size + (3,),
                            num_classes=self.cfg.num_classes, split="validation")
         return Loader(ds, self.cfg.batch_size, shuffle=False, drop_last=True,
-                      mean=self.cfg.mean, std=self.cfg.std, image_size=size, device=device)
+                      mean=self.cfg.mean, std=self.cfg.std, image_size=size, device=device,
+                      sharding=sharding)
+
+    def _data_axis(self, model):
+        """``(sharding, group)`` of a data-parallel evaluation, ``(None, None)``
+        without one: the data axis of the mesh ``model``'s stages are pipelined
+        on, else of a (world, 1) mesh, the whole process group."""
+        from convnet_approximater_tpu_torch.models.stage_exec import resolve_pipeline_carrier
+
+        if not self.cfg.use_mesh or process_count() == 1:
+            return None, None
+        carrier = resolve_pipeline_carrier(model)
+        mesh = carrier.pipeline_mesh() if carrier is not None else None
+        if mesh is None:
+            return (get_rank(), process_count()), None
+        index, count, group, _ = axis_ranks(mesh, DATA_AXIS)
+        return ((index, count), group) if count > 1 else (None, None)
 
     def validate(self) -> dict:
         logger = get_logger()
         model, device = self._resolve()
-        if self.cfg.use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-            raise NotImplementedError(f"ValidateHelper use_mesh: {MESH_TODO}")
+        sharding, group = self._data_axis(model)
         valid_mask = None
         if self.cfg.valid_labels:
             with open(self.cfg.valid_labels) as f:
@@ -170,7 +206,7 @@ class ValidateHelper:
             logger.info(f"subset eval over {len(valid)} valid classes")
         real = RealLabelsSets(self.cfg.real_labels) if self.cfg.real_labels else None
 
-        loader = self._make_loader(device)
+        loader = self._make_loader(device, sharding)
         loss_m, top1_m, top5_m, time_m = (AverageMeter() for _ in range(4))
         n_batches = len(loader)
         if self.cfg.num_batches:
@@ -189,7 +225,15 @@ class ValidateHelper:
                 loss, c1, c5, top5 = eval_batch(served, images.to(dtype), labels, valid_mask)
                 bs = images.shape[0]
                 if real is not None:
-                    real.add(top5.cpu().numpy(), cursor)
+                    real.add(top5.cpu().numpy(), cursor + (sharding[0] * bs if sharding else 0))
+                if sharding is not None:  # the global batch's sums
+                    sums = torch.stack([loss.double() * bs, c1.double(), c5.double(),
+                                        torch.tensor(float(bs), dtype=torch.float64,
+                                                     device=loss.device)])
+                    dist.all_reduce(sums, group=group)
+                    c1, c5, total = sums[1:].tolist()
+                    bs = int(total)
+                    loss = sums[0] / bs
                 cursor += bs
                 loss_m.update(float(loss), bs)
                 top1_m.update(float(c1) / bs * 100.0, bs)
@@ -209,6 +253,8 @@ class ValidateHelper:
                    param_count=sum(p.numel() for p in model.parameters()),
                    img_size=(self.cfg.test_input_size or self.cfg.input_size)[0])
         if real is not None:
+            if sharding is not None:
+                real.sum_over_ranks(device, group)
             out["real_top1"] = real.accuracy(1)
             out["real_top5"] = real.accuracy(5)
             logger.info(f"Real labels: Acc@1 {out['real_top1']:.4f} "

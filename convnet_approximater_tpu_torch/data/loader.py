@@ -20,6 +20,16 @@ batches; ``aug=dict(rand_aug=dict(n=2, m=9))`` runs RandAugment
 same ``RandomState``, then the crop and flip in numpy, as the JAX loader does.
 Augmentation with dense labels (segmentation masks) is refused: it would move
 the images and not their masks.
+
+``sharding=(index, count)`` (``parallel.batch_sharding(mesh)``) loads only
+the rows of each global batch that rank ``index`` of ``count`` on the data
+axis holds, contiguous and the same for every batch: the JAX ``Loader``'s
+``sharding=``, which lays each global batch over the mesh's data axis.  The
+batch must split evenly, unless ``pad_shards=True`` (a data-parallel server):
+then a batch that does not is tiled up to a multiple of the ranks first, as
+``deploy.pad_batch_to_multiple`` pads a request.  Augmentation draws per
+global batch, so training across processes (ROADMAP.md queue 1, item 12b) is
+what would take both.
 """
 
 from __future__ import annotations
@@ -30,6 +40,9 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+
+from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
+from convnet_approximater_tpu_torch.parallel.mesh import shard_indices
 
 from . import native
 from .datasets import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, ArrayDataset
@@ -145,6 +158,8 @@ class Loader:
         aug=None,
         dtype=torch.float32,
         native: bool = True,
+        sharding: Optional[Tuple[int, int]] = None,
+        pad_shards: bool = False,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -167,6 +182,11 @@ class Loader:
                 f"aug={self.aug} with dense labels (shape {np.shape(dataset.labels)}): the "
                 f"augmentation moves the images and not their masks, so the labels would "
                 f"no longer match the pixels; train segmentation without aug")
+        if sharding is not None and self.aug:
+            raise NotImplementedError(f"Loader sharding with aug={self.aug}: augmentation draws "
+                                      f"per global batch; {MESH_TODO}")
+        self.sharding = sharding
+        self.pad_shards = pad_shards
         self._mean = torch.from_numpy(self.mean).to(self.device)
         self._std = torch.from_numpy(self.std).to(self.device)
         self._epoch = 0
@@ -255,6 +275,8 @@ class Loader:
         order = self._indices()
         nb = len(self)
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)]
+        if self.sharding is not None:
+            batches = [shard_indices(idx, self.sharding, self.pad_shards) for idx in batches]
 
         if self.prefetch <= 0:
             for idx in batches:

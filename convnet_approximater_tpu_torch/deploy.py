@@ -1367,7 +1367,7 @@ def export_serving(model: nn.Module, example_args: Sequence[torch.Tensor], path=
     return data
 
 
-def load_serving(path_or_bytes) -> nn.Module:
+def load_serving(path_or_bytes, device=None) -> nn.Module:
     """Load an :func:`export_serving` artifact; returns its module.
 
     The port's ``ops`` are imported first, so that the kernels' custom ops are
@@ -1378,6 +1378,8 @@ def load_serving(path_or_bytes) -> nn.Module:
     artifact (None for a static one).  Its parameters
     take no gradient; serve it on the card through :func:`compile_serving`
     (one CUDA graph per batch size, as XLA compiles once per size).
+    ``device``: where to serve it (a rank's own card); a program exported on
+    another card is moved there (``torch.export.passes.move_to_device_pass``).
     """
     from convnet_approximater_tpu_torch.ops import (lowrank_conv, msca_fused,  # noqa: F401
                                                     parallel_cascade, qmatmul)
@@ -1388,6 +1390,15 @@ def load_serving(path_or_bytes) -> nn.Module:
             data = f.read()
     extra = {SERVING_META: ""}
     program = torch.export.load(io.BytesIO(bytes(data)), extra_files=extra)
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        held = next((t.device for t in program.state_dict.values()), device)
+        if held != device:
+            from torch.export.passes import move_to_device_pass
+
+            program = move_to_device_pass(program, device)
     module = program.module()
     module.requires_grad_(False)
     for m in module.modules():  # exported in eval mode; the loaded module refuses .eval()

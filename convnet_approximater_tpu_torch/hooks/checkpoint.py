@@ -2,7 +2,8 @@
 ``convnet_approximater_tpu/hooks/checkpoint.py``): ``ckpt_cfg = {stage:
 {action: 'save'|'load', path: ...}}`` saves or loads the runner's model at a
 lifecycle stage, for example to load an optimized checkpoint after Initialize
-and skip the solve.  Checkpoints are the JAX package's flat npz layout
+and skip the solve; across processes only the main process saves.
+Checkpoints are the JAX package's flat npz layout
 (:func:`~convnet_approximater_tpu_torch.convert.params_to_jax`), so either
 package loads the other's.  Before Initialize the model has no weights yet,
 so a ``before_run`` or ``after_register`` entry does nothing, as in the JAX
@@ -14,14 +15,17 @@ from __future__ import annotations
 import os
 
 from convnet_approximater_tpu_torch.convert import load_jax_flat, variables_of
+from convnet_approximater_tpu_torch.parallel.distributed import is_main_process
 from convnet_approximater_tpu_torch.utils import get_logger, load_flat, save_model
 
 from .hook import HOOK, Hook
 
 
 def save_model_ckpt(model, path: str):
-    """Write ``model``'s weights to ``path`` in the JAX package's npz layout."""
-    save_model(variables_of(model), path)
+    """Write ``model``'s weights to ``path`` in the JAX package's npz layout
+    (the main process only, across processes)."""
+    if is_main_process():
+        save_model(variables_of(model), path)
 
 
 def load_model_ckpt(model, path: str):

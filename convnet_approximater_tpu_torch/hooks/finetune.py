@@ -68,7 +68,6 @@ import torch.nn.functional as F
 from torch import nn
 
 from convnet_approximater_tpu_torch.classification import AverageMeter, eval_batch
-from convnet_approximater_tpu_torch.classification.validate import MESH_TODO
 from convnet_approximater_tpu_torch.convert import (load_jax_flat, params_from_jax, params_to_jax,
                                                    variables_of)
 from convnet_approximater_tpu_torch.data import Loader, Synthetic, build_dataset
@@ -78,6 +77,7 @@ from convnet_approximater_tpu_torch.layers import (QATConv2d, QATLinear, Substit
                                                    drop_generator, forced_branch, release_taps,
                                                    taps)
 from convnet_approximater_tpu_torch.models.switchable import set_submodule
+from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
 from convnet_approximater_tpu_torch.utils import (get_logger, get_rank, load_flat, save_model,
                                                   unflatten_tree)
 from convnet_approximater_tpu_torch.utils.config import Config

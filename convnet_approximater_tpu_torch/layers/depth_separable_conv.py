@@ -92,6 +92,9 @@ class _StripBank(nn.Module):
             self._pack_key = key
         return self._pack
 
+    def drop_caches(self):
+        self._pack = self._pack_key = None
+
     def uses_kernel(self) -> bool:
         return no_grad_eval(self) and self.packed() is not None
 
@@ -256,6 +259,9 @@ class FixPaddingBias2d(nn.Module):
         if (H, W) not in self._maps:
             self._maps[(H, W)] = self.correction(H, W)
         return self._maps[(H, W)]
+
+    def drop_caches(self):
+        self._maps = self._maps_key = None
 
     def forward(self, x):
         H, W = x.shape[2], x.shape[3]

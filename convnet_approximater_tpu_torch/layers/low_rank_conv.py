@@ -125,6 +125,9 @@ class LowRankExpConvV1(nn.Module):
             self._pack_key = key
         return self._pack
 
+    def drop_caches(self):
+        self._pack = self._pack_key = None
+
     def _may_fuse(self) -> bool:
         # an int8 d_conv (quantize_int8) runs as its own module
         return no_grad_eval(self) and type(self.d_conv) is Conv2d

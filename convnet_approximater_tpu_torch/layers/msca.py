@@ -80,6 +80,9 @@ class MSCA(nn.Module):
             self._kernel_key = key
         return self._kernel_args
 
+    def drop_caches(self):
+        self._kernel_args = self._kernel_key = None
+
     def _fused_forward(self, x):
         y = fused_ops.msca_fused(x.permute(0, 2, 3, 1).contiguous(),  # a view when channels_last
                                  **self._kernel_weights())

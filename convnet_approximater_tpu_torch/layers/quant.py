@@ -86,6 +86,9 @@ class _QuantBase(nn.Module):
             self._pack_key = key
         return self._packed
 
+    def drop_caches(self):
+        self._packed = self._pack_key = None
+
     def _matmul(self, x2d: torch.Tensor) -> torch.Tensor:
         if self.training:
             raise RuntimeError(f"{type(self).__name__} is inference-only (serving PTQ)")

@@ -2,9 +2,16 @@
 
     python -m convnet_approximater_tpu_torch.main --config <cfg> [--device cuda]
         [--seed 42] [--work-dir DIR] [--checkpoint CKPT] [--skip-optim] [--skip-post]
+        [--coordinator HOST:PORT --num-processes N --process-id I]
+    torchrun --nproc-per-node=N -m convnet_approximater_tpu_torch.main --config <cfg>
 
-reads the repository's config files unchanged and runs the 4-phase Runner on
-one device.  ``--checkpoint`` is deploy mode: the app's sites are built as
+reads the repository's config files unchanged and runs the 4-phase Runner.
+Across processes (one per device: ``torchrun``, the counterpart of the
+reference's ``dist_main.sh``, or the three flags) each rank joins the process
+group first (``parallel.initialize_distributed``: NCCL on the cards, each
+rank on its own, gloo with ``--device cpu``), seeds Python and numpy with
+``seed + rank``, and only the main process makes the work dir and writes the
+log.  ``--checkpoint`` is deploy mode: the app's sites are built as
 their bare targets and the checkpoint (the Runner's ``.pt`` or a flat
 ``.npz``) loads into them, with Optimize and PostProcess skipped.
 ``--device`` defaults to ``cuda`` and fails when no CUDA device is present;
@@ -19,9 +26,11 @@ import time
 
 import torch
 
+from convnet_approximater_tpu_torch.parallel import initialize_distributed, is_main_process
 from convnet_approximater_tpu_torch.runner import Runner
 from convnet_approximater_tpu_torch.utils import (build_logger, get_cfg, get_rank, init_cfg,
                                                   update_cfg)
+from convnet_approximater_tpu_torch.utils.random import random_seed
 
 
 def parse_args(argv=None):
@@ -33,6 +42,10 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", default=None, help="deploy mode: load this checkpoint")
     p.add_argument("--skip-optim", action="store_true")
     p.add_argument("--skip-post", action="store_true")
+    p.add_argument("--coordinator", default=None,
+                   help="process group address (host:port); torchrun sets its own")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     return p.parse_args(argv)
 
 
@@ -42,18 +55,20 @@ def main(argv=None) -> Runner:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
                          f"(pass --device cpu to run on the CPU)")
+    device = initialize_distributed(args.coordinator, args.num_processes, args.process_id,
+                                    device=device)
     init_cfg(args.config)
     cfg = get_cfg()
     work_dir = args.work_dir or os.path.join(cfg.work_dir, time.strftime("%Y%m%d_%H%M%S"))
-    if get_rank() == 0:
+    if is_main_process():
         os.makedirs(work_dir, exist_ok=True)
         build_logger(os.path.join(work_dir, "run.log"))
+    generator = random_seed(args.seed, get_rank())
     deploy = args.checkpoint is not None
     update_cfg(work_dir=work_dir, config_name=cfg.name, checkpoint=args.checkpoint,
                seed=args.seed)
-    runner = Runner(device=device, generator=torch.Generator().manual_seed(args.seed),
-                    deploy=deploy, skip_optim=args.skip_optim or deploy,
-                    skip_post=args.skip_post or deploy)
+    runner = Runner(device=device, generator=generator, deploy=deploy,
+                    skip_optim=args.skip_optim or deploy, skip_post=args.skip_post or deploy)
     runner.run()
     return runner
 

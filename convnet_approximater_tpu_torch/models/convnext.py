@@ -18,7 +18,9 @@ from torch import nn
 
 from convnet_approximater_tpu_torch.layers import DropPath
 from convnet_approximater_tpu_torch.nn import GELU, Conv2d, LayerNorm, Linear
+from convnet_approximater_tpu_torch.parallel.pp_model import Tail, Unit, subtree, unit_from_module
 
+from .stage_exec import BlockStageExec
 from .switchable import MODEL, SwitchableModel
 
 EPS = 1e-6  # the official ConvNeXt LayerNorms' eps
@@ -66,8 +68,10 @@ _ARCHS = {
 
 
 @MODEL.register_module()
-class ConvNeXt(SwitchableModel):
-    """Takes NCHW images, best in ``torch.channels_last``."""
+class ConvNeXt(BlockStageExec, SwitchableModel):
+    """Takes NCHW images, best in ``torch.channels_last``.  Its stages run as
+    GPipe pipelines across processes after ``enable_pipeline``
+    (``models/stage_exec.py``)."""
 
     def __init__(self, arch: str = "tiny", num_classes: int = 1000,
                  drop_path_rate: float = 0.0, layer_scale: float = 1e-6,
@@ -123,9 +127,25 @@ class ConvNeXt(SwitchableModel):
                                vectors=vectors, depthwise=depthwise, attrs=attrs))
         return groups
 
+    def pipeline_stages(self):
+        return list(self.stages)
+
+    def pipeline_units(self):
+        """The whole model as ordered units for ``parallel.build_model_pipeline``:
+        each downsample layer, each block (substituted or not), and the pooling
+        with the norm and the head."""
+        units = []
+        for i in range(4):
+            units.append(unit_from_module(f"downsample_layers.{i}",
+                                          subtree(self, "downsample_layers", i)))
+            units += [unit_from_module(f"stages.{i}.{bname}", block)
+                      for bname, block in self.stages[i].named_children()]
+        units.append(Unit("norm+head", Tail(self.norm, self.head)))
+        return units
+
     def forward(self, x):
-        for down, stage in zip(self.downsample_layers, self.stages):
-            x = stage(down(x))
+        for s, (down, stage) in enumerate(zip(self.downsample_layers, self.stages)):
+            x = self._exec_stage(s, stage, down(x))
         return self.head(self.norm(x.mean(dim=(2, 3))))
 
 

@@ -4,8 +4,11 @@
 4 stages of (StemConv/DownSample -> MultiScaleConvAttnModule x n -> LayerNorm);
 a block is BN -> SpatialAttention(proj -> GELU -> MSCA -> proj + shortcut) ->
 BN -> conv-FFN, with per-block layer scale and drop path; the classifier adds
-global average pooling and a Linear head.  Stages run as plain loops.
-Parameter names equal the JAX package's param paths.
+global average pooling and a Linear head.  Stages run as plain loops, or as
+GPipe pipelines across processes after ``MSCAN.enable_pipeline``
+(``models/stage_exec.py``); ``MSCAN_Classifier.pipeline_units`` is the whole
+model's decomposition for ``parallel.build_model_pipeline``.  Parameter names
+equal the JAX package's param paths.
 """
 
 from __future__ import annotations
@@ -15,7 +18,9 @@ from torch import nn
 
 from convnet_approximater_tpu_torch.layers import MSCA, DropPath
 from convnet_approximater_tpu_torch.nn import BatchNorm2d, Conv2d, Dropout, GELU, LayerNorm, Linear, gelu
+from convnet_approximater_tpu_torch.parallel.pp_model import Tail, Unit, unit_from_module
 
+from .stage_exec import BlockStageExec
 from .switchable import MODEL, SwitchableModel
 
 
@@ -102,7 +107,7 @@ class DownSample(nn.Module):
         return self.norm(self.proj(x))
 
 
-class MSCAN(nn.Module):
+class MSCAN(BlockStageExec, nn.Module):
     """The backbone: returns the feature map of every stage."""
 
     def __init__(self, in_channels: int = 3, num_channels=(32, 64, 160, 256),
@@ -159,10 +164,13 @@ class MSCAN(nn.Module):
             groups[i]["consumers"].append(f"{prefix}layers.{names[i + 1]}.0.proj")
         return groups
 
+    def pipeline_stages(self):
+        return [layer[1] for layer in self.layers]
+
     def forward(self, x):
         features = []
-        for down, stage, norm in self.layers:
-            x = norm(stage(down(x)))
+        for s, (down, stage, norm) in enumerate(self.layers):
+            x = norm(self._exec_stage(s, stage, down(x)))
             features.append(x)
         return features
 
@@ -187,6 +195,20 @@ class MSCAN_Classifier(SwitchableModel):
         groups = self.backbone.trunk_groups(prefix="backbone.")
         groups[-1]["consumers"].append("head")
         return groups
+
+    def pipeline_units(self):
+        """The whole model as ordered units for ``parallel.build_model_pipeline``:
+        every stem or downsample, every block (substituted or not), every stage
+        norm, and the pooling with the head; run in order they are the eval forward."""
+        units = []
+        for lname, layer in self.backbone.layers.named_children():
+            base = f"backbone.layers.{lname}"
+            units.append(unit_from_module(f"{base}.0", layer[0]))
+            units += [unit_from_module(f"{base}.1.{bname}", block)
+                      for bname, block in layer[1].named_children()]
+            units.append(unit_from_module(f"{base}.2", layer[2]))
+        units.append(Unit("head", Tail(self.head)))
+        return units
 
     def forward(self, x):
         x = self.backbone(x)[-1]

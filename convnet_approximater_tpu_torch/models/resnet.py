@@ -6,7 +6,8 @@ across with :func:`~convnet_approximater_tpu_torch.convert.params_from_jax`.
 Each block declares its children in the JAX order (``conv1, bn1, relu, conv2,
 bn2, [conv3, bn3,] downsample``): ``register_switchable`` walks them in that
 order, and a config's ``IndicesFilter`` counts positions in that walk.
-``Bottleneck`` strides its 3x3 (ResNet v1.5).
+``Bottleneck`` strides its 3x3 (ResNet v1.5).  ``ResNet.pipeline_units`` is
+the whole model's decomposition for ``parallel.build_model_pipeline``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from torch import nn
 
 from convnet_approximater_tpu_torch.nn import (AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Linear,
                                                MaxPool2d, ReLU)
+from convnet_approximater_tpu_torch.parallel.pp_model import Unit, subtree, unit_from_module
 
 from .switchable import MODEL, SwitchableModel
 
@@ -97,6 +99,17 @@ class ResNet(SwitchableModel):
             self.add_module(f"layer{i + 1}", nn.Sequential(*blocks))
         self.avgpool = AdaptiveAvgPool2d((1, 1))
         self.fc = Linear(512 * block.expansion, num_classes)
+
+    def pipeline_units(self):
+        """The whole model as ordered units for ``parallel.build_model_pipeline``:
+        the conv1, bn1, relu and maxpool stem, every residual block (substituted
+        or not), and the pooling with the head."""
+        units = [Unit("stem", nn.Sequential(self.conv1, self.bn1, self.relu, self.maxpool))]
+        for lname in ("layer1", "layer2", "layer3", "layer4"):
+            units += [unit_from_module(f"{lname}.{bname}", block)
+                      for bname, block in subtree(self, lname).named_children()]
+        units.append(Unit("avgpool+fc", nn.Sequential(self.avgpool, nn.Flatten(1), self.fc)))
+        return units
 
     def forward(self, x):
         x = self.maxpool(self.relu(self.bn1(self.conv1(x))))

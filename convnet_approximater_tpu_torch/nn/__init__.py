@@ -2,4 +2,5 @@
 
 from .layers import (GELU, AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Dropout, GroupNorm,
                      Identity, LayerNorm, Linear, MaxPool2d, ReLU, channels_last,
-                     flatten_hwc, frozen_params_keys, gelu, init_weights, params_key)
+                     drop_weight_caches, flatten_hwc, frozen_params_keys, gelu, init_weights,
+                     params_key)

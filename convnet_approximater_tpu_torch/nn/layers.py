@@ -193,6 +193,17 @@ def params_key(module: nn.Module) -> tuple:
     return key
 
 
+def drop_weight_caches(module: nn.Module):
+    """Forget every per-weight-version cache within ``module``: each layer
+    that keeps one (the kernels' packed weights and layouts, the border maps)
+    forgets it in its ``drop_caches()``, and the next eval forward builds it
+    again from the parameters it finds."""
+    for m in module.modules():
+        if hasattr(m, "drop_caches"):
+            m.drop_caches()
+        m.__dict__.pop("_params_key", None)
+
+
 @contextlib.contextmanager
 def frozen_params_keys():
     """Within the block, every per-weight-version cache (the kernels' packed

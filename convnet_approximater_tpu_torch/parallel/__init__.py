@@ -1,0 +1,12 @@
+"""Serving across processes (port of the eval half of
+``convnet_approximater_tpu/parallel/``): one process per device on
+``torch.distributed``, the ``(data, model)`` mesh, GPipe pipelines inside a
+stage and over the whole model."""
+
+from .distributed import (MESH_TODO, initialize_distributed, is_main_process,
+                          local_device_count, process_count, shutdown_distributed)
+from .mesh import (DATA_AXIS, MODEL_AXIS, batch_sharding, make_mesh, pad_to_multiple,
+                   replicate, shard_batch, shard_indices, shard_rows)
+from .pp import owned_range, pipeline_blocks, release, restore
+from .pp_model import (ModelPipeline, Tail, Unit, build_model_pipeline, partition_units, subtree,
+                       unit_from_module)

@@ -20,9 +20,20 @@ reports after it) and is tagged ``<tag>/bfloat16``; ``never_lose_deploy``
 decides at that type; the int8 report casts the folded model before
 ``quantize_int8`` calibrates it on bf16 batches, as the JAX runner does, and
 its int8 modules keep their float32 scales.  ``fold_bn`` is on by default for
-a type other than float32.  ``pipeline_parallel`` > 1 (ROADMAP.md queue 1,
-item 12) raises ``NotImplementedError``, and so does ``s2d_stem``, a TPU
-rewrite the port does not carry.
+a type other than float32.
+
+``pipeline_parallel`` = pp > 1 serves each report as a GPipe pipeline over
+the ``(world // pp, pp)`` mesh of the process group (``parallel``; one
+process per device, the mesh's ``model`` axis pp ranks long, and a pp that
+does not divide the world size raises): ``pipeline_mode="stage"`` pipelines
+the blocks inside each stage of a model with a pipeline carrier (MSCAN's
+backbone, ConvNeXt; ``models/stage_exec.py``), ``"whole"`` partitions the
+whole model into pp stages balanced by MACs (``parallel.build_model_pipeline``)
+and logs each stage's share.  A model that cannot pipeline warns and is
+served plainly.  A pipelined report is timed by :func:`pipelined_ms`: the
+eager forward between barriers, CUDA events, the slowest rank, and no CUDA
+graph, since its sends between ranks are not captured.  ``s2d_stem``, a TPU
+rewrite the port does not carry, raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,9 +41,12 @@ from __future__ import annotations
 import copy
 import json
 import os
-from typing import Dict, List, Optional
+import time
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from convnet_approximater_tpu_torch import deploy
@@ -43,13 +57,63 @@ from convnet_approximater_tpu_torch.hooks.inference_time_hook import forward_tim
 from convnet_approximater_tpu_torch.hooks.model_analysis import count_macs, count_params
 from convnet_approximater_tpu_torch.layers import LowRankExpConvV1
 from convnet_approximater_tpu_torch.models import build_model
+from convnet_approximater_tpu_torch.models.stage_exec import resolve_pipeline_carrier
 from convnet_approximater_tpu_torch.nn import GELU, channels_last, init_weights
+from convnet_approximater_tpu_torch.parallel import build_model_pipeline, make_mesh, process_count
 from convnet_approximater_tpu_torch.utils import get_cfg, get_logger
 from convnet_approximater_tpu_torch.utils.dtype import (cast_floating, dtype_name, dtype_of,
                                                         serving_dtype)
 
 from .base import BaseRunner
 from .runner import read_checkpoint, structure_pass
+
+
+def pipeline_mesh(pp: int):
+    """The ``(world // pp, pp)`` mesh of the process group."""
+    n = process_count()
+    if n % pp:
+        raise ValueError(f"pipeline_parallel={pp} doesn't divide {n} processes")
+    return make_mesh(data=n // pp, model=pp)
+
+
+def enable_stage_pipeline(model: nn.Module, mesh, num_microbatches: int = None) -> bool:
+    """Pipeline the stages of ``model``'s carrier over ``mesh``'s model axis;
+    warn and return False where it has none."""
+    carrier = resolve_pipeline_carrier(model)
+    if carrier is None:
+        get_logger().warning(f"pipelining over {mesh.size(1)} ranks: {type(model).__name__} "
+                             f"has no pipeline-capable backbone; served plainly")
+        return False
+    carrier.enable_pipeline(mesh, num_microbatches=num_microbatches)
+    return True
+
+
+@torch.no_grad()
+def pipelined_ms(forward: Callable, x: torch.Tensor, num_iters: int = 10,
+                 warmup: int = 3) -> float:
+    """Median ms of ``forward(x)``, a forward across the process group, over
+    ``num_iters`` after ``warmup``: each forward starts after a barrier and is
+    timed by CUDA events on the card (the host clock on the CPU); each
+    iteration counts the slowest rank's time."""
+    times = []
+    for i in range(warmup + num_iters):
+        dist.barrier()
+        if x.is_cuda:
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            forward(x)
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            t0 = time.perf_counter()
+            forward(x)
+            ms = (time.perf_counter() - t0) * 1e3
+        if i >= warmup:
+            times.append(ms)
+    slowest = torch.tensor(times, dtype=torch.float64, device=x.device)
+    dist.all_reduce(slowest, op=dist.ReduceOp.MAX)
+    return float(np.median(slowest.cpu().numpy()))
 
 
 class ClassInference(BaseRunner):
@@ -66,11 +130,9 @@ class ClassInference(BaseRunner):
                  generator: Optional[torch.Generator] = None, exact_gelu: bool = True,
                  dtype: str = "float32", fold_bn=None, never_lose: bool = False,
                  s2d_stem: bool = False, pipeline_parallel: int = 1,
-                 quantize: Optional[str] = None):
-        if int(pipeline_parallel) > 1:
-            raise NotImplementedError(f"ClassInference pipeline_parallel={pipeline_parallel}: "
-                                      f"pipelining waits for a multi-GPU host (ROADMAP.md "
-                                      f"queue 1, item 12)")
+                 pipeline_mode: str = "stage", quantize: Optional[str] = None):
+        if pipeline_mode not in ("stage", "whole"):
+            raise ValueError(f"pipeline_mode={pipeline_mode!r}")
         if s2d_stem:
             raise NotImplementedError("ClassInference s2d_stem=True: the S2D stem is a TPU "
                                       "rewrite the port does not carry (ROADMAP.md, 'Code the "
@@ -91,6 +153,9 @@ class ClassInference(BaseRunner):
         self.fold_bn = self.dtype != torch.float32 if fold_bn is None else bool(fold_bn)
         self.never_lose = never_lose
         self.quantize = quantize
+        self.pipeline_parallel = int(pipeline_parallel)
+        self.pipeline_mode = pipeline_mode
+        self.mesh = pipeline_mesh(self.pipeline_parallel) if self.pipeline_parallel > 1 else None
         self.passes = [structure_pass(p) for p in cfg.structure_passes or []]
         self.app = build_app(cfg.app, deploy=True)
         self.ori_model = build_model(cfg.model)
@@ -163,20 +228,49 @@ class ClassInference(BaseRunner):
                 model = cast_floating(copy.deepcopy(model), self.dtype)
             tag = f"{tag}/{dtype_name(self.dtype)}"
         shape = (self.batch_size,) + self.input_size
-        timing = forward_times(model, shape, num_iters=10, warmup=3, dtype=self.dtype)
-        ms, eager_ms = timing["ms"], timing["eager_median_ms"]
         B, H, W, C = shape
         x = torch.zeros(B, C, H, W, device=self.device, dtype=self.dtype).contiguous(
             memory_format=torch.channels_last)
         macs, params = count_macs(model.eval(), x), count_params(model)
-        logger.info(f"[{tag}] fwd median {ms:.3f} ms (eager median {eager_ms:.3f} ms) | "
-                    f"MACs {macs / 1e6:.2f} M | params {params / 1e6:.2f} M")
+        forward = self._pipelined(tag, model, shape) if self.mesh is not None else None
+        if forward is None:
+            timing = forward_times(model, shape, num_iters=10, warmup=3, dtype=self.dtype)
+            ms, eager_ms = timing["ms"], timing["eager_median_ms"]
+            logger.info(f"[{tag}] fwd median {ms:.3f} ms (eager median {eager_ms:.3f} ms) | "
+                        f"MACs {macs / 1e6:.2f} M | params {params / 1e6:.2f} M")
+        else:
+            gen = torch.Generator().manual_seed(self.seed)
+            ms = eager_ms = pipelined_ms(forward, torch.randn(B, C, H, W, generator=gen).to(
+                self.device, self.dtype).contiguous(memory_format=torch.channels_last))
+            logger.info(f"[{tag}] {self.pipeline_parallel}-stage {self.pipeline_mode} pipeline "
+                        f"fwd median {ms:.3f} ms (eager, the slowest of {process_count()} "
+                        f"ranks; no CUDA graph) | MACs {macs / 1e6:.2f} M | "
+                        f"params {params / 1e6:.2f} M")
+            if self.pipeline_mode == "whole":
+                forward.close()  # the plain model validates, as in the JAX runner
         result = None
         if self.eval_cfg:
             result = ValidateHelper(model, self.eval_cfg, device=self.device).validate()
             logger.info(f"[{tag}] eval: {result}")
+        if forward is not None and self.pipeline_mode == "stage":
+            resolve_pipeline_carrier(model).enable_pipeline(None)
         self.reports[tag] = dict(ms=ms, eager_ms=eager_ms, macs=macs, params=params,
                                  eval=result)
+
+    def _pipelined(self, tag: str, model: nn.Module, shape) -> Optional[Callable]:
+        """``model``'s forward pipelined in ``pipeline_mode``, or None where it
+        cannot be (warned)."""
+        if self.pipeline_mode == "stage":
+            return model if enable_stage_pipeline(model, self.mesh) else None
+        if not hasattr(model, "pipeline_units"):
+            get_logger().warning(f"pipeline_mode='whole': {type(model).__name__} has no "
+                                 f"pipeline_units(); served plainly")
+            return None
+        forward, report = build_model_pipeline(model, shape, self.mesh, dtype=self.dtype)
+        for r in report:
+            get_logger().info(f"[{tag}] pp stage {r['stage']}: {r['share']:.0%} MACs, "
+                              f"{len(r['units'])} units")
+        return forward
 
     def run(self) -> Dict[str, dict]:
         logger = get_logger()

@@ -34,8 +34,8 @@ from convnet_approximater_tpu_torch.hooks import Hook, build_hook
 from convnet_approximater_tpu_torch.models import build_model
 from convnet_approximater_tpu_torch.convert import params_from_jax
 from convnet_approximater_tpu_torch.nn import channels_last, init_weights
-from convnet_approximater_tpu_torch.utils import (get_cfg, get_logger, get_rank, load_flat,
-                                                  print_cfg, save_cfg)
+from convnet_approximater_tpu_torch.parallel.distributed import is_main_process
+from convnet_approximater_tpu_torch.utils import get_cfg, get_logger, load_flat, print_cfg, save_cfg
 
 from .base import BaseRunner
 
@@ -87,7 +87,7 @@ class Runner(BaseRunner):
         self.filters = [build_filter(f_cfg) for f_cfg in cfg.filters or []]
         self.hooks: List[Hook] = []
         self.output_path = None
-        if get_rank() == 0 and cfg.work_dir:
+        if is_main_process() and cfg.work_dir:  # only the main process writes
             os.makedirs(cfg.work_dir, exist_ok=True)
             print_cfg()
             save_cfg(os.path.join(cfg.work_dir, "cfg.json"))

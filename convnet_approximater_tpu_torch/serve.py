@@ -19,11 +19,29 @@ mean and std of ``<artifact>.meta.json``.  Copies are ``non_blocking`` and the
 loop never waits on the card: one readback at the end.  It prints the JAX
 CLI's line ``served N images in S s = R img/s end-to-end (...)``.
 
+``--data-parallel`` serves each batch across the ranks of the process group,
+one process per device, as the reference launched ranks
+(``torchrun --nproc-per-node=N -m convnet_approximater_tpu_torch.serve
+--data-parallel ...``; ``parallel.initialize_distributed`` reads torchrun's
+environment, and each rank's ``--device cuda`` is its own card): every rank
+loads the artifact (moved to its card), makes and ships only its contiguous
+slice of every batch (the ``Loader``'s ``sharding=``) and serves it; the
+logits of all the slices are gathered on every rank, and the main process
+prints the report, with the world size in it.  A batch that does not split
+evenly is padded up to a multiple of the world size by repeating its rows
+(``pad_shards``, as ``deploy.pad_batch_to_multiple`` pads a request), and the
+pad's logits are dropped.  ``--min-batch`` and ``--max-batch`` stay the
+request's: a rank pads its slice up to its share of ``--min-batch`` (at least
+the artifact's least batch, so the request's least rises to the world size)
+and chunks it at its share of ``--max-batch``.  A batch-static artifact takes
+``--data-parallel`` over one process only (export with ``--symbolic-batch``
+to serve slices).  Without a process group ``--data-parallel`` serves on one
+device, as the JAX CLI does on one device.
+
 The artifact carries its weights, so ``--params`` is refused (the JAX
-artifact takes them as an argument), and ``--data-parallel`` waits for a
-multi-GPU host (ROADMAP.md queue 1, item 12).  ``--device`` defaults to
-``cuda`` and fails when no CUDA device is present; the CPU runs only when
-asked for with ``--device cpu``.
+artifact takes them as an argument).  ``--device`` defaults to ``cuda`` and
+fails when no CUDA device is present; the CPU runs only when asked for with
+``--device cpu``.
 """
 
 from __future__ import annotations
@@ -35,15 +53,18 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from convnet_approximater_tpu_torch import deploy
 from convnet_approximater_tpu_torch.data import Loader, Synthetic, apply_aug, native
 from convnet_approximater_tpu_torch.data.datasets import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD
+from convnet_approximater_tpu_torch.parallel import (DATA_AXIS, batch_sharding,
+                                                     initialize_distributed, is_main_process,
+                                                     make_mesh)
+from convnet_approximater_tpu_torch.parallel.mesh import axis_ranks
 
 PARAMS_REFUSED = ("--params: the port's artifact carries its weights (torch.export saves them "
                   "with the program); the JAX artifact takes them as an argument")
-DATA_PARALLEL_TODO = ("--data-parallel: serving over several cards waits for a multi-GPU host "
-                      "(ROADMAP.md queue 1, item 12)")
 
 
 def parse_args(argv=None):
@@ -61,7 +82,8 @@ def parse_args(argv=None):
                          "(deploy.chunk_batch)")
     ap.add_argument("--ship-uint8", action="store_true",
                     help="ship raw uint8 batches and normalize on the card (4x fewer bytes)")
-    ap.add_argument("--data-parallel", action="store_true", help="refused: one card only")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="serve each batch across the ranks of the process group (torchrun)")
     ap.add_argument("--device", default="cuda", help="torch device: cuda (default), cuda:N or cpu")
     return ap.parse_args(argv)
 
@@ -117,6 +139,22 @@ def graph_per_batch_size(module) -> callable:
     return forward
 
 
+def data_parallel(forward, mesh, batch: int) -> callable:
+    """``forward`` of this rank's slice of a ``batch``-row request over the
+    mesh's data axis (every rank's slice the same size, the request padded up
+    to a multiple of the ranks): every rank returns the logits of the whole
+    request (``all_gather``), the pad's dropped."""
+    _, count, group, _ = axis_ranks(mesh, DATA_AXIS)
+
+    def wrapped(x):
+        y = forward(x).contiguous()
+        parts = [torch.empty_like(y) for _ in range(count)]
+        dist.all_gather(parts, y, group=group)
+        return torch.cat(parts)[:batch]
+
+    return wrapped
+
+
 def read_meta(artifact: str):
     """(mean, std) of ``<artifact>.meta.json``, ImageNet's with a warning
     where it records none."""
@@ -135,14 +173,21 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     if args.params:
         raise NotImplementedError(PARAMS_REFUSED)
-    if args.data_parallel:
-        raise NotImplementedError(DATA_PARALLEL_TODO)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: no CUDA device is available "
                          f"(pass --device cpu to run on the CPU)")
+    mesh = None
+    if args.data_parallel:
+        device = initialize_distributed(device=device)  # torchrun's rank takes its own card
+        if dist.is_initialized():
+            mesh = make_mesh(model=1)
+        else:
+            print("note: --data-parallel without a process group: serving on one device",
+                  flush=True)
+    world = dist.get_world_size() if mesh is not None else 1
     t0 = time.perf_counter()
-    module = deploy.load_serving(args.artifact)
+    module = deploy.load_serving(args.artifact, device=device)
     load_s = time.perf_counter() - t0
     x_aval = module.in_avals[-1]
     B, C, H, W = x_aval.shape
@@ -157,27 +202,44 @@ def main(argv=None) -> dict:
     dtype = x_aval.dtype  # the artifact's input type, as the JAX server reads it
 
     graphs = graph_per_batch_size(module)
-    # pad inside chunk: a remainder chunk of one row is padded too; a symbolic
-    # batch exported on the card starts at 2 (deploy.export_serving)
-    min_batch = max(args.min_batch, module.batch_range[0] if module.batch_range else 1)
-    fwd = deploy.pad_batch(graphs, min_batch)
+    # a symbolic batch exported on the card starts at 2 (deploy.export_serving)
+    least = module.batch_range[0] if module.batch_range else 1
+    share = lambda n: -(-n // world)  # noqa: E731  (this rank's rows of an n-row request)
+    sharding = None
+    if mesh is not None:
+        if B is not None and world > 1:
+            raise ValueError(f"--data-parallel over {world} processes: the artifact is "
+                             f"batch-static at {B} and cannot serve a slice of a batch; export "
+                             f"it with --symbolic-batch")
+        sharding = batch_sharding(mesh)
+        if is_main_process():
+            print(f"data-parallel serving over {world} processes, each making and serving "
+                  f"its {share(args.batch)} rows of a batch (non-dividing batches are padded "
+                  f"up)", flush=True)
+    # pad inside chunk: a remainder chunk of one row is padded too
+    min_rows = max(share(args.min_batch), least)
+    fwd = deploy.pad_batch(graphs, min_rows)
     if args.max_batch:
-        fwd = deploy.chunk_batch(fwd, args.max_batch)
+        fwd = deploy.chunk_batch(fwd, share(args.max_batch))
+    if mesh is not None:
+        fwd = data_parallel(fwd, mesh, args.batch)
     mean, std = read_meta(args.artifact)
     size = (args.image_size, args.image_size)
     ds = Synthetic(max(args.batch * 4, 64), size + (C,), 1000)
     loader_type = Loader if args.ship_uint8 else HostNormLoader
     loader = loader_type(ds, args.batch, shuffle=False, drop_last=True, mean=mean, std=std,
-                         device=device, dtype=dtype)
+                         device=device, dtype=dtype, sharding=sharding, pad_shards=True)
 
-    x0 = torch.zeros(args.batch, C, *size, device=device, dtype=dtype).contiguous(
+    x0 = torch.zeros(share(args.batch), C, *size, device=device, dtype=dtype).contiguous(
         memory_format=torch.channels_last)
     t0 = time.perf_counter()
     fwd(x0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     first_s = time.perf_counter() - t0
-    print(f"artifact load {load_s:.2f} s; capture + first batch: {first_s:.2f} s", flush=True)
+    if is_main_process():
+        print(f"artifact load {load_s:.2f} s; capture + first batch: {first_s:.2f} s",
+              flush=True)
 
     served, preds, i = 0, None, 0
     t0 = time.perf_counter()
@@ -186,18 +248,22 @@ def main(argv=None) -> dict:
             if i >= args.batches:
                 break
             preds = fwd(images)
-            served += images.shape[0]
+            served += preds.shape[0]
             i += 1
     checksum = float(preds.float().sum())  # the one readback: drains the card
     seconds = time.perf_counter() - t0
     kind = "uint8 shipped, normalized on the card" if args.ship_uint8 else \
         "float32 normalized on the host"
-    print(f"served {served} images in {seconds:.3f}s = {served / seconds:.0f} img/s "
-          f"end-to-end (batch {args.batch}, {str(dtype).removeprefix('torch.')}, {kind})",
-          flush=True)
+    if mesh is not None:
+        kind += f", data-parallel over {world} processes"
+    if is_main_process():
+        print(f"served {served} images in {seconds:.3f}s = {served / seconds:.0f} img/s "
+              f"end-to-end (batch {args.batch}, {str(dtype).removeprefix('torch.')}, {kind})",
+              flush=True)
     return dict(served=served, seconds=seconds, img_per_s=served / seconds, load_s=load_s,
                 first_s=first_s, checksum=checksum, batch=args.batch, module=module,
-                sessions=len(graphs.sessions))
+                sessions=len(graphs.sessions), logits=preds, world=world,
+                min_batch=min_rows * world, rows=share(args.batch))
 
 
 if __name__ == "__main__":

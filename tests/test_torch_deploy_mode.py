@@ -360,20 +360,23 @@ def test_class_inference_matches_jax_on_mscarep(monkeypatch, mscan_run, tmp_path
         assert reports[tag]["params"] == n_j
 
 
-@pytest.mark.parametrize("kw,match", [(dict(dtype="bfloat16"), None),
-                                      (dict(pipeline_parallel=2), "item 12"),
-                                      (dict(s2d_stem=True), "S2D stem")],
+@pytest.mark.parametrize("kw,error,match", [(dict(dtype="bfloat16"), None, None),
+                                            (dict(pipeline_parallel=3), ValueError, "divide"),
+                                            (dict(s2d_stem=True), NotImplementedError,
+                                             "S2D stem")],
                          ids=["kw0-item 7", "kw1-item 12", "kw2-S2D stem"])  # the ids as before
-def test_class_inference_refusals(mscan_run, kw, match):
+def test_class_inference_refusals(mscan_run, kw, error, match):
     """bf16 is taken now, its BN fold on by default as in the JAX runner (off
-    in float32); pipelining and the S2D stem are refused."""
+    in float32); pipelining is taken too (``tests/test_torch_parallel_pipeline.py``),
+    and a ``pipeline_parallel`` that does not divide the world size (here one
+    process) raises as in the JAX runner; the S2D stem is refused."""
     init_cfg(mscan_run["cfg"])
-    if match is None:
+    if error is None:
         run = ClassInference(mscan_run["ckpt"], device="cpu", **kw)
         assert run.dtype == torch.bfloat16 and run.fold_bn
         assert not ClassInference(mscan_run["ckpt"], device="cpu").fold_bn
         return
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         ClassInference(mscan_run["ckpt"], device="cpu", **kw)
 
 

@@ -7,10 +7,12 @@ no JAX, so that its card tests run where JAX is not installed:
   loads and serves, plain and with ``--ship-uint8``; exported with a symbolic
   batch it serves a batch of 1 padded to 2 and a batch of 5 in chunks of 2.
   The float32 tests pass ``--dtype float32``: the CLIs serve bfloat16 by default.
-* The refusals: ``--data-parallel`` (item 12), ``--params`` (the artifact
-  carries its weights), a foreign ``--platforms``; and ``--dtype bfloat16``,
-  which serves now: ``export_model`` writes an artifact of bf16 avals that
-  gives the live bf16 model's bits, ``serve_mscan`` serves a bf16 surface.
+* The refusals: ``--params`` (the artifact carries its weights), a foreign
+  ``--platforms``; and what serves now: ``--dtype bfloat16`` (``export_model``
+  writes an artifact of bf16 avals that gives the live bf16 model's bits,
+  ``serve_mscan`` serves a bf16 surface) and ``--data-parallel`` (two gloo
+  ranks, ``tests/torch_ranks.py``: ``--min-batch 1`` rises to the world size,
+  a batch of 3 is padded to 4 and served as the one process serves it).
 * ``serve_mscan --tiny`` on the CPU; ``plan_serving --export`` on a tiny
   MSCAN config under an injected timer: the winner's artifact gives the
   plan's logits, and its sidecars hold its weights and normalization.
@@ -25,6 +27,8 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import torch_ranks  # noqa: E402
 
 from convnet_approximater_tpu_torch import deploy  # noqa: E402
 from convnet_approximater_tpu_torch import (export_model, plan_serving, serve,  # noqa: E402
@@ -65,6 +69,25 @@ def bf16_artifact(res):
         torch.bfloat16).contiguous(memory_format=torch.channels_last)
     with torch.no_grad():
         assert torch.equal(art(x), res["model"](x))
+
+
+def data_parallel_serve(tmp_path):
+    """``serve --data-parallel`` over two gloo ranks with ``--min-batch 1``,
+    against one process serving the same artifact."""
+    out = str(export(tmp_path / "x.pt2", "--symbolic-batch")["out"])
+    argv = ["--artifact", out, "--batch", "3", "--batches", "1", "--min-batch", "1",
+            "--device", "cpu"]
+    return (torch_ranks.spawn(torch_ranks.serve_job, 2, tmp_path / "ranks",
+                              argv=argv + ["--data-parallel"]),
+            serve.main(argv))
+
+
+def pads_up_to_the_world_size(result):
+    ranks, alone = result
+    for res in ranks:
+        assert res["world"] == 2 and res["min_batch"] == 2 and res["served"] == 3
+        assert res["logits"].shape == (3, 10)
+        assert rel(res["logits"], alone["logits"]) < LOADED_RTOL
 
 
 def bf16_serve_mscan(res):
@@ -130,8 +153,7 @@ REFUSALS = {
                                          ValueError, "export once per device"),
     "serve --params": (lambda p: serve.main(["--artifact", "a.pt2", "--params", "a.npz"]),
                        NotImplementedError, "carries its weights"),
-    "serve --data-parallel": (lambda p: serve.main(["--artifact", "a.pt2", "--data-parallel"]),
-                              NotImplementedError, "item 12"),
+    "serve --data-parallel": (data_parallel_serve, None, pads_up_to_the_world_size),
     "serve_mscan --dtype bfloat16": (lambda p: serve_mscan.main(["--tiny", "--dtype", "bfloat16",
                                                                  "--device", "cpu"]),
                                      None, bf16_serve_mscan),
@@ -141,7 +163,7 @@ REFUSALS = {
 @pytest.mark.parametrize("name", sorted(REFUSALS))
 def test_refusals(tmp_path, name):
     run, error, match = REFUSALS[name]
-    if error is None:  # bf16 serves now
+    if error is None:  # bf16 and data-parallel serving run now
         match(run(tmp_path))
         return
     with pytest.raises(error, match=match):
