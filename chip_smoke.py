@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --p23     # phase 23 alone, on a host with several cards
+    python3 chip_smoke.py --p24     # phase 24 alone
 
 From the root of a checkout, with no arguments:
 
@@ -352,7 +353,19 @@ From the root of a checkout, with no arguments:
     within 1e-5, int8 within 1e-3, validation counts equal and loss within
     1e-6, each world size's serving img/s beside one card's; on one card it
     says that it ran world size 1 only;
-24. prints one JSON line of kernel results (each kernel's entry lists the later
+24. P24, training across processes, data-parallel: the F1 config (4 steps, 2
+    validation batches, ``ckpt_backend="sharded"``) and P20's ``TrainHelper``
+    config (4 steps, 2 validation batches) at global b=64, 224^2, f32, first
+    over a one-rank NCCL group, then as two gloo ranks on the one card (32
+    rows each) and, on a host with 2 or 4 cards, as NCCL ranks one per card;
+    each world held to world size 1: every loss finite, each step's global
+    loss and the weights (and the EMA) within 1e-4, the ranks' weights
+    bit-equal, ``msca_fused`` 13 per F1 step (the teacher on the rank's rows)
+    and per ``TrainHelper`` validation forward, validation counts summed over
+    the ranks equal, F1's sharded checkpoint from the ranks restored in one
+    process bit for bit; the ms per step of each world beside phase 10's F1
+    and P20's;
+25. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``, the bf16 ones among
     them), then ``{"ok": true, "device": ...}``.
 
@@ -367,8 +380,8 @@ come from a seeded generator; no network is used.
 checkpoint, P18's two ``export_model`` artifacts (the dodecomp AlexNet and
 the int8 ResNet-50) and then P23 alone, its ``serve --data-parallel`` loops
 P23_SCALING_BATCHES batches long: on a host with 2 or 4 cards it measures
-serving across them (the img/s of each world size against one card's).  It
-prints no result lines.
+serving across them (the img/s of each world size against one card's).
+``--p24`` runs steps 1-2 and P24 alone.  Neither prints the result lines.
 """
 
 from __future__ import annotations
@@ -5961,7 +5974,7 @@ def run_p20():
           f"step over steps 2-{P20_STEPS}: f32 {f32_ms:.3f} ({BATCH / f32_ms * 1e3:.1f} img/s), "
           f"amp {amp_ms:.3f} ({BATCH / amp_ms * 1e3:.1f} img/s), amp / f32 "
           f"{amp_ms / f32_ms:.3f}; P20 in {time.perf_counter() - t0:.2f} s")
-    return dict(f32=f32_launches, amp=amp_launches)
+    return dict(f32=f32_launches, amp=amp_launches, f32_ms=f32_ms)
 
 
 def f7_taps_gate(hook, x):
@@ -6842,6 +6855,269 @@ def run_p23(serve_batches: int = P23_SERVE_BATCHES) -> dict:
     return one
 
 
+# -- P24: training across processes, data-parallel -----------------------------
+P24_DIR = os.path.join(REPO, "build", "chip_smoke_p24")
+P24_STEPS = 4           # training steps of each run (F1 and the TrainHelper run)
+P24_EVAL = 2            # validation batches of each run
+P24_TOL = 1e-4          # world size 2 against 1: each step's loss, the weights and the EMA, relative
+P24_WORLD = 2           # the processes of the world beside world size 1, on this one card (gloo)
+# P20's TrainHelper config at 4 steps and 2 validation batches
+P24_HELPER = dict(P20_CFG, max_steps_per_epoch=P24_STEPS, max_eval_batches=P24_EVAL,
+                  use_mesh=True)
+
+
+@contextlib.contextmanager
+def eval_counts(module):
+    """A list of (msca_fused launches, top-1 count, top-5 count, rows) per call
+    of ``module.eval_batch`` (one validation batch of this rank's rows)."""
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    calls, real = [], module.eval_batch
+
+    def counting(model, images, labels, *args, **kwargs):
+        n = fused_ops.msca_fused.launches
+        out = real(model, images, labels, *args, **kwargs)
+        calls.append((fused_ops.msca_fused.launches - n, int(out[1]), int(out[2]),
+                      int(images.shape[0])))
+        return out
+
+    with mock.patch.object(module, "eval_batch", counting):
+        yield calls
+
+
+def host_state(model) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()}
+
+
+def p24_f1(work_dir: str) -> dict:
+    """The F1 config through the Runner on this process's group, cut to
+    P24_STEPS steps and P24_EVAL validation batches, sharded checkpoints: per
+    step the loss of this rank's rows, the msca_fused launches and the
+    CUDA-event ms; per validation batch the launches and counts; the trained
+    weights."""
+    from convnet_approximater_tpu_torch.hooks import finetune as ft
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    kept = {}
+
+    def edit(h):
+        h["sche_args"].update(epochs=1)
+        h["other_args"] = dict(h.get("other_args") or {}, max_steps_per_epoch=P24_STEPS,
+                               max_eval_batches=P24_EVAL, ckpt_backend="sharded")
+
+    probe = FinetuneProbe(fused_ops.msca_fused,
+                          last=lambda hook: kept.update(state=host_state(hook.runner.model)))
+    reset_counts()
+    with eval_counts(ft) as evals:
+        runner, run_s = run_finetune_cfg(FT_D0, work_dir, probe, edit)
+    out = dict(losses=[float(v) for v in probe.losses], step_calls=probe.step_calls,
+               ms=probe.step_ms(), evals=evals, state=kept["state"], run_s=run_s,
+               launches=fused_ops.msca_fused.launches)
+    del runner
+    return out
+
+
+def p24_helper(work_dir: str) -> dict:
+    """P24_HELPER's TrainHelper run on MSCAN-t (random weights from seed 0) on
+    this process's group: as :func:`p24_f1`, with the EMA, and whether each
+    validation forward ran the EMA weights."""
+    import torch
+
+    from convnet_approximater_tpu_torch.classification import TrainHelper
+    from convnet_approximater_tpu_torch.classification import train as train_mod
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    helper = TrainHelper(mscan_t_model(), dict(P24_HELPER, work_dir=work_dir), device="cuda")
+    rec = train_probe(helper)
+    reset_counts()
+    t0 = time.perf_counter()
+    with eval_counts(train_mod) as evals, eval_launches(helper) as on_ema:
+        helper.train()
+    torch.cuda.synchronize()
+    out = dict(losses=[float(v) for v in rec["losses"]], ms=[a.elapsed_time(b) for a, b in
+                                                             rec["events"]],
+               step_launches=rec["launches"], evals=evals, ema_ran=all(e for _, e in on_ema),
+               state=host_state(helper.model), ema=host_state(helper.ema),
+               run_s=time.perf_counter() - t0, launches=fused_ops.msca_fused.launches)
+    del helper
+    return out
+
+
+def p24_world(tag: str) -> dict:
+    """P24's two runs on the process group this process is in (work dirs by ``tag``)."""
+    import torch
+
+    out = dict(f1=p24_f1(os.path.join(P24_DIR, f"f1_{tag}")))
+    torch.cuda.empty_cache()
+    out["helper"] = p24_helper(os.path.join(P24_DIR, f"helper_{tag}"))
+    torch.cuda.empty_cache()
+    return out
+
+
+def p24_rank(rank: int, world: int, port: int, backend: str):
+    """One of ``world`` ranks: gloo ranks all on this card, NCCL ranks one per
+    card.  P24's runs, saved for the first process to compare."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    tag = f"{backend}{world}"
+    if rank:
+        sys.stdout = open(os.path.join(P24_DIR, f"{tag}_rank{rank}.log"), "w")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0 if backend == "gloo" else rank)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        res = p24_world(tag)
+    finally:
+        dist.destroy_process_group()
+    torch.save(res, os.path.join(P24_DIR, f"{tag}_rank{rank}.pt"))
+
+
+def p24_hold(label: str, one: dict, ranks: list, ema: bool, failed: list) -> dict:
+    """A world's run ``label`` against world size 1's: every loss finite, each
+    step's global loss (the ranks' mean) and the weights (and the EMA) within
+    P24_TOL, the ranks' weights bit-equal, the validation counts summed over
+    the ranks equal to world size 1's; what misses goes into ``failed``.
+    Returns the step ms."""
+    import torch
+
+    losses = np.mean([r["losses"] for r in ranks], axis=0)
+    if not np.all(np.isfinite(one["losses"])) or not all(np.all(np.isfinite(r["losses"]))
+                                                         for r in ranks):
+        failed.append(f"{label}: a loss is not finite")
+    if len(one["losses"]) != P24_STEPS or len(losses) != P24_STEPS:
+        fail(f"P24 {label}: a run took another number of steps than {P24_STEPS}")
+    loss_err = float(np.max(np.abs(losses - one["losses"]) / np.abs(one["losses"])))
+    keys = ("state", "ema") if ema else ("state",)
+    errs = {k: global_rel([v for v in ranks[0][k].values() if v.is_floating_point()],
+                          [v for v in one[k].values() if v.is_floating_point()]) for k in keys}
+    same = all(torch.equal(v, r[k][n]) for r in ranks[1:] for k in keys
+               for n, v in ranks[0][k].items())
+    summed = [tuple(sum(r["evals"][i][j] for r in ranks) for j in (1, 2, 3))
+              for i in range(len(one["evals"]))]
+    counts = [e[1:] for e in one["evals"]]
+    print(f"P24 {label} against world size 1 (one-rank NCCL): global losses "
+          f"{', '.join(f'{v:.7g}' for v in losses)} against "
+          f"{', '.join(f'{v:.7g}' for v in one['losses'])} (max rel err {loss_err:.3e}, bound "
+          f"{P24_TOL}); {' and '.join(keys)} rel err "
+          f"{', '.join(f'{k} {v:.3e}' for k, v in errs.items())} (bound {P24_TOL}); the ranks' "
+          f"weights bit-equal: {same}; validation (top-1, top-5, rows) per batch summed over "
+          f"the ranks {summed} against {counts}")
+    if loss_err > P24_TOL or any(v > P24_TOL for v in errs.values()) or not same:
+        failed.append(f"{label}: does not train as world size 1")
+    if summed != counts or len(ranks[0]["evals"]) != P24_EVAL:
+        failed.append(f"{label}: the validation counts summed over the ranks differ from world "
+                      f"size 1's")
+    return dict(one=float(np.median(one["ms"][1:])),
+                ranks=[float(np.median(r["ms"][1:])) for r in ranks])
+
+
+def p24_check_launches(label: str, runs: list, failed: list):
+    """msca_fused 13 times per F1 step (the teacher on the rank's rows) and per
+    TrainHelper validation forward (on the EMA weights), never in F1's
+    validation (the d0+fix student: the module path) or a TrainHelper step."""
+    for r, res in enumerate(runs):
+        f1, helper = res["f1"], res["helper"]
+        print(f"P24 {label}, rank {r}: F1 {len(f1['losses'])} steps in {f1['run_s']:.2f} s, "
+              f"msca_fused per step {f1['step_calls']} (the teacher on this rank's rows), per "
+              f"validation forward {[e[0] for e in f1['evals']]} (the d0+fix student's dense "
+              f"21x21 bank: the module path); TrainHelper {len(helper['losses'])} steps in "
+              f"{helper['run_s']:.2f} s, port kernels per step {helper['step_launches']}, "
+              f"msca_fused per validation forward {[e[0] for e in helper['evals']]} (EMA "
+              f"weights: {helper['ema_ran']})")
+        if (f1["step_calls"] != [MSCA_BLOCKS] * P24_STEPS
+                or [e[0] for e in helper["evals"]] != [MSCA_BLOCKS] * P24_EVAL
+                or any(helper["step_launches"]) or not helper["ema_ran"]
+                or [e[0] for e in f1["evals"]] != [0] * P24_EVAL):
+            failed.append(f"{label}, rank {r}: msca_fused launched other than {MSCA_BLOCKS} "
+                          f"times per F1 step and per TrainHelper validation forward (on the EMA "
+                          f"weights) and never in F1's validation, or a port kernel in a "
+                          f"TrainHelper step")
+
+
+def run_p24(f1_ms=None, p20_ms=None) -> dict:
+    """P24: data-parallel training, the F1 config and P20's TrainHelper config
+    at b=64 (global), 224^2, f32: world size 1 over a one-rank NCCL group in
+    this process, then P24_WORLD gloo ranks on this one card and, on a host
+    with 2 or more cards, NCCL ranks over 2 (and 4) cards, each held to world
+    size 1."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.convert import params_to_jax
+    from convnet_approximater_tpu_torch.utils import load_flat
+
+    t0 = time.perf_counter()
+    shutil.rmtree(P24_DIR, ignore_errors=True)
+    os.makedirs(P24_DIR)
+    parallel.initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:
+        one = p24_world("nccl1")
+    finally:
+        parallel.shutdown_distributed()
+    seconds = {"world size 1 (NCCL)": time.perf_counter() - t0}
+    failed = []
+    p24_check_launches("world size 1", [one], failed)
+    cards = torch.cuda.device_count()
+    worlds = [("gloo", P24_WORLD)] + [("nccl", w) for w in (2, 4) if w <= cards]
+    out = dict(one=one, worlds={})
+    for backend, world in worlds:
+        t1 = time.perf_counter()
+        label = (f"world size {world} ({world} gloo ranks on one card)" if backend == "gloo"
+                 else f"world size {world} (NCCL, one rank per card)")
+        try:
+            mp.start_processes(p24_rank, args=(world, free_port(), backend), nprocs=world,
+                               join=True, start_method="spawn")
+        except mp.ProcessRaisedException as e:
+            fail(f"P24: a rank of {label} raised: {e}")
+        except mp.ProcessExitedException as e:
+            fail(f"P24: a rank of {label} died: {e}")
+        tag = f"{backend}{world}"
+        ranks = [torch.load(os.path.join(P24_DIR, f"{tag}_rank{r}.pt"), weights_only=False)
+                 for r in range(world)]
+        p24_check_launches(label, ranks, failed)
+        f1_ms24 = p24_hold(f"F1 {label}", one["f1"], [r["f1"] for r in ranks], False, failed)
+        helper_ms24 = p24_hold(f"TrainHelper {label}", one["helper"],
+                               [r["helper"] for r in ranks], True, failed)
+        # the ranks' sharded checkpoint, restored in this process alone
+        path = os.path.join(P24_DIR, f"f1_{tag}", "last.ckpt.dcp")
+        flat = load_flat(path)
+        want = params_to_jax(ranks[0]["f1"]["state"])
+        same = (set(k for k in flat if k.split("/")[0] in ("params", "state")) == set(want)
+                and all(np.array_equal(flat[k], v) for k, v in want.items()))
+        print(f"P24 F1's sharded checkpoint written by the {world} ranks of {label} "
+              f"({os.path.relpath(path, REPO)}), restored in one process: {len(want)} weights "
+              f"bit-equal to rank 0's: {same}; {sum(k.startswith('opt/') for k in flat)} "
+              f"optimizer leaves, epoch {int(flat['meta/epoch'])}")
+        if not same:
+            failed.append(f"{label}: the sharded checkpoint does not restore bit for bit")
+        earlier = lambda v: "not run" if v is None else f"{v:.3f}"  # noqa: E731
+        print(f"P24 [{smi_line()}] median ms per step over steps 2-{P24_STEPS} (CUDA events), "
+              f"b = {BATCH} global, 224^2, f32: F1 world size 1 {f1_ms24['one']:.3f}, {label} "
+              f"{', '.join(f'{v:.3f}' for v in f1_ms24['ranks'])} (rank by rank, "
+              f"{BATCH // world} rows each; phase 10's F1 {earlier(f1_ms)}); TrainHelper world "
+              f"size 1 {helper_ms24['one']:.3f}, {label} "
+              f"{', '.join(f'{v:.3f}' for v in helper_ms24['ranks'])} (P20's f32 "
+              f"{earlier(p20_ms)})")
+        out["worlds"][tag] = ranks
+        seconds[label] = time.perf_counter() - t1
+    print(f"P24 in {time.perf_counter() - t0:.2f} s: "
+          f"{', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())}")
+    if cards < 2:
+        print(f"P24: this host has {cards} card: NCCL over several cards was not run (NCCL puts "
+              f"one rank on a card)")
+    if failed:
+        fail("P24: " + "; ".join(failed))
+    shutil.rmtree(P24_DIR, ignore_errors=True)
+    return out
+
+
 def bf16_path(name, rows, **counts):
     """A kernels-line path entry of a kernel's bf16 form: its P19a rows per
     forward of their path (calls per forward as weights), the bound at 2-byte
@@ -6932,6 +7208,18 @@ def card_and_build() -> str:
     print(f"built the native batch prep {os.path.relpath(str(lib), REPO)} with {native.CXX} "
           f"{' '.join(native.CXX_FLAGS)} in {time.perf_counter() - t0:.2f} s")
     return kind
+
+
+def main_p24():
+    """``--p24``: steps 1-2, then P24 alone."""
+    import torch
+
+    lap = Laps()
+    kind = card_and_build()
+    lap("1.-2. the card and the build")
+    run_p24()
+    lap("24. P24")
+    print(f"P24 alone on {kind}, {torch.cuda.device_count()} device(s): done")
 
 
 def main_p23():
@@ -7060,6 +7348,10 @@ def main():
     # -- 23. P23: serving across processes (NCCL) ---------------------------
     p23 = run_p23()
     lap("23. P23")
+
+    # -- 24. P24: training across processes, data-parallel ------------------
+    p24 = run_p24(f1_ms, p20["f32_ms"])
+    lap("24. P24")
     print(f"wall time in all: {lap.total():.2f} s from the check for the card")
 
     # -- 18. results ------------------------------------------------------
@@ -7249,6 +7541,19 @@ def main():
     kernels[1]["paths"].append(dict(
         path="serve --data-parallel dodecomp AlexNet over 1 NCCL rank: the capture's forwards "
              "(P23)", launches=p23["serve"]["dodecomp AlexNet"]["launches"]))
+    # P24: data-parallel training, msca_fused's launches in each run on each rank (F1: the
+    # teacher's on the rank's rows; TrainHelper: the validation forwards)
+    for tag, runs in [("nccl1", [p24["one"]])] + list(p24["worlds"].items()):
+        group = ("a one-rank NCCL group" if tag == "nccl1" else
+                 f"{tag[4:]} gloo ranks on one card" if tag.startswith("gloo") else
+                 f"{tag[4:]} NCCL ranks, one per card")
+        for r, res in enumerate(runs):
+            kernels[0]["paths"] += [
+                dict(path=f"F1 config over {group}, rank {r}, {P24_STEPS} steps and {P24_EVAL} "
+                          f"validation batches at b = {BATCH} global: the teacher (P24)",
+                     launches=res["f1"]["launches"]),
+                dict(path=f"TrainHelper on MSCAN-t over {group}, rank {r}: {P24_EVAL} validation "
+                          f"forwards on the EMA weights (P24)", launches=res["helper"]["launches"])]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -7257,7 +7562,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:] == ["--p23"]:
         main_p23()
+    elif sys.argv[1:] == ["--p24"]:
+        main_p24()
     elif sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]} (none, or --p23)")
+        fail(f"unknown arguments {sys.argv[1:]} (none, --p23 or --p24)")
     else:
         main()

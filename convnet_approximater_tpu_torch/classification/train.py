@@ -26,12 +26,22 @@ statistics stay float32, with no loss scaling.
 Drop masks come from a device generator seeded from the run's seed and the
 step (``layers/drop.py::drop_generator``).  The epoch checkpoints carry the
 optimizer state, so a resume continues the run exactly; the JAX helper's
-carry none (only its preemption save does).  ``model_parallel``,
-``pipeline_parallel`` and ``use_mesh`` over more than one visible GPU raise
-``NotImplementedError``: training across processes is ROADMAP.md queue 1,
-item 12b.  ``ckpt_backend="sharded"`` saves the same train
-state as asynchronous ``torch.distributed.checkpoint`` directories
-(``hooks/finetune.py::CheckpointSaver``), which ``resume`` reads too.
+carry none (only its preemption save does).  ``ckpt_backend="sharded"``
+saves the same train state as asynchronous ``torch.distributed.checkpoint``
+directories (``hooks/finetune.py::CheckpointSaver``), which ``resume`` reads
+too.
+
+``use_mesh`` (the default) in a process group of more than one rank trains
+data-parallel, as the JAX helper's step over its mesh's data axis
+(``parallel/data_parallel.py``): every rank starts from the first rank's
+weights, loads its rows of each global batch (augmentation drawn per global
+batch), mixes them with partners from the gathered global batch (one draw
+per global batch), runs BatchNorm and the drop masks over the global batch,
+and averages the gradients over the ranks once per update, so the weights,
+the optimizer state and the EMA stay what one process computes; the logged
+loss and the validation are the global batch's, and the ranks decide a
+preemption stop together.  ``model_parallel`` and ``pipeline_parallel`` > 1
+raise ``NotImplementedError`` (ROADMAP.md queue 1, item 12b).
 """
 
 from __future__ import annotations
@@ -50,7 +60,9 @@ from convnet_approximater_tpu_torch.convert import load_jax_flat, variables_of
 from convnet_approximater_tpu_torch.data import Loader, Synthetic, build_dataset
 from convnet_approximater_tpu_torch.data.mixup import apply_mix, draw_mix
 from convnet_approximater_tpu_torch.layers import drop_generator
-from convnet_approximater_tpu_torch.nn import channels_last
+from convnet_approximater_tpu_torch.nn import DataShard, channels_last, sharded_batch
+from convnet_approximater_tpu_torch.parallel.data_parallel import (replicate_from_root, sum_over,
+                                                                   training_axis)
 from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
 from convnet_approximater_tpu_torch.utils import get_logger, get_rank, load_flat, unflatten_tree
 from convnet_approximater_tpu_torch.utils.config import Config
@@ -148,11 +160,8 @@ class TrainHelper:
             raise NotImplementedError(f"TrainHelper model_parallel > 1: {MESH_TODO}")
         if int(cfg.pipeline_parallel or 1) > 1:
             raise NotImplementedError(f"TrainHelper pipeline_parallel > 1: {MESH_TODO}")
-        if (cfg.use_mesh and self.device.type == "cuda" and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                f"TrainHelper use_mesh with {torch.cuda.device_count()} visible GPUs: "
-                f"{MESH_TODO}; set use_mesh=False or show the run one GPU")
         self.model = channels_last(model.to(self.device))
+        self.shard: Optional[DataShard] = None  # the data axis, across processes
         self.ema: Optional[nn.Module] = None
         self.optimizer = None
         self.num_classes = cfg.num_classes
@@ -178,7 +187,7 @@ class TrainHelper:
         model.train()
         if self.cfg.amp:
             images = images.to(torch.bfloat16)
-        images, target = apply_mix(mix, images, self.targets(labels))
+        images, target = apply_mix(mix, images, self.targets(labels), self.shard)
         if self.cfg.amp:
             logits = torch.func.functional_call(model, cast_params(model), (images,))
         else:
@@ -187,21 +196,25 @@ class TrainHelper:
         return -(F.log_softmax(logits, dim=-1) * target).sum(-1).mean()
 
     def mix_draw(self, step: int, images):
-        """Step ``step``'s Mixup/CutMix draws, or None when both are off."""
+        """Step ``step``'s Mixup/CutMix draws for the global batch, or None
+        when both are off."""
         cfg = self.cfg
         mixup_a, cutmix_a = float(cfg.mixup or 0.0), float(cfg.cutmix or 0.0)
         if mixup_a <= 0 and cutmix_a <= 0:
             return None
         b, _, h, w = images.shape
+        b *= self.shard.count if self.shard is not None else 1
         gen = torch.Generator().manual_seed(mix_seed(int(cfg.seed), step))
         return draw_mix(gen, b, h, w, mixup_a, cutmix_a, float(cfg.mixup_switch_prob or 0.5))
 
     def train_step(self, images, labels, step: int):
         """One micro-step: the loss, its backward, the optimizer (which updates
-        on every ``grad_accum``-th call) and the EMA; the loss, detached."""
+        on every ``grad_accum``-th call) and the EMA; the loss of this rank's
+        rows, detached."""
         self.optimizer.zero_grad()
-        loss = self.loss(images, labels, self.mix_draw(step, images))
-        loss.backward()
+        with sharded_batch(self.shard):
+            loss = self.loss(images, labels, self.mix_draw(step, images))
+            loss.backward()
         self.optimizer.step(self._all)
         self.optimizer.zero_grad()
         if self.ema is not None:
@@ -216,6 +229,10 @@ class TrainHelper:
         logger = get_logger()
         cfg = self.cfg
         model = self.model
+        self.shard = shard = training_axis(cfg.use_mesh)
+        replicate_from_root(model, shard)
+        if shard is not None:
+            logger.info(f"training over a data axis of {shard.count} ranks")
         size = tuple(cfg.image_size)
         if cfg.dataset:
             ds_train = build_dataset(dict(cfg.dataset), split="train")
@@ -228,7 +245,8 @@ class TrainHelper:
 
         def mk(ds, shuffle, aug=None):
             return Loader(ds, cfg.batch_size, shuffle=shuffle, drop_last=True, mean=cfg.mean,
-                          std=cfg.std, image_size=size, device=self.device, aug=aug)
+                          std=cfg.std, image_size=size, device=self.device, aug=aug,
+                          sharding=shard and (shard.index, shard.count))
 
         loader_train, loader_eval = mk(ds_train, True, cfg.aug), mk(ds_eval, False)
         steps = len(loader_train)
@@ -241,14 +259,15 @@ class TrainHelper:
         sche_args = Config(dict(epochs=cfg.epochs, sched=cfg.sched, min_lr=cfg.min_lr,
                                 warmup_epochs=cfg.warmup_epochs, decay_rate=cfg.decay_rate))
         self.optimizer, _ = make_optimizer(model.named_parameters(), optim_args, sche_args,
-                                           steps, every_k=int(cfg.grad_accum or 1))
+                                           steps, every_k=int(cfg.grad_accum or 1), data=shard)
         self._all = {n for n, _ in model.named_parameters()}
         if float(cfg.ema_decay or 0.0) > 0.0:
             self.ema = copy.deepcopy(model).eval().requires_grad_(False)
 
         out_dir = cfg.work_dir
         saver = None
-        if get_rank() == 0:
+        # a sharded save is collective: every rank builds the saver (npz: the first only)
+        if get_rank() == 0 or cfg.ckpt_backend == "sharded":
             saver = CheckpointSaver(out_dir, decreasing=(cfg.eval_metric == "loss"),
                                     max_history=cfg.checkpoint_hist, backend=cfg.ckpt_backend)
         start_epoch = self._resume() if cfg.resume else 0
@@ -330,13 +349,16 @@ class TrainHelper:
             for i, (images, labels) in enumerate(loader_train):
                 if i >= steps:
                     break
-                if self._guard is not None and self._guard.triggered:
+                if self._guard is not None and self._guard.stop_requested(self.shard):
                     raise Preempted(epoch)
                 generator.manual_seed(step_seed(seed, step_count))
                 loss = self.train_step(images, labels, step_count)
                 step_count += 1
                 if i % cfg.log_interval == 0 or i == steps - 1:
-                    loss_m.update(float(loss), images.shape[0])
+                    # the global batch's mean: every rank holds as many rows
+                    bs = images.shape[0]
+                    loss, bs = sum_over([float(loss) * bs, bs], self.shard, images.device)
+                    loss_m.update(loss / bs, bs)
                     time_m.update(time.time() - end)
                     logger.info(
                         f"Train: {epoch} [{i:>4d}/{steps}]  Loss: {loss_m.val:#.4g} "
@@ -355,7 +377,8 @@ class TrainHelper:
 
     def validate(self, loader) -> dict:
         """Loss, top-1 and top-5 over the validation batches, on the EMA weights
-        when the EMA is on."""
+        when the EMA is on; across processes each batch's sums go over the
+        data axis."""
         model = self.ema if self.ema is not None else self.model
         model.eval()
         lm, t1, t5 = AverageMeter(), AverageMeter(), AverageMeter()
@@ -364,6 +387,10 @@ class TrainHelper:
                 break
             loss, c1, c5, _ = eval_batch(model, images, labels)
             bs = images.shape[0]
+            if self.shard is not None:
+                loss, c1, c5, bs = sum_over([float(loss) * bs, float(c1), float(c5), bs],
+                                            self.shard, images.device)
+                loss, bs = loss / bs, int(bs)
             lm.update(float(loss), bs)
             t1.update(float(c1) / bs * 100, bs)
             t5.update(float(c5) / bs * 100, bs)

@@ -27,9 +27,11 @@ axis holds, contiguous and the same for every batch: the JAX ``Loader``'s
 ``sharding=``, which lays each global batch over the mesh's data axis.  The
 batch must split evenly, unless ``pad_shards=True`` (a data-parallel server):
 then a batch that does not is tiled up to a multiple of the ranks first, as
-``deploy.pad_batch_to_multiple`` pads a request.  Augmentation draws per
-global batch, so training across processes (ROADMAP.md queue 1, item 12b) is
-what would take both.
+``deploy.pad_batch_to_multiple`` pads a request.  The augmentation is drawn
+per global batch, as the JAX loader draws it before it shards the batch:
+every rank draws the whole batch's crop and flip parameters and RandAugment
+ops from the batch's ``RandomState`` and applies those of its rows, so the
+ranks' rows, concatenated, are the unsharded loader's batch bit for bit.
 """
 
 from __future__ import annotations
@@ -41,8 +43,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
-from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
-from convnet_approximater_tpu_torch.parallel.mesh import shard_indices
+from convnet_approximater_tpu_torch.parallel.mesh import pad_indices, shard_rows
 
 from . import native
 from .datasets import IMAGENET_DEFAULT_MEAN, IMAGENET_DEFAULT_STD, ArrayDataset
@@ -182,9 +183,6 @@ class Loader:
                 f"aug={self.aug} with dense labels (shape {np.shape(dataset.labels)}): the "
                 f"augmentation moves the images and not their masks, so the labels would "
                 f"no longer match the pixels; train segmentation without aug")
-        if sharding is not None and self.aug:
-            raise NotImplementedError(f"Loader sharding with aug={self.aug}: augmentation draws "
-                                      f"per global batch; {MESH_TODO}")
         self.sharding = sharding
         self.pad_shards = pad_shards
         self._mean = torch.from_numpy(self.mean).to(self.device)
@@ -199,33 +197,44 @@ class Loader:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
-    def geometry(self, idx: np.ndarray):
-        """``(out_hw, params, augmented)`` of the batch at ``idx``: its output
-        size, its crop/flip draws (:func:`draw_aug_params`, None without
-        augmentation) and, with ``rand_aug``, the gathered batch RandAugment-ed
-        (else None), from the batch's ``RandomState`` as the JAX loader draws them."""
+    def rows(self, n: int) -> slice:
+        """The rows of a global batch of ``n`` that this loader holds: its
+        rank's with ``sharding``, else all of them."""
+        return slice(0, n) if self.sharding is None else shard_rows(n, self.sharding)
+
+    def geometry(self, idx: np.ndarray, rows: Optional[slice] = None):
+        """``(out_hw, params, augmented)`` of ``rows`` (all by default) of the
+        global batch at ``idx``: its output size, its crop/flip draws
+        (:func:`draw_aug_params`, None without augmentation) and, with
+        ``rand_aug``, its gathered images RandAugment-ed (else None), from the
+        batch's ``RandomState`` as the JAX loader draws them for the whole batch."""
         pool = self.dataset.images
         H, W = pool.shape[1:3]
         out_hw = self.image_size or (H, W)
         if not self.aug:
             return out_hw, None, None
+        rows = slice(0, len(idx)) if rows is None else rows
         aug = dict(self.aug)
         rand_aug = aug.pop("rand_aug", None)
         rs = np.random.RandomState(
             (self.seed * 1000003 + self._epoch * 9176
              + (int(idx[0]) if len(idx) else 0)) % (2 ** 31))
         # rand_aug runs on the gathered batch, before the crop and flip draws
-        augmented = rand_augment_batch(pool[idx], rs, **rand_aug) if rand_aug else None
-        return out_hw, draw_aug_params(rs, len(idx), H, W, **aug), augmented
+        augmented = (rand_augment_batch(pool[idx[rows]], rs, first=rows.start, total=len(idx),
+                                        **rand_aug) if rand_aug else None)
+        params = draw_aug_params(rs, len(idx), H, W, **aug)
+        return out_hw, tuple(p[rows] for p in params), augmented
 
     def gather(self, idx: np.ndarray, out: Optional[np.ndarray] = None
                ) -> Tuple[np.ndarray, np.ndarray]:
-        """The batch at dataset indices ``idx`` on the host, before
-        normalisation: (B, H, W, C) uint8 images (written into ``out`` when
-        given) and int64 labels."""
+        """This loader's rows (:meth:`rows`) of the global batch at dataset
+        indices ``idx`` on the host, before normalisation: (B, H, W, C) uint8
+        images (written into ``out`` when given) and int64 labels."""
+        rows = self.rows(len(idx))
+        out_hw, params, augmented = self.geometry(idx, rows)
+        idx = idx[rows]
         labels = self.dataset.labels[idx].astype(np.int64)
         pool = self.dataset.images
-        out_hw, params, augmented = self.geometry(idx)
         if augmented is not None:
             images = apply_aug(augmented, params, out_hw)
         elif self.native and params is not None:
@@ -251,7 +260,8 @@ class Loader:
     def _prep(self, idx: np.ndarray):
         pool = self.dataset.images
         out_hw = self.image_size or pool.shape[1:3]
-        buf = self.pinned((len(idx), *out_hw, pool.shape[3]), torch.from_numpy(pool[:0]).dtype)
+        n = len(idx[self.rows(len(idx))])
+        buf = self.pinned((n, *out_hw, pool.shape[3]), torch.from_numpy(pool[:0]).dtype)
         if buf is None:
             images, labels = self.gather(idx)
             return torch.from_numpy(images), torch.from_numpy(labels)
@@ -275,8 +285,8 @@ class Loader:
         order = self._indices()
         nb = len(self)
         batches = [order[i * self.batch_size:(i + 1) * self.batch_size] for i in range(nb)]
-        if self.sharding is not None:
-            batches = [shard_indices(idx, self.sharding, self.pad_shards) for idx in batches]
+        if self.sharding is not None and self.pad_shards:
+            batches = [pad_indices(idx, self.sharding[1]) for idx in batches]
 
         if self.prefetch <= 0:
             for idx in batches:

@@ -16,6 +16,12 @@ the same permutation, lambda and box (their generators differ).  Images are
 the ``Loader``'s NCHW batches; the box is over H and W.  The images mix in
 their own type (lambda rounded to it, as the JAX package casts lambda to the
 images' type), the targets in theirs.
+
+Across processes a batch is one rank's rows of the global batch, and the
+draw is the global batch's (the same seed on every rank): :func:`apply_mix`
+with the data axis gathers the global batch and gives each of its rows the
+partner the permutation gives it there, so the ranks' mixed rows are one
+process's, bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from convnet_approximater_tpu_torch.parallel.data_parallel import all_gather_rows
 
 
 class MixDraw(NamedTuple):
@@ -34,14 +42,24 @@ class MixDraw(NamedTuple):
     cx: int = 0
 
 
-def mixup_batch(images: torch.Tensor, targets: torch.Tensor, lam, perm: torch.Tensor):
-    """Convex-combine each sample with its partner ``perm``: ``lam * x + (1 -
-    lam) * x[perm]``, images and targets alike.  ``lam = 1`` is the identity."""
+def _partners(images, targets, perm, partners):
+    if partners is not None:
+        return partners
     perm = perm.to(images.device)
+    return images[perm], targets[perm]
+
+
+def mixup_batch(images: torch.Tensor, targets: torch.Tensor, lam, perm: torch.Tensor,
+                partners=None):
+    """Convex-combine each sample with its partner ``perm``: ``lam * x + (1 -
+    lam) * x[perm]``, images and targets alike.  ``lam = 1`` is the identity.
+    ``partners``, the partners' ``(images, targets)``, stands for ``x[perm]``
+    where they are not in the batch."""
+    p_images, p_targets = _partners(images, targets, perm, partners)
     lam_i = torch.tensor(float(lam), dtype=images.dtype, device=images.device)
-    images = lam_i * images + (1.0 - lam_i) * images[perm]
+    images = lam_i * images + (1.0 - lam_i) * p_images
     lam_t = torch.tensor(float(lam), dtype=targets.dtype, device=targets.device)
-    targets = lam_t * targets + (1.0 - lam_t) * targets[perm]
+    targets = lam_t * targets + (1.0 - lam_t) * p_targets
     return images, targets
 
 
@@ -59,17 +77,17 @@ def cutmix_box(h: int, w: int, lam, cy: int, cx: int):
 
 
 def cutmix_batch(images: torch.Tensor, targets: torch.Tensor, lam, perm: torch.Tensor,
-                 cy: int, cx: int):
+                 cy: int, cx: int, partners=None):
     """Paste the partner's pixels inside :func:`cutmix_box`'s box; the target
     weight is the exact fraction of pixels kept, even where the box clips the
-    border."""
-    perm = perm.to(images.device)
+    border.  ``partners`` as in :func:`mixup_batch`."""
+    p_images, p_targets = _partners(images, targets, perm, partners)
     h, w = images.shape[2:]
     y0, y1, x0, x1, lam_actual = cutmix_box(h, w, lam, cy, cx)
     images = images.clone()
-    images[:, :, y0:y1, x0:x1] = images[perm][:, :, y0:y1, x0:x1]
+    images[:, :, y0:y1, x0:x1] = p_images[:, :, y0:y1, x0:x1]
     lam_t = torch.tensor(lam_actual, dtype=targets.dtype, device=targets.device)
-    targets = lam_t * targets + (1.0 - lam_t) * targets[perm]
+    targets = lam_t * targets + (1.0 - lam_t) * p_targets
     return images, targets
 
 
@@ -102,13 +120,22 @@ def draw_mix(generator: torch.Generator, batch: int, h: int, w: int, mixup_alpha
     return MixDraw(True, lam, perm, cy, cx)
 
 
-def apply_mix(draw: Optional[MixDraw], images: torch.Tensor, targets: torch.Tensor):
-    """``draw`` applied to a batch; no draw passes the batch through."""
+def apply_mix(draw: Optional[MixDraw], images: torch.Tensor, targets: torch.Tensor,
+              shard=None):
+    """``draw`` applied to a batch; no draw passes the batch through.  With a
+    data axis (``nn.DataShard``), ``images`` and ``targets`` are this rank's
+    rows of the global batch that ``draw`` was drawn for, and their partners
+    come from the global batch, gathered over the axis."""
     if draw is None:
         return images, targets
+    partners = None
+    if shard is not None:
+        b = images.shape[0]
+        idx = draw.perm[shard.index * b:(shard.index + 1) * b].to(images.device)
+        partners = (all_gather_rows(images, shard)[idx], all_gather_rows(targets, shard)[idx])
     if draw.cutmix:
-        return cutmix_batch(images, targets, draw.lam, draw.perm, draw.cy, draw.cx)
-    return mixup_batch(images, targets, draw.lam, draw.perm)
+        return cutmix_batch(images, targets, draw.lam, draw.perm, draw.cy, draw.cx, partners)
+    return mixup_batch(images, targets, draw.lam, draw.perm, partners)
 
 
 def mixup_cutmix(generator: torch.Generator, images: torch.Tensor, targets: torch.Tensor,

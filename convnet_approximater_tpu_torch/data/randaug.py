@@ -147,18 +147,34 @@ RAND_AUG_OPS = (
 )
 
 
+# the ops that draw from the stream: one sign each, rs.choice([-1, 1])
+SIGNED_OPS = frozenset({"Brightness", "Contrast", "Sharpness", "Rotate", "ShearX", "ShearY",
+                        "TranslateX", "TranslateY"})
+
+
 def rand_augment_batch(images: np.ndarray, rs: np.random.RandomState,
-                       n: int = 2, m: float = 9.0) -> np.ndarray:
+                       n: int = 2, m: float = 9.0, first: int = 0,
+                       total: int = None) -> np.ndarray:
     """Apply RandAugment(n, m) per image.  uint8 NHWC in/out; ``n=0`` is
-    the identity."""
+    the identity.  ``images`` may be rows ``[first, first + len(images))``
+    of a batch of ``total``: the stream is drawn for the whole batch (the
+    other rows' ops drawn, not applied), so each row gets the ops it gets in
+    the whole batch, as a rank of a data axis augments its rows."""
     if n <= 0:
         return images
     assert images.dtype == np.uint8, "RandAugment operates on uint8 images"
+    total = len(images) if total is None else total
     out = np.empty_like(images)
     n_ops = len(RAND_AUG_OPS)
-    for i in range(len(images)):
-        img = images[i]
-        for k in rs.randint(0, n_ops, size=n):
-            img = RAND_AUG_OPS[k][1](img, m, rs)
-        out[i] = img
+    for i in range(total):
+        ops = [RAND_AUG_OPS[k] for k in rs.randint(0, n_ops, size=n)]
+        if not first <= i < first + len(images):
+            for name, _ in ops:
+                if name in SIGNED_OPS:
+                    rs.choice([-1, 1])
+            continue
+        img = images[i - first]
+        for _, op in ops:
+            img = op(img, m, rs)
+        out[i - first] = img
     return out

@@ -43,8 +43,19 @@ Optimize phase:
   see each step's weights.
 * SIGTERM stops at the next step boundary and saves the full train state
   (:class:`~convnet_approximater_tpu_torch.utils.preempt.PreemptionGuard`);
-  ``resume`` restores weights, optimizer and epoch from the port's own
-  checkpoints, and weights only from the JAX package's.
+  ``resume`` restores weights, optimizer and epoch from a checkpoint of
+  either package (a JAX one's optax leaves through :func:`opt_state_from_jax`).
+* ``other_args.use_mesh`` (the default) in a process group of more than one
+  rank trains data-parallel, as the JAX hook's SPMD step over its mesh's data
+  axis (``parallel/data_parallel.py``): every rank takes the first rank's
+  weights, loads only its rows of each global batch (the ``Loader``'s
+  ``sharding=``, augmentation drawn per global batch), runs the teacher and
+  the student on them with BatchNorm's batch statistics and the drop masks
+  over the global batch, and the update averages the gradients over the
+  ranks, so every rank computes what one process computes on the whole
+  batch; the logged means and the validation sums are the global batch's,
+  and the ranks decide a preemption stop together.  ``model_parallel`` > 1
+  is still refused.
 
 Checkpoints are the JAX package's flat npz layout, with the optimizer state
 under ``opt`` and the epoch and metric under ``meta``, or with
@@ -77,13 +88,18 @@ from convnet_approximater_tpu_torch.layers import (QATConv2d, QATLinear, Substit
                                                    drop_generator, forced_branch, release_taps,
                                                    taps)
 from convnet_approximater_tpu_torch.models.switchable import set_submodule
+from convnet_approximater_tpu_torch.nn import DataShard, sharded_batch
+from convnet_approximater_tpu_torch.parallel.data_parallel import (average_gradients,
+                                                                   replicate_from_root, sum_over,
+                                                                   training_axis)
 from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
 from convnet_approximater_tpu_torch.utils import (get_logger, get_rank, load_flat, save_model,
                                                   unflatten_tree)
 from convnet_approximater_tpu_torch.utils.config import Config
 from convnet_approximater_tpu_torch.utils.dtype import cast_floating, cast_params
 from convnet_approximater_tpu_torch.utils.preempt import Preempted, PreemptionGuard
-from convnet_approximater_tpu_torch.utils.sharded_ckpt import save_sharded, wait_for_saves
+from convnet_approximater_tpu_torch.utils.sharded_ckpt import (checkpoint_group, save_sharded,
+                                                              wait_for_saves)
 
 from .hook import HOOK, Hook
 
@@ -200,7 +216,12 @@ class MaskedOptimizer:
     * ``every_k`` > 1 is ``optax.MultiSteps(every_k_schedule=every_k)``: each
       step adds its gradients into a running mean (``acc += (g - acc) / (n +
       1)``, per parameter under ``acc``), and only every k-th step updates, on
-      the mean; the schedule counts updates.
+      the mean; the schedule counts updates;
+    * ``data`` (a data axis, ``nn.DataShard``): each update first averages
+      the trainable parameters' gradients over the data axis
+      (``parallel.average_gradients``), once per update, after the
+      micro-steps' mean and before clipping, as the JAX step's gradient of a
+      global batch's loss.
 
     optax takes Adam's bias corrections ``1 - b^t`` in float32, where
     ``torch.optim.Adam`` takes them in float64: after 5 steps the two differ
@@ -212,8 +233,9 @@ class MaskedOptimizer:
     B1, B2 = 0.9, 0.999  # optax.adam(w)'s defaults
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]], optim_args: Config,
-                 sche_args: Config, steps_per_epoch: int, every_k: int = 1):
+                 sche_args: Config, steps_per_epoch: int, every_k: int = 1, data=None):
         self.named = list(named_params)
+        self.data = data
         self.kind = optim_args.opt
         if self.kind == "adamw":
             self.weight_decay = float(optim_args.weight_decay)
@@ -275,6 +297,9 @@ class MaskedOptimizer:
             grads = [a.clone() for a in acc]
             torch._foreach_zero_(acc)
         frozen = [i for i, (name, _) in enumerate(self.named) if name not in trainable]
+        if self.data is not None:
+            average_gradients([g for (name, _), g in zip(self.named, grads) if name in trainable],
+                              self.data)
         for i in frozen:
             grads[i].zero_()
         self._clip(grads, params)
@@ -305,11 +330,11 @@ class MaskedOptimizer:
 
 
 def make_optimizer(named_params, optim_args: Config, sche_args: Config,
-                   steps_per_epoch: int, every_k: int = 1
+                   steps_per_epoch: int, every_k: int = 1, data=None
                    ) -> Tuple[MaskedOptimizer, Callable[[int], float]]:
     """The optimizer and its learning-rate schedule (timm's
     ``create_optimizer_v2``/``create_scheduler`` in the reference)."""
-    opt = MaskedOptimizer(named_params, optim_args, sche_args, steps_per_epoch, every_k)
+    opt = MaskedOptimizer(named_params, optim_args, sche_args, steps_per_epoch, every_k, data)
     return opt, opt.lr
 
 
@@ -449,7 +474,11 @@ class CheckpointSaver:
       ``model_best.ckpt.dcp`` symlinks to epoch directories, and best-k
       pruning that never removes the directory ``last`` points at; the
       preemption save is synchronous, into ``checkpoint-preempt.ckpt.dcp``.
-      Its ``meta`` holds Python scalars, as the JAX saver's does."""
+      Its ``meta`` holds Python scalars, as the JAX saver's does.  Across
+      processes every rank builds this saver and saves (the save is
+      collective, over a gloo group the saver makes), and the first rank
+      alone makes the links and prunes; an ``npz`` saver is built on the
+      first rank only, as the JAX trainers build theirs."""
 
     def __init__(self, out_dir: str, decreasing: bool = False, max_history: int = 10,
                  backend: str = "npz"):
@@ -461,6 +490,8 @@ class CheckpointSaver:
         self.backend = backend
         self.suffix = ".ckpt.dcp" if backend == "sharded" else ".ckpt.npz"
         self.history = []  # (metric, path, epoch)
+        self.main = get_rank() == 0  # links and prunes (every rank saves a sharded checkpoint)
+        self.group = checkpoint_group() if backend == "sharded" else None
         os.makedirs(out_dir, exist_ok=True)
 
     def _name(self, stem: str) -> str:
@@ -480,8 +511,8 @@ class CheckpointSaver:
         path = self._name(f"checkpoint-{epoch}")
         tree = self._tree(variables, epoch, metric, opt_state)
         if self.backend == "sharded":
-            save_sharded(path, tree, wait=False)
-            _relink(path, self._name("last"))
+            save_sharded(path, tree, wait=False, group=self.group)
+            self._relink(path, "last")
         else:
             save_model(tree, path)
             _link(path, self._name("last"))
@@ -489,6 +520,8 @@ class CheckpointSaver:
         self.history.sort(key=lambda t: t[0], reverse=not self.decreasing)
         while len(self.history) > self.max_history:
             _, stale, _ = self.history.pop()
+            if not self.main:
+                continue
             if self.backend == "npz":
                 if os.path.exists(stale):
                     os.remove(stale)
@@ -496,8 +529,15 @@ class CheckpointSaver:
                   and os.path.realpath(stale) != os.path.realpath(self._name("last"))):
                 shutil.rmtree(stale)
         best_metric, best_path, best_epoch = self.history[0]
-        (_relink if self.backend == "sharded" else _link)(best_path, self._name("model_best"))
+        if self.backend == "sharded":
+            self._relink(best_path, "model_best")
+        else:
+            _link(best_path, self._name("model_best"))
         return best_metric, best_epoch
+
+    def _relink(self, target: str, stem: str):
+        if self.main:
+            _relink(target, self._name(stem))
 
     def save_last(self, variables: dict, epoch: int, opt_state=None) -> str:
         """Preemption save: only the ``last`` checkpoint (the best-k history is
@@ -506,8 +546,8 @@ class CheckpointSaver:
         tree = self._tree(variables, epoch, float("nan"), opt_state)
         if self.backend == "sharded":
             path = self._name("checkpoint-preempt")
-            save_sharded(path, tree, wait=True)
-            _relink(path, self._name("last"))
+            save_sharded(path, tree, wait=True, group=self.group)
+            self._relink(path, "last")
             return path
         path = self._name("last")
         save_model(tree, path)
@@ -561,12 +601,8 @@ class L2Reconstruct(Hook):
         self.amp = bool(other.amp)
         if int(other.model_parallel or 1) > 1:
             raise NotImplementedError(f"L2Reconstruct model_parallel > 1: {MESH_TODO}")
-        if (other.use_mesh and torch.device(runner.device).type == "cuda"
-                and torch.cuda.device_count() > 1):
-            raise NotImplementedError(
-                f"L2Reconstruct use_mesh with {torch.cuda.device_count()} visible GPUs: "
-                f"{MESH_TODO}; set other_args.use_mesh=False or show the run one GPU")
         check_aug(self.data_config.aug)
+        self.shard: Optional[DataShard] = None  # the data axis, across processes
         self.teacher: Optional[nn.Module] = None
         self.optimizer: Optional[MaskedOptimizer] = None
         self.result = None
@@ -692,10 +728,13 @@ class L2Reconstruct(Hook):
 
     def train_step(self, images, labels, mask: Set[str]):
         """One training step: the loss, its backward and the masked update;
-        ``(loss, ce, norm)``, detached."""
+        ``(loss, ce, norm)`` of this rank's rows, detached.  Across processes
+        the forward and backward run on the data axis (``nn.sharded_batch``)
+        and the update averages the gradients over it."""
         self.optimizer.zero_grad()
-        loss, ce, norm = self.loss(images, labels)
-        loss.backward()
+        with sharded_batch(self.shard):
+            loss, ce, norm = self.loss(images, labels)
+            loss.backward()
         self.optimizer.step(mask)
         release_taps(self.runner.model)
         if self.teacher is not None:
@@ -722,6 +761,14 @@ class L2Reconstruct(Hook):
         runner = self.runner
         model = runner.model
         device = runner.device
+        # across processes: each rank steps on its rows of every global batch, from the
+        # data axis's first rank's weights
+        self.shard = shard = training_axis(self.other_args.use_mesh)
+        replicate_from_root(model, shard)
+        if runner.model_before_passes is not None:
+            replicate_from_root(runner.model_before_passes, shard)
+        if shard is not None:
+            logger.info(f"training over a data axis of {shard.count} ranks")
 
         # the student routes (and, in asym mode or with no teacher signal,
         # prunes) to the new branch; sym keeps the old one as the teacher
@@ -743,7 +790,8 @@ class L2Reconstruct(Hook):
         def mk_loader(ds, shuffle, aug=None):
             return Loader(ds, self.dataset_args.batch_size, shuffle=shuffle, drop_last=True,
                           mean=self.data_config.mean, std=self.data_config.std,
-                          image_size=image_size, device=device, aug=aug)
+                          image_size=image_size, device=device, aug=aug,
+                          sharding=shard and (shard.index, shard.count))
 
         loader_train = mk_loader(ds_train, True, self.data_config.aug)
         loader_eval = mk_loader(ds_eval, False)
@@ -752,7 +800,7 @@ class L2Reconstruct(Hook):
             steps_per_epoch = min(steps_per_epoch, self.other_args.max_steps_per_epoch)
 
         self.optimizer, lr_sched = make_optimizer(model.named_parameters(), self.optim_args,
-                                                  self.sche_args, steps_per_epoch)
+                                                  self.sche_args, steps_per_epoch, data=shard)
         start_epoch = self._resume() if self.other_args.resume else 0
         if self.other_args.start_epoch is not None:
             start_epoch = self.other_args.start_epoch
@@ -766,7 +814,8 @@ class L2Reconstruct(Hook):
         eval_metric = self.other_args.eval_metric
         out_dir = runner.cfg.work_dir or "."
         saver = None
-        if get_rank() == 0:
+        # a sharded save is collective: every rank builds the saver (npz: the first only)
+        if get_rank() == 0 or self.other_args.ckpt_backend == "sharded":
             saver = CheckpointSaver(out_dir, decreasing=(eval_metric == "loss"),
                                     max_history=self.other_args.checkpoint_hist,
                                     backend=self.other_args.ckpt_backend)
@@ -826,7 +875,9 @@ class L2Reconstruct(Hook):
         restored = []
         start_epoch = 0
         if "opt" in ckpt:
-            if opt_state_from_tree(ckpt["opt"], self.optimizer) is None:
+            opt = ckpt["opt"]
+            if (opt_state_from_tree(opt, self.optimizer) is None
+                    and opt_state_from_jax(opt, self.optimizer) is None):
                 logger.warning("resume: optimizer state structure mismatch; "
                                "keeping a fresh optimizer")
             else:
@@ -854,19 +905,24 @@ class L2Reconstruct(Hook):
         losses_m, norm_m, total_m, time_m = (AverageMeter() for _ in range(4))
         end = time.time()
         guard = self._guard
+        shard = self.shard
         for i, (images, labels) in enumerate(loader):
             if i >= steps:
                 break
-            if guard is not None and guard.triggered:
+            if guard is not None and guard.stop_requested(shard):
                 raise Preempted()
             generator.manual_seed(step_seed(seed, step_count))
             loss, ce, norm = self.train_step(images, labels, mask)
             step_count += 1
             bs = images.shape[0]
             if i % self.other_args.log_interval == 0 or i == steps - 1:
-                losses_m.update(float(ce), bs)
-                norm_m.update(float(norm), bs)
-                total_m.update(float(loss), bs)
+                # the global batch's means: every rank holds as many rows
+                ce, norm, loss, bs = sum_over([float(ce) * bs, float(norm) * bs,
+                                               float(loss) * bs, bs], shard, images.device)
+                ce, norm, loss = ce / bs, norm / bs, loss / bs
+                losses_m.update(ce, bs)
+                norm_m.update(norm, bs)
+                total_m.update(loss, bs)
                 time_m.update(time.time() - end)
                 logger.info(
                     f"Train: {epoch} [{i:>4d}/{steps}]  "
@@ -879,7 +935,8 @@ class L2Reconstruct(Hook):
 
     def _validate(self, loader) -> Dict[str, float]:
         """Loss, top-1 and top-5 over the validation batches (``eval_metric``
-        names one of them)."""
+        names one of them); across processes each batch's sums go over the
+        data axis."""
         logger = get_logger()
         model = self.runner.model
         losses_m, top1_m, top5_m = (AverageMeter() for _ in range(3))
@@ -890,6 +947,10 @@ class L2Reconstruct(Hook):
                 break
             loss, c1, c5, _ = eval_batch(model, images, labels)
             bs = images.shape[0]
+            if self.shard is not None:
+                loss, c1, c5, bs = sum_over([float(loss) * bs, float(c1), float(c5), bs],
+                                            self.shard, images.device)
+                loss, bs = loss / bs, int(bs)
             losses_m.update(float(loss), bs)
             top1_m.update(float(c1) / bs * 100.0, bs)
             top5_m.update(float(c5) / bs * 100.0, bs)

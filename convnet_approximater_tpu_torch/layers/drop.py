@@ -4,7 +4,10 @@ A training forward draws its masks from the module's ``generator`` (a
 ``torch.Generator`` on the input's device, which the trainer owns and seeds
 from the run's seed), or from torch's global generator when it has none.
 :func:`drop_generator` sets it on every ``DropPath`` and ``Dropout`` of a
-model for the length of a block.  Eval forwards draw nothing.
+model for the length of a block.  Eval forwards draw nothing.  Inside
+``nn.sharded_batch`` (training across processes) a rank draws the global
+batch's masks and takes its rows (``nn.bernoulli_rows``), as one process
+would draw them for the whole batch.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ from typing import Iterator, Optional
 import torch
 from torch import nn
 
-from convnet_approximater_tpu_torch.nn import Dropout
+from convnet_approximater_tpu_torch.nn import Dropout, bernoulli_rows
 
 
 def drop_path(x, drop_prob: float, training: bool, scale_by_keep: bool = True,
@@ -25,8 +28,7 @@ def drop_path(x, drop_prob: float, training: bool, scale_by_keep: bool = True,
         return x
     keep_prob = 1.0 - drop_prob
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    mask = torch.empty(shape, dtype=x.dtype, device=x.device).bernoulli_(
-        keep_prob, generator=generator)
+    mask = bernoulli_rows(x.new_empty(shape), keep_prob, generator)
     if scale_by_keep and keep_prob > 0.0:
         mask = mask / keep_prob
     return x * mask

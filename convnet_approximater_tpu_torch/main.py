@@ -11,7 +11,9 @@ reference's ``dist_main.sh``, or the three flags) each rank joins the process
 group first (``parallel.initialize_distributed``: NCCL on the cards, each
 rank on its own, gloo with ``--device cpu``), seeds Python and numpy with
 ``seed + rank``, and only the main process makes the work dir and writes the
-log.  ``--checkpoint`` is deploy mode: the app's sites are built as
+log; a fine-tune hook then trains data-parallel over the ranks from the
+first rank's weights (``L2Reconstruct``'s ``use_mesh``, ``dataset_args.batch_size``
+the global batch), its npz checkpoints written by the main process alone.  ``--checkpoint`` is deploy mode: the app's sites are built as
 their bare targets and the checkpoint (the Runner's ``.pt`` or a flat
 ``.npz``) loads into them, with Optimize and PostProcess skipped.
 ``--device`` defaults to ``cuda`` and fails when no CUDA device is present;

@@ -25,6 +25,16 @@ package does:
 * ``Dropout`` draws its training mask from its ``generator`` (one the trainer
   owns, seeded from the run's seed), not from torch's global generator.
 
+Training across processes (``parallel/data_parallel.py``) runs each rank's
+training forward inside :func:`sharded_batch`, which names the rank's place on
+the data axis: there ``BatchNorm2d`` takes its batch statistics over the
+whole global batch (an ``all_gather`` of each rank's count, mean and squared
+deviations in the forward, an ``all_reduce`` of the two gradient sums in the
+backward: the JAX package's batch norm over a global batch sharded on its
+mesh), and the drop masks are drawn for the global batch, each rank taking
+its rows (:func:`bernoulli_rows`), so the ranks compute what one process
+computes on the whole batch.  Outside it, or over one rank, nothing changes.
+
 Modules take NCHW tensors; the model runs in ``torch.channels_last``, so an
 NCHW tensor is an NHWC block of memory, the layout of the JAX package.
 """
@@ -34,8 +44,10 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
+from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -97,7 +109,7 @@ class Dropout(nn.Module):
         keep = 1.0 - self.p
         if keep == 0.0:
             return torch.zeros_like(x)
-        mask = torch.empty_like(x).bernoulli_(keep, generator=self.generator)
+        mask = bernoulli_rows(x, keep, self.generator)
         return x * mask / keep
 
     def extra_repr(self) -> str:
@@ -118,8 +130,98 @@ def flatten_hwc(x):
     return x.permute(0, 2, 3, 1).flatten(1)
 
 
+class DataShard(NamedTuple):
+    """A rank's place on the data axis of training across processes."""
+
+    index: int  # this rank's index on the axis: it holds rows [index * b, (index + 1) * b)
+    count: int  # the ranks on the axis
+    group: object  # the axis's process group (the batch statistics, the gradients)
+    host: object  # a gloo group over the same ranks, for host-side values (the stop flag)
+    root: int  # the global rank of the axis's first rank (the weights' source)
+
+
+_data_shard = contextvars.ContextVar("data_shard", default=None)
+
+
+@contextlib.contextmanager
+def sharded_batch(shard: Optional[DataShard]):
+    """Within the block a training forward holds ``shard``'s rows of a global
+    batch: ``BatchNorm2d`` reduces over the data axis and the drop masks are
+    the global batch's rows.  None changes nothing."""
+    token = _data_shard.set(shard)
+    try:
+        yield
+    finally:
+        _data_shard.reset(token)
+
+
+def bernoulli_rows(x, keep: float, generator) -> torch.Tensor:
+    """A Bernoulli(``keep``) mask of ``x``'s shape and type from ``generator``.
+    Inside :func:`sharded_batch` it is this rank's rows of the mask drawn for
+    the whole global batch (in ``x``'s memory format), so ranks seeded alike
+    draw what one process draws."""
+    shard = _data_shard.get()
+    if shard is None:
+        return torch.empty_like(x).bernoulli_(keep, generator=generator)
+    rows = x.shape[0]
+    fmt = (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
+           and x.is_contiguous(memory_format=torch.channels_last) else torch.contiguous_format)
+    full = torch.empty((rows * shard.count,) + tuple(x.shape[1:]), dtype=x.dtype,
+                       device=x.device, memory_format=fmt).bernoulli_(keep, generator=generator)
+    return full[shard.index * rows:(shard.index + 1) * rows]
+
+
+class GlobalBatchNorm(torch.autograd.Function):
+    """Training batch norm over the rows of every rank of a data axis, in
+    float32.  The forward gathers each rank's count, per-channel mean and sum
+    of squared deviations and combines them (Chan's parallel update: no
+    cancellation of large squares), updates the running statistics with the
+    global count's unbiased variance, and normalises; the backward sums the
+    per-channel ``dy`` and ``dy * xhat`` over the ranks, so each rank's input
+    gradient is that of the sum of every rank's loss.  The affine gradients
+    stay this rank's: the gradient reduction sums them."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, momentum, eps, group):
+        xf = x.float()
+        c = xf.shape[1]
+        var, mean = torch.var_mean(xf, dim=(0, 2, 3), correction=0)
+        n = xf.numel() // c
+        local = torch.cat([mean.new_full((1,), float(n)), mean, var * n])
+        parts = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, local, group=group)
+        stats = torch.stack(parts)
+        counts, means, m2 = stats[:, :1], stats[:, 1:c + 1], stats[:, c + 1:]
+        total = counts.sum()
+        mean = (counts * means).sum(0) / total
+        m2 = (m2 + counts * (means - mean) ** 2).sum(0)
+        invstd = torch.rsqrt(m2 / total + eps)
+        with torch.no_grad():
+            running_mean.mul_(1 - momentum).add_(mean * momentum)
+            running_var.mul_(1 - momentum).add_(m2 / (total - 1).clamp_min(1) * momentum)
+        xhat = (xf - mean[None, :, None, None]) * invstd[None, :, None, None]
+        ctx.save_for_backward(xhat, weight, invstd, total)
+        ctx.group = group
+        return (xhat * weight[None, :, None, None] + bias[None, :, None, None]).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        xhat, weight, invstd, total = ctx.saved_tensors
+        dyf = dy.float()
+        sum_dy = dyf.sum((0, 2, 3))
+        sum_dy_xhat = (dyf * xhat).sum((0, 2, 3))
+        sums = torch.cat([sum_dy, sum_dy_xhat])
+        dist.all_reduce(sums, group=ctx.group)
+        g_dy, g_dy_xhat = (sums / total).chunk(2)
+        dx = (weight * invstd)[None, :, None, None] * (
+            dyf - g_dy[None, :, None, None] - xhat * g_dy_xhat[None, :, None, None])
+        return dx.to(dy.dtype), sum_dy_xhat, sum_dy, None, None, None, None, None
+
+
 class BatchNorm2d(nn.Module):
-    """BatchNorm over (N, H, W) with running stats (unbiased running var)."""
+    """BatchNorm over (N, H, W) with running stats (unbiased running var);
+    while training inside :func:`sharded_batch` over more than one rank, over
+    the (N, H, W) of the global batch (:class:`GlobalBatchNorm`)."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -132,6 +234,10 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
+        shard = _data_shard.get()
+        if self.training and shard is not None:
+            return GlobalBatchNorm.apply(x, _f32(self.weight), _f32(self.bias), self.running_mean,
+                                         self.running_var, self.momentum, self.eps, shard.group)
         return F.batch_norm(x, self.running_mean, self.running_var, _f32(self.weight),
                             _f32(self.bias), self.training, self.momentum, self.eps)
 

@@ -1,12 +1,14 @@
-"""Serving across processes (port of the eval half of
+"""Serving and data-parallel training across processes (port of
 ``convnet_approximater_tpu/parallel/``): one process per device on
 ``torch.distributed``, the ``(data, model)`` mesh, GPipe pipelines inside a
-stage and over the whole model."""
+stage and over the whole model, and the data axis's reductions in training."""
 
+from .data_parallel import (all_gather_rows, any_rank, average_gradients, replicate_from_root,
+                            sum_over, training_axis)
 from .distributed import (MESH_TODO, initialize_distributed, is_main_process,
                           local_device_count, process_count, shutdown_distributed)
-from .mesh import (DATA_AXIS, MODEL_AXIS, batch_sharding, make_mesh, pad_to_multiple,
-                   replicate, shard_batch, shard_indices, shard_rows)
+from .mesh import (DATA_AXIS, MODEL_AXIS, batch_sharding, broadcast_module, make_mesh,
+                   pad_indices, pad_to_multiple, replicate, shard_batch, shard_indices, shard_rows)
 from .pp import owned_range, pipeline_blocks, release, restore
 from .pp_model import (ModelPipeline, Tail, Unit, build_model_pipeline, partition_units, subtree,
                        unit_from_module)

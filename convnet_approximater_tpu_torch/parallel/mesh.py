@@ -6,8 +6,8 @@ and lets XLA insert the collectives.  Here each rank is one process on one
 device: the mesh is a ``torch.distributed`` ``DeviceMesh`` with the same axis
 names, a "sharded" batch is the rank's own rows of it, and "replicated"
 weights are every rank's copy, broadcast from the data group's first rank.
-``param_shardings`` (tensor-parallel layouts) and ``spatial_sharding`` belong
-to training across processes (ROADMAP.md queue 1, item 12b).
+``param_shardings`` (tensor-parallel layouts) and ``spatial_sharding`` are
+still to be ported (ROADMAP.md queue 1, item 12b).
 """
 
 from __future__ import annotations
@@ -69,14 +69,18 @@ def shard_rows(n: int, sharding: Tuple[int, int]) -> slice:
     return slice(index * per, (index + 1) * per)
 
 
+def pad_indices(idx: np.ndarray, count: int) -> np.ndarray:
+    """The batch ``idx`` tiled up to the next multiple of ``count`` rows, its
+    rows repeated from the start, as ``deploy.pad_batch_to_multiple`` tiles a batch."""
+    return idx[np.arange(-(-len(idx) // count) * count) % len(idx)]
+
+
 def shard_indices(idx: np.ndarray, sharding: Tuple[int, int], pad: bool = False) -> np.ndarray:
     """The rows of the global batch ``idx`` that ``sharding`` holds.  With
     ``pad``, a batch that does not split evenly is first tiled up to the next
-    multiple of the ranks, its rows repeated from the start, as
-    ``deploy.pad_batch_to_multiple`` tiles a batch; without, it must split evenly."""
+    multiple of the ranks (:func:`pad_indices`); without, it must split evenly."""
     if pad:
-        count = sharding[1]
-        idx = idx[np.arange(-(-len(idx) // count) * count) % len(idx)]
+        idx = pad_indices(idx, sharding[1])
     return idx[shard_rows(len(idx), sharding)]
 
 
@@ -88,18 +92,24 @@ def shard_batch(batch, mesh):
     return batch[shard_rows(batch.shape[0], batch_sharding(mesh))]
 
 
-@torch.no_grad()
 def replicate(module: nn.Module, mesh) -> nn.Module:
     """Every rank of a data group takes the parameters and buffers of the
-    group's first rank (a copy into each tensor, so the kernel layers' caches,
-    keyed on weight versions, see the change)."""
+    group's first rank."""
     _, count, group, ranks = axis_ranks(mesh, DATA_AXIS)
     if count > 1:
-        for t in list(module.parameters()) + list(module.buffers()):
-            incoming = t.detach().contiguous().clone()  # collectives take dense tensors
-            dist.broadcast(incoming, src=ranks[0], group=group)
-            t.copy_(incoming)
+        broadcast_module(module, group, ranks[0])
     return module
+
+
+@torch.no_grad()
+def broadcast_module(module: nn.Module, group, src: int) -> None:
+    """Copy global rank ``src``'s parameters and buffers into every rank of
+    ``group`` (a copy into each tensor, so the kernel layers' caches, keyed on
+    weight versions, see the change)."""
+    for t in list(module.parameters()) + list(module.buffers()):
+        incoming = t.detach().contiguous().clone()  # collectives take dense tensors
+        dist.broadcast(incoming, src=src, group=group)
+        t.copy_(incoming)
 
 
 def pad_to_multiple(batch, multiple: int):

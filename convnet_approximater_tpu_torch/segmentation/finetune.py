@@ -14,10 +14,12 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+import torch.distributed as dist
 
 from convnet_approximater_tpu_torch.classification import AverageMeter
 from convnet_approximater_tpu_torch.hooks.finetune import L2Reconstruct
 from convnet_approximater_tpu_torch.hooks.hook import HOOK
+from convnet_approximater_tpu_torch.parallel.data_parallel import sum_over
 from convnet_approximater_tpu_torch.utils import get_logger
 
 from .data import SyntheticSeg
@@ -46,7 +48,8 @@ class SegL2Reconstruct(L2Reconstruct):
     @torch.no_grad()
     def _validate(self, loader) -> Dict[str, float]:
         """Loss, mIoU and aAcc of the eval forward over the validation batches,
-        from one confusion matrix summed on the device."""
+        from one confusion matrix summed on the device (and across processes
+        over the data axis, as each batch's loss)."""
         model = self.runner.model
         num_classes = self.other_args.num_classes
         losses_m = AverageMeter()
@@ -60,8 +63,14 @@ class SegL2Reconstruct(L2Reconstruct):
             loss = seg_cross_entropy(logits, labels, ignore_index=self.ignore_index)
             pred = upsample_logits(logits, labels.shape[1:]).argmax(dim=1)
             cm = confusion_matrix(pred, labels, num_classes, self.ignore_index)
-            losses_m.update(float(loss), images.shape[0])
+            bs = images.shape[0]
+            if self.shard is not None:
+                loss, bs = sum_over([float(loss) * bs, bs], self.shard, images.device)
+                loss, bs = loss / bs, int(bs)
+            losses_m.update(float(loss), bs)
             cm_total = cm if cm_total is None else cm_total + cm
+        if cm_total is not None and self.shard is not None:
+            dist.all_reduce(cm_total, group=self.shard.group)
         stats = iou_from_confusion(cm_total.cpu().numpy()) if cm_total is not None else {}
         metrics = dict(loss=losses_m.avg, miou=stats.get("miou", 0.0),
                        aacc=stats.get("aacc", 0.0))

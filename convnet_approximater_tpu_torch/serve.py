@@ -98,15 +98,17 @@ class HostNormLoader(Loader):
 
     def _prep(self, idx: np.ndarray):
         pool = self.dataset.images
-        out_hw, params, augmented = self.geometry(idx)
-        labels = torch.from_numpy(self.dataset.labels[idx].astype(np.int64))
-        buf = self.pinned((len(idx), *out_hw, pool.shape[3]), torch.float32)
+        rows = self.rows(len(idx))
+        out_hw, params, augmented = self.geometry(idx, rows)
+        mine = idx[rows]
+        labels = torch.from_numpy(self.dataset.labels[mine].astype(np.int64))
+        buf = self.pinned((len(mine), *out_hw, pool.shape[3]), torch.float32)
         out = None if buf is None else buf.numpy()
         if self.native and augmented is None:
             if params is None:
-                x = native.prep_batch(pool, idx, out_hw, self.mean, self.std, out=out)
+                x = native.prep_batch(pool, mine, out_hw, self.mean, self.std, out=out)
             else:
-                x = native.prep_batch_aug(pool, idx, out_hw, self.mean, self.std, params,
+                x = native.prep_batch_aug(pool, mine, out_hw, self.mean, self.std, params,
                                           out=out)
         else:
             images = (apply_aug(augmented, params, out_hw) if augmented is not None

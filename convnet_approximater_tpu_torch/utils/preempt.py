@@ -5,7 +5,8 @@ Schedulers announce eviction with SIGTERM and grant a grace window.  The
 guard turns SIGTERM into a cooperative stop: the handler only sets a flag,
 the train loop checks it at step granularity, saves the full train state
 (weights, optimizer moments, epoch) and returns, so a preempted run resumes
-exactly (``hooks/finetune.py``).
+exactly (``hooks/finetune.py``).  Across processes the ranks decide the stop
+together at each step (:meth:`PreemptionGuard.stop_requested`).
 """
 
 from __future__ import annotations
@@ -48,6 +49,16 @@ class PreemptionGuard:
         """Raise :class:`Preempted` if a notice arrived (call once per step)."""
         if self._event.is_set():
             raise Preempted()
+
+    def stop_requested(self, shard=None) -> bool:
+        """Whether a train loop stops at this step: a notice arrived here or,
+        across processes, on any rank of the data axis ``shard`` (an
+        ``nn.DataShard``).  Every rank asks at every step and they decide
+        together, so all of them leave at the same step and none waits alone
+        in a collective."""
+        from convnet_approximater_tpu_torch.parallel.data_parallel import any_rank
+
+        return any_rank(self.triggered, shard)
 
     def __enter__(self):
         if threading.current_thread() is threading.main_thread():

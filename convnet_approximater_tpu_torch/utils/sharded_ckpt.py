@@ -16,6 +16,14 @@ and reads it from this process alone (it warns once that it assumes so).
 * :func:`restore_sharded` without a target returns the tree as host numpy,
   as the JAX one does; with a target (:func:`abstract_like`: tensors already
   placed where the restore should land them) DCP reads into those tensors.
+* Across processes the save is collective: every rank calls it with the same
+  tree and the same ``group`` (:func:`checkpoint_group`, a gloo group: DCP's
+  asynchronous save coordinates over a CPU backend, and a group of its own
+  keeps its background collectives apart from the trainers'); the group's
+  first rank clears the old directory behind a barrier, as the JAX module's
+  ``sync_global_devices("sharded_ckpt_pre_save")`` does, and DCP writes each
+  replicated tensor once.  A checkpoint written at one world size restores at
+  any other, in one process too.
 * A JAX ``.oshard`` directory holds orbax/TensorStore data, which this port
   does not read: it is refused with the way across (the JAX ``load_ckpt``,
   then ``save_model`` to npz).
@@ -32,6 +40,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .serialize import flatten_tree, unflatten_tree
 
@@ -114,7 +123,13 @@ def wait_for_saves() -> None:
         pending.result()
 
 
-def save_sharded(path: str, tree: Dict[str, Any], *, wait: bool = True) -> str:
+def checkpoint_group():
+    """A gloo group over every rank for :func:`save_sharded`, or None outside a
+    process group.  Collective: every rank makes it together."""
+    return dist.new_group(backend="gloo") if dist.is_initialized() else None
+
+
+def save_sharded(path: str, tree: Dict[str, Any], *, wait: bool = True, group=None) -> str:
     """Save a nested tree of tensors, numpy arrays and Python scalars to the
     directory ``path`` (which must end in ``.dcp``), replacing what was there.
 
@@ -122,23 +137,28 @@ def save_sharded(path: str, tree: Dict[str, Any], *, wait: bool = True) -> str:
     host arrays are handed over, and the caller leaves them unchanged until
     the save commits (:class:`~convnet_approximater_tpu_torch.hooks.finetune.CheckpointSaver`
     builds a fresh host copy of the train state for each save);
-    :func:`wait_for_saves`, the next save or a restore waits for it."""
+    :func:`wait_for_saves`, the next save or a restore waits for it.  With a
+    ``group`` (:func:`checkpoint_group`) the save is collective over it."""
     import torch.distributed.checkpoint as dcp
 
     global _in_flight
     _check_ours(path)
     path = os.path.abspath(path)
     wait_for_saves()  # one save in flight at a time
-    if os.path.islink(path):
-        os.remove(path)
-    elif os.path.exists(path):
-        shutil.rmtree(path)
+    if group is None or dist.get_rank(group) == 0:
+        if os.path.islink(path):
+            os.remove(path)
+        elif os.path.exists(path):
+            shutil.rmtree(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if group is not None:
+        dist.barrier(group=group)  # no rank writes before the old directory is gone
     state = {k: _to_tensor(v) for k, v in flatten_tree(tree).items()}
     if wait:
-        dcp.save(state, checkpoint_id=path)
+        dcp.save(state, checkpoint_id=path, process_group=group)
         return path
-    future = dcp.async_save(state, checkpoint_id=path, async_stager=_handed_over()())
+    future = dcp.async_save(state, checkpoint_id=path, async_stager=_handed_over()(),
+                            process_group=group)
     # torch's newer releases may hand back a response that holds the upload's future
     future = getattr(future, "upload_completion", future)
     with _lock:
@@ -165,7 +185,7 @@ def restore_sharded(path: str, target: Optional[Dict[str, Any]] = None) -> Dict[
     """Restore a :func:`save_sharded` checkpoint: into ``target``'s tensors
     (see :func:`abstract_like`), returned as the target tree with its scalars
     as saved; without a target, the whole tree as host numpy arrays and
-    Python scalars."""
+    Python scalars.  In a process group the read is collective over every rank."""
     import torch.distributed.checkpoint as dcp
     from torch.distributed.checkpoint.metadata import TensorStorageMetadata
 

@@ -471,22 +471,23 @@ def run_port_plain(tmp_path, text, name):
     return runner
 
 
-def test_resume_from_a_jax_checkpoint_keeps_a_fresh_optimizer(tmp_path):
+def test_resume_from_a_jax_checkpoint_restores_the_optimizer(tmp_path):
+    """A JAX hook's checkpoint carries its optax state (Adam's count, ``mu`` and
+    ``nu`` over the parameters in the JAX tree's sorted order): the resumed
+    port run starts from the JAX weights, count, ``mu`` and ``nu`` bit for bit."""
     body = "asym=True, l2_weight=1.0, cls_weight=0.1,"
-    kw = dict(body=body, optim='opt="adamw", lr=1e-3', epochs=1, steps=1, px=16, extra="")
+    kw = dict(body=body, optim='opt="adamw", lr=1e-3', epochs=1, steps=2, px=16, extra="")
     run_jax(tmp_path, TINY_MODEL + FT.format(snap="", **kw))
     ckpt = str(tmp_path / "jax" / "last.ckpt.npz")
-    records = []
-    handler = logging.Handler()
-    handler.emit = lambda record: records.append(record.getMessage())
-    logger = logging.getLogger("convnet_approximater_tpu_torch")
-    logger.addHandler(handler)
     loaded = {}
     orig = ft.L2Reconstruct._train_one_epoch
 
     def capture(self, *args, **kwargs):
-        loaded.update(params_to_jax(self.runner.model.state_dict()))
-        loaded["count"] = self.optimizer.count
+        if not loaded:
+            loaded.update(params_to_jax(self.runner.model.state_dict()))
+            loaded["count"] = self.optimizer.count
+            loaded["opt"] = {n: {k: v.clone() for k, v in st.items()}
+                             for n, st in self.optimizer.state.items()}
         return orig(self, *args, **kwargs)
 
     ft.L2Reconstruct._train_one_epoch = capture
@@ -495,14 +496,28 @@ def test_resume_from_a_jax_checkpoint_keeps_a_fresh_optimizer(tmp_path):
             snap="", **dict(kw, epochs=2, extra=f", resume={ckpt!r}")))
     finally:
         ft.L2Reconstruct._train_one_epoch = orig
-        logger.removeHandler(handler)
-    assert any("optimizer state structure mismatch; keeping a fresh optimizer" in r
-               for r in records)
-    assert loaded["count"] == 0
     jflat = tser.load_flat(ckpt)
-    for k, v in loaded.items():
-        if k != "count":
-            assert np.array_equal(v, jflat[k]), k
+    for k in [k for k in jflat if k.split("/")[0] in ("params", "state")]:
+        assert np.array_equal(loaded[k], jflat[k]), k
+    # optax.adamw's state: (ScaleByAdamState(count, mu, nu), EmptyState(), EmptyState())
+    jparams = sorted((k for k in jflat if k.startswith("params/")),
+                     key=lambda k: tuple(k.split("/")))
+    n = len(jparams)
+    assert sorted(k for k in jflat if k.startswith("opt/")) == [f"opt/{i:05d}"
+                                                               for i in range(1 + 2 * n)]
+    assert loaded["count"] == int(jflat["opt/00000"]) == 2
+    names = {next(iter(params_to_jax({name: v["mu"]}))): name for name, v in loaded["opt"].items()}
+    assert set(names) == set(jparams)
+    moved = set()
+    for i, key in enumerate(jparams):
+        for moment, leaf in (("mu", 1 + i), ("nu", 1 + n + i)):
+            got = params_to_jax({names[key]: loaded["opt"][names[key]][moment]})[key]
+            want = jflat[f"opt/{leaf:05d}"]
+            assert np.array_equal(got, want), (key, moment)
+            if np.any(want != 0):
+                moved.add(key)
+    # the two steps moved the moments of the trained (new-branch) parameters
+    assert moved and all("/new/" in k for k in moved), moved
 
 
 class TriggerAt(PreemptionGuard):

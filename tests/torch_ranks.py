@@ -246,3 +246,227 @@ def serving_job(eval_cfg: dict, seed: int, serve_argvs: dict) -> dict:
                   count=parallel.process_count(), replica=replica.state_dict()),
         validate=ValidateHelper(model, dict(eval_cfg, use_mesh=True), device="cpu").validate(),
         serve={k: serve_job(argv) for k, argv in serve_argvs.items()})
+
+
+# -- data-parallel training (tests/test_torch_data_parallel_*.py) -------------
+def _register_training_pieces():
+    """The port's TinyBNNet (TinyNet with a BatchNorm after each conv, the JAX
+    twin in ``tests/test_torch_data_parallel_training.py``) and a hook that
+    loads a flat npz into the runner's model after Optimize."""
+    from convnet_approximater_tpu_torch import nn as tnn
+    from convnet_approximater_tpu_torch.convert import params_from_jax
+    from convnet_approximater_tpu_torch.hooks import HOOK, Hook
+    from convnet_approximater_tpu_torch.models import MODEL, SwitchableModel
+    from convnet_approximater_tpu_torch.utils import load_flat
+
+    if "TinyBNNet" not in MODEL:
+
+        @MODEL.register_module()
+        class TinyBNNet(SwitchableModel):
+            def __init__(self, num_classes=4, init_cfg=None):
+                super().__init__(init_cfg=init_cfg)
+                self.features = torch.nn.Sequential(
+                    tnn.Conv2d(3, 8, 3, padding=1), tnn.BatchNorm2d(8), tnn.ReLU(),
+                    tnn.MaxPool2d(2, 2),
+                    tnn.Conv2d(8, 12, 3, padding=1), tnn.BatchNorm2d(12), tnn.ReLU(),
+                    tnn.Conv2d(12, 12, 3, padding=1), tnn.BatchNorm2d(12), tnn.ReLU())
+                self.head = tnn.Linear(12, num_classes)
+
+            def forward(self, x):
+                return self.head(self.features(x).mean(dim=(2, 3)))
+
+    if "LoadFlat" not in HOOK:
+
+        @HOOK.register_module()
+        class LoadFlat(Hook):
+            """Loads the flat npz at ``path`` into the model before fine-tuning."""
+
+            def __init__(self, runner, priority, path):
+                super().__init__(runner, priority)
+                self.path = path
+
+            def after_optimize(self):
+                state = params_from_jax(load_flat(self.path))
+                missing, unexpected = self.runner.model.load_state_dict(state, strict=False)
+                assert not missing and not unexpected, (missing, unexpected)
+
+
+_register_training_pieces()
+
+
+def tiny_mscan_drop(seed: int):
+    """The tiny MSCAN with drop path 0.2 and dropout 0.1, random weights from ``seed``."""
+    from convnet_approximater_tpu_torch.models import MSCAN_Classifier
+    from convnet_approximater_tpu_torch.nn import init_weights
+
+    model = MSCAN_Classifier(**TINY_MSCAN, drop_rate=0.1, drop_path_rate=0.2)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def tiny_bn_net(path: str):
+    """TinyBNNet with the weights of the flat npz at ``path``."""
+    from convnet_approximater_tpu_torch.convert import params_from_jax
+    from convnet_approximater_tpu_torch.models import build_model
+    from convnet_approximater_tpu_torch.utils import load_flat
+
+    model = build_model(dict(type="TinyBNNet", num_classes=4))
+    model.load_state_dict(params_from_jax(load_flat(path)))
+    return model
+
+
+def loader_batches(case: dict, sharding=None) -> list:
+    """Two epochs of a shuffled ``Loader`` with augmentation ``case`` over a
+    small Synthetic pool, global batch 16: per batch the normalised images,
+    the labels and the uint8 rows ``gather`` gives."""
+    from convnet_approximater_tpu_torch.data import Loader, Synthetic
+
+    loader = Loader(Synthetic(48, (12, 13, 3), 4, seed=1), 16, shuffle=True, seed=3,
+                    device="cpu", prefetch=0, sharding=sharding, **case)
+    out = []
+    for epoch in (0, 1):
+        loader.set_epoch(epoch)
+        order = loader._indices()
+        for i, (x, y) in enumerate(loader):
+            out.append(dict(x=x, y=y, u8=loader.gather(order[i * 16:(i + 1) * 16])[0]))
+    return out
+
+
+def pieces_job(bn: dict, loader_cases: dict, mix: dict, trees: dict) -> dict:
+    """On a (world, 1) mesh: ``BatchNorm2d`` forward and backward on this rank's
+    rows of ``bn["x"]`` inside ``sharded_batch``; the sharded ``Loader`` with
+    each augmentation case, through the native prep and numpy; ``apply_mix``
+    of each draw on this rank's rows; ``save_sharded`` of ``trees["tree"]``
+    across the ranks into ``trees["two"]`` and ``restore_sharded`` of the
+    one-process checkpoint ``trees["one"]``; the refusal of a pipelined stage
+    in training."""
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.data.mixup import apply_mix
+    from convnet_approximater_tpu_torch.models.stage_exec import resolve_pipeline_carrier
+    from convnet_approximater_tpu_torch.nn import BatchNorm2d, sharded_batch
+    from convnet_approximater_tpu_torch.utils.sharded_ckpt import (checkpoint_group,
+                                                                   restore_sharded, save_sharded)
+
+    shard = parallel.training_axis(True)
+    sharding = (shard.index, shard.count)
+    rows = parallel.shard_rows(len(bn["x"]), sharding)
+    out = {"shard": tuple(shard[:2])}
+    norm = BatchNorm2d(bn["x"].shape[-1])
+    norm.load_state_dict(bn["state"])
+    x = nchw(bn["x"][rows]).requires_grad_()
+    with sharded_batch(shard):
+        y = norm.train()(x)
+    (y * nchw(bn["dy"][rows])).sum().backward()
+    out["bn"] = dict(y=y.detach(), dx=x.grad, dw=norm.weight.grad, db=norm.bias.grad,
+                     mean=norm.running_mean, var=norm.running_var)
+    out["loaders"] = {(name, native): loader_batches(dict(case, native=native), sharding)
+                      for name, case in loader_cases.items() for native in (True, False)}
+    out["mix"] = [apply_mix(draw, mix["images"][rows], mix["targets"][rows], shard)
+                  for draw in mix["draws"]]
+    save_sharded(trees["two"], trees["tree"], wait=True, group=checkpoint_group())
+    out["restored"] = restore_sharded(trees["one"])
+    model = build("mscan")
+    resolve_pipeline_carrier(model).enable_pipeline(parallel.make_mesh(data=1, model=shard.count))
+    try:
+        model.train()(nchw(np.zeros((2, 32, 32, 3), np.float32)))
+    except NotImplementedError as e:
+        out["pipelined_training"] = str(e)
+    return out
+
+
+class TriggerOnRank(object):
+    """A preemption guard whose notice arrives on rank ``rank`` when the train
+    loop reads it for the ``at``-th time."""
+
+    rank, at = 1, 3
+
+    def __new__(cls):
+        from convnet_approximater_tpu_torch.utils.preempt import PreemptionGuard
+
+        class Guard(PreemptionGuard):
+            reads = 0
+
+            @property
+            def triggered(self):
+                self.reads += 1
+                if dist.get_rank() == cls.rank and self.reads == cls.at:
+                    self.trigger()
+                return super().triggered
+
+        return Guard()
+
+
+def recorded(helper_or_hook) -> list:
+    """Each call's result of ``train_step``, detached, in a list."""
+    steps, step = [], helper_or_hook.train_step
+
+    def wrapped(*args, **kwargs):
+        out = step(*args, **kwargs)
+        steps.append(out)
+        return out
+
+    helper_or_hook.train_step = wrapped
+    return steps
+
+
+def helper_run(model, cfg: dict) -> dict:
+    """``TrainHelper(model, cfg).train()`` on the CPU: the weights, the EMA, the
+    optimizer state and each step's loss of this rank's rows."""
+    from convnet_approximater_tpu_torch.classification import TrainHelper
+    from convnet_approximater_tpu_torch.hooks.finetune import opt_state_to_tree
+
+    helper = TrainHelper(model, cfg, device="cpu")
+    steps = recorded(helper)
+    result = helper.train()
+    return dict(state=helper.model.state_dict(), steps=[float(s) for s in steps],
+                ema=helper.ema.state_dict() if helper.ema is not None else None,
+                opt=opt_state_to_tree(helper.optimizer), best=result["best_metric"])
+
+
+def l2_run(cfg_path: str, work_dir: str) -> dict:
+    """The port's Runner on the fine-tune config at ``cfg_path`` (its
+    L2Reconstruct hook), seed 0: the weights after the run and as the hook
+    left them (``trained``), and each step's (loss, ce, norm) of this rank's rows."""
+    from convnet_approximater_tpu_torch.runner import Runner
+    from convnet_approximater_tpu_torch.utils import config as tcfg
+
+    tcfg.init_cfg(cfg_path)
+    tcfg.update_cfg(work_dir=work_dir, config_name="l2", seed=0)
+    runner = Runner(device="cpu")
+    hook = next(h for h in runner.hooks if h.name == "L2Reconstruct")
+    steps, trained, after_optimize = recorded(hook), {}, hook.after_optimize
+
+    def keeping():
+        after_optimize()
+        trained.update({k: v.clone() for k, v in runner.model.state_dict().items()})
+
+    hook.after_optimize = keeping
+    runner.run()
+    return dict(state=runner.model.state_dict(), trained=trained, result=hook.result,
+                steps=[[float(v) for v in s] for s in steps])
+
+
+def training_job(l2: dict, mixed: dict, plain: dict, preempt: dict) -> dict:
+    """Training across the ranks: the L2Reconstruct config ``l2["cfg"]``
+    (its sharded checkpoints in the shared ``l2["work"]``); ``TrainHelper`` on
+    the tiny MSCAN with drop path and dropout, each rank from its own random
+    weights (``replicate`` gives it the first rank's), under ``mixed["cfg"]``;
+    on TinyBNNet from ``plain["weights"]`` under ``plain["cfg"]``; and a
+    TinyBNNet run whose guard raises a notice on rank 1 alone, each rank with
+    its own npz work dir."""
+    from convnet_approximater_tpu_torch.classification import train as train_mod
+
+    rank = dist.get_rank()
+    out = dict(l2=l2_run(l2["cfg"], l2["work"]),
+               mixed=helper_run(tiny_mscan_drop(mixed["seed"] + rank), mixed["cfg"]),
+               plain=helper_run(tiny_bn_net(plain["weights"]), plain["cfg"]))
+    work = os.path.join(preempt["work"], f"rank{rank}")
+    guard = train_mod.PreemptionGuard
+    train_mod.PreemptionGuard = TriggerOnRank
+    try:
+        out["preempt"] = helper_run(tiny_bn_net(plain["weights"]),
+                                    dict(preempt["cfg"], work_dir=work))
+    finally:
+        train_mod.PreemptionGuard = guard
+    out["preempt"]["files"] = sorted(os.listdir(work)) if os.path.isdir(work) else None
+    return out
