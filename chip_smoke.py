@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --p23     # phase 23 alone, on a host with several cards
     python3 chip_smoke.py --p24     # phase 24 alone
+    python3 chip_smoke.py --p25     # phase 25 alone
 
 From the root of a checkout, with no arguments:
 
@@ -365,7 +366,24 @@ From the root of a checkout, with no arguments:
     the ranks equal, F1's sharded checkpoint from the ranks restored in one
     process bit for bit; the ms per step of each world beside phase 10's F1
     and P20's;
-25. prints one JSON line of kernel results (each kernel's entry lists the later
+25. P25, training across processes, pipelined (``TrainHelper(pipeline_parallel)``,
+    P20's config made deterministic: SGD with momentum 0, no Mixup/CutMix,
+    label smoothing 0, drop path 0; 4 steps, 2 validation batches, b=64,
+    224^2, f32): (a) MSCAN-t over 2 gloo ranks on the one card at M = 1
+    (stage 4 pipelined) against world size 1 unpipelined; (b) the same at M =
+    4 with drop path 0.1 and Mixup/CutMix on, sharded checkpoints, against one
+    process with the stage engine at axis size 1 over stage 4 alone, and
+    stage 4's BatchNorm running statistics within 1e-5; (c) dense ConvNeXt-T
+    (layer scales 1) over 3 gloo ranks at M = 4, every stage pipelined,
+    against one process at axis size 1; (d) on a host with 2 or more cards,
+    (a) as NCCL ranks one per card.  Each within 1e-4 (losses, weights, EMA),
+    every rank's weights bit-equal, no port kernel in a training step,
+    ``msca_fused`` per validation forward as the ranks' blocks run it (13
+    blocks), the checkpoint written under the pipeline restored in one
+    process bit for bit; the ms per step of each rank beside its reference.
+    (a) and (b) run in P24's two gloo processes after P24's runs (warm);
+    ``--p25`` spawns its own;
+26. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``, the bf16 ones among
     them), then ``{"ok": true, "device": ...}``.
 
@@ -381,7 +399,8 @@ checkpoint, P18's two ``export_model`` artifacts (the dodecomp AlexNet and
 the int8 ResNet-50) and then P23 alone, its ``serve --data-parallel`` loops
 P23_SCALING_BATCHES batches long: on a host with 2 or 4 cards it measures
 serving across them (the img/s of each world size against one card's).
-``--p24`` runs steps 1-2 and P24 alone.  Neither prints the result lines.
+``--p24`` and ``--p25`` run steps 1-2 and P24 or P25 alone.  None of them
+prints the result lines.
 """
 
 from __future__ import annotations
@@ -4779,13 +4798,28 @@ def run_plan(name):
     launches per forward of each candidate, int8's qmatmul once per int8
     module; reuse_plan of plan_to_json rebuilds the winner with no timing
     call, its logits within 1e-4 of the plan's (bf16: within BF16_REL_TOL).  The second call's winner is the first's, or in each call the two
-    winners' rows lie within 2 %.  Returns ({candidate: launches per forward},
-    the first plan, the second call's winner)."""
+    winners' rows lie within 2 %.  The second call takes FfnPrune's greedy
+    selection (float64 numpy on the host, seconds per site) from the first
+    where its inputs are the same bits: it builds, grades and times every
+    candidate again.  Returns ({candidate: launches per forward}, the first
+    plan, the second call's winner)."""
+    import hashlib
+
     import torch
 
     from convnet_approximater_tpu_torch import deploy_planner as planner
+    from convnet_approximater_tpu_torch.core import ffn_prune
     from convnet_approximater_tpu_torch.hooks import forward_times
     from convnet_approximater_tpu_torch.layers import QuantConv2d, QuantLinear
+
+    selections, select = {}, ffn_prune._greedy_select
+
+    def remembered(K, T, k, eps=1e-12):
+        key = (hashlib.sha1(np.ascontiguousarray(K).tobytes()).hexdigest(),
+               hashlib.sha1(np.ascontiguousarray(T).tobytes()).hexdigest(), k, eps)
+        if key not in selections:
+            selections[key] = select(K, T, k, eps)
+        return selections[key]
 
     make, gates = plan_model(name)
     skip = PLANNER_SKIP.get(name, ())
@@ -4814,7 +4848,9 @@ def run_plan(name):
 
         torch.cuda.reset_peak_memory_stats()
         t0 = last[0] = time.perf_counter()
-        plan = planner.plan_serving(make, INPUT, dtype=dtype, candidates=cands, time_fn=time_fn)
+        with mock.patch.object(ffn_prune, "_greedy_select", remembered):
+            plan = planner.plan_serving(make, INPUT, dtype=dtype, candidates=cands,
+                                        time_fn=time_fn)
         torch.cuda.synchronize()
         plan_s = time.perf_counter() - t0
         print(f"P17 plan_serving {name} at {INPUT} {plan['dtype']}, call {call}: {len(cands)} "
@@ -6954,9 +6990,10 @@ def p24_world(tag: str) -> dict:
     return out
 
 
-def p24_rank(rank: int, world: int, port: int, backend: str):
+def p24_rank(rank: int, world: int, port: int, backend: str, then: tuple = ()):
     """One of ``world`` ranks: gloo ranks all on this card, NCCL ranks one per
-    card.  P24's runs, saved for the first process to compare."""
+    card.  P24's runs, saved for the first process to compare; then P25's runs
+    ``then`` in the same group (its processes have trained MSCAN-t: warm)."""
     import torch
     import torch.distributed as dist
 
@@ -6971,9 +7008,10 @@ def p24_rank(rank: int, world: int, port: int, backend: str):
                             rank=rank)
     try:
         res = p24_world(tag)
+        torch.save(res, os.path.join(P24_DIR, f"{tag}_rank{rank}.pt"))
+        p25_runs(rank, world, backend, then)
     finally:
         dist.destroy_process_group()
-    torch.save(res, os.path.join(P24_DIR, f"{tag}_rank{rank}.pt"))
 
 
 def p24_hold(label: str, one: dict, ranks: list, ema: bool, failed: list) -> dict:
@@ -7038,7 +7076,7 @@ def p24_check_launches(label: str, runs: list, failed: list):
                           f"TrainHelper step")
 
 
-def run_p24(f1_ms=None, p20_ms=None) -> dict:
+def run_p24(f1_ms=None, p20_ms=None, then: tuple = ()) -> dict:
     """P24: data-parallel training, the F1 config and P20's TrainHelper config
     at b=64 (global), 224^2, f32: world size 1 over a one-rank NCCL group in
     this process, then P24_WORLD gloo ranks on this one card and, on a host
@@ -7072,8 +7110,9 @@ def run_p24(f1_ms=None, p20_ms=None) -> dict:
         label = (f"world size {world} ({world} gloo ranks on one card)" if backend == "gloo"
                  else f"world size {world} (NCCL, one rank per card)")
         try:
-            mp.start_processes(p24_rank, args=(world, free_port(), backend), nprocs=world,
-                               join=True, start_method="spawn")
+            mp.start_processes(p24_rank, args=(world, free_port(), backend,
+                                               then if (backend, world) == ("gloo", 2) else ()),
+                               nprocs=world, join=True, start_method="spawn")
         except mp.ProcessRaisedException as e:
             fail(f"P24: a rank of {label} raised: {e}")
         except mp.ProcessExitedException as e:
@@ -7116,6 +7155,326 @@ def run_p24(f1_ms=None, p20_ms=None) -> dict:
         fail("P24: " + "; ".join(failed))
     shutil.rmtree(P24_DIR, ignore_errors=True)
     return out
+
+
+# -- P25: training across processes, pipelined ---------------------------------
+P25_DIR = os.path.join(REPO, "build", "chip_smoke_p25")
+P25_STEPS = 4           # training steps of each run
+P25_EVAL = 2            # validation batches of each run
+P25_TOL = 1e-4          # a pipelined run against its reference: each step's loss, weights, EMA
+P25_BN_TOL = 1e-5       # (b): stage 4's BatchNorm running statistics against the reference's
+# P20's TrainHelper config made deterministic: SGD with momentum 0, no Mixup/CutMix, label
+# smoothing 0 (drop path 0 in the model); clip 1.0, EMA 0.999 and grad_accum=2 stay
+P25_CFG = dict(P20_CFG, opt="sgd", momentum=0.0, mixup=0.0, cutmix=0.0, label_smoothing=0.0,
+               max_steps_per_epoch=P25_STEPS, max_eval_batches=P25_EVAL, use_mesh=True)
+# (a) MSCAN-t over 2 pipe ranks at M = 1; (b) at M = 4 with drop path 0.1 and Mixup/CutMix,
+# sharded checkpoints; (c) dense ConvNeXt-T over 3 pipe ranks at M = 4
+P25_RUNS = {"a": dict(P25_CFG, pipeline_parallel=2, pipeline_microbatches=1),
+            "b": dict(P25_CFG, pipeline_parallel=2, pipeline_microbatches=4, mixup=0.8,
+                      cutmix=1.0, ckpt_backend="sharded"),
+            "c": dict(P25_CFG, pipeline_parallel=3, pipeline_microbatches=4)}
+P25_WORLD = {"a": 2, "b": 2, "c": 3}
+
+
+def p25_model(run: str):
+    """The model of P25's run ``run``: MSCAN-t (drop path 0, or 0.1 in (b)) or dense
+    ConvNeXt-T with layer scales 1, random weights from seed 0."""
+    import torch
+
+    from convnet_approximater_tpu_torch.models import ConvNeXtTiny
+    from convnet_approximater_tpu_torch.nn import init_weights
+
+    if run != "c":
+        return mscan_t_model(drop_path_rate=0.1 if run == "b" else 0.0)
+    model = ConvNeXtTiny(num_classes=P20_CLASSES)
+    init_weights(model, torch.Generator().manual_seed(0))
+    set_gamma(model)
+    return model
+
+
+def p25_helper(run: str, work_dir: str, axis_one: bool = False) -> dict:
+    """P25's run ``run`` through ``TrainHelper`` on this process's group: per
+    step the loss, the CUDA-event ms and the port kernels' launches; per
+    validation batch the msca_fused launches and counts; the weights and EMA
+    as the run leaves them (every block gathered from its owner), stage 4's
+    BatchNorm running statistics, the pipelined blocks and the rank's own.
+    ``axis_one``: this process alone with the stage engine at axis size 1 over
+    the stages the pipelined run pipelines (the reference at the same M)."""
+    import torch
+
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.classification import TrainHelper
+    from convnet_approximater_tpu_torch.classification import train as train_mod
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+
+    cfg = dict(P25_RUNS[run], work_dir=work_dir)
+    t_build = time.perf_counter()
+    helper = TrainHelper(p25_model(run), cfg, device="cuda")
+    t_build = time.perf_counter() - t_build
+    rec = train_probe(helper)
+    engine, enable = {}, train_mod.TrainHelper._enable_pipeline
+
+    def recording(self, mesh, optimizer):
+        enable(self, mesh, optimizer)
+        if axis_one and run == "b":  # the two-rank run pipelines stage 4 alone
+            for carrier in self.carriers:
+                carrier.enable_pipeline(None)
+                carrier.enable_pipeline(mesh, num_microbatches=cfg["pipeline_microbatches"],
+                                        stages=[3])
+        carrier = self.carriers[0]
+        blocks = carrier.pipelined_blocks()
+        engine.update(stages=carrier.pipelined_stages(), blocks=len(blocks),
+                      own=sum(owner == carrier.pipe_index() for _, owner, _ in blocks),
+                      M=carrier._pipeline["M"])
+
+    patches = [mock.patch.object(train_mod.TrainHelper, "_enable_pipeline", recording)]
+    if axis_one:
+        patches.append(mock.patch.object(train_mod, "training_mesh",
+                                         lambda use_mesh, pp: parallel.make_mesh(data=1, model=1)))
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for p in patches:
+            stack.enter_context(p)
+        evals = stack.enter_context(eval_counts(train_mod))
+        on_ema = stack.enter_context(eval_launches(helper))
+        helper.train()
+    torch.cuda.synchronize()
+    state = host_state(helper.model)
+    out = dict(losses=[float(v) for v in rec["losses"]],
+               ms=[a.elapsed_time(b) for a, b in rec["events"]], step_launches=rec["launches"],
+               evals=evals, ema_ran=all(e for _, e in on_ema), state=state,
+               ema=host_state(helper.ema), engine=engine, run_s=time.perf_counter() - t0,
+               build_s=t_build,
+               launches=fused_ops.msca_fused.launches,
+               stage4_bn={k: v for k, v in state.items()
+                          if k.startswith("backbone.layers.3.1.") and "running" in k})
+    del helper
+    torch.cuda.empty_cache()
+    return out
+
+
+def digests(state: dict) -> dict:
+    """``{name: sha1 of the host tensor's bytes}``: what two ranks' bit-equal weights share."""
+    import hashlib
+
+    import torch
+
+    return {k: hashlib.sha1(v.contiguous().view(-1).view(torch.uint8).numpy()).hexdigest()
+            for k, v in state.items()}
+
+
+def p25_runs(rank: int, world: int, backend: str, runs: tuple):
+    """P25's ``runs`` on the process group this rank is in, saved for the first
+    process to compare (the other ranks' weights and EMA as digests of their
+    bytes)."""
+    import torch
+
+    if not runs:
+        return
+    os.makedirs(P25_DIR, exist_ok=True)
+    res = {run: p25_helper(run, os.path.join(P25_DIR, f"{run}_{backend}{world}")) for run in runs}
+    for out in res.values():
+        for key in ("state", "ema"):
+            out[f"{key}_digest"] = digests(out[key])
+            if rank:
+                out[key] = None
+    torch.save(res, os.path.join(P25_DIR, f"{''.join(runs)}_{backend}{world}_rank{rank}.pt"))
+
+
+def p25_rank(rank: int, world: int, port: int, backend: str, runs: tuple):
+    """One of ``world`` ranks (gloo ranks all on this card, NCCL ranks one per
+    card): P25's ``runs`` (:func:`p25_runs`)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    if rank:
+        sys.stdout = open(os.path.join(P25_DIR, f"{''.join(runs)}_{backend}{world}_rank{rank}.log"),
+                          "w")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0 if backend == "gloo" else rank)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        p25_runs(rank, world, backend, runs)
+    finally:
+        dist.destroy_process_group()
+
+
+def p25_spawn(world: int, backend: str, runs: tuple) -> list:
+    import torch
+    import torch.multiprocessing as mp
+
+    label = f"{world} {backend} ranks"
+    try:
+        mp.start_processes(p25_rank, args=(world, free_port(), backend, runs), nprocs=world,
+                           join=True, start_method="spawn")
+    except mp.ProcessRaisedException as e:
+        fail(f"P25: a rank of {label} raised: {e}")
+    except mp.ProcessExitedException as e:
+        fail(f"P25: a rank of {label} died: {e}")
+    tag = f"{''.join(runs)}_{backend}{world}"
+    return p25_load(world, tag)
+
+
+def p25_load(world: int, tag: str) -> list:
+    import torch
+
+    return [torch.load(os.path.join(P25_DIR, f"{tag}_rank{r}.pt"), weights_only=False)
+            for r in range(world)]
+
+
+def p25_hold(label: str, run: str, ref: dict, ranks: list, ref_label: str, failed: list) -> dict:
+    """A pipelined run against its reference: every loss finite, each step's
+    loss (rank 0's: every pipe rank computes the whole batch's) and the weights
+    and EMA within P25_TOL, every rank's weights and EMA bit-equal, no port
+    kernel in a training step, msca_fused per validation forward as the rank's
+    blocks run it (MSCAN-t).  Returns the step ms."""
+    losses = [r[run]["losses"] for r in ranks]
+    if not np.all(np.isfinite(ref[run]["losses"])) or not np.all(np.isfinite(losses)):
+        failed.append(f"{label}: a loss is not finite")
+    if len(ref[run]["losses"]) != P25_STEPS or any(len(v) != P25_STEPS for v in losses):
+        fail(f"P25 {label}: a run took another number of steps than {P25_STEPS}")
+    want = np.asarray(ref[run]["losses"])
+    loss_err = float(np.max(np.abs(np.asarray(losses[0]) - want) / np.abs(want)))
+    errs = {k: global_rel([v for v in ranks[0][run][k].values() if v.is_floating_point()],
+                          [v for v in ref[run][k].values() if v.is_floating_point()])
+            for k in ("state", "ema")}
+    same = all(r[run][f"{k}_digest"] == ranks[0][run][f"{k}_digest"] == digests(ranks[0][run][k])
+               for r in ranks[1:] for k in ("state", "ema"))
+    engines = [r[run]["engine"] for r in ranks]
+    print(f"P25 {label}: pipelined stages {engines[0]['stages']} ({engines[0]['blocks']} blocks, "
+          f"M = {engines[0]['M']}, each rank's own {[e['own'] for e in engines]}); losses "
+          f"{', '.join(f'{v:.7g}' for v in losses[0])} against {ref_label}'s "
+          f"{', '.join(f'{v:.7g}' for v in want)} (max rel err {loss_err:.3e}, bound {P25_TOL}); "
+          f"weights rel err {errs['state']:.3e}, EMA {errs['ema']:.3e} (bound {P25_TOL}); every "
+          f"rank's weights and EMA (replicated and gathered) bit-equal: {same}; port kernels per "
+          f"step {[r[run]['step_launches'] for r in ranks]}")
+    if loss_err > P25_TOL or any(v > P25_TOL for v in errs.values()) or not same:
+        failed.append(f"{label}: does not train as {ref_label}")
+    if any(any(r[run]["step_launches"]) for r in ranks) or not all(r[run]["ema_ran"]
+                                                                     for r in ranks):
+        failed.append(f"{label}: a port kernel launched in a training step, or a validation "
+                      f"forward did not run the EMA weights")
+    if run != "c":  # msca_fused per validation forward: the replicated blocks, the rank's own M times
+        got = [[e[0] for e in r[run]["evals"]] for r in ranks]
+        expect = [(MSCA_BLOCKS - e["blocks"]) + e["own"] * e["M"] for e in engines]
+        blocks = (MSCA_BLOCKS - engines[0]["blocks"]) + sum(e["own"] for e in engines)
+        print(f"P25 {label}: msca_fused per validation forward on each rank {got} (the "
+              f"{MSCA_BLOCKS - engines[0]['blocks']} replicated blocks, and the rank's own "
+              f"pipelined blocks once per microbatch: {expect}); the blocks they run, each "
+              f"counted once: {blocks}")
+        if any(g != [x] * P25_EVAL for g, x in zip(got, expect)) or blocks != MSCA_BLOCKS:
+            failed.append(f"{label}: msca_fused launched other than {MSCA_BLOCKS} times per "
+                          f"validation forward, as the pipe ranks' blocks run it")
+    return dict(ref=float(np.median(ref[run]["ms"][1:])),
+                ranks=[float(np.median(r[run]["ms"][1:])) for r in ranks])
+
+
+def p25_hold_ckpt(label: str, path: str, rank0: dict, failed: list):
+    """The checkpoint written under the pipeline (``path``), restored in this
+    process alone: the gathered weights and EMA bit for bit, the optimizer state
+    of every parameter."""
+    from convnet_approximater_tpu_torch.convert import params_to_jax
+    from convnet_approximater_tpu_torch.utils import load_flat
+
+    flat = load_flat(path)
+    want = dict(params_to_jax(rank0["state"]))
+    want.update({f"ema/{k}": v for k, v in params_to_jax(rank0["ema"]).items()})
+    same = (set(k for k in flat if k.split("/")[0] in ("params", "state", "ema")) == set(want)
+            and all(np.array_equal(flat[k], v) for k, v in want.items()))
+    params = {k for k in rank0["state"] if not k.endswith(("running_mean", "running_var"))}
+    opt = {k.split("/")[1] for k in flat if k.startswith("opt/") and k.count("/") == 2}
+    print(f"P25 {label}: its checkpoint {os.path.relpath(path, REPO)}, restored in one process: "
+          f"{len(want)} weights and EMA leaves bit-equal to the gathered ones: {same}; the "
+          f"optimizer state of {len(opt)} of {len(params)} parameters")
+    if not same or opt != params:
+        failed.append(f"{label}: the checkpoint written under the pipeline does not restore the "
+                      f"whole model bit for bit")
+
+
+def run_p25(after_p24: bool = False) -> dict:
+    """P25: pipelined training, MSCAN-t over 2 gloo ranks on this card at M = 1
+    against world size 1 unpipelined and at M = 4 against one process with the
+    engine at axis size 1, dense ConvNeXt-T over 3 ranks at M = 4 against the
+    same, and on a host with 2 or more cards (a) as NCCL ranks one per card.
+    ``after_p24``: (a) and (b) ran in P24's two gloo ranks after P24's runs."""
+    import shutil
+
+    import torch
+
+    from convnet_approximater_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    if not after_p24:
+        shutil.rmtree(P25_DIR, ignore_errors=True)
+        os.makedirs(P25_DIR)
+    parallel.initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+    try:  # the references, in this process over a one-rank NCCL group
+        ref = {"a": p25_helper("a", os.path.join(P25_DIR, "a_nccl1")),
+               "b": p25_helper("b", os.path.join(P25_DIR, "b_nccl1"), axis_one=True),
+               "c": p25_helper("c", os.path.join(P25_DIR, "c_nccl1"), axis_one=True)}
+    finally:
+        parallel.shutdown_distributed()
+    seconds = {"references (one process)": time.perf_counter() - t0}
+    if ref["a"]["engine"]:
+        fail("P25: world size 1 pipelined (a), where it trains unpipelined")
+    failed, ms = [], {}
+    if after_p24:
+        ab = p25_load(2, "ab_gloo2")
+    else:
+        t1 = time.perf_counter()
+        ab = p25_spawn(2, "gloo", ("a", "b"))
+        seconds["(a), (b) on 2 gloo ranks"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    c = p25_spawn(3, "gloo", ("c",))
+    seconds["(c) on 3 gloo ranks"] = time.perf_counter() - t1
+    worlds = [("a", "(a) MSCAN-t, M = 1 (2 gloo ranks on one card)", ab, "world size 1 unpipelined"),
+              ("b", "(b) MSCAN-t, M = 4, drop path 0.1, Mixup/CutMix (2 gloo ranks on one card)",
+               ab, "one process at axis size 1 over stage 4"),
+              ("c", "(c) ConvNeXt-T, M = 4 (3 gloo ranks on one card)", c,
+               "one process at axis size 1")]
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        t1 = time.perf_counter()
+        nccl = p25_spawn(2, "nccl", ("a",))
+        seconds["(d) (a) on 2 NCCL ranks"] = time.perf_counter() - t1
+        worlds.append(("a", "(d) MSCAN-t, M = 1 (2 nccl ranks, one per card)", nccl,
+                       "world size 1 unpipelined"))
+    for run, label, ranks, ref_label in worlds:
+        held = p25_hold(label, run, ref, ranks, ref_label, failed)
+        ms[label] = held
+        if not label.startswith("(c)"):
+            p25_hold_ckpt(label, os.path.join(P25_DIR, f"{run}_{'nccl' if '(d)' in label else 'gloo'}"
+                                                       f"{len(ranks)}",
+                                              "last" + (".ckpt.dcp" if run == "b" else ".ckpt.npz")),
+                          ranks[0][run], failed)
+    bn = global_rel(list(ab[0]["b"]["stage4_bn"].values()), list(ref["b"]["stage4_bn"].values()))
+    print(f"P25 (b): stage 4's {len(ref['b']['stage4_bn'])} BatchNorm running statistics "
+          f"against the reference's: rel err {bn:.3e} (bound {P25_BN_TOL})")
+    if not ref["b"]["stage4_bn"] or bn > P25_BN_TOL:
+        failed.append("(b): stage 4's BatchNorm running statistics differ from the reference's")
+    for run, ranks in (("a", ab), ("b", ab), ("c", c)):
+        built, ran = ([f"{r[run][k]:.2f}" for r in ranks] for k in ("build_s", "run_s"))
+        steps = [f"{sum(r[run]['ms']) / 1e3:.2f}" for r in ranks]
+        print(f"P25 ({run}) host s per rank: the model and TrainHelper built {', '.join(built)}, "
+              f"train() {', '.join(ran)} (its steps {', '.join(steps)} on the CUDA events); the "
+              f"reference {ref[run]['build_s']:.2f} and {ref[run]['run_s']:.2f}")
+    for label, v in ms.items():
+        print(f"P25 [{smi_line()}] median ms per step over steps 2-{P25_STEPS} (CUDA events), "
+              f"b = {BATCH}, 224^2, f32: {label}: {', '.join(f'{x:.3f}' for x in v['ranks'])} "
+              f"(rank by rank), its reference {v['ref']:.3f}")
+    print(f"P25 in {time.perf_counter() - t0:.2f} s: "
+          f"{', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())}")
+    if cards < 2:
+        print(f"P25: this host has {cards} card: (d), NCCL ranks one per card, was not run (NCCL "
+              f"puts one rank on a card)")
+    if failed:
+        fail("P25: " + "; ".join(failed))
+    shutil.rmtree(P25_DIR, ignore_errors=True)
+    return dict(ref=ref, ab=ab, c=c, ms=ms)
 
 
 def bf16_path(name, rows, **counts):
@@ -7220,6 +7579,18 @@ def main_p24():
     run_p24()
     lap("24. P24")
     print(f"P24 alone on {kind}, {torch.cuda.device_count()} device(s): done")
+
+
+def main_p25():
+    """``--p25``: steps 1-2, then P25 alone."""
+    import torch
+
+    lap = Laps()
+    kind = card_and_build()
+    lap("1.-2. the card and the build")
+    run_p25()
+    lap("25. P25")
+    print(f"P25 alone on {kind}, {torch.cuda.device_count()} device(s): done")
 
 
 def main_p23():
@@ -7350,8 +7721,15 @@ def main():
     lap("23. P23")
 
     # -- 24. P24: training across processes, data-parallel ------------------
-    p24 = run_p24(f1_ms, p20["f32_ms"])
+    import shutil
+
+    shutil.rmtree(P25_DIR, ignore_errors=True)  # P24's two gloo ranks then run P25's (a) and (b)
+    p24 = run_p24(f1_ms, p20["f32_ms"], then=("a", "b"))
     lap("24. P24")
+
+    # -- 25. P25: training across processes, pipelined -----------------------
+    p25 = run_p25(after_p24=True)
+    lap("25. P25")
     print(f"wall time in all: {lap.total():.2f} s from the check for the card")
 
     # -- 18. results ------------------------------------------------------
@@ -7554,6 +7932,14 @@ def main():
                      launches=res["f1"]["launches"]),
                 dict(path=f"TrainHelper on MSCAN-t over {group}, rank {r}: {P24_EVAL} validation "
                           f"forwards on the EMA weights (P24)", launches=res["helper"]["launches"])]
+    # P25: pipelined training, msca_fused's launches in each MSCAN-t run on each rank (the
+    # validation forwards on the EMA weights: the replicated blocks, the rank's own M times)
+    for run, ranks, what in (("a", p25["ab"], "M = 1"), ("b", p25["ab"], "M = 4")):
+        for r, res in enumerate(ranks):
+            kernels[0]["paths"].append(dict(
+                path=f"TrainHelper(pipeline_parallel=2) on MSCAN-t, {what}, over 2 gloo ranks on "
+                     f"one card, rank {r}: {P25_EVAL} validation forwards on the EMA weights (P25)",
+                launches=res[run]["launches"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -7564,7 +7950,9 @@ if __name__ == "__main__":
         main_p23()
     elif sys.argv[1:] == ["--p24"]:
         main_p24()
+    elif sys.argv[1:] == ["--p25"]:
+        main_p25()
     elif sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]} (none, --p23 or --p24)")
+        fail(f"unknown arguments {sys.argv[1:]} (none, --p23, --p24 or --p25)")
     else:
         main()

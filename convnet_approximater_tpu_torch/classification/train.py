@@ -40,8 +40,22 @@ per global batch), runs BatchNorm and the drop masks over the global batch,
 and averages the gradients over the ranks once per update, so the weights,
 the optimizer state and the EMA stay what one process computes; the logged
 loss and the validation are the global batch's, and the ranks decide a
-preemption stop together.  ``model_parallel`` and ``pipeline_parallel`` > 1
-raise ``NotImplementedError`` (ROADMAP.md queue 1, item 12b).
+preemption stop together.
+
+``pipeline_parallel=pp`` > 1 (with ``pipeline_microbatches=M``, default
+``pp``) trains through the GPipe pipeline on a ``(world / pp, pp)`` mesh, as
+the JAX helper does (``models/stage_exec.py``, ``parallel/pp.py``): every
+rank starts from the first rank's weights (and a ``resume`` loads) before
+the blocks other pipe ranks own are released; the optimizer, its clipping,
+the EMA (pipelined too) and the checkpoints hold the rank's own blocks and
+the replicated parts, whose gradients come from pipe rank 0; ``norm``
+clipping takes the global norm over the pipe group; an npz checkpoint holds
+the whole model (each block from its owner), a sharded one is written by
+each pipe rank for the blocks it owns; at the end every rank gets each
+block's trained weights from its owner.  A model without a pipeline-capable
+stage engine trains unpipelined (with a warning), as in JAX.
+``model_parallel`` > 1 raises ``NotImplementedError`` (ROADMAP.md queue 1,
+item 12b), and ``ValueError`` beside ``pipeline_parallel`` > 1.
 """
 
 from __future__ import annotations
@@ -56,14 +70,19 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from convnet_approximater_tpu_torch.convert import load_jax_flat, variables_of
+from convnet_approximater_tpu_torch.convert import load_jax_flat, params_to_jax, variables_of
 from convnet_approximater_tpu_torch.data import Loader, Synthetic, build_dataset
 from convnet_approximater_tpu_torch.data.mixup import apply_mix, draw_mix
 from convnet_approximater_tpu_torch.layers import drop_generator
 from convnet_approximater_tpu_torch.nn import DataShard, channels_last, sharded_batch
-from convnet_approximater_tpu_torch.parallel.data_parallel import (replicate_from_root, sum_over,
-                                                                   training_axis)
+from convnet_approximater_tpu_torch.models.stage_exec import (block_names, gather_from_owners,
+                                                              microbatch_split, owner_of,
+                                                              resolve_pipeline_carrier)
+from convnet_approximater_tpu_torch.parallel.data_parallel import (pipe_axis, replicate_from_root,
+                                                                   sum_over, training_axis,
+                                                                   training_mesh, world_axis)
 from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
+from convnet_approximater_tpu_torch.parallel.mesh import MODEL_AXIS, axis_ranks
 from convnet_approximater_tpu_torch.utils import get_logger, get_rank, load_flat, unflatten_tree
 from convnet_approximater_tpu_torch.utils.config import Config
 from convnet_approximater_tpu_torch.utils.dtype import cast_params
@@ -134,6 +153,8 @@ def ema_update(ema: nn.Module, model: nn.Module, decay: float):
     w = float(np.float32(1.0) - d)
     new = model.state_dict(keep_vars=True)
     for name, e in ema.state_dict(keep_vars=True).items():
+        if e.is_meta:  # a block another pipe rank owns
+            continue
         n = new[name].detach()
         if e.is_floating_point():
             e.mul_(float(d)).add_(n.to(e.dtype) * w)
@@ -156,12 +177,15 @@ class TrainHelper:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"TrainHelper device {device}: no CUDA device is available "
                                f"(pass device='cpu' to train on the CPU)")
+        if int(cfg.model_parallel or 1) > 1 and int(cfg.pipeline_parallel or 1) > 1:
+            raise ValueError("model_parallel and pipeline_parallel both >1: they share the "
+                             "mesh's model axis")
         if int(cfg.model_parallel or 1) > 1:
             raise NotImplementedError(f"TrainHelper model_parallel > 1: {MESH_TODO}")
-        if int(cfg.pipeline_parallel or 1) > 1:
-            raise NotImplementedError(f"TrainHelper pipeline_parallel > 1: {MESH_TODO}")
         self.model = channels_last(model.to(self.device))
         self.shard: Optional[DataShard] = None  # the data axis, across processes
+        self.carriers = []  # the stage engines of the model and the EMA, while pipelined
+        self._stop_axis: Optional[DataShard] = None  # the ranks that decide a stop together
         self.ema: Optional[nn.Module] = None
         self.optimizer = None
         self.num_classes = cfg.num_classes
@@ -229,8 +253,17 @@ class TrainHelper:
         logger = get_logger()
         cfg = self.cfg
         model = self.model
-        self.shard = shard = training_axis(cfg.use_mesh)
-        replicate_from_root(model, shard)
+        pp = int(cfg.pipeline_parallel or 1)
+        mesh = training_mesh(cfg.use_mesh, pp) if pp > 1 else None
+        if pp > 1 and mesh is None:
+            logger.warning(f"pipeline_parallel={pp}: one process (or use_mesh off): trained "
+                           f"unpipelined")
+        self.shard = shard = training_axis(cfg.use_mesh, mesh)
+        self._stop_axis = world_axis() if mesh is not None else shard
+        if mesh is not None:
+            microbatch_split(shard.count if shard is not None else 1,
+                             int(cfg.pipeline_microbatches or pp))
+        replicate_from_root(model, shard, mesh)
         if shard is not None:
             logger.info(f"training over a data axis of {shard.count} ranks")
         size = tuple(cfg.image_size)
@@ -258,9 +291,13 @@ class TrainHelper:
                                  clip_grad=cfg.clip_grad, clip_mode=cfg.clip_mode))
         sche_args = Config(dict(epochs=cfg.epochs, sched=cfg.sched, min_lr=cfg.min_lr,
                                 warmup_epochs=cfg.warmup_epochs, decay_rate=cfg.decay_rate))
-        self.optimizer, _ = make_optimizer(model.named_parameters(), optim_args, sche_args,
-                                           steps, every_k=int(cfg.grad_accum or 1), data=shard)
-        self._all = {n for n, _ in model.named_parameters()}
+
+        def optimizer(pipe=None):
+            named = [(n, p) for n, p in model.named_parameters() if not p.is_meta]
+            return make_optimizer(named, optim_args, sche_args, steps,
+                                  every_k=int(cfg.grad_accum or 1), data=shard, pipe=pipe)[0]
+
+        self.optimizer = optimizer()
         if float(cfg.ema_decay or 0.0) > 0.0:
             self.ema = copy.deepcopy(model).eval().requires_grad_(False)
 
@@ -270,7 +307,10 @@ class TrainHelper:
         if get_rank() == 0 or cfg.ckpt_backend == "sharded":
             saver = CheckpointSaver(out_dir, decreasing=(cfg.eval_metric == "loss"),
                                     max_history=cfg.checkpoint_hist, backend=cfg.ckpt_backend)
-        start_epoch = self._resume() if cfg.resume else 0
+        start_epoch = self._resume() if cfg.resume else 0  # the whole model, before a release
+        if mesh is not None:
+            self._enable_pipeline(mesh, optimizer)
+        self._all = {n for n, _ in self.optimizer.named}
 
         self._best = (None, None)
         guard = PreemptionGuard()
@@ -284,19 +324,50 @@ class TrainHelper:
         except KeyboardInterrupt:
             pass  # a partial run still reports its best metric
         except Preempted as e:
-            if saver is not None:
-                path = saver.save_last(self._variables(), e.args[0] - 1,
-                                       opt_state=self.optimizer)
-                logger.warning(f"preempted: full train state saved to {path}")
+            if saver is not None or self.carriers:
+                variables, opt = self._checkpoint()
+                if saver is not None:
+                    path = saver.save_last(variables, e.args[0] - 1, opt_state=opt)
+                    logger.warning(f"preempted: full train state saved to {path}")
         finally:
             self._guard = None
             guard.__exit__()
             model.eval()
             if saver is not None:
                 saver.wait()  # the last asynchronous save commits before train returns
+        for carrier in self.carriers:  # each block's trained weights, from its owner
+            carrier.enable_pipeline(None)
+        self.carriers = []
         best_metric, best_epoch = self._best
         logger.info(f"*** Best {cfg.eval_metric}: {best_metric} (epoch {best_epoch})")
         return dict(best_metric=best_metric, best_epoch=best_epoch, model=model, ema=self.ema)
+
+    def _enable_pipeline(self, mesh, optimizer):
+        """Pipeline the model's stages (and the EMA's) over ``mesh``'s model
+        axis, and rebuild the optimizer over the parameters left on this rank,
+        with the state it had for them."""
+        logger = get_logger()
+        cfg = self.cfg
+        if resolve_pipeline_carrier(self.model) is None:
+            logger.warning(f"pipeline_parallel={cfg.pipeline_parallel}: "
+                           f"{type(self.model).__name__} has no pipeline-capable stage engine: "
+                           f"trained unpipelined")
+        else:
+            self.carriers = [resolve_pipeline_carrier(m) for m in (self.model, self.ema)
+                             if m is not None]
+            for carrier in self.carriers:
+                carrier.enable_pipeline(mesh, num_microbatches=cfg.pipeline_microbatches)
+        index, n, _, _ = axis_ranks(mesh, MODEL_AXIS)
+        blocks = block_names(self.model)
+        owned = {name for name, _ in self.model.named_parameters()
+                 if owner_of(name, blocks) == index}
+        old, self.optimizer = self.optimizer, optimizer(pipe_axis(mesh, owned))
+        for name in self.optimizer.state:
+            self.optimizer.state[name] = old.state[name]
+        self.optimizer.count, self.optimizer.mini_step = old.count, old.mini_step
+        if self.carriers:
+            logger.info(f"pipelined stages {self.carriers[0].pipelined_stages()} over {n} pipe "
+                        f"ranks, {self.carriers[0]._pipeline['M']} microbatches")
 
     def _variables(self) -> dict:
         """What a checkpoint holds besides the optimizer: params, state and ``ema``."""
@@ -304,6 +375,37 @@ class TrainHelper:
         if self.ema is not None:
             tree["ema"] = variables_of(self.ema)
         return tree
+
+    def _checkpoint(self):
+        """``(variables, optimizer state)`` of a checkpoint.  Pipelined, it is
+        collective over the pipe group: for npz the whole model, each block's
+        weights and optimizer state from its owner; for a sharded save this
+        rank's own blocks and the replicated parts (each pipe rank writes the
+        blocks it owns)."""
+        if not self.carriers:
+            return self._variables(), self.optimizer
+        from convnet_approximater_tpu_torch.hooks.finetune import opt_state_to_tree
+
+        sharded = self.cfg.ckpt_backend == "sharded"
+
+        def tree_of(model):
+            state = model.state_dict()
+            state = ({k: v for k, v in state.items() if not v.is_meta} if sharded
+                     else gather_from_owners(self.model, state, self.device))
+            return unflatten_tree(params_to_jax(state))
+
+        tree = tree_of(self.model)
+        if self.ema is not None:
+            tree["ema"] = tree_of(self.ema)
+        opt = opt_state_to_tree(self.optimizer)
+        if not sharded:
+            kinds = list(next(iter(self.optimizer.state.values())))
+            named = {f"{n}/{k}": self.optimizer.state[n][k] if n in self.optimizer.state else p
+                     for n, p in self.model.named_parameters() for k in kinds}
+            for key, t in gather_from_owners(self.model, named, self.device).items():
+                name, k = key.rsplit("/", 1)
+                opt.setdefault(name, {})[k] = t.detach().cpu().numpy().copy()
+        return tree, opt
 
     def _resume(self) -> int:
         """Load ``resume`` (a checkpoint of either package) into the model, the
@@ -349,7 +451,7 @@ class TrainHelper:
             for i, (images, labels) in enumerate(loader_train):
                 if i >= steps:
                     break
-                if self._guard is not None and self._guard.stop_requested(self.shard):
+                if self._guard is not None and self._guard.stop_requested(self._stop_axis):
                     raise Preempted(epoch)
                 generator.manual_seed(step_seed(seed, step_count))
                 loss = self.train_step(images, labels, step_count)
@@ -370,10 +472,12 @@ class TrainHelper:
             if get_rank() == 0:
                 update_summary(epoch, dict(loss=loss_m.avg), eval_metrics,
                                os.path.join(out_dir, "summary.csv"), write_header=(epoch == 0))
-            if saver is not None:
-                self._best = saver.save_checkpoint(self._variables(), epoch,
-                                                   eval_metrics[cfg.eval_metric],
-                                                   opt_state=self.optimizer)
+            if saver is not None or self.carriers:
+                variables, opt = self._checkpoint()
+                if saver is not None:
+                    self._best = saver.save_checkpoint(variables, epoch,
+                                                       eval_metrics[cfg.eval_metric],
+                                                       opt_state=opt)
 
     def validate(self, loader) -> dict:
         """Loss, top-1 and top-5 over the validation batches, on the EMA weights

@@ -75,6 +75,7 @@ from typing import Callable, Dict, Iterable, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -90,6 +91,7 @@ from convnet_approximater_tpu_torch.layers import (QATConv2d, QATLinear, Substit
 from convnet_approximater_tpu_torch.models.switchable import set_submodule
 from convnet_approximater_tpu_torch.nn import DataShard, sharded_batch
 from convnet_approximater_tpu_torch.parallel.data_parallel import (average_gradients,
+                                                                   broadcast_gradients,
                                                                    replicate_from_root, sum_over,
                                                                    training_axis)
 from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
@@ -221,7 +223,13 @@ class MaskedOptimizer:
       the trainable parameters' gradients over the data axis
       (``parallel.average_gradients``), once per update, after the
       micro-steps' mean and before clipping, as the JAX step's gradient of a
-      global batch's loss.
+      global batch's loss;
+    * ``pipe`` (a pipe axis, ``parallel.PipeAxis``: the optimizer holds only
+      the parameters present on this rank): then the parameters outside the
+      rank's own blocks take pipe rank 0's gradients (a broadcast over the
+      pipe group), and ``norm`` clipping takes the global norm, the owned
+      blocks' squares summed over the pipe group and the replicated ones
+      counted once.
 
     optax takes Adam's bias corrections ``1 - b^t`` in float32, where
     ``torch.optim.Adam`` takes them in float64: after 5 steps the two differ
@@ -233,9 +241,11 @@ class MaskedOptimizer:
     B1, B2 = 0.9, 0.999  # optax.adam(w)'s defaults
 
     def __init__(self, named_params: Iterable[Tuple[str, nn.Parameter]], optim_args: Config,
-                 sche_args: Config, steps_per_epoch: int, every_k: int = 1, data=None):
+                 sche_args: Config, steps_per_epoch: int, every_k: int = 1, data=None,
+                 pipe=None):
         self.named = list(named_params)
         self.data = data
+        self.pipe = pipe
         self.kind = optim_args.opt
         if self.kind == "adamw":
             self.weight_decay = float(optim_args.weight_decay)
@@ -269,7 +279,15 @@ class MaskedOptimizer:
             torch._foreach_clamp_min_(grads, -self.clip)
             torch._foreach_clamp_max_(grads, self.clip)
         elif self.clip_mode == "norm":
-            norm = torch.stack([g.pow(2).sum() for g in grads]).sum().sqrt()
+            squares = [g.pow(2).sum() for g in grads]
+            if self.pipe is None:
+                norm = torch.stack(squares).sum().sqrt()
+            else:  # the owned blocks' squares over the pipe group, the replicated ones once
+                owned = [q for (name, _), q in zip(self.named, squares) if name in self.pipe.owned]
+                own = torch.stack(owned).sum() if owned else squares[0].new_zeros(())
+                dist.all_reduce(own, group=self.pipe.group)
+                norm = (torch.stack([q for (name, _), q in zip(self.named, squares)
+                                     if name not in self.pipe.owned]).sum() + own).sqrt()
             for g in grads:
                 g.copy_(torch.where(norm < self.clip, g, g / norm * self.clip))
         else:
@@ -300,6 +318,9 @@ class MaskedOptimizer:
         if self.data is not None:
             average_gradients([g for (name, _), g in zip(self.named, grads) if name in trainable],
                               self.data)
+        if self.pipe is not None:
+            broadcast_gradients([g for (name, _), g in zip(self.named, grads)
+                                 if name in trainable and name not in self.pipe.owned], self.pipe)
         for i in frozen:
             grads[i].zero_()
         self._clip(grads, params)
@@ -330,11 +351,12 @@ class MaskedOptimizer:
 
 
 def make_optimizer(named_params, optim_args: Config, sche_args: Config,
-                   steps_per_epoch: int, every_k: int = 1, data=None
+                   steps_per_epoch: int, every_k: int = 1, data=None, pipe=None
                    ) -> Tuple[MaskedOptimizer, Callable[[int], float]]:
     """The optimizer and its learning-rate schedule (timm's
     ``create_optimizer_v2``/``create_scheduler`` in the reference)."""
-    opt = MaskedOptimizer(named_params, optim_args, sche_args, steps_per_epoch, every_k, data)
+    opt = MaskedOptimizer(named_params, optim_args, sche_args, steps_per_epoch, every_k, data,
+                          pipe)
     return opt, opt.lr
 
 
@@ -499,8 +521,8 @@ class CheckpointSaver:
 
     def _tree(self, variables: dict, epoch: int, metric: float, opt_state) -> dict:
         tree = dict(variables)
-        if opt_state is not None:
-            tree["opt"] = opt_state_to_tree(opt_state)
+        if opt_state is not None:  # an optimizer, or the tree of one
+            tree["opt"] = opt_state if isinstance(opt_state, dict) else opt_state_to_tree(opt_state)
         if self.backend == "sharded":
             tree["meta"] = {"epoch": int(epoch), "metric": float(metric)}
         else:

@@ -35,6 +35,14 @@ mesh), and the drop masks are drawn for the global batch, each rank taking
 its rows (:func:`bernoulli_rows`), so the ranks compute what one process
 computes on the whole batch.  Outside it, or over one rank, nothing changes.
 
+Inside a pipelined stage in training (``models/stage_exec.py``) each
+microbatch's ``BatchNorm2d`` normalizes by that microbatch's own statistics,
+and :func:`microbatch_stats` collects each one's running-statistic update,
+taken from the step's starting statistics; :meth:`MicrobatchStats.commit`
+writes back their mean over the microbatches (the JAX pipeline's
+``aux_acc += u / M``), where torch's momentum update in place would compound
+M updates.
+
 Modules take NCHW tensors; the model runs in ``torch.channels_last``, so an
 NCHW tensor is an NHWC block of memory, the layout of the JAX package.
 """
@@ -155,6 +163,11 @@ def sharded_batch(shard: Optional[DataShard]):
         _data_shard.reset(token)
 
 
+def current_shard() -> Optional[DataShard]:
+    """The data axis :func:`sharded_batch` names here, or None."""
+    return _data_shard.get()
+
+
 def bernoulli_rows(x, keep: float, generator) -> torch.Tensor:
     """A Bernoulli(``keep``) mask of ``x``'s shape and type from ``generator``.
     Inside :func:`sharded_batch` it is this rank's rows of the mask drawn for
@@ -169,6 +182,53 @@ def bernoulli_rows(x, keep: float, generator) -> torch.Tensor:
     full = torch.empty((rows * shard.count,) + tuple(x.shape[1:]), dtype=x.dtype,
                        device=x.device, memory_format=fmt).bernoulli_(keep, generator=generator)
     return full[shard.index * rows:(shard.index + 1) * rows]
+
+
+class MicrobatchStats:
+    """The running-statistic updates of a pipelined stage's microbatches: each
+    BatchNorm's sum of ``u_j / M`` over its microbatches ``j`` (``M`` the
+    microbatches of the global batch), in the order they ran."""
+
+    def __init__(self, count: int):
+        self.count = count
+        self.sums = {}
+
+    @torch.no_grad()
+    def add(self, norm: nn.Module, mean: torch.Tensor, var: torch.Tensor) -> None:
+        m, v = mean / self.count, var / self.count
+        prev = self.sums.get(norm)
+        self.sums[norm] = (m, v) if prev is None else (prev[0] + m, prev[1] + v)
+
+    @torch.no_grad()
+    def commit(self, group=None, repeats: int = 1) -> None:
+        """Write each BatchNorm's mean update into its running statistics.
+        With a data axis ``group``, the sums are first summed over its ranks
+        and divided by ``repeats``, the ranks that hold the same microbatch."""
+        for norm, (m, v) in self.sums.items():
+            if group is not None:
+                both = torch.cat([m, v])
+                dist.all_reduce(both, group=group)
+                if repeats > 1:
+                    both /= repeats
+                m, v = both.chunk(2)
+            norm.running_mean.copy_(m)
+            norm.running_var.copy_(v)
+        self.sums = {}
+
+
+_microbatch_stats = contextvars.ContextVar("microbatch_stats", default=None)
+
+
+@contextlib.contextmanager
+def microbatch_stats(stats: Optional[MicrobatchStats]):
+    """Within the block a training ``BatchNorm2d`` leaves its running
+    statistics as they are and adds its update to ``stats`` (None changes
+    nothing)."""
+    token = _microbatch_stats.set(stats)
+    try:
+        yield
+    finally:
+        _microbatch_stats.reset(token)
 
 
 class GlobalBatchNorm(torch.autograd.Function):
@@ -221,7 +281,8 @@ class GlobalBatchNorm(torch.autograd.Function):
 class BatchNorm2d(nn.Module):
     """BatchNorm over (N, H, W) with running stats (unbiased running var);
     while training inside :func:`sharded_batch` over more than one rank, over
-    the (N, H, W) of the global batch (:class:`GlobalBatchNorm`)."""
+    the (N, H, W) of the global batch (:class:`GlobalBatchNorm`); inside
+    :func:`microbatch_stats`, its update goes there."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__()
@@ -235,11 +296,19 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x):
         shard = _data_shard.get()
+        stats = _microbatch_stats.get() if self.training else None
+        mean, var = self.running_mean, self.running_var
+        if stats is not None:  # this microbatch's update, from the step's statistics
+            mean, var = mean.clone(), var.clone()
         if self.training and shard is not None:
-            return GlobalBatchNorm.apply(x, _f32(self.weight), _f32(self.bias), self.running_mean,
-                                         self.running_var, self.momentum, self.eps, shard.group)
-        return F.batch_norm(x, self.running_mean, self.running_var, _f32(self.weight),
-                            _f32(self.bias), self.training, self.momentum, self.eps)
+            y = GlobalBatchNorm.apply(x, _f32(self.weight), _f32(self.bias), mean, var,
+                                      self.momentum, self.eps, shard.group)
+        else:
+            y = F.batch_norm(x, mean, var, _f32(self.weight), _f32(self.bias), self.training,
+                             self.momentum, self.eps)
+        if stats is not None:
+            stats.add(self, mean, var)
+        return y
 
 
 def _f32(t):

@@ -1,14 +1,16 @@
 """Serving and data-parallel training across processes (port of
 ``convnet_approximater_tpu/parallel/``): one process per device on
 ``torch.distributed``, the ``(data, model)`` mesh, GPipe pipelines inside a
-stage and over the whole model, and the data axis's reductions in training."""
+stage (in training too) and over the whole model, and the data axis's
+reductions in training."""
 
-from .data_parallel import (all_gather_rows, any_rank, average_gradients, replicate_from_root,
-                            sum_over, training_axis)
+from .data_parallel import (PipeAxis, all_gather_rows, any_rank, average_gradients,
+                            broadcast_gradients, pipe_axis, replicate_from_root, sum_over,
+                            training_axis, training_mesh)
 from .distributed import (MESH_TODO, initialize_distributed, is_main_process,
                           local_device_count, process_count, shutdown_distributed)
 from .mesh import (DATA_AXIS, MODEL_AXIS, batch_sharding, broadcast_module, make_mesh,
                    pad_indices, pad_to_multiple, replicate, shard_batch, shard_indices, shard_rows)
-from .pp import owned_range, pipeline_blocks, release, restore
+from .pp import owned_range, pipeline_blocks, pipeline_blocks_train, release, restore
 from .pp_model import (ModelPipeline, Tail, Unit, build_model_pipeline, partition_units, subtree,
                        unit_from_module)

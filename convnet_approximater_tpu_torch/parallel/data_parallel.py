@@ -21,11 +21,20 @@ explicit:
 Every rank starts from the data axis's first rank's weights
 (:func:`replicate_from_root`) and takes the same updates, so the weights, the
 optimizer state and the EMA stay equal on every rank.
+
+Pipelined training (``TrainHelper(pipeline_parallel=pp)``) runs on a
+``(world / pp, pp)`` mesh (:func:`training_mesh`): the data axis is the
+ranks that share a pipe index, the pipe ranks of a data group load the same
+rows, and every rank starts from the first rank's weights before any block
+is released.  The parameters outside the pipelined blocks are replicated
+over the pipe group: their gradients are broadcast from pipe rank 0 after
+the data axis's mean (:class:`PipeAxis`, :func:`broadcast_gradients`), so
+they stay bit-equal whatever order cuDNN sums in.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import FrozenSet, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -34,37 +43,71 @@ from torch import nn
 from convnet_approximater_tpu_torch.nn import DataShard
 
 from .distributed import process_count
-from .mesh import DATA_AXIS, axis_ranks, batch_sharding, broadcast_module, make_mesh
+from .mesh import DATA_AXIS, MODEL_AXIS, axis_ranks, batch_sharding, broadcast_module, make_mesh
 
 BUCKET_BYTES = 32 << 20  # the gradients are averaged in flat buckets of at most this size
 
 
-def training_axis(use_mesh: bool) -> Optional[DataShard]:
-    """This rank's place on the data axis of a ``(world, 1)`` mesh
-    (:func:`~.mesh.make_mesh`, :func:`~.mesh.batch_sharding`), or None when
-    ``use_mesh`` is off or the process is alone.  Collective: every rank
-    calls it together (it makes the mesh's groups and a gloo group for
-    host-side values)."""
+class PipeAxis(NamedTuple):
+    """A rank's place on the pipe axis of pipelined training."""
+
+    group: object  # the pipe group (this rank's data index, every pipe index)
+    root: int  # the global rank of pipe index 0: the replicated gradients' source
+    owned: FrozenSet[str]  # the parameters of the blocks this rank owns
+
+
+def training_mesh(use_mesh: bool, pipeline: int = 1):
+    """The ``(world / pipeline, pipeline)`` mesh of training across processes,
+    or None when ``use_mesh`` is off or the process is alone.  Collective."""
     if not use_mesh or process_count() == 1:
         return None
-    mesh = make_mesh()
+    if process_count() % pipeline:
+        raise ValueError(f"pipeline_parallel={pipeline} does not divide the {process_count()} "
+                         f"processes")
+    return make_mesh(model=pipeline)
+
+
+def training_axis(use_mesh: bool, mesh=None) -> Optional[DataShard]:
+    """This rank's place on the data axis of ``mesh`` (default a ``(world,
+    1)`` mesh, :func:`~.mesh.make_mesh`, :func:`~.mesh.batch_sharding`), or
+    None when ``use_mesh`` is off, the process is alone or the axis has one
+    rank.  Collective: every rank calls it together (it makes the mesh's
+    groups and a gloo group for host-side values)."""
+    if not use_mesh or process_count() == 1:
+        return None
+    mesh = mesh if mesh is not None else make_mesh()
     index, count = batch_sharding(mesh)
     _, _, group, ranks = axis_ranks(mesh, DATA_AXIS)
     host = group if dist.get_backend(group) == "gloo" else dist.new_group(ranks, backend="gloo")
-    return DataShard(index, count, group, host, ranks[0])
+    return DataShard(index, count, group, host, ranks[0]) if count > 1 else None
 
 
-def replicate_from_root(module: nn.Module, shard: Optional[DataShard]) -> nn.Module:
-    """Every rank of the data axis takes its first rank's parameters and buffers."""
-    if shard is not None:
+def world_axis() -> DataShard:
+    """Every rank of the process group as one axis (a pipelined run's ranks
+    decide a stop together)."""
+    world = dist.group.WORLD
+    host = world if dist.get_backend() == "gloo" else dist.new_group(backend="gloo")
+    return DataShard(dist.get_rank(), dist.get_world_size(), world, host, 0)
+
+
+def pipe_axis(mesh, owned: FrozenSet[str]) -> PipeAxis:
+    """This rank's :class:`PipeAxis` on ``mesh``'s model axis."""
+    _, _, group, ranks = axis_ranks(mesh, MODEL_AXIS)
+    return PipeAxis(group, ranks[0], frozenset(owned))
+
+
+def replicate_from_root(module: nn.Module, shard: Optional[DataShard], mesh=None) -> nn.Module:
+    """Every rank of the data axis takes its first rank's parameters and
+    buffers; with a pipelined ``mesh``, every rank of the world takes rank 0's."""
+    if mesh is not None:
+        broadcast_module(module, dist.group.WORLD, 0)
+    elif shard is not None:
         broadcast_module(module, shard.group, shard.root)
     return module
 
 
-@torch.no_grad()
-def average_gradients(grads: Sequence[torch.Tensor], shard: DataShard) -> None:
-    """Replace each gradient, in place, by its mean over the data axis: one
-    ``all_reduce`` per bucket of flattened gradients of one type and device."""
+def _buckets(grads: Sequence[torch.Tensor]):
+    """The gradients in flat buckets of one type and device, at most BUCKET_BYTES each."""
     buckets, size = {}, {}
     for g in grads:
         key = (g.dtype, g.device)
@@ -73,14 +116,34 @@ def average_gradients(grads: Sequence[torch.Tensor], shard: DataShard) -> None:
             size[key] = 0
         buckets[key][-1].append(g)
         size[key] += g.numel() * g.element_size()
-    for bucket in (b for per_key in buckets.values() for b in per_key):
+    return [b for per_key in buckets.values() for b in per_key]
+
+
+def _unflatten(flat: torch.Tensor, bucket) -> None:
+    offset = 0
+    for g in bucket:
+        g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+        offset += g.numel()
+
+
+@torch.no_grad()
+def average_gradients(grads: Sequence[torch.Tensor], shard: DataShard) -> None:
+    """Replace each gradient, in place, by its mean over the data axis: one
+    ``all_reduce`` per bucket of flattened gradients of one type and device."""
+    for bucket in _buckets(grads):
         flat = torch.cat([g.reshape(-1) for g in bucket])
         dist.all_reduce(flat, group=shard.group)
         flat /= shard.count
-        offset = 0
-        for g in bucket:
-            g.copy_(flat[offset:offset + g.numel()].view(g.shape))
-            offset += g.numel()
+        _unflatten(flat, bucket)
+
+
+@torch.no_grad()
+def broadcast_gradients(grads: Sequence[torch.Tensor], pipe: PipeAxis) -> None:
+    """Replace each gradient, in place, by pipe rank 0's: one ``broadcast`` per bucket."""
+    for bucket in _buckets(grads):
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.broadcast(flat, src=pipe.root, group=pipe.group)
+        _unflatten(flat, bucket)
 
 
 def all_gather_rows(t: torch.Tensor, shard: DataShard) -> torch.Tensor:

@@ -18,9 +18,9 @@ import torch.distributed as dist
 
 from convnet_approximater_tpu_torch.utils.logger import get_rank
 
-# what stays refused across processes: pipelined training, tensor parallelism, spatial sharding
-MESH_TODO = ("pipelined training (pipeline_blocks_train), tensor parallelism (tp.py's presets) "
-             "and spatial sharding are ROADMAP.md queue 1 item 12b")
+# what stays refused across processes: tensor parallelism, spatial sharding
+MESH_TODO = ("tensor parallelism (tp.py's presets) and spatial sharding are ROADMAP.md queue 1 "
+             "item 12b")
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None,

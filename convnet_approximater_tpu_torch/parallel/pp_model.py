@@ -115,7 +115,7 @@ class ModelPipeline:
             raise ValueError(f"ModelPipeline: planned for a batch of {self.M} x "
                              f"{self.x_mb[0]}, got {tuple(x.shape)}")
 
-        def stage_fn(h):
+        def stage_fn(h, j):
             for module in self.own:
                 h = module(h)
             return h

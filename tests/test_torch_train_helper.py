@@ -199,6 +199,13 @@ def test_ema_update_matches_jax():
 ])
 def test_unported_options_raise(cfg, match):
     model = build_model(dict(type="TinyNet", num_classes=4))
+    if cfg.get("pipeline_parallel"):
+        # ported (pipelined training across processes); beside model_parallel it is refused,
+        # as the two share the mesh's model axis in both packages
+        assert TrainHelper(model, cfg, device="cpu").cfg.pipeline_parallel == 2
+        with pytest.raises(ValueError, match="model axis"):
+            TrainHelper(model, dict(cfg, model_parallel=2), device="cpu")
+        return
     if cfg.get("ckpt_backend") == "sharded":
         # ported (utils/sharded_ckpt.py): the helper takes the sharded backend
         assert TrainHelper(model, cfg, device="cpu").cfg.ckpt_backend == "sharded"

@@ -8,6 +8,7 @@ result.  This module imports no JAX, so the ranks start quickly: the tests
 hold the ranks' results against the JAX package in the parent process.
 """
 
+import copy
 import datetime
 import functools
 import logging
@@ -338,8 +339,8 @@ def pieces_job(bn: dict, loader_cases: dict, mix: dict, trees: dict) -> dict:
     each augmentation case, through the native prep and numpy; ``apply_mix``
     of each draw on this rank's rows; ``save_sharded`` of ``trees["tree"]``
     across the ranks into ``trees["two"]`` and ``restore_sharded`` of the
-    one-process checkpoint ``trees["one"]``; the refusal of a pipelined stage
-    in training."""
+    one-process checkpoint ``trees["one"]``; a pipelined stage in training
+    over a (1, world) mesh beside the plain training step."""
     from convnet_approximater_tpu_torch import parallel
     from convnet_approximater_tpu_torch.data.mixup import apply_mix
     from convnet_approximater_tpu_torch.models.stage_exec import resolve_pipeline_carrier
@@ -365,12 +366,20 @@ def pieces_job(bn: dict, loader_cases: dict, mix: dict, trees: dict) -> dict:
                   for draw in mix["draws"]]
     save_sharded(trees["two"], trees["tree"], wait=True, group=checkpoint_group())
     out["restored"] = restore_sharded(trees["one"])
-    model = build("mscan")
-    resolve_pipeline_carrier(model).enable_pipeline(parallel.make_mesh(data=1, model=shard.count))
-    try:
-        model.train()(nchw(np.zeros((2, 32, 32, 3), np.float32)))
-    except NotImplementedError as e:
-        out["pipelined_training"] = str(e)
+    # a pipelined stage in training, against the plain training step on the same process
+    model = randomized("mscan", 0).train()
+    plain = copy.deepcopy(model)
+    x = nchw(np.random.RandomState(3).randn(4, 32, 32, 3).astype(np.float32))
+    y_plain = plain(x)
+    y_plain.square().mean().backward()
+    resolve_pipeline_carrier(model).enable_pipeline(parallel.make_mesh(data=1, model=shard.count),
+                                                    num_microbatches=1)
+    y = model(x)
+    y.square().mean().backward()
+    grads = dict(plain.named_parameters())
+    out["pipelined_training"] = dict(
+        y=y.detach(), plain=y_plain.detach(),
+        grads={n: (p.grad, grads[n].grad) for n, p in model.named_parameters() if not p.is_meta})
     return out
 
 
@@ -419,6 +428,7 @@ def helper_run(model, cfg: dict) -> dict:
     steps = recorded(helper)
     result = helper.train()
     return dict(state=helper.model.state_dict(), steps=[float(s) for s in steps],
+                params=[n for n, _ in helper.model.named_parameters()],
                 ema=helper.ema.state_dict() if helper.ema is not None else None,
                 opt=opt_state_to_tree(helper.optimizer), best=result["best_metric"])
 
@@ -470,3 +480,142 @@ def training_job(l2: dict, mixed: dict, plain: dict, preempt: dict) -> dict:
         train_mod.PreemptionGuard = guard
     out["preempt"]["files"] = sorted(os.listdir(work)) if os.path.isdir(work) else None
     return out
+
+
+# -- pipelined training (tests/test_torch_pipeline_training.py) ---------------
+PP_MSCAN = dict(num_channels=(8, 16, 24, 32), num_blocks=(1, 1, 4, 2), exp_ratios=(2, 2, 2, 2),
+                num_classes=16)
+PP_CONVNEXT = dict(depths=(1, 1, 4, 1), dims=(8, 16, 24, 32), num_classes=16)
+PP_HELPER_MSCAN = dict(num_channels=(8, 12, 16, 20), num_blocks=(1, 1, 4, 1),
+                       exp_ratios=(2, 2, 2, 2), num_classes=4)
+
+
+def from_flat(kind: str, spec: dict, path: str):
+    """A port ``MSCAN_Classifier`` or ``ConvNeXt`` of ``spec`` with the weights of
+    the flat npz at ``path``."""
+    from convnet_approximater_tpu_torch.models import ConvNeXt, MSCAN_Classifier
+    from convnet_approximater_tpu_torch.nn import channels_last
+
+    model = (MSCAN_Classifier if kind == "mscan" else ConvNeXt)(**spec)
+    model.load_state_dict(_state(path))
+    return channels_last(model)
+
+
+def pipe_step(model, x: np.ndarray, labels, mesh, M: int, training: bool = True) -> dict:
+    """One forward and backward through ``model``'s stages pipelined over
+    ``mesh`` in ``M`` microbatches, on this rank's rows of the global batch
+    ``x``: the cross-entropy with ``labels`` (None: the sum of the squared
+    logits) of the global batch, each gradient present here (averaged over the
+    data axis), the running statistics after it."""
+    import torch.nn.functional as F
+
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.models.stage_exec import resolve_pipeline_carrier
+    from convnet_approximater_tpu_torch.nn import sharded_batch
+
+    shard = parallel.training_axis(True, mesh)
+    rows = parallel.shard_rows(len(x), (shard.index, shard.count) if shard else (0, 1))
+    carrier = resolve_pipeline_carrier(model)
+    carrier.enable_pipeline(mesh, num_microbatches=M)
+    model.train(training)
+    with sharded_batch(shard):
+        logits = model(nchw(x[rows]))
+        if labels is None:
+            loss = (logits ** 2).sum()
+        else:
+            loss = F.cross_entropy(logits, torch.as_tensor(labels[rows]))
+        loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters() if not p.is_meta}
+    loss = float(loss)
+    if shard is not None:
+        parallel.average_gradients(list(grads.values()), shard)
+        loss = parallel.sum_over([loss], shard, "cpu")[0] / shard.count
+    return dict(loss=loss, grads=grads, stages=carrier.pipelined_stages(),
+                state={k: v.clone() for k, v in model.state_dict().items()
+                       if not v.is_meta and "running" in k})
+
+
+def pipelined_run(model, cfg: dict) -> dict:
+    """:func:`helper_run` with whether the stages ran pipelined, and the model's
+    state and EMA after the gather (every rank holds the whole model)."""
+    from convnet_approximater_tpu_torch.classification import train as train_mod
+
+    stages, enable = [], train_mod.TrainHelper._enable_pipeline
+
+    def keeping(helper, *args):
+        enable(helper, *args)
+        stages[:] = [c.pipelined_stages() for c in helper.carriers]
+
+    train_mod.TrainHelper._enable_pipeline = keeping
+    try:
+        out = helper_run(model, cfg)
+    finally:
+        train_mod.TrainHelper._enable_pipeline = enable
+    out["stages"] = stages
+    return out
+
+
+def pipe4_job(npz: dict, x: np.ndarray, labels: np.ndarray, helper: dict) -> dict:
+    """On a (1, 4) mesh: a training step of the tiny MSCAN at M = 1 and M = 4,
+    ConvNeXt's eval-mode gradients at M = 1, and ``TrainHelper(pipeline_parallel=4)``
+    for one epoch, for two, and resumed from the first's checkpoint for the second."""
+    from convnet_approximater_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(data=1, model=4)
+    out = {f"step{M}": pipe_step(from_flat("mscan", PP_MSCAN, npz["mscan"]), x, labels, mesh, M)
+           for M in (1, 4)}
+    out["convnext"] = pipe_step(from_flat("convnext", PP_CONVNEXT, npz["convnext"]), x, None,
+                                mesh, 1, training=False)
+    for name, over in helper["runs"].items():
+        out[name] = pipelined_run(from_flat("mscan", PP_HELPER_MSCAN, npz["helper"]),
+                                  dict(helper["cfg"], **over))
+    return out
+
+
+def tiny_mscan(seed: int, drops: bool = False):
+    """The tiny MSCAN with random weights from ``seed``; with ``drops``, drop
+    path 0.2 and dropout 0.1 (:func:`tiny_mscan_drop`)."""
+    from convnet_approximater_tpu_torch.models import MSCAN_Classifier
+    from convnet_approximater_tpu_torch.nn import init_weights
+
+    if drops:
+        return tiny_mscan_drop(seed)
+    model = MSCAN_Classifier(**TINY_MSCAN)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model
+
+
+def dp2pp2_job(npz: dict, x: np.ndarray, labels: np.ndarray, runs: dict) -> dict:
+    """On a (2, 2) mesh: a training step of the tiny MSCAN at M = 4 and M = 1,
+    then each ``TrainHelper`` run of ``runs`` (name: ``(seed, drops, cfg)`` of
+    :func:`tiny_mscan`); a run whose helper raises gives the message."""
+    from convnet_approximater_tpu_torch import parallel
+
+    mesh = parallel.make_mesh(data=2, model=2)
+    out = {f"step{M}": pipe_step(from_flat("mscan", PP_MSCAN, npz["mscan"]), x, labels, mesh, M)
+           for M in (4, 1)}
+    for name, (seed, drops, cfg) in runs.items():
+        try:
+            out[name] = pipelined_run(tiny_mscan(seed, drops), cfg)
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def axis_one_run(model, cfg: dict, store: str) -> dict:
+    """:func:`pipelined_run` in this process alone with the stage engine at
+    axis size 1 (``TrainHelper`` pipelines only over several processes): the
+    reference a pipelined run is held to at the same microbatches."""
+    from unittest import mock
+
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.classification import train as train_mod
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=1, rank=0,
+                            timeout=TIMEOUT)
+    try:
+        with mock.patch.object(train_mod, "training_mesh",
+                               lambda use_mesh, pp: parallel.make_mesh(data=1, model=1)):
+            return pipelined_run(model, cfg)
+    finally:
+        dist.destroy_process_group()
