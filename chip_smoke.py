@@ -5,6 +5,7 @@
     python3 chip_smoke.py --p23     # phase 23 alone, on a host with several cards
     python3 chip_smoke.py --p24     # phase 24 alone
     python3 chip_smoke.py --p25     # phase 25 alone
+    python3 chip_smoke.py --p26     # phase 26 alone
 
 From the root of a checkout, with no arguments:
 
@@ -250,8 +251,8 @@ From the root of a checkout, with no arguments:
     qualified, every built row timed, the launches per forward of the
     candidates whose kernels are known, and ``reuse_plan`` rebuilding the
     winner with no timing call and logits within 1e-4 of the plan's; then
-    the plan again: the same winner, or in each call the two winners' rows
-    within 2 %;
+    MSCAN-t's plan again: the same winner, or in each call the two winners'
+    rows within 2 % (ConvNeXt-T is planned once since P26);
 18. P18, the serving export: ``torch.library.opcheck`` of the four kernels'
     custom ops on the card at one shape of each path, in float32 and in bf16;
     the MSCAN-t headline
@@ -383,7 +384,30 @@ From the root of a checkout, with no arguments:
     process bit for bit; the ms per step of each rank beside its reference.
     (a) and (b) run in P24's two gloo processes after P24's runs (warm);
     ``--p25`` spawns its own;
-26. prints one JSON line of kernel results (each kernel's entry lists the later
+26. P26, tensor parallelism over (1 data x 2 model) as P24's two gloo
+    processes on the one card, after P25's runs: (a) P24's F1 run with
+    ``model_parallel=2`` and the ``mscan`` preset (the replicated asym
+    teacher, the student's shards), held to P24's world-size-1 F1 run: each
+    step's loss and the weights' global relative error within 1e-4, every
+    weight within rtol 2e-3 and atol 2e-5 (``tests/test_finetune.py``'s TP
+    bounds), both ranks' weights bit-equal, each rank's parameter bytes
+    against world size 1's, ``msca_fused`` 13 per step (the teacher) and none
+    per validation forward (the d0+fix student's module path, as at world
+    size 1); (a') MSCAN-t d1+fix under the ``mscan`` preset, two eval
+    forwards: 13 ``msca_fused`` per forward on each rank (the channel mix
+    gathered once, into the kernel's cache), logits within 1e-5 of the
+    replicated forward; (b) int8 ResNet-18 (ImageNet's 1000 classes) under the
+    ``resnet`` preset at b=64, 224^2: ``qmatmul`` once per int8 module per
+    forward at the column (N / 2) and row (K / 2, a unit dequant scale and no
+    bias: the exact integer partials, then an ``all_reduce``, the dequant and
+    the bias) shard shapes, logits bit-equal to the replicated int8 forward's;
+    (c) in this process,
+    ``qmatmul`` alone at each of (b)'s shard shapes, bit for bit against
+    ``qmatmul_ref``, timed beside its plain version, ``torch._int_mm`` (where
+    it takes the shape) and its bound.  ``--p26`` runs steps 1-2, F1 at world
+    size 1 and P26 in two fresh gloo processes.  P17 plans ConvNeXt-T once
+    (MSCAN-t twice) to pay for P26's time;
+27. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``, the bf16 ones among
     them), then ``{"ok": true, "device": ...}``.
 
@@ -399,8 +423,8 @@ checkpoint, P18's two ``export_model`` artifacts (the dodecomp AlexNet and
 the int8 ResNet-50) and then P23 alone, its ``serve --data-parallel`` loops
 P23_SCALING_BATCHES batches long: on a host with 2 or 4 cards it measures
 serving across them (the img/s of each world size against one card's).
-``--p24`` and ``--p25`` run steps 1-2 and P24 or P25 alone.  None of them
-prints the result lines.
+``--p24``, ``--p25`` and ``--p26`` run steps 1-2 and P24, P25 or P26 alone.
+None of them prints the result lines.
 """
 
 from __future__ import annotations
@@ -1096,45 +1120,57 @@ def check_qmatmul_kernel(gen):
         p = qmatmul_ops.plan(M, K, N)
         print(f"qmatmul ragged (M, K, N)={(M, K, N)}: bit for bit with and without a bias "
               f"(plan BM {p.bm}, BN {p.bn}, grid {p.grid})")
-    rows = []
-    for (M, K, N), calls in QMM_SHAPES:
-        x = torch.randn(M, K, generator=gen).cuda()
-        w_q = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).cuda()
-        w = qmatmul_ops.pack_qweight(w_q)
-        a = torch.tensor(float(x.abs().max()) / 127.0, device="cuda")
-        s = (torch.rand(N, generator=gen) * 0.01).cuda()
-        b = torch.randn(N, generator=gen).cuda()
-        y = qmatmul_ops.qmatmul(x, w, a, s, b)
-        y_ref = qmatmul_ops.qmatmul_ref(x, w, a, s, b)
-        torch.cuda.synchronize()
-        err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
-        if not torch.isfinite(y).all() or not torch.equal(y, y_ref):
-            fail(f"qmatmul {(M, K, N)}: rel err {err:.3e}, max abs err {abs_err:.3e}; the "
-                 f"kernel must give qmatmul_ref's bits")
-        ms, plain_ms = time_pair(lambda: qmatmul_ops.qmatmul(x, w, a, s, b),
-                                 lambda: qmatmul_ops.qmatmul_ref(x, w, a, s, b))
-        x_q, w_t = qmatmul_ops.quantize_activation(x, a), w_q.t().contiguous()
-        lib_ms = library_time(lambda: torch._int_mm(x_q, w_t))
-        nbytes, ops = qmm_cost(M, K, N)
-        b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
-        p = qmatmul_ops.plan(M, K, N)
-        if qmatmul_ops._library().qmatmul_smem_bytes(p.bm, p.bnw, p.ra, p.sx, p.sb) != p.smem:
-            fail(f"qmatmul {(M, K, N)}: the planner's shared memory differs from the kernel's")
-        rows.append(dict(shape=(M, K, N), calls=calls, rel_err=err, max_abs_err=abs_err, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=ops,
-                         bound_ms=b_ms))
-        print(f"qmatmul (M, K, N)={(M, K, N)} x{calls}/forward: rel err {err:.3e} (bound 0: "
-              f"bit for bit), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch._int_mm "
-              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
-              f"{ops / 1e9:.3f} G int8 ops), roofline share {b_ms / ms:.1%}; plan BM {p.bm}, "
-              f"BN {p.bn}, {p.ntpb} column tiles per block, grid {p.grid}, {p.smem} B of "
-              f"shared memory")
-        del x, y, y_ref, x_q
+    rows = [qmm_row(M, K, N, calls, gen) for (M, K, N), calls in QMM_SHAPES]
     for name, key in (("kernel", "ms"), ("plain", "plain_ms"), ("torch._int_mm", "library_ms"),
                       ("bound", "bound_ms")):
         print(f"qmatmul per int8 ConvNeXt-T forward ({sum(r['calls'] for r in rows)} calls): "
               f"{name} {sum(r[key] * r['calls'] for r in rows):.4f} ms")
     return rows
+
+
+def qmm_row(M, K, N, calls, gen, bias: bool = True, iters: int = KERNEL_ITERS,
+            label: str = "qmatmul") -> dict:
+    """qmatmul against qmatmul_ref, bit for bit, on random operands of (M, K, N)
+    (with a bias, or without: a row shard's partial sum), timed beside its plain
+    version and ``torch._int_mm`` on the quantized operands (None where
+    ``_int_mm`` takes no such shape: K and N multiples of 8, M above 16); the
+    row (``calls`` per forward)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+
+    x = torch.randn(M, K, generator=gen).cuda()
+    w_q = torch.randint(-127, 128, (N, K), generator=gen, dtype=torch.int8).cuda()
+    w = qmatmul_ops.pack_qweight(w_q)
+    a = torch.tensor(float(x.abs().max()) / 127.0, device="cuda")
+    s = (torch.rand(N, generator=gen) * 0.01).cuda()
+    b = torch.randn(N, generator=gen).cuda() if bias else None
+    y = qmatmul_ops.qmatmul(x, w, a, s, b)
+    y_ref = qmatmul_ops.qmatmul_ref(x, w, a, s, b)
+    torch.cuda.synchronize()
+    err, abs_err = rel_err(y, y_ref), float((y - y_ref).abs().max())
+    if not torch.isfinite(y).all() or not torch.equal(y, y_ref):
+        fail(f"{label} {(M, K, N)}: rel err {err:.3e}, max abs err {abs_err:.3e}; the "
+             f"kernel must give qmatmul_ref's bits")
+    ms, plain_ms = time_pair(lambda: qmatmul_ops.qmatmul(x, w, a, s, b),
+                             lambda: qmatmul_ops.qmatmul_ref(x, w, a, s, b), iters)
+    x_q, w_t = qmatmul_ops.quantize_activation(x, a), w_q.t().contiguous()
+    lib_ms = (library_time(lambda: torch._int_mm(x_q, w_t), iters)
+              if K % 8 == 0 and N % 8 == 0 and M > 16 else None)
+    nbytes, ops = qmm_cost(M, K, N)
+    b_ms, b_by = bound(nbytes, ops, PEAK_INT8)
+    p = qmatmul_ops.plan(M, K, N)
+    if qmatmul_ops._library().qmatmul_smem_bytes(p.bm, p.bnw, p.ra, p.sx, p.sb) != p.smem:
+        fail(f"{label} {(M, K, N)}: the planner's shared memory differs from the kernel's")
+    lib = "not taken (K or N not a multiple of 8)" if lib_ms is None else f"{lib_ms:.4f} ms"
+    print(f"{label} (M, K, N)={(M, K, N)}{'' if bias else ' without a bias'} x{calls}/forward: "
+          f"rel err {err:.3e} (bound 0: bit for bit), kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+          f"ms, torch._int_mm {lib}; bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, "
+          f"{ops / 1e9:.3f} G int8 ops), roofline share {b_ms / ms:.1%}; plan BM {p.bm}, "
+          f"BN {p.bn}, {p.ntpb} column tiles per block, grid {p.grid}, {p.smem} B of "
+          f"shared memory")
+    return dict(shape=(M, K, N), calls=calls, rel_err=err, max_abs_err=abs_err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bytes=nbytes, flops=ops, bound_ms=b_ms)
 
 
 def check_eval_grad(gen):
@@ -4787,8 +4823,8 @@ def print_plan(name, plan, eager, call):
           f"dense/{plan['dtype']})")
 
 
-def run_plan(name):
-    """P17 on one model, called twice: plan_serving at b=64, 224^2, at the
+def run_plan(name, calls: int = 2):
+    """P17 on one model, called ``calls`` times (2, or 1): plan_serving at b=64, 224^2, at the
     model's type of PLAN_DTYPES (MSCAN-t at the planner's default, bfloat16),
     with the default candidates (less PLANNER_SKIP's), each timed as the
     default time_fn times (a graph replayed back to back, 10 and 40 replays
@@ -4828,14 +4864,14 @@ def run_plan(name):
     cands = [c for c in planner.default_candidates(make(), dtype=dtype, input_shape=INPUT)
              if not any(s in c[0] for s in skip)]
     plans = []
-    for call in (1, 2):
-        per_forward, int8_modules, built_s, calls, eager = {}, {}, {}, [], {}
+    for call in range(1, calls + 1):
+        per_forward, int8_modules, built_s, timed, eager = {}, {}, {}, [], {}
         last = [0.0]
 
         def time_fn(cand, model, shape, dtype):
             # the host time since the last timing is this candidate's build and agreement
             built_s[cand] = time.perf_counter() - last[0]
-            calls.append(cand)
+            timed.append(cand)
             reset_counts()
             with forwards_counted(model) as forwards:
                 t = forward_times(model, shape, 10, 3, dtype=dtype)
@@ -4856,11 +4892,11 @@ def run_plan(name):
         print(f"P17 plan_serving {name} at {INPUT} {plan['dtype']}, call {call}: {len(cands)} "
               f"candidates"
               + (f" (skipped: the {', '.join(skip)} candidates)" if skip else "")
-              + f", {plan_s:.2f} s of host time, {len(calls)} timing calls, peak memory "
+              + f", {plan_s:.2f} s of host time, {len(timed)} timing calls, peak memory "
                 f"{peak_gib():.2f} GiB [{smi_line()}]")
         print_plan(name, plan, eager, call)
         plans.append(plan)
-        if call == 2:
+        if call > 1:
             break
         first_per_forward = per_forward
         for cand, per in per_forward.items():
@@ -4901,8 +4937,12 @@ def run_plan(name):
         del again
         torch.cuda.empty_cache()
     winners = [p["winner"] for p in plans]
-    print(f"P17 {name}: the two calls' winners agree: {winners[0] == winners[1]} ({winners})")
-    if winners[0] != winners[1]:
+    if len(plans) == 1:
+        print(f"P17 {name}: planned once (the second call is cut for the time limit; MSCAN-t's "
+              f"two calls show the planner's repeatability)")
+    else:
+        print(f"P17 {name}: the two calls' winners agree: {winners[0] == winners[1]} ({winners})")
+    if winners[0] != winners[-1]:
         for call, p in enumerate(plans, 1):
             ms = {r["name"]: r["ms"] for r in p["report"][1:]}
             if not near_tie(ms[winners[0]], ms[winners[1]]):
@@ -4912,15 +4952,18 @@ def run_plan(name):
     for p in plans[1:]:
         del p["model"]
     torch.cuda.empty_cache()
-    return first_per_forward, plans[0], winners[1]
+    return first_per_forward, plans[0], winners[-1]
+
+
+P17_CALLS = {"MSCAN-t": 2, "ConvNeXt-T": 1}  # ConvNeXt-T's second plan cut for P26's time
 
 
 def run_planner():
-    """P17: the serving planner on MSCAN-t, then ConvNeXt-T, each twice."""
+    """P17: the serving planner on MSCAN-t (twice), then ConvNeXt-T (once)."""
     out = {}
     for name in ("MSCAN-t", "ConvNeXt-T"):
         t0 = time.perf_counter()
-        per_forward, plan, second = run_plan(name)
+        per_forward, plan, second = run_plan(name, P17_CALLS[name])
         out[name] = dict(per_forward=per_forward, winner=plan["winner"], second=second,
                          seconds=time.perf_counter() - t0)
         del plan
@@ -6990,10 +7033,12 @@ def p24_world(tag: str) -> dict:
     return out
 
 
-def p24_rank(rank: int, world: int, port: int, backend: str, then: tuple = ()):
+def p24_rank(rank: int, world: int, port: int, backend: str, then: tuple = (),
+             p26: bool = False):
     """One of ``world`` ranks: gloo ranks all on this card, NCCL ranks one per
     card.  P24's runs, saved for the first process to compare; then P25's runs
-    ``then`` in the same group (its processes have trained MSCAN-t: warm)."""
+    ``then`` and, with ``p26``, P26's in the same group (its processes have
+    trained MSCAN-t: warm)."""
     import torch
     import torch.distributed as dist
 
@@ -7010,6 +7055,8 @@ def p24_rank(rank: int, world: int, port: int, backend: str, then: tuple = ()):
         res = p24_world(tag)
         torch.save(res, os.path.join(P24_DIR, f"{tag}_rank{rank}.pt"))
         p25_runs(rank, world, backend, then)
+        if p26:
+            p26_runs(rank, world, tag)
     finally:
         dist.destroy_process_group()
 
@@ -7076,7 +7123,7 @@ def p24_check_launches(label: str, runs: list, failed: list):
                           f"TrainHelper step")
 
 
-def run_p24(f1_ms=None, p20_ms=None, then: tuple = ()) -> dict:
+def run_p24(f1_ms=None, p20_ms=None, then: tuple = (), p26: bool = False) -> dict:
     """P24: data-parallel training, the F1 config and P20's TrainHelper config
     at b=64 (global), 224^2, f32: world size 1 over a one-rank NCCL group in
     this process, then P24_WORLD gloo ranks on this one card and, on a host
@@ -7110,8 +7157,9 @@ def run_p24(f1_ms=None, p20_ms=None, then: tuple = ()) -> dict:
         label = (f"world size {world} ({world} gloo ranks on one card)" if backend == "gloo"
                  else f"world size {world} (NCCL, one rank per card)")
         try:
+            gloo2 = (backend, world) == ("gloo", 2)
             mp.start_processes(p24_rank, args=(world, free_port(), backend,
-                                               then if (backend, world) == ("gloo", 2) else ()),
+                                               then if gloo2 else (), p26 and gloo2),
                                nprocs=world, join=True, start_method="spawn")
         except mp.ProcessRaisedException as e:
             fail(f"P24: a rank of {label} raised: {e}")
@@ -7477,6 +7525,300 @@ def run_p25(after_p24: bool = False) -> dict:
     return dict(ref=ref, ab=ab, c=c, ms=ms)
 
 
+# -- P26: tensor parallelism across processes ------------------------------------
+P26_DIR = os.path.join(REPO, "build", "chip_smoke_p26")
+P26_RTOL, P26_ATOL = 2e-3, 2e-5  # (a) weights, elementwise: tests/test_finetune.py's TP bounds
+P26_REL = 1e-4          # (a) each step's loss and the weights' global relative error (P24_TOL)
+# (b) int8 logits against the replicated forward: bit for bit (a row shard sums its exact integer
+# partials and dequantizes once; call A's gate, 2e-3 of max |logit|, failed at 5.701e-03 when the
+# partials were dequantized before the sum and flipped int8 roundings downstream)
+P26_LOGITS = 0.0
+P26_FUSED = 1e-5        # (a') the sharded d1+fix MSCAN-t's logits, max-abs over max |logit|
+P26_ITERS = 5           # (c) timing runs per shard shape (the kernel timings elsewhere take 10)
+P26_CLASSES = 1000      # int8 ResNet-18 at ImageNet's classes: fc's N / 2 = 500
+
+
+def p26_mesh():
+    from convnet_approximater_tpu_torch import parallel
+
+    return parallel.make_mesh(data=1, model=2)
+
+
+def p26_f1(work_dir: str) -> dict:
+    """(a): P24's F1 run (:func:`p24_f1`) with ``model_parallel=2`` and the
+    ``mscan`` preset over (1 data x 2 model), and what the student's ranks held
+    while it trained: each rank's parameter bytes against the whole model's."""
+    from convnet_approximater_tpu_torch.hooks import finetune as ft
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.parallel import tp
+
+    kept, held = {}, {}
+    enable = ft.L2Reconstruct._enable_tp
+
+    def keeping(hook, *args):
+        whole = tp.shard_bytes(hook.runner.model)[0]
+        enable(hook, *args)
+        own, sharded = tp.shard_bytes(hook.runner.model)
+        held.update(whole=whole, own=own, sharded=sharded, dims=len(hook.tp.dims),
+                    roles=sorted({v.role for v in tp.layouts(hook.runner.model).values()}))
+
+    def edit(h):
+        h["sche_args"].update(epochs=1)
+        h["other_args"] = dict(h.get("other_args") or {}, max_steps_per_epoch=P24_STEPS,
+                               max_eval_batches=P24_EVAL, ckpt_backend="sharded",
+                               use_mesh=True, model_parallel=2, tp_rules="mscan")
+
+    probe = FinetuneProbe(fused_ops.msca_fused,
+                          last=lambda hook: kept.update(state=host_state(hook.runner.model)))
+    reset_counts()
+    with mock.patch.object(ft.L2Reconstruct, "_enable_tp", keeping), eval_counts(ft) as evals:
+        runner, run_s = run_finetune_cfg(FT_D0, work_dir, probe, edit)
+    out = dict(losses=[float(v) for v in probe.losses], step_calls=probe.step_calls,
+               ms=probe.step_ms(), evals=evals, state=kept["state"], run_s=run_s, held=held,
+               launches=fused_ops.msca_fused.launches)
+    del runner
+    return out
+
+
+def p26_fused() -> dict:
+    """(a'): MSCAN-t with MscaRep(1, fix) on its 13 blocks (random weights from
+    seed 0) under the ``mscan`` preset: two eval forwards at b=64, 224^2 against
+    the replicated forward, msca_fused's launches in each (its channel mix
+    gathered once, when the cache is built)."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch.core import MscaRep
+    from convnet_approximater_tpu_torch.deploy_planner import apply_app
+    from convnet_approximater_tpu_torch.layers import MSCA
+    from convnet_approximater_tpu_torch.nn import channels_last
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.parallel import tp
+
+    model = channels_last(mscan_t_model().cuda()).eval()
+    sites = apply_app(model, MscaRep(decomp=1, fix=True), [], torch.Generator().manual_seed(0))
+    x = seeded_batch(260)
+    with torch.no_grad(), uncounted():
+        ref = copy.deepcopy(model)(x)
+    whole = tp.shard_bytes(model)[0]
+    tp.shard_module(model, p26_mesh(), 2, "mscan")
+    launches = []
+    with torch.no_grad():
+        for _ in range(2):
+            reset_counts()
+            y = model(x)
+            torch.cuda.synchronize()
+            launches.append(fused_ops.msca_fused.launches)
+        fused = sum(m.can_fuse() for m in model.modules() if isinstance(m, MSCA))
+    return dict(sites=sites, launches=launches, fused=fused, err=max_rel(y, ref),
+                bytes=(tp.shard_bytes(model)[0], whole))
+
+
+def p26_int8() -> dict:
+    """(b): int8 ResNet-18 (random weights from seed 0, ImageNet's classes;
+    ``fold_batchnorm``, then ``quantize_int8`` on two calibration batches)
+    under the ``resnet`` preset at b=64, 224^2 against its replicated forward
+    on the card: the logits, qmatmul's launches per forward and each call's
+    (M, K, N) and bias."""
+    import copy
+
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.layers import quant
+    from convnet_approximater_tpu_torch.models import ResNet
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+    from convnet_approximater_tpu_torch.parallel import tp
+
+    model = ResNet(18, P26_CLASSES)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = channels_last(model.cuda()).eval()
+    folded = deploy.fold_batchnorm(model)
+    quantized = deploy.quantize_int8(model, [seeded_batch(261 + i, batch=8) for i in range(2)])
+    x = seeded_batch(263)
+    with torch.no_grad(), uncounted():
+        ref = copy.deepcopy(model)(x)
+    whole = tp.shard_bytes(model)[0]
+    tp.shard_module(model, p26_mesh(), 2, "resnet", warn=False)
+    calls, real = [], quant._QuantBase._matmul
+
+    def recording(layer, x2d):  # each call's (M, K, N) and whether it adds the bias
+        calls.append((x2d.shape[0], x2d.shape[1], layer.packed().shape[0],
+                      layer.bias is not None))
+        return real(layer, x2d)
+
+    reset_counts()
+    with torch.no_grad(), mock.patch.object(quant._QuantBase, "_matmul", recording):
+        y = model(x)
+    torch.cuda.synchronize()
+    roles = [v.role for v in tp.layouts(model).values()]
+    return dict(folded=folded, quantized=quantized, launches=qmatmul_ops.qmatmul.launches,
+                calls=calls, err=max_rel(y, ref), bytes=(tp.shard_bytes(model)[0], whole),
+                roles={r: roles.count(r) for r in sorted(set(roles))})
+
+
+def p26_runs(rank: int, world: int, tag: str):
+    """P26's runs (a), (a') and (b) on the two gloo ranks this process is one
+    of, saved for the first process (weights as digests on rank 1)."""
+    import torch
+
+    os.makedirs(P26_DIR, exist_ok=True)
+    res = dict(a=p26_f1(os.path.join(P26_DIR, f"f1_{tag}")))
+    torch.cuda.empty_cache()
+    res["fused"] = p26_fused()
+    torch.cuda.empty_cache()
+    res["b"] = p26_int8()
+    torch.cuda.empty_cache()
+    res["a"]["digest"] = digests(res["a"]["state"])
+    if rank:
+        res["a"]["state"] = None
+    torch.save(res, os.path.join(P26_DIR, f"{tag}_rank{rank}.pt"))
+
+
+def p26_rank(rank: int, world: int, port: int):
+    """One of two gloo ranks on this card running P26 alone (``--p26``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    if rank:
+        sys.stdout = open(os.path.join(P26_DIR, f"gloo{world}_rank{rank}.log"), "w")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        p26_runs(rank, world, f"gloo{world}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_p26(one_f1=None) -> dict:
+    """P26: tensor parallelism over (1 data x 2 model) as two gloo ranks on this
+    card.  ``one_f1``: P24's world-size-1 F1 run, whose processes then ran (a),
+    (a') and (b) after P25's runs; without it, F1 at world size 1 over a
+    one-rank NCCL group here, then two fresh gloo ranks.  (c) runs here: qmatmul
+    alone at each shard shape of (b), bit for bit against qmatmul_ref."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from convnet_approximater_tpu_torch import parallel
+
+    t0 = time.perf_counter()
+    seconds = {}
+    tag = "gloo2"
+    if one_f1 is None:
+        shutil.rmtree(P26_DIR, ignore_errors=True)
+        os.makedirs(P26_DIR)
+        parallel.initialize_distributed(f"localhost:{free_port()}", 1, 0, device="cuda")
+        try:
+            one_f1 = p24_f1(os.path.join(P26_DIR, "f1_nccl1"))
+        finally:
+            parallel.shutdown_distributed()
+        seconds["F1 at world size 1 (NCCL)"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        try:
+            mp.start_processes(p26_rank, args=(2, free_port()), nprocs=2, join=True,
+                               start_method="spawn")
+        except mp.ProcessRaisedException as e:
+            fail(f"P26: a rank raised: {e}")
+        except mp.ProcessExitedException as e:
+            fail(f"P26: a rank died: {e}")
+        seconds["(a), (a'), (b) on 2 fresh gloo ranks"] = time.perf_counter() - t1
+    ranks = [torch.load(os.path.join(P26_DIR, f"{tag}_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    failed = []
+    # (a) the F1 config over the model axis against world size 1
+    a = [r["a"] for r in ranks]
+    losses = np.asarray(a[0]["losses"])
+    want = np.asarray(one_f1["losses"])
+    if len(losses) != P24_STEPS or not np.all(np.isfinite(losses)):
+        failed.append(f"(a): {len(losses)} steps, or a loss not finite")
+    loss_err = float(np.max(np.abs(losses - want) / np.abs(want)))
+    pairs = [(a[0]["state"][k].float(), v.float()) for k, v in one_f1["state"].items()
+             if v.is_floating_point()]
+    g_rel = global_rel([p for p, _ in pairs], [q for _, q in pairs])
+    worst = max(float(((p - q).abs() / (P26_ATOL + P26_RTOL * q.abs())).max()) for p, q in pairs)
+    same = a[1]["digest"] == a[0]["digest"] == digests(a[0]["state"])
+    held = [r["held"] for r in a]
+    print(f"P26 (a) F1 over (1 data x 2 model), 2 gloo ranks on one card, the mscan preset: "
+          f"{held[0]['dims']} parameters and running statistics sharded, layer forms "
+          f"{held[0]['roles']}; parameter bytes per rank {[h['own'] for h in held]} against "
+          f"{held[0]['whole']} at world size 1 ({held[0]['own'] / held[0]['whole']:.1%}, shards "
+          f"{held[0]['sharded']}); losses {', '.join(f'{v:.7g}' for v in losses)} against world "
+          f"size 1's {', '.join(f'{v:.7g}' for v in want)} (max rel err {loss_err:.3e}, bound "
+          f"{P26_REL}); weights global rel err {g_rel:.3e} (bound {P26_REL}), elementwise "
+          f"|d| / ({P26_ATOL} + {P26_RTOL} |w|) at most {worst:.3e} (bound 1); both ranks' "
+          f"weights bit-equal (the replicated ones, and the gathered shards): {same}")
+    if loss_err > P26_REL or g_rel > P26_REL or worst > 1.0 or not same:
+        failed.append("(a): does not train as world size 1")
+    for r, res in enumerate(a):
+        print(f"P26 (a) rank {r}: {len(res['losses'])} steps in {res['run_s']:.2f} s, msca_fused "
+              f"per step {res['step_calls']} (the replicated teacher), per validation forward "
+              f"{[e[0] for e in res['evals']]} (the d0+fix student's dense bank: the module path, "
+              f"as at world size 1)")
+        if (res["step_calls"] != [MSCA_BLOCKS] * P24_STEPS
+                or [e[0] for e in res["evals"]] != [0] * P24_EVAL):
+            failed.append(f"(a) rank {r}: msca_fused other than {MSCA_BLOCKS} per step and none "
+                          f"per validation forward")
+    # (a') the sharded MSCA keeps its kernel
+    for r, res in enumerate(ranks):
+        f = res["fused"]
+        print(f"P26 (a') MSCAN-t d1+fix ({f['sites']} MscaRep sites) under the mscan preset, "
+              f"rank {r}: {f['fused']} MSCA blocks take msca_fused, launches per eval forward "
+              f"{f['launches']}, logits against the replicated forward max-abs over max |logit| "
+              f"{f['err']:.3e} (bound {P26_FUSED}); parameter bytes {f['bytes'][0]} of "
+              f"{f['bytes'][1]}")
+        if f["launches"] != [MSCA_BLOCKS] * 2 or f["fused"] != MSCA_BLOCKS or f["err"] > P26_FUSED:
+            failed.append(f"(a') rank {r}: msca_fused not {MSCA_BLOCKS} per forward, or the logits "
+                          f"differ from the replicated forward")
+    # (b) int8 ResNet-18 under the resnet preset
+    for r, res in enumerate(ranks):
+        b = res["b"]
+        print(f"P26 (b) int8 ResNet-18 ({b['folded']} BN folds, {b['quantized']} int8 modules) "
+              f"under the resnet preset at b={BATCH}, 224^2, rank {r}: layer forms {b['roles']}; "
+              f"qmatmul per forward {b['launches']}; logits against the replicated int8 forward "
+              f"max-abs over max |logit| {b['err']:.3e} (bound {P26_LOGITS}: bit for bit); "
+              f"parameter bytes "
+              f"{b['bytes'][0]} of {b['bytes'][1]}")
+        if b["launches"] != b["quantized"] or b["err"] > P26_LOGITS:
+            failed.append(f"(b) rank {r}: qmatmul not once per int8 module, or the logits differ")
+    # (c) qmatmul alone at each shape of (b)'s forward, bit for bit
+    t1 = time.perf_counter()
+    shapes = {}
+    for call in ranks[0]["b"]["calls"]:
+        shapes[call] = shapes.get(call, 0) + 1
+    gen = torch.Generator().manual_seed(26)
+    with uncounted():
+        rows = [qmm_row(M, K, N, n, gen, bias=bias, iters=P26_ITERS, label="P26 (c) qmatmul")
+                for (M, K, N, bias), n in sorted(shapes.items())]
+    seconds["(c) qmatmul at the shard shapes"] = time.perf_counter() - t1
+    for name, key in (("kernel", "ms"), ("plain", "plain_ms"), ("bound", "bound_ms")):
+        print(f"P26 (c) [{smi_line()}] qmatmul per sharded int8 ResNet-18 forward on one rank "
+              f"({sum(r['calls'] for r in rows)} calls): {name} "
+              f"{sum(r[key] * r['calls'] for r in rows):.4f} ms")
+    lib = [r for r in rows if r["library_ms"] is not None]
+    lib_ms = sum(r["library_ms"] * r["calls"] for r in lib)
+    print(f"P26 (c) torch._int_mm at the {len(lib)} shapes it takes "
+          f"({sum(r['calls'] for r in lib)} calls): {lib_ms:.4f} ms, the kernel at the same "
+          f"{sum(r['ms'] * r['calls'] for r in lib):.4f} ms")
+    a_ms = [float(np.median(r["ms"][1:])) for r in a]
+    print(f"P26 [{smi_line()}] median ms per F1 step over steps 2-{P24_STEPS} (CUDA events), "
+          f"b = {BATCH} on each rank, 224^2, f32: {', '.join(f'{v:.3f}' for v in a_ms)} (rank by "
+          f"rank) against world size 1's {float(np.median(one_f1['ms'][1:])):.3f}")
+    print(f"P26 in {time.perf_counter() - t0:.2f} s here"
+          + (f": {', '.join(f'{k} {v:.2f} s' for k, v in seconds.items())}" if seconds else ""))
+    if failed:
+        fail("P26: " + "; ".join(failed))
+    shutil.rmtree(P26_DIR, ignore_errors=True)
+    return dict(ranks=ranks, rows=rows)
+
+
 def bf16_path(name, rows, **counts):
     """A kernels-line path entry of a kernel's bf16 form: its P19a rows per
     forward of their path (calls per forward as weights), the bound at 2-byte
@@ -7593,6 +7935,18 @@ def main_p25():
     print(f"P25 alone on {kind}, {torch.cuda.device_count()} device(s): done")
 
 
+def main_p26():
+    """``--p26``: steps 1-2, then P26 alone (F1 at world size 1 for its reference)."""
+    import torch
+
+    lap = Laps()
+    kind = card_and_build()
+    lap("1.-2. the card and the build")
+    run_p26()
+    lap("26. P26")
+    print(f"P26 alone on {kind}, {torch.cuda.device_count()} device(s): done")
+
+
 def main_p23():
     """``--p23``: steps 1-2, the artifacts P23 serves, then P23 alone."""
     lap = Laps()
@@ -7691,7 +8045,8 @@ def main():
     lap("17. P17")
     t17 = time.perf_counter()
     print(f"P15-P17 on the graph timer: P15 {t15 - t0:.2f} s, P16 {t16 - t15:.2f} s (two calls "
-          f"of each arbiter), P17 {t17 - t16:.2f} s (two calls of each plan); {t17 - t0:.2f} s "
+          f"of each arbiter), P17 {t17 - t16:.2f} s (MSCAN-t planned twice, ConvNeXt-T once); "
+          f"{t17 - t0:.2f} s "
           f"in all, against 40-55 s on the eager timer with one call each")
 
     # -- 18. P18: the ops on the card, exported surfaces, the symbolic batch, serving loops
@@ -7723,13 +8078,19 @@ def main():
     # -- 24. P24: training across processes, data-parallel ------------------
     import shutil
 
-    shutil.rmtree(P25_DIR, ignore_errors=True)  # P24's two gloo ranks then run P25's (a) and (b)
-    p24 = run_p24(f1_ms, p20["f32_ms"], then=("a", "b"))
+    # P24's two gloo ranks then run P25's (a) and (b), and P26's (a), (a') and (b)
+    shutil.rmtree(P25_DIR, ignore_errors=True)
+    shutil.rmtree(P26_DIR, ignore_errors=True)
+    p24 = run_p24(f1_ms, p20["f32_ms"], then=("a", "b"), p26=True)
     lap("24. P24")
 
     # -- 25. P25: training across processes, pipelined -----------------------
     p25 = run_p25(after_p24=True)
     lap("25. P25")
+
+    # -- 26. P26: tensor parallelism across processes --------------------------
+    p26 = run_p26(one_f1=p24["one"]["f1"])
+    lap("26. P26")
     print(f"wall time in all: {lap.total():.2f} s from the check for the card")
 
     # -- 18. results ------------------------------------------------------
@@ -7940,6 +8301,22 @@ def main():
                 path=f"TrainHelper(pipeline_parallel=2) on MSCAN-t, {what}, over 2 gloo ranks on "
                      f"one card, rank {r}: {P25_EVAL} validation forwards on the EMA weights (P25)",
                 launches=res[run]["launches"]))
+    # P26: tensor parallelism over (1 data x 2 model), 2 gloo ranks on one card
+    for r, res in enumerate(p26["ranks"]):
+        kernels[0]["paths"] += [
+            dict(path=f"F1 config with model_parallel=2 (mscan preset), rank {r}, {P24_STEPS} "
+                      f"steps and {P24_EVAL} validation batches: the replicated teacher (P26a)",
+                 launches=res["a"]["launches"]),
+            dict(path=f"MSCAN-t d1+fix sharded by the mscan preset, rank {r}: per eval forward, "
+                      f"the channel mix gathered (P26a')", launches=res["fused"]["launches"][0])]
+        kernels[3]["paths"].append(dict(
+            path=f"int8 ResNet-18 sharded by the resnet preset, rank {r}: per forward (P26b)",
+            launches=res["b"]["launches"]))
+    kernels[3]["paths"].append(path(
+        "int8 ResNet-18's column (N / 2) and row (K / 2, no bias) shard shapes, per forward on one "
+        "rank (P26c)", p26["rows"], calls, p26["ranks"][0]["b"]["launches"], PEAK_INT8))
+    kernels[3]["max_abs_err"] = max([kernels[3]["max_abs_err"]] +
+                                    [r["max_abs_err"] for r in p26["rows"]])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -7952,7 +8329,9 @@ if __name__ == "__main__":
         main_p24()
     elif sys.argv[1:] == ["--p25"]:
         main_p25()
+    elif sys.argv[1:] == ["--p26"]:
+        main_p26()
     elif sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]} (none, --p23, --p24 or --p25)")
+        fail(f"unknown arguments {sys.argv[1:]} (none, --p23, --p24, --p25 or --p26)")
     else:
         main()

@@ -54,8 +54,19 @@ the whole model (each block from its owner), a sharded one is written by
 each pipe rank for the blocks it owns; at the end every rank gets each
 block's trained weights from its owner.  A model without a pipeline-capable
 stage engine trains unpipelined (with a warning), as in JAX.
-``model_parallel`` > 1 raises ``NotImplementedError`` (ROADMAP.md queue 1,
-item 12b), and ``ValueError`` beside ``pipeline_parallel`` > 1.
+
+``model_parallel=mp`` > 1 (with ``tp_rules``, ``parallel/tp.py``) trains
+tensor-parallel on a ``(world / mp, mp)`` mesh, as the JAX helper's
+``shard_variables`` does: every rank starts from the first rank's weights
+(and a ``resume`` loads the whole model) before the model and the EMA keep
+their shards (``parallel.tp.shard_module``); the optimizer's state is the
+rank's shards and the replicated parameters, whose gradients come from model
+rank 0, and ``norm`` clipping counts each shard's squares over the model
+group; both checkpoint backends write the whole model and optimizer state,
+gathered over the model group; at the end every rank gathers the whole
+trained model back.  One process (or ``use_mesh`` off) trains unsharded,
+with a warning.  ``model_parallel`` and ``pipeline_parallel`` both above 1
+raise ``ValueError``: they share the mesh's model axis.
 """
 
 from __future__ import annotations
@@ -81,8 +92,9 @@ from convnet_approximater_tpu_torch.models.stage_exec import (block_names, gathe
 from convnet_approximater_tpu_torch.parallel.data_parallel import (pipe_axis, replicate_from_root,
                                                                    sum_over, training_axis,
                                                                    training_mesh, world_axis)
-from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
 from convnet_approximater_tpu_torch.parallel.mesh import MODEL_AXIS, axis_ranks
+from convnet_approximater_tpu_torch.parallel.tp import (gather_tensors, shard_module, summary,
+                                                        tp_plan, unshard_module)
 from convnet_approximater_tpu_torch.utils import get_logger, get_rank, load_flat, unflatten_tree
 from convnet_approximater_tpu_torch.utils.config import Config
 from convnet_approximater_tpu_torch.utils.dtype import cast_params
@@ -180,11 +192,10 @@ class TrainHelper:
         if int(cfg.model_parallel or 1) > 1 and int(cfg.pipeline_parallel or 1) > 1:
             raise ValueError("model_parallel and pipeline_parallel both >1: they share the "
                              "mesh's model axis")
-        if int(cfg.model_parallel or 1) > 1:
-            raise NotImplementedError(f"TrainHelper model_parallel > 1: {MESH_TODO}")
         self.model = channels_last(model.to(self.device))
         self.shard: Optional[DataShard] = None  # the data axis, across processes
         self.carriers = []  # the stage engines of the model and the EMA, while pipelined
+        self.tp = None  # the tensor-parallel plan of the model, while sharded
         self._stop_axis: Optional[DataShard] = None  # the ranks that decide a stop together
         self.ema: Optional[nn.Module] = None
         self.optimizer = None
@@ -254,13 +265,17 @@ class TrainHelper:
         cfg = self.cfg
         model = self.model
         pp = int(cfg.pipeline_parallel or 1)
-        mesh = training_mesh(cfg.use_mesh, pp) if pp > 1 else None
-        if pp > 1 and mesh is None:
-            logger.warning(f"pipeline_parallel={pp}: one process (or use_mesh off): trained "
-                           f"unpipelined")
+        mp = int(cfg.model_parallel or 1)
+        # (both above 1 raise in __init__: they share the mesh's model axis)
+        mesh = (training_mesh(cfg.use_mesh, mp, "model_parallel") if mp > 1
+                else training_mesh(cfg.use_mesh, pp) if pp > 1 else None)
+        if max(pp, mp) > 1 and mesh is None:
+            logger.warning(("model_parallel" if mp > 1 else "pipeline_parallel")
+                           + f"={max(pp, mp)}: one process (or use_mesh off): trained "
+                           + ("unsharded" if mp > 1 else "unpipelined"))
         self.shard = shard = training_axis(cfg.use_mesh, mesh)
         self._stop_axis = world_axis() if mesh is not None else shard
-        if mesh is not None:
+        if mesh is not None and pp > 1:
             microbatch_split(shard.count if shard is not None else 1,
                              int(cfg.pipeline_microbatches or pp))
         replicate_from_root(model, shard, mesh)
@@ -308,8 +323,10 @@ class TrainHelper:
             saver = CheckpointSaver(out_dir, decreasing=(cfg.eval_metric == "loss"),
                                     max_history=cfg.checkpoint_hist, backend=cfg.ckpt_backend)
         start_epoch = self._resume() if cfg.resume else 0  # the whole model, before a release
-        if mesh is not None:
+        if mesh is not None and pp > 1:
             self._enable_pipeline(mesh, optimizer)
+        if mesh is not None and mp > 1:
+            self._enable_tp(mesh, optimizer)
         self._all = {n for n, _ in self.optimizer.named}
 
         self._best = (None, None)
@@ -324,7 +341,7 @@ class TrainHelper:
         except KeyboardInterrupt:
             pass  # a partial run still reports its best metric
         except Preempted as e:
-            if saver is not None or self.carriers:
+            if saver is not None or self._collective_checkpoint:
                 variables, opt = self._checkpoint()
                 if saver is not None:
                     path = saver.save_last(variables, e.args[0] - 1, opt_state=opt)
@@ -338,6 +355,11 @@ class TrainHelper:
         for carrier in self.carriers:  # each block's trained weights, from its owner
             carrier.enable_pipeline(None)
         self.carriers = []
+        if self.tp is not None:  # the whole trained model on every rank
+            for m in (self.model, self.ema):
+                if m is not None:
+                    unshard_module(m)
+            self.tp = None
         best_metric, best_epoch = self._best
         logger.info(f"*** Best {cfg.eval_metric}: {best_metric} (epoch {best_epoch})")
         return dict(best_metric=best_metric, best_epoch=best_epoch, model=model, ema=self.ema)
@@ -346,6 +368,8 @@ class TrainHelper:
         """Pipeline the model's stages (and the EMA's) over ``mesh``'s model
         axis, and rebuild the optimizer over the parameters left on this rank,
         with the state it had for them."""
+        from convnet_approximater_tpu_torch.hooks.finetune import carry_state
+
         logger = get_logger()
         cfg = self.cfg
         if resolve_pipeline_carrier(self.model) is None:
@@ -362,12 +386,31 @@ class TrainHelper:
         owned = {name for name, _ in self.model.named_parameters()
                  if owner_of(name, blocks) == index}
         old, self.optimizer = self.optimizer, optimizer(pipe_axis(mesh, owned))
-        for name in self.optimizer.state:
-            self.optimizer.state[name] = old.state[name]
-        self.optimizer.count, self.optimizer.mini_step = old.count, old.mini_step
+        carry_state(old, self.optimizer)
         if self.carriers:
             logger.info(f"pipelined stages {self.carriers[0].pipelined_stages()} over {n} pipe "
                         f"ranks, {self.carriers[0]._pipeline['M']} microbatches")
+
+    @property
+    def _collective_checkpoint(self) -> bool:
+        """Whether every rank takes part in a checkpoint (pipelined or sharded)."""
+        return bool(self.carriers) or self.tp is not None
+
+    def _enable_tp(self, mesh, optimizer):
+        """Shard the model and the EMA over ``mesh``'s model axis
+        (``parallel.tp.shard_module``) and rebuild the optimizer over the
+        shards, with the rank's slices of the state it had."""
+        from convnet_approximater_tpu_torch.hooks.finetune import carry_state
+
+        cfg = self.cfg
+        mp = int(cfg.model_parallel)
+        shard_module(self.model, mesh, mp, cfg.tp_rules)
+        if self.ema is not None:
+            shard_module(self.ema, mesh, mp, cfg.tp_rules, warn=False)
+        self.tp = plan = tp_plan(self.model)
+        old, self.optimizer = self.optimizer, optimizer(pipe_axis(mesh, plan.dims, plan.dims))
+        carry_state(old, self.optimizer, plan)
+        get_logger().info(summary(self.model))
 
     def _variables(self) -> dict:
         """What a checkpoint holds besides the optimizer: params, state and ``ema``."""
@@ -381,10 +424,19 @@ class TrainHelper:
         collective over the pipe group: for npz the whole model, each block's
         weights and optimizer state from its owner; for a sharded save this
         rank's own blocks and the replicated parts (each pipe rank writes the
-        blocks it owns)."""
+        blocks it owns).  Sharded (tensor parallelism), it is the whole model,
+        EMA and optimizer state for both backends, gathered over the model group."""
+        from convnet_approximater_tpu_torch.hooks.finetune import (gathered_opt_state,
+                                                                   opt_state_to_tree)
+
+        if self.tp is not None:  # the whole model and state, gathered over the model group
+            tree = unflatten_tree(params_to_jax(gather_tensors(self.model.state_dict(), self.tp)))
+            if self.ema is not None:
+                tree["ema"] = unflatten_tree(params_to_jax(
+                    gather_tensors(self.ema.state_dict(), tp_plan(self.ema))))
+            return tree, gathered_opt_state(self.optimizer, self.tp)
         if not self.carriers:
             return self._variables(), self.optimizer
-        from convnet_approximater_tpu_torch.hooks.finetune import opt_state_to_tree
 
         sharded = self.cfg.ckpt_backend == "sharded"
 
@@ -472,7 +524,7 @@ class TrainHelper:
             if get_rank() == 0:
                 update_summary(epoch, dict(loss=loss_m.avg), eval_metrics,
                                os.path.join(out_dir, "summary.csv"), write_header=(epoch == 0))
-            if saver is not None or self.carriers:
+            if saver is not None or self._collective_checkpoint:
                 variables, opt = self._checkpoint()
                 if saver is not None:
                     self._best = saver.save_checkpoint(variables, epoch,

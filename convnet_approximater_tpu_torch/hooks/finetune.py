@@ -54,8 +54,18 @@ Optimize phase:
   over the global batch, and the update averages the gradients over the
   ranks, so every rank computes what one process computes on the whole
   batch; the logged means and the validation sums are the global batch's,
-  and the ranks decide a preemption stop together.  ``model_parallel`` > 1
-  is still refused.
+  and the ranks decide a preemption stop together.
+* ``other_args.model_parallel=mp`` > 1 (with ``tp_rules``,
+  ``parallel/tp.py``) trains tensor-parallel on a ``(world / mp, mp)`` mesh,
+  as the JAX hook's ``shard_variables``: every rank takes the first rank's
+  weights, the asym teacher stays whole (replicated), and after a ``resume``
+  the student keeps its shards of every parameter a rule shards
+  (``parallel.tp.shard_module``): the optimizer holds the shards' moments,
+  the replicated parameters' gradients come from model rank 0, and the
+  checkpoints (either backend) hold the whole model and optimizer state,
+  gathered over the model group; the student is gathered whole again when
+  the hook returns.  One process (or ``use_mesh`` off) trains unsharded,
+  with a warning.
 
 Checkpoints are the JAX package's flat npz layout, with the optimizer state
 under ``opt`` and the epoch and metric under ``meta``, or with
@@ -91,10 +101,12 @@ from convnet_approximater_tpu_torch.layers import (QATConv2d, QATLinear, Substit
 from convnet_approximater_tpu_torch.models.switchable import set_submodule
 from convnet_approximater_tpu_torch.nn import DataShard, sharded_batch
 from convnet_approximater_tpu_torch.parallel.data_parallel import (average_gradients,
-                                                                   broadcast_gradients,
+                                                                   broadcast_gradients, pipe_axis,
                                                                    replicate_from_root, sum_over,
-                                                                   training_axis)
-from convnet_approximater_tpu_torch.parallel.distributed import MESH_TODO
+                                                                   training_axis, training_mesh)
+from convnet_approximater_tpu_torch.parallel.tp import (gather_tensor, gather_tensors, shard_module,
+                                                        slice_tensor, summary, tp_plan,
+                                                        unshard_module)
 from convnet_approximater_tpu_torch.utils import (get_logger, get_rank, load_flat, save_model,
                                                   unflatten_tree)
 from convnet_approximater_tpu_torch.utils.config import Config
@@ -182,15 +194,17 @@ def lr_schedule(optim_args: Config, sche_args: Config,
     return lambda count: base
 
 
-def unitwise_norm(x: torch.Tensor, name: str) -> torch.Tensor:
+def unitwise_norm(x: torch.Tensor, name: str, axis=None) -> torch.Tensor:
     """optax's ``unitwise_norm`` of the JAX package's layout of parameter
     ``name``, in the port's: a conv weight OIHW is HWIO there (norm over each
     output channel), a Linear weight (out, in) is (in, out) there (norm over
-    each output unit)."""
+    each output unit).  ``axis`` (a ``parallel.PipeAxis`` with ``dims``):
+    where ``x`` is a tensor-parallel shard whose sharded dim the norm sums
+    over, the squares are summed over the model group."""
     transposed = name.rsplit(".", 1)[-1] in ("weight", "weight_q")
     if x.squeeze().dim() <= 1:
-        return x.pow(2).sum().sqrt()
-    if x.dim() == 2:
+        dims = None
+    elif x.dim() == 2:
         dims = (1,) if transposed else (0,)
     elif x.dim() == 3:
         dims = (0,)
@@ -199,7 +213,11 @@ def unitwise_norm(x: torch.Tensor, name: str) -> torch.Tensor:
     else:
         raise ValueError(f"adaptive clipping: parameter {name} of shape {tuple(x.shape)} "
                          f"has no unit-wise norm")
-    return x.pow(2).sum(dim=dims, keepdim=True).sqrt()
+    sq = x.pow(2).sum() if dims is None else x.pow(2).sum(dim=dims, keepdim=True)
+    d = axis.dims.get(name) if axis is not None and axis.dims else None
+    if d is not None and (dims is None or d in dims):
+        dist.all_reduce(sq, group=axis.group)
+    return sq.sqrt()
 
 
 class MaskedOptimizer:
@@ -224,12 +242,14 @@ class MaskedOptimizer:
       (``parallel.average_gradients``), once per update, after the
       micro-steps' mean and before clipping, as the JAX step's gradient of a
       global batch's loss;
-    * ``pipe`` (a pipe axis, ``parallel.PipeAxis``: the optimizer holds only
-      the parameters present on this rank): then the parameters outside the
-      rank's own blocks take pipe rank 0's gradients (a broadcast over the
-      pipe group), and ``norm`` clipping takes the global norm, the owned
-      blocks' squares summed over the pipe group and the replicated ones
-      counted once.
+    * ``pipe`` (the model axis, ``parallel.PipeAxis``: the optimizer holds
+      only the parameters present on this rank, a pipe rank's blocks or a
+      tensor-parallel rank's shards): then the parameters outside ``owned``
+      take model rank 0's gradients (a broadcast over the model group), and
+      ``norm`` clipping takes the global norm, the owned parameters' squares
+      summed over the model group and the replicated ones counted once
+      (``agc`` sums a shard's unit-wise squares over the group where its
+      sharded dim is summed).
 
     optax takes Adam's bias corrections ``1 - b^t`` in float32, where
     ``torch.optim.Adam`` takes them in float64: after 5 steps the two differ
@@ -292,8 +312,8 @@ class MaskedOptimizer:
                 g.copy_(torch.where(norm < self.clip, g, g / norm * self.clip))
         else:
             for (name, _), g, p in zip(self.named, grads, params):
-                g_norm = unitwise_norm(g, name)
-                max_norm = self.clip * unitwise_norm(p, name).clamp_min(1e-3)
+                g_norm = unitwise_norm(g, name, self.pipe)
+                max_norm = self.clip * unitwise_norm(p, name, self.pipe).clamp_min(1e-3)
                 g.copy_(torch.where(g_norm < max_norm, g, g * (max_norm / g_norm.clamp_min(1e-6))))
 
     @torch.no_grad()
@@ -360,6 +380,16 @@ def make_optimizer(named_params, optim_args: Config, sche_args: Config,
     return opt, opt.lr
 
 
+def carry_state(old: MaskedOptimizer, new: MaskedOptimizer, plan=None) -> None:
+    """Give ``new`` (an optimizer over some of ``old``'s parameters) their
+    state in ``old``, cut to this rank's slices where ``plan`` (a
+    tensor-parallel ``TPPlan``) shards them, and ``old``'s counts."""
+    for name in new.state:
+        new.state[name] = {k: v if plan is None else slice_tensor(plan, name, v)
+                           for k, v in old.state[name].items()}
+    new.count, new.mini_step = old.count, old.mini_step
+
+
 def opt_state_to_tree(opt: MaskedOptimizer) -> dict:
     """The optimizer's state as a tree of numpy arrays: its update count, and
     per parameter name its moments (``mu``, ``nu``) or momentum ``trace``; with
@@ -369,6 +399,17 @@ def opt_state_to_tree(opt: MaskedOptimizer) -> dict:
         tree["mini_step"] = np.int64(opt.mini_step)
     for name, state in opt.state.items():
         tree[name] = {k: v.detach().cpu().numpy().copy() for k, v in state.items()}
+    return tree
+
+
+def gathered_opt_state(opt: MaskedOptimizer, plan) -> dict:
+    """:func:`opt_state_to_tree` with each tensor-parallel shard's state
+    gathered whole over the model axis (``plan``, a ``TPPlan``): collective."""
+    tree = opt_state_to_tree(opt)
+    for name, state in opt.state.items():
+        if name in plan.dims:
+            tree[name] = {k: gather_tensor(plan, name, v).cpu().numpy().copy()
+                          for k, v in state.items()}
     return tree
 
 
@@ -621,10 +662,9 @@ class L2Reconstruct(Hook):
         self.other_args = _combine(_default_other_args, other_args)
         other = self.other_args
         self.amp = bool(other.amp)
-        if int(other.model_parallel or 1) > 1:
-            raise NotImplementedError(f"L2Reconstruct model_parallel > 1: {MESH_TODO}")
         check_aug(self.data_config.aug)
         self.shard: Optional[DataShard] = None  # the data axis, across processes
+        self.tp = None  # the student's tensor-parallel plan, while it is sharded
         self.teacher: Optional[nn.Module] = None
         self.optimizer: Optional[MaskedOptimizer] = None
         self.result = None
@@ -784,11 +824,17 @@ class L2Reconstruct(Hook):
         model = runner.model
         device = runner.device
         # across processes: each rank steps on its rows of every global batch, from the
-        # data axis's first rank's weights
-        self.shard = shard = training_axis(self.other_args.use_mesh)
-        replicate_from_root(model, shard)
+        # first rank's weights; with a model axis, its ranks load the same rows
+        other = self.other_args
+        mp = int(other.model_parallel or 1)
+        mesh = training_mesh(other.use_mesh, mp, "model_parallel") if mp > 1 else None
+        if mp > 1 and mesh is None:
+            logger.warning(f"model_parallel={mp}: one process (or use_mesh off): trained "
+                           f"unsharded")
+        self.shard = shard = training_axis(other.use_mesh, mesh)
+        replicate_from_root(model, shard, mesh)
         if runner.model_before_passes is not None:
-            replicate_from_root(runner.model_before_passes, shard)
+            replicate_from_root(runner.model_before_passes, shard, mesh)
         if shard is not None:
             logger.info(f"training over a data axis of {shard.count} ranks")
 
@@ -826,6 +872,8 @@ class L2Reconstruct(Hook):
         start_epoch = self._resume() if self.other_args.resume else 0
         if self.other_args.start_epoch is not None:
             start_epoch = self.other_args.start_epoch
+        if mesh is not None:  # the student keeps its shards; the teacher stays whole
+            self._enable_tp(mesh, mp, steps_per_epoch)
 
         num_epochs = self.sche_args.epochs
         behavior = list(self.epoch_behavior)
@@ -864,16 +912,19 @@ class L2Reconstruct(Hook):
                         update_summary(epoch, train_metrics, eval_metrics,
                                        os.path.join(out_dir, "summary.csv"),
                                        write_header=best_metric is None)
-                    if saver is not None:
-                        best_metric, best_epoch = saver.save_checkpoint(
-                            variables_of(model), epoch, eval_metrics[eval_metric],
-                            opt_state=self.optimizer)
+                    if saver is not None or self.tp is not None:
+                        variables, opt = self._checkpoint()
+                        if saver is not None:
+                            best_metric, best_epoch = saver.save_checkpoint(
+                                variables, epoch, eval_metrics[eval_metric], opt_state=opt)
         except KeyboardInterrupt:
             pass
         except Preempted:
             preempted = True
+            if saver is not None or self.tp is not None:
+                variables, opt = self._checkpoint()
             if saver is not None:
-                path = saver.save_last(variables_of(model), epoch - 1, opt_state=self.optimizer)
+                path = saver.save_last(variables, epoch - 1, opt_state=opt)
                 logger.warning(f"preempted during epoch {epoch}: full train state saved to "
                                f"{path}; resuming will redo epoch {epoch}")
         finally:
@@ -883,9 +934,35 @@ class L2Reconstruct(Hook):
             model.eval()
             if saver is not None:
                 saver.wait()  # the last asynchronous save commits before the hook returns
+        if self.tp is not None:  # the whole trained student on every rank
+            unshard_module(model)
+            self.tp = None
         if best_metric is not None:
             logger.info(f"*** Best metric: {best_metric} (epoch {best_epoch})")
         self.result = dict(best_metric=best_metric, best_epoch=best_epoch, preempted=preempted)
+
+    def _enable_tp(self, mesh, mp: int, steps_per_epoch: int):
+        """Shard the student over ``mesh``'s model axis and rebuild the
+        optimizer over its shards, with the rank's slices of the state it had."""
+        model = self.runner.model
+        shard_module(model, mesh, mp, self.other_args.tp_rules)
+        self.tp = plan = tp_plan(model)
+        old = self.optimizer
+        self.optimizer, _ = make_optimizer(model.named_parameters(), self.optim_args,
+                                           self.sche_args, steps_per_epoch, data=self.shard,
+                                           pipe=pipe_axis(mesh, plan.dims, plan.dims))
+        carry_state(old, self.optimizer, plan)
+        get_logger().info(summary(model))
+
+    def _checkpoint(self):
+        """``(variables, optimizer state)`` of a checkpoint: the whole student and
+        optimizer state, gathered over the model group when it is sharded
+        (collective then)."""
+        model = self.runner.model
+        if self.tp is None:
+            return variables_of(model), self.optimizer
+        tree = unflatten_tree(params_to_jax(gather_tensors(model.state_dict(), self.tp)))
+        return tree, gathered_opt_state(self.optimizer, self.tp)
 
     def _resume(self) -> int:
         """Load ``other_args.resume`` into the model and the optimizer; the epoch to start from."""

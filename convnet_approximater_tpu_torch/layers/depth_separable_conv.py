@@ -33,6 +33,7 @@ from convnet_approximater_tpu_torch.nn import Conv2d, Identity, params_key
 from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
 from convnet_approximater_tpu_torch.ops.msca_fused import (MAX_BRANCHES, fix_strip,
                                                            pack_cascade_weights)
+from convnet_approximater_tpu_torch.parallel.tp_layers import whole_weights
 
 
 def no_grad_eval(module: nn.Module) -> bool:
@@ -75,20 +76,22 @@ class _StripBank(nn.Module):
         after the weights changed."""
         key = self._weights_key()
         if key != getattr(self, "_pack_key", None):
-            cascades, identity = self.bank()
-            fits = (0 < len(cascades) <= MAX_BRANCHES
-                    and len(cascades) * max(c.kernel_size for c in cascades)
-                    <= cascade_ops.MAX_BANK_ROWS
-                    and all(c.kernel_size % 2 == 1 and _strip_fits(c.conv1, c.kernel_size, False)
-                            and _strip_fits(c.conv2, c.kernel_size, True) for c in cascades))
-            self._pack = None
-            if fits:
-                w1, b1, w2, b2, ks = pack_cascade_weights(
-                    [c.conv1.weight[:, 0, 0, :].t() for c in cascades],
-                    [c.conv1.bias for c in cascades],
-                    [c.conv2.weight[:, 0, :, 0].t() for c in cascades],
-                    [c.conv2.bias for c in cascades])
-                self._pack = dict(w1=w1, b1=b1, w2=w2, b2=b2, ks=ks, identity=identity)
+            with whole_weights(self):  # the whole taps under tensor parallelism
+                cascades, identity = self.bank()
+                fits = (0 < len(cascades) <= MAX_BRANCHES
+                        and len(cascades) * max(c.kernel_size for c in cascades)
+                        <= cascade_ops.MAX_BANK_ROWS
+                        and all(c.kernel_size % 2 == 1
+                                and _strip_fits(c.conv1, c.kernel_size, False)
+                                and _strip_fits(c.conv2, c.kernel_size, True) for c in cascades))
+                self._pack = None
+                if fits:
+                    w1, b1, w2, b2, ks = pack_cascade_weights(
+                        [c.conv1.weight[:, 0, 0, :].t() for c in cascades],
+                        [c.conv1.bias for c in cascades],
+                        [c.conv2.weight[:, 0, :, 0].t() for c in cascades],
+                        [c.conv2.bias for c in cascades])
+                    self._pack = dict(w1=w1, b1=b1, w2=w2, b2=b2, ks=ks, identity=identity)
             self._pack_key = key
         return self._pack
 

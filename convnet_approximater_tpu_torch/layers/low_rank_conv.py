@@ -33,6 +33,7 @@ from torch.nn.modules.utils import _pair
 
 from convnet_approximater_tpu_torch.nn import Conv2d, params_key
 from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+from convnet_approximater_tpu_torch.parallel.tp_layers import whole_weights
 from convnet_approximater_tpu_torch.utils.logger import get_logger
 
 from .depth_separable_conv import no_grad_eval
@@ -110,18 +111,19 @@ class LowRankExpConvV1(nn.Module):
         after the weights changed."""
         key = self._weights_key()
         if key != self._pack_key:
-            shared = self.bases_shared()
-            if not shared and not self._warned_per_channel:
-                get_logger().warning(
-                    "LowRankExpConvV1: the bases differ between input channels "
-                    "(fine-tuned?); this layer runs the module path, not lowrank_conv")
-                self._warned_per_channel = True
-            self._pack = None
-            if shared:
-                params = lowrank_ops.lowrank_params_from_module(self)
-                taps = {k: params[k] for k in ("v", "h", "bases") if k in params}
-                params["kernel"] = lowrank_ops.pack_kernel_weights(params["A_mc"], **taps)
-                self._pack = params
+            with whole_weights(self):  # the whole mix under tensor parallelism
+                shared = self.bases_shared()
+                if not shared and not self._warned_per_channel:
+                    get_logger().warning(
+                        "LowRankExpConvV1: the bases differ between input channels "
+                        "(fine-tuned?); this layer runs the module path, not lowrank_conv")
+                    self._warned_per_channel = True
+                self._pack = None
+                if shared:
+                    params = lowrank_ops.lowrank_params_from_module(self)
+                    taps = {k: params[k] for k in ("v", "h", "bases") if k in params}
+                    params["kernel"] = lowrank_ops.pack_kernel_weights(params["A_mc"], **taps)
+                    self._pack = params
             self._pack_key = key
         return self._pack
 

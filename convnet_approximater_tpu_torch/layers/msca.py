@@ -23,6 +23,7 @@ from torch.profiler import record_function
 
 from convnet_approximater_tpu_torch.nn import Conv2d, params_key
 from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+from convnet_approximater_tpu_torch.parallel.tp_layers import whole_weights
 
 from .depth_separable_conv import CascadeConv, FixPaddingBias, ParallelConv, no_grad_eval
 from .substitution import LAYER
@@ -60,25 +61,35 @@ class MSCA(nn.Module):
     @torch.no_grad()
     def _kernel_weights(self) -> dict:
         """The kernel's weight layouts, built again only after a weight changed
-        (keyed on every parameter's version counter, as ``bank.packed()`` is)."""
+        (keyed on every parameter's version counter, as ``bank.packed()`` is).
+        Under tensor parallelism (the ``mscan`` preset shards ``channel_mix``
+        over its output channels) they are built from the whole weights,
+        gathered over the model axis once per change of a shard
+        (``parallel/tp_layers.py::whole_weights``): the kernel mixes all C
+        channels, as the JAX package's unpartitioned ``pallas_call`` does, and
+        no collective runs per call."""
         key = params_key(self)
         if key != getattr(self, "_kernel_key", None):
-            bank, fix = self._fuse_parts()
-            packed = bank.packed()
-            res, fix_p = None, 0
-            if fix is not None:
-                res, fix_p = fix.res.transpose(1, 2).contiguous(), fix.p  # (2, p, C)
-                res = res.float()
-            # the kernel's weights are float32 copies of bf16 ones
-            self._kernel_args = dict(
-                w0=self.conv0.weight[:, 0].permute(1, 2, 0).float().contiguous(),  # (k0, k0, C)
-                b0=self.conv0.bias.float(),
-                w1=packed["w1"], b1=packed["b1"], w2=packed["w2"], b2=packed["b2"],
-                wm=self.channel_mix.weight[:, :, 0, 0].t().float().contiguous(),  # (C in, C out)
-                bm=self.channel_mix.bias.float(), res=res,
-                ks=packed["ks"], identity=packed["identity"], fix_p=fix_p)
+            with whole_weights(self):
+                self._kernel_args = self._build_kernel_weights()
             self._kernel_key = key
         return self._kernel_args
+
+    def _build_kernel_weights(self) -> dict:
+        bank, fix = self._fuse_parts()
+        packed = bank.packed()
+        res, fix_p = None, 0
+        if fix is not None:
+            res, fix_p = fix.res.transpose(1, 2).contiguous(), fix.p  # (2, p, C)
+            res = res.float()
+        # the kernel's weights are float32 copies of bf16 ones
+        return dict(
+            w0=self.conv0.weight[:, 0].permute(1, 2, 0).float().contiguous(),  # (k0, k0, C)
+            b0=self.conv0.bias.float(),
+            w1=packed["w1"], b1=packed["b1"], w2=packed["w2"], b2=packed["b2"],
+            wm=self.channel_mix.weight[:, :, 0, 0].t().float().contiguous(),  # (C in, C out)
+            bm=self.channel_mix.bias.float(), res=res,
+            ks=packed["ks"], identity=packed["identity"], fix_p=fix_p)
 
     def drop_caches(self):
         self._kernel_args = self._kernel_key = None

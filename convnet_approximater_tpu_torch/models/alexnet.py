@@ -19,6 +19,8 @@ from .switchable import MODEL, SwitchableModel
 
 @MODEL.register_module()
 class AlexNet(SwitchableModel):
+    TP_CHAINS = (("classifier.1", "classifier.2", "classifier.3", "classifier.4"),)  # parallel/tp.py
+
     def __init__(self, num_classes: int = 10, dropout: float = 0.5, init_cfg=None):
         super().__init__(init_cfg=init_cfg)
         self.features = nn.Sequential(

@@ -41,6 +41,8 @@ class LayerScale(nn.Module):
 class ConvNeXtBlock(nn.Module):
     """``hidden`` overrides the MLP's 4x expansion: the width ``MlpPrune`` shrinks."""
 
+    TP_CHAINS = (("pwconv1", "act", "pwconv2"),)  # the tensor-parallel pair (parallel/tp.py)
+
     def __init__(self, dim: int, drop_path: float = 0.0, layer_scale: float = 1e-6,
                  hidden: int = None):
         super().__init__()

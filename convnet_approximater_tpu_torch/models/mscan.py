@@ -42,6 +42,10 @@ class StemConv(nn.Module):
 class FFN(nn.Module):
     """1x1 conv -> depthwise 3x3 -> GELU -> 1x1 conv -> dropout."""
 
+    # the Megatron pair of tensor parallelism (parallel/tp.py): fc1's sharded
+    # hidden channels pass dconv and reach fc2 sharded
+    TP_CHAINS = (("fc1", "dconv", "fc2"),)
+
     def __init__(self, num_channel: int, hidden_channel: int, drop: float):
         super().__init__()
         self.num_channel = num_channel

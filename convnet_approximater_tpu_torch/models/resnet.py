@@ -31,6 +31,7 @@ class BasicBlock(nn.Module):
     """Two 3x3 convs and the identity (torchvision's ``BasicBlock``)."""
 
     expansion = 1
+    TP_CHAINS = (("conv1", "bn1", "conv2"),)  # the tensor-parallel pair (parallel/tp.py)
 
     def __init__(self, in_c: int, planes: int, stride: int = 1):
         super().__init__()
@@ -52,6 +53,7 @@ class Bottleneck(nn.Module):
     """1x1 reduce, 3x3 (strided), 1x1 expand (torchvision's ``Bottleneck``)."""
 
     expansion = 4
+    TP_CHAINS = (("conv1", "bn1", "conv2"),)
 
     def __init__(self, in_c: int, planes: int, stride: int = 1):
         super().__init__()

@@ -25,6 +25,10 @@ _CFGS = {
 
 @MODEL.register_module()
 class VGG(SwitchableModel):
+    # the classifier's tensor-parallel pair (parallel/tp.py): fc1's sharded
+    # features pass the ReLU and the dropout (its mask sliced) to fc2
+    TP_CHAINS = (("classifier.0", "classifier.1", "classifier.2", "classifier.3"),)
+
     def __init__(self, depth: int = 16, num_classes: int = 10, dropout: float = 0.5,
                  batch_norm: bool = False, init_cfg=None):
         super().__init__(init_cfg=init_cfg)

@@ -102,7 +102,10 @@ class Conv2d(nn.Conv2d):
 class Dropout(nn.Module):
     """Zero each element with probability ``p`` while training and scale the
     rest by ``1 / (1 - p)``, as ``torch.nn.Dropout``; the mask comes from
-    ``generator`` (torch's global generator when it is None)."""
+    ``generator`` (torch's global generator when it is None).  Between the
+    two halves of a tensor-parallel pair (``parallel/tp.py``) its input is
+    the rank's slice of the channels, and ``tp_slice`` (dim, index, count)
+    makes it take that slice of the mask one process draws."""
 
     def __init__(self, p: float = 0.5):
         super().__init__()
@@ -110,6 +113,7 @@ class Dropout(nn.Module):
             raise ValueError(f"dropout probability must be in [0, 1], got {p}")
         self.p = p
         self.generator = None
+        self.tp_slice = None
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
@@ -117,7 +121,7 @@ class Dropout(nn.Module):
         keep = 1.0 - self.p
         if keep == 0.0:
             return torch.zeros_like(x)
-        mask = bernoulli_rows(x, keep, self.generator)
+        mask = bernoulli_rows(x, keep, self.generator, self.tp_slice)
         return x * mask / keep
 
     def extra_repr(self) -> str:
@@ -168,20 +172,32 @@ def current_shard() -> Optional[DataShard]:
     return _data_shard.get()
 
 
-def bernoulli_rows(x, keep: float, generator) -> torch.Tensor:
+def bernoulli_rows(x, keep: float, generator, cols=None) -> torch.Tensor:
     """A Bernoulli(``keep``) mask of ``x``'s shape and type from ``generator``.
     Inside :func:`sharded_batch` it is this rank's rows of the mask drawn for
     the whole global batch (in ``x``'s memory format), so ranks seeded alike
-    draw what one process draws."""
+    draw what one process draws.  ``cols`` (dim, index, count) says that ``x``
+    is slice ``index`` of ``count`` along ``dim`` of the whole activation (a
+    tensor-parallel rank's channels): the mask is drawn whole and sliced so."""
     shard = _data_shard.get()
-    if shard is None:
+    if shard is None and cols is None:
         return torch.empty_like(x).bernoulli_(keep, generator=generator)
     rows = x.shape[0]
+    count = shard.count if shard is not None else 1
+    shape = [rows * count] + list(x.shape[1:])
+    if cols is not None:
+        dim, index, n = cols
+        dim %= x.dim()
+        shape[dim] *= n
     fmt = (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
            and x.is_contiguous(memory_format=torch.channels_last) else torch.contiguous_format)
-    full = torch.empty((rows * shard.count,) + tuple(x.shape[1:]), dtype=x.dtype,
-                       device=x.device, memory_format=fmt).bernoulli_(keep, generator=generator)
-    return full[shard.index * rows:(shard.index + 1) * rows]
+    full = torch.empty(shape, dtype=x.dtype, device=x.device,
+                       memory_format=fmt).bernoulli_(keep, generator=generator)
+    if shard is not None:
+        full = full[shard.index * rows:(shard.index + 1) * rows]
+    if cols is not None:
+        full = full.narrow(dim, index * x.shape[dim], x.shape[dim])
+    return full
 
 
 class MicrobatchStats:

@@ -1,7 +1,8 @@
-"""Serving and data-parallel training across processes (port of
+"""Serving and training across processes (port of
 ``convnet_approximater_tpu/parallel/``): one process per device on
 ``torch.distributed``, the ``(data, model)`` mesh, GPipe pipelines inside a
-stage (in training too) and over the whole model, and the data axis's
+stage (in training too) and over the whole model, tensor parallelism over
+the model axis (``tp.py``, ``tp_layers.py``), and the data axis's
 reductions in training."""
 
 from .data_parallel import (PipeAxis, all_gather_rows, any_rank, average_gradients,
@@ -10,7 +11,9 @@ from .data_parallel import (PipeAxis, all_gather_rows, any_rank, average_gradien
 from .distributed import (MESH_TODO, initialize_distributed, is_main_process,
                           local_device_count, process_count, shutdown_distributed)
 from .mesh import (DATA_AXIS, MODEL_AXIS, batch_sharding, broadcast_module, make_mesh,
-                   pad_indices, pad_to_multiple, replicate, shard_batch, shard_indices, shard_rows)
+                   pad_indices, pad_to_multiple, param_shardings, replicate, shard_batch,
+                   shard_indices, shard_rows, spatial_sharding)
 from .pp import owned_range, pipeline_blocks, pipeline_blocks_train, release, restore
+from .tp import resolve_tp_rules, shard_module, unshard_module
 from .pp_model import (ModelPipeline, Tail, Unit, build_model_pipeline, partition_units, subtree,
                        unit_from_module)

@@ -30,11 +30,19 @@ is released.  The parameters outside the pipelined blocks are replicated
 over the pipe group: their gradients are broadcast from pipe rank 0 after
 the data axis's mean (:class:`PipeAxis`, :func:`broadcast_gradients`), so
 they stay bit-equal whatever order cuDNN sums in.
+
+Tensor-parallel training (``model_parallel=mp`` in both trainers) runs on a
+``(world / mp, mp)`` mesh the same way: the model ranks of a data group load
+the same rows, every rank starts from the first rank's whole weights before
+it keeps its shards (``parallel/tp.py::shard_module``), the sharded
+parameters' gradients are averaged over the data axis alone, and the
+replicated ones are broadcast from model rank 0 after that mean (the model
+axis is a :class:`PipeAxis` whose ``owned`` parameters are the shards).
 """
 
 from __future__ import annotations
 
-from typing import FrozenSet, List, NamedTuple, Optional, Sequence
+from typing import Dict, FrozenSet, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -49,22 +57,23 @@ BUCKET_BYTES = 32 << 20  # the gradients are averaged in flat buckets of at most
 
 
 class PipeAxis(NamedTuple):
-    """A rank's place on the pipe axis of pipelined training."""
+    """A rank's place on the model axis of pipelined or tensor-parallel
+    training."""
 
-    group: object  # the pipe group (this rank's data index, every pipe index)
-    root: int  # the global rank of pipe index 0: the replicated gradients' source
-    owned: FrozenSet[str]  # the parameters of the blocks this rank owns
+    group: object  # the model group (this rank's data index, every model index)
+    root: int  # the global rank of model index 0: the replicated gradients' source
+    owned: FrozenSet[str]  # the parameters this rank holds alone: its blocks, or its shards
+    dims: Optional[Dict[str, int]] = None  # tensor parallelism: each shard's sharded dim
 
 
-def training_mesh(use_mesh: bool, pipeline: int = 1):
-    """The ``(world / pipeline, pipeline)`` mesh of training across processes,
-    or None when ``use_mesh`` is off or the process is alone.  Collective."""
+def training_mesh(use_mesh: bool, model: int = 1, option: str = "pipeline_parallel"):
+    """The ``(world / model, model)`` mesh of training across processes, or
+    None when ``use_mesh`` is off or the process is alone.  Collective."""
     if not use_mesh or process_count() == 1:
         return None
-    if process_count() % pipeline:
-        raise ValueError(f"pipeline_parallel={pipeline} does not divide the {process_count()} "
-                         f"processes")
-    return make_mesh(model=pipeline)
+    if process_count() % model:
+        raise ValueError(f"{option}={model} does not divide the {process_count()} processes")
+    return make_mesh(model=model)
 
 
 def training_axis(use_mesh: bool, mesh=None) -> Optional[DataShard]:
@@ -90,10 +99,10 @@ def world_axis() -> DataShard:
     return DataShard(dist.get_rank(), dist.get_world_size(), world, host, 0)
 
 
-def pipe_axis(mesh, owned: FrozenSet[str]) -> PipeAxis:
+def pipe_axis(mesh, owned: FrozenSet[str], dims: Optional[Dict[str, int]] = None) -> PipeAxis:
     """This rank's :class:`PipeAxis` on ``mesh``'s model axis."""
     _, _, group, ranks = axis_ranks(mesh, MODEL_AXIS)
-    return PipeAxis(group, ranks[0], frozenset(owned))
+    return PipeAxis(group, ranks[0], frozenset(owned), dims)
 
 
 def replicate_from_root(module: nn.Module, shard: Optional[DataShard], mesh=None) -> nn.Module:

@@ -18,9 +18,8 @@ import torch.distributed as dist
 
 from convnet_approximater_tpu_torch.utils.logger import get_rank
 
-# what stays refused across processes: tensor parallelism, spatial sharding
-MESH_TODO = ("tensor parallelism (tp.py's presets) and spatial sharding are ROADMAP.md queue 1 "
-             "item 12b")
+# what stays refused across processes (parallel/mesh.py::spatial_sharding)
+MESH_TODO = ("spatial sharding (JAX parallel/mesh.py:48) is ROADMAP.md queue 1 item 12b")
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None,

@@ -6,20 +6,23 @@ and lets XLA insert the collectives.  Here each rank is one process on one
 device: the mesh is a ``torch.distributed`` ``DeviceMesh`` with the same axis
 names, a "sharded" batch is the rank's own rows of it, and "replicated"
 weights are every rank's copy, broadcast from the data group's first rank.
-``param_shardings`` (tensor-parallel layouts) and ``spatial_sharding`` are
-still to be ported (ROADMAP.md queue 1, item 12b).
+:func:`param_shardings` reads the tensor-parallel rules (``parallel/tp.py``)
+against the port's parameter names and gives, per parameter, the torch dim
+the ``model`` axis shards (``parallel/tp.py::shard_module`` then keeps each
+rank's slice).  ``spatial_sharding`` is still to be ported (ROADMAP.md
+queue 1, item 12b).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from .distributed import process_count
+from .distributed import MESH_TODO, process_count
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -58,6 +61,12 @@ def batch_sharding(mesh) -> Tuple[int, int]:
     every global batch it holds (the ``Loader``'s ``sharding=``)."""
     index, count, _, _ = axis_ranks(mesh, DATA_AXIS)
     return index, count
+
+
+def spatial_sharding(mesh):
+    """The JAX package's NHWC layout over the batch (data axis) and the image
+    rows (model axis), whose convolutions XLA gives halo exchanges: not ported."""
+    raise NotImplementedError(f"spatial_sharding: {MESH_TODO}")
 
 
 def shard_rows(n: int, sharding: Tuple[int, int]) -> slice:
@@ -110,6 +119,87 @@ def broadcast_module(module: nn.Module, group, src: int) -> None:
         incoming = t.detach().contiguous().clone()  # collectives take dense tensors
         dist.broadcast(incoming, src=src, group=group)
         t.copy_(incoming)
+
+
+def jax_path(name: str, ndim: int) -> str:
+    """The JAX package's ``/``-joined param path of the port's parameter
+    ``name`` (``convert.params_to_jax``'s naming: a norm's 1-d ``weight`` is
+    ``scale``)."""
+    *prefix, leaf = name.split(".")
+    if leaf == "weight" and ndim == 1:
+        leaf = "scale"
+    return "/".join(prefix + [leaf])
+
+
+def torch_dim(name: str, ndim: int, jax_dim: int) -> int:
+    """The port's dim of a parameter's JAX dim ``jax_dim``: a conv ``weight``
+    (or ``weight_q``) is HWIO there and OIHW here (JAX 3 -> 0, 2 -> 1, 0 -> 2,
+    1 -> 3), a ``Linear`` one ``(in, out)`` there and ``(out, in)`` here; every
+    other leaf keeps its dims."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf in ("weight", "weight_q") and ndim == 4:
+        return (2, 3, 1, 0)[jax_dim]
+    if leaf in ("weight", "weight_q") and ndim == 2:
+        return 1 - jax_dim
+    return jax_dim
+
+
+def _model_dim(name: str, shape, spec) -> Optional[int]:
+    """The torch dim that ``spec`` (a JAX ``PartitionSpec`` as a tuple of axis
+    names, tuples of them or None) shards over the model axis, or None.  Other
+    axes (a rule may name the data axis) leave a parameter replicated here."""
+    spec = tuple(spec)
+    if len(spec) > len(shape):
+        raise ValueError(f"param_shardings: spec {spec} of {name} has more entries than its "
+                         f"{len(shape)} dims")
+    dims = [j for j, axes in enumerate(spec)
+            if axes == MODEL_AXIS or (isinstance(axes, (tuple, list)) and MODEL_AXIS in axes)]
+    if len(dims) > 1:
+        raise ValueError(f"param_shardings: spec {spec} of {name} names the model axis twice")
+    return torch_dim(name, len(shape), dims[0]) if dims else None
+
+
+def param_shardings(params: Union[nn.Module, Dict[str, torch.Tensor]], mesh=None,
+                    tp_rules: Sequence[tuple] = (), warn: bool = True
+                    ) -> Dict[str, Optional[int]]:
+    """Port of the JAX ``param_shardings``: per parameter of ``params`` (a
+    module, or a ``{name: tensor}`` dict of the port's names), the torch dim
+    that the ``model`` axis shards, or None (replicated).
+
+    The rules ``(path_suffix, spec)`` are the JAX package's: matched against
+    the parameter's JAX path (:func:`jax_path`: the port's name with ``/`` for
+    ``.``), ``spec`` in the JAX layout (:func:`torch_dim` translates it).  A
+    ``^``-prefixed suffix matches the full path only; a ``?`` prefix (before
+    any ``^``) marks a rule optional, left out of the unmatched warning; the
+    first matching rule wins.  A non-optional rule that matches nothing logs
+    ``tp rules matched no params (typo?)``, unless its dense ``.../weight``
+    names a layer whose ``.../weight_q`` twin matched (an int8 tree), or
+    ``warn`` is off (deploy-rewritten trees drop params the preset names).
+    ``mesh`` is unused: the dims do not depend on the axis's size."""
+    from convnet_approximater_tpu_torch.utils.logger import get_logger
+
+    named = dict(params.named_parameters()) if isinstance(params, nn.Module) else dict(params)
+    tp_rules = list(tp_rules)
+    used = [False] * len(tp_rules)
+    stripped = [(s[1:] if s.startswith("?") else s, s.startswith("?")) for s, _ in tp_rules]
+    out = {}
+    for name, t in named.items():
+        key = jax_path(name, t.dim())
+        out[name] = None
+        for i, (suffix, _opt) in enumerate(stripped):
+            if key == suffix[1:] if suffix.startswith("^") else key.endswith(suffix):
+                out[name] = _model_dim(name, t.shape, tp_rules[i][1])
+                used[i] = True
+                break
+    matched = {stripped[i][0] for i, u in enumerate(used) if u}
+    unmatched = [
+        tp_rules[i][0] for i, u in enumerate(used)
+        if not u and not stripped[i][1]
+        and not (stripped[i][0].endswith("/weight")
+                 and stripped[i][0][:-len("/weight")] + "/weight_q" in matched)]
+    if warn and unmatched:
+        get_logger().warning(f"param_shardings: tp rules matched no params (typo?): {unmatched}")
+    return out
 
 
 def pad_to_multiple(batch, multiple: int):

@@ -48,7 +48,7 @@ from convnet_approximater_tpu_torch.utils.sharded_ckpt import (restore_sharded, 
 torch.set_num_threads(1)
 WORLD = 2
 BN_TOL = 1e-6
-REST = ("tp.py", "spatial sharding", "item 12b")
+REST = ("spatial sharding", "item 12b")
 LOADER_CASES = {
     "crop and flip": dict(aug=dict(hflip=0.5, crop_pad=2)),
     "random resized crop": dict(aug=dict(rrc_scale=(0.4, 1.0), hflip=0.5), image_size=(10, 10)),
@@ -223,11 +223,17 @@ def test_what_stays_refused_names_the_rest_of_item_12b(setup):
         for name, (g, want) in got["grads"].items():
             np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-5, atol=1e-6,
                                        err_msg=name)
+    from convnet_approximater_tpu_torch.parallel import MESH_TODO, spatial_sharding
+
     model = build_model(dict(type="TinyBNNet", num_classes=4))
-    with pytest.raises(NotImplementedError) as e:
-        TrainHelper(model, dict(model_parallel=2), device="cpu")
-    msg = str(e.value)
+    # tensor parallelism is ported (parallel/tp.py): the helper takes model_parallel
+    assert TrainHelper(model, dict(model_parallel=2), device="cpu").cfg.model_parallel == 2
     with pytest.raises(ValueError, match="share the mesh's model axis"):
         TrainHelper(model, dict(model_parallel=2, pipeline_parallel=2), device="cpu")
+    # what stays refused is spatial sharding alone
+    with pytest.raises(NotImplementedError) as e:
+        spatial_sharding(None)
+    msg = str(e.value)
+    assert MESH_TODO in msg
     assert all(msg.count(word) == 1 for word in REST), msg
-    assert "pipeline" not in msg
+    assert "pipeline" not in msg and "tp.py" not in msg and "tensor" not in msg

@@ -677,8 +677,15 @@ def test_unported_options_raise(tmp_path, other, match):
         with pytest.raises(ValueError, match="unknown ckpt backend"):
             ft.CheckpointSaver(str(tmp_path / "sv"), backend="orbax")
         return
+    from convnet_approximater_tpu_torch.parallel import MESH_TODO, spatial_sharding
+
+    # tensor parallelism is ported (parallel/tp.py): the hook takes model_parallel; one
+    # process trains unsharded (tests/test_torch_tensor_parallel.py trains over ranks)
+    assert ft.L2Reconstruct(runner, 50, other_args=other).other_args.model_parallel == 2
+    # what stays refused is spatial sharding alone
     with pytest.raises(NotImplementedError, match=match):
-        ft.L2Reconstruct(runner, 50, other_args=other)
+        spatial_sharding(None)
+    assert "spatial sharding" in MESH_TODO and "tp.py" not in MESH_TODO
 
 
 # -- the pieces the hook stands on -------------------------------------------

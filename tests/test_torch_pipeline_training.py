@@ -20,8 +20,8 @@
   ``STEP_TOL``), ``grad_accum=2`` (sharded checkpoint) and ``amp`` at M = 1
   against the unpipelined run (``amp`` within ``AMP_TOL``), and a (d, M)
   that neither divides refused;
-* ``model_parallel`` with ``pipeline_parallel`` refused, and ``model_parallel``
-  still refused naming tensor parallelism and spatial sharding.
+* ``model_parallel`` with ``pipeline_parallel`` refused; ``model_parallel``
+  alone taken, and spatial sharding what stays refused.
 """
 
 import os
@@ -285,8 +285,13 @@ def test_what_stays_refused(runs):
     model = build_model(dict(type="TinyBNNet", num_classes=4))
     with pytest.raises(ValueError, match="share the mesh's model axis"):
         TrainHelper(model, dict(model_parallel=2, pipeline_parallel=2), device="cpu")
+    # tensor parallelism is ported (parallel/tp.py): model_parallel alone constructs
+    assert TrainHelper(model, dict(model_parallel=2), device="cpu").cfg.model_parallel == 2
+    from convnet_approximater_tpu_torch.parallel import MESH_TODO, spatial_sharding
+
     with pytest.raises(NotImplementedError) as e:
-        TrainHelper(model, dict(model_parallel=2), device="cpu")
-    assert "tp.py" in str(e.value) and "spatial sharding" in str(e.value)
+        spatial_sharding(None)
+    assert MESH_TODO in str(e.value) and "tp.py" not in str(e.value)
+    assert "spatial sharding" in str(e.value)
     assert "pipeline" not in str(e.value)
 

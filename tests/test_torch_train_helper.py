@@ -210,8 +210,16 @@ def test_unported_options_raise(cfg, match):
         # ported (utils/sharded_ckpt.py): the helper takes the sharded backend
         assert TrainHelper(model, cfg, device="cpu").cfg.ckpt_backend == "sharded"
         return
+    from convnet_approximater_tpu_torch.parallel import MESH_TODO, spatial_sharding
+
+    # tensor parallelism is ported (parallel/tp.py): the helper takes model_parallel, and
+    # refuses it beside pipeline_parallel; what stays refused is spatial sharding alone
+    assert TrainHelper(model, cfg, device="cpu").cfg.model_parallel == 2
+    with pytest.raises(ValueError, match="model axis"):
+        TrainHelper(model, dict(cfg, pipeline_parallel=2), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        TrainHelper(model, cfg, device="cpu")
+        spatial_sharding(None)
+    assert "spatial sharding" in MESH_TODO and "tp.py" not in MESH_TODO
 
 
 def test_train_baseline_cli_on_cpu(tmp_path):

@@ -619,3 +619,292 @@ def axis_one_run(model, cfg: dict, store: str) -> dict:
             return pipelined_run(model, cfg)
     finally:
         dist.destroy_process_group()
+
+
+# -- tensor parallelism (tests/test_torch_tensor_parallel.py) -----------------
+TP_INPUT = {"mscan": (4, 32, 32), "convnext": (4, 32, 32), "resnet": (4, 32, 32),
+            "vgg": (4, 32, 32), "alexnet": (4, 64, 64)}
+
+
+def tp_build(name: str):
+    """The port model of a tensor-parallel family (its preset has the same name)."""
+    from convnet_approximater_tpu_torch.models import VGG, AlexNet, ResNet
+
+    if name == "vgg":
+        return VGG(depth=11, num_classes=16)
+    if name == "alexnet":
+        return AlexNet(num_classes=16)
+    if name == "resnet":
+        return ResNet(18, 16)
+    return build(name)
+
+
+def tp_model(name: str, path: str):
+    """:func:`tp_build`'s model with the weights of the flat npz at ``path``, in eval mode."""
+    from convnet_approximater_tpu_torch.nn import channels_last
+
+    model = tp_build(name)
+    model.load_state_dict(_state(path))
+    return channels_last(model).eval()
+
+
+def violation(got: torch.Tensor, want, rtol: float, atol: float) -> float:
+    """``max |got - want| / (atol + rtol |want|)``: at most 1 where
+    ``np.testing.assert_allclose(got, want, rtol, atol)`` passes."""
+    got = got.detach().double().cpu().numpy()
+    want = np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.max(np.abs(got - want) / (atol + rtol * np.abs(want)), initial=0.0))
+
+
+class Calls:
+    """Counts the calls of ``module.attr`` (and keeps each call's argument shapes)."""
+
+    def __init__(self, module, attr):
+        self.module, self.attr, self.shapes = module, attr, []
+        self.fn = getattr(module, attr)
+
+        def counted(*args, **kwargs):
+            self.shapes.append(tuple(tuple(a.shape) for a in args[:2]))
+            return self.fn(*args, **kwargs)
+
+        setattr(module, attr, counted)
+
+    def close(self):
+        setattr(self.module, self.attr, self.fn)
+
+
+def tp_family(name: str, path: str, x: np.ndarray, labels: np.ndarray, want: str, mesh,
+              tol: dict) -> dict:
+    """One family sharded by its preset over ``mesh``: its eval forward on the
+    rank's rows against the JAX logits, the gradients of the global batch's
+    cross-entropy through the eval-mode module path (averaged over the data
+    axis, gathered whole) against the JAX gradients (both in the npz at
+    ``want``), and what the rank holds."""
+    import torch.nn.functional as F
+
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.convert import params_from_jax
+    from convnet_approximater_tpu_torch.layers import MSCA
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.parallel import tp
+    from convnet_approximater_tpu_torch.utils import load_flat
+
+    shard = parallel.training_axis(True, mesh)
+    rows = parallel.shard_rows(len(x), (shard.index, shard.count) if shard else (0, 1))
+    model = tp_model(name, path)
+    whole = {n: tuple(p.shape) for n, p in model.named_parameters()}
+    mp = parallel.mesh.axis_ranks(mesh, parallel.MODEL_AXIS)[1]
+    tp.shard_module(model, mesh, mp, name)
+    plan = tp.tp_plan(model)
+    expect = load_flat(want)
+    out = dict(sharded=sorted(plan.dims), roles={k: v.role for k, v in tp.layouts(model).items()})
+    out["held"] = all(tuple(p.shape) == tuple(s // mp if i == plan.dims.get(n) else s
+                                              for i, s in enumerate(whole[n]))
+                      for n, p in model.named_parameters())
+    out["bytes"] = (tp.shard_bytes(model)[0], sum(4 * int(np.prod(s)) for s in whole.values()))
+    xt = nchw(x[rows])
+    calls = Calls(fused_ops, "msca_fused")
+    try:
+        with torch.no_grad():
+            y = model(xt)
+    finally:
+        calls.close()
+    out["fused"] = (len(calls.shapes), sum(isinstance(m, MSCA) for m in model.modules()))
+    out["y"] = violation(y, expect["logits"][rows], tol["y"], tol["y"])
+    loss = F.cross_entropy(model(xt), torch.as_tensor(labels[rows]))
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    if shard is not None:
+        parallel.average_gradients(list(grads.values()), shard)
+    want_g = params_from_jax({k[len("grads/"):]: v for k, v in expect.items()
+                              if k.startswith("grads/")})
+    # each rank holds its slice of a sharded gradient against the same slice of JAX's
+    want_g = tp.slice_tensors(want_g, plan)
+    out["grads"] = {n: violation(g, want_g[n].numpy(), tol["g_rtol"], tol["g_atol"])
+                    for n, g in grads.items()}
+    return out
+
+
+def tp_dropout(mesh) -> dict:
+    """AlexNet's classifier in training under the ``alexnet`` preset (its
+    dropouts on the sharded hidden activation and on the replicated one)
+    against the same forward whole, the drop generators seeded alike."""
+    import copy as _copy
+
+    from convnet_approximater_tpu_torch.layers import drop_generator
+    from convnet_approximater_tpu_torch.models import AlexNet
+    from convnet_approximater_tpu_torch.nn import init_weights
+    from convnet_approximater_tpu_torch.parallel import tp
+
+    model = AlexNet(num_classes=16)
+    init_weights(model, torch.Generator().manual_seed(3))
+    whole = _copy.deepcopy(model)
+    tp.shard_module(model, mesh, 2, "alexnet")
+    x = nchw(np.random.RandomState(5).randn(2, 64, 64, 3).astype(np.float32))
+    ys = []
+    for m in (model.train(), whole.train()):
+        gen = torch.Generator().manual_seed(11)
+        with drop_generator(m, gen):
+            ys.append(m(x).detach())
+    return dict(y=ys[0], whole=ys[1], slices=[getattr(m, "tp_slice", None)
+                                              for m in model.classifier])
+
+
+def tp_explicit(mesh) -> dict:
+    """The tiny MSCAN under rules no preset has: the first strip branch's and
+    conv0's depthwise taps column-sharded (the kernel caches build from the
+    gathered taps) and ``norm1``'s scale alone sharded (a gathered layer): its
+    eval forward with autograd off (the fused kernel) and on (the module
+    path) against the replicated model's, and the layer forms."""
+    import copy as _copy
+
+    from convnet_approximater_tpu_torch.parallel import tp
+
+    model = randomized("mscan", 4)
+    whole = _copy.deepcopy(model)
+    rules = [("branches/0/conv1/weight", (None, None, None, "model")),
+             ("conv0/weight", (None, None, None, "model")), ("conv0/bias", ("model",)),
+             ("norm1/scale", ("model",))]
+    tp.shard_module(model, mesh, 2, rules)
+    x = nchw(np.random.RandomState(6).randn(2, 32, 32, 3).astype(np.float32))
+    with torch.no_grad():
+        fused, fused_ref = model(x), whole(x)
+    return dict(fused=(fused, fused_ref), module=(model(x).detach(), whole(x).detach()),
+                roles=sorted({v.role for v in tp.layouts(model).values()}))
+
+
+def tp_deploy_surfaces(mesh, calib_seed: int = 5) -> dict:
+    """The serving surfaces of ``_tp_parity``: int8 ResNet-18 (fold, then
+    quantize), width-pruned ResNet-18 (trunks and chains at 0.5, round_to 8) and
+    the planner's winner from injected timings, each sharded by the ``resnet``
+    preset (warn off) against its replicated forward, with the ``qmatmul``
+    calls of the int8 forward."""
+    import copy as _copy
+
+    from convnet_approximater_tpu_torch import deploy, deploy_planner
+    from convnet_approximater_tpu_torch.models import ResNet
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmm
+    from convnet_approximater_tpu_torch.parallel import tp
+
+    rs = np.random.RandomState(calib_seed)
+    calib = [nchw(rs.randn(4, 32, 32, 3).astype(np.float32)) for _ in range(2)]
+    x = nchw(rs.randn(4, 32, 32, 3).astype(np.float32))
+
+    def make(seed):
+        m = ResNet(18, 16)
+        init_weights(m, torch.Generator().manual_seed(seed))
+        return channels_last(m).eval()
+
+    surfaces = {}
+    q = make(6)
+    deploy.fold_batchnorm(q)
+    surfaces["int8"] = (q, deploy.quantize_int8(q, calib))
+    p = make(7)
+    surfaces["pruned"] = (p, (deploy.prune_trunks(p, keep_ratio=0.5, round_to=8),
+                              deploy.prune_chains(p, keep_ratio=0.5, round_to=8)))
+    fixed = {"trunk+chainprune/0.5+int8": 0.001}
+    cands = [c for c in deploy_planner.default_candidates(make(8), torch.float32)
+             if c[0].startswith(("dense", "int8", "trunk+chainprune"))]
+    plan = deploy_planner.plan_serving(lambda: make(8), (4, 32, 32, 3), dtype=torch.float32,
+                                       candidates=cands, min_agree=0.0, calib_batches=calib,
+                                       verbose=False, time_fn=lambda name, *a: fixed.get(name, 1.0))
+    surfaces["planner"] = (plan["model"], plan["winner"])
+    out = {}
+    for key, (m, info) in surfaces.items():
+        rows = []  # a row-sharded block conv's output, replicated then sharded
+
+        def keep(module, args, y):
+            rows.append(y.detach().clone())
+
+        with torch.no_grad():
+            whole = _copy.deepcopy(m)
+            handle = whole.layer1[0].conv2.register_forward_hook(keep)
+            ref = whole(x)
+            handle.remove()
+            tp.shard_module(m, mesh, 2, "resnet", warn=False)
+            handle = m.layer1[0].conv2.register_forward_hook(keep)
+            calls = Calls(qmm, "qmatmul")
+            try:
+                y = m(x)
+            finally:
+                calls.close()
+                handle.remove()
+        out[key] = dict(y=y, ref=ref, info=info, qmatmul=calls.shapes, row=rows,
+                        roles={k: v.role for k, v in tp.layouts(m).items()})
+    return out
+
+
+def tp_job(families: dict, x: dict, labels: dict, tol: dict, data: int = 1,
+           extras: bool = True) -> dict:
+    """On a ``(data, world / data)`` mesh: every family of ``families`` (name:
+    ``(weights npz, JAX npz)``) by :func:`tp_family`; with ``extras``, the
+    dropout masks (:func:`tp_dropout`), rules no preset has
+    (:func:`tp_explicit`), the deploy surfaces
+    (:func:`tp_deploy_surfaces`), a dim the model axis does not divide, and
+    ``spatial_sharding``'s refusal."""
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.nn import Linear
+    from convnet_approximater_tpu_torch.parallel import tp
+
+    n = dist.get_world_size()
+    mesh = parallel.make_mesh(data=data, model=n // data)
+    out = {name: tp_family(name, paths[0], x[name], labels[name], paths[1], mesh, tol[name])
+           for name, paths in families.items()}
+    if not extras:
+        return out
+    out["dropout"] = tp_dropout(mesh)
+    out["explicit"] = tp_explicit(mesh)
+    out["deploy"] = tp_deploy_surfaces(mesh)
+    head = torch.nn.Module()
+    head.head = Linear(4, 5)
+    try:
+        tp.shard_module(head, mesh, 2, [("head/weight", (None, "model"))])
+    except ValueError as e:
+        out["uneven"] = str(e)
+    try:
+        parallel.spatial_sharding(mesh)
+    except NotImplementedError as e:
+        out["spatial"] = str(e)
+    return out
+
+
+def tp_train_job(l2: dict, helper: dict) -> dict:
+    """Tensor-parallel training on a ``(world / 2, 2)`` mesh: the
+    ``L2Reconstruct`` config ``l2["cfg"]`` (its ``other_args`` name the model
+    axis), and each ``TrainHelper`` run of ``helper["runs"]`` (name: config) on
+    ResNet-18 from the weights at ``helper["weights"]``, with what the rank
+    held while it trained."""
+    from convnet_approximater_tpu_torch.classification import train as train_mod
+    from convnet_approximater_tpu_torch.parallel import tp
+
+    held = []
+    enable = train_mod.TrainHelper._enable_tp
+
+    def keeping(self, *args):
+        enable(self, *args)
+        held.append(dict(bytes=tp.shard_bytes(self.model), sharded=sorted(self.tp.dims),
+                         opt={n: tuple(s["mu"].shape if "mu" in s else s["trace"].shape)
+                              for n, s in self.optimizer.state.items()}))
+
+    train_mod.TrainHelper._enable_tp = keeping
+    out = dict(l2=l2_run(l2["cfg"], l2["work"])) if l2 else {}
+    try:
+        for name, cfg in helper["runs"].items():
+            out[name] = helper_run(tp_model("resnet", helper["weights"]).train(), cfg)
+            out[name]["held"] = held[-1]
+    finally:
+        train_mod.TrainHelper._enable_tp = enable
+    return out
+
+
+def tp_dp_job(families: dict, x: dict, labels: dict, tol: dict, helper: dict,
+              resumed: dict) -> dict:
+    """On a (2, world / 2) mesh: :func:`tp_job` of ``families`` (no extras),
+    :func:`tp_train_job`'s ``TrainHelper`` runs, and a run resumed from a
+    tensor-parallel checkpoint (``resumed``: weights and config)."""
+    out = tp_job(families, x, labels, tol, data=2, extras=False)
+    out.update(tp_train_job(None, helper))
+    out["resumed"] = helper_run(tp_model("resnet", resumed["weights"]).train(), resumed["cfg"])
+    return out
