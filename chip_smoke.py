@@ -6,6 +6,7 @@
     python3 chip_smoke.py --p24     # phase 24 alone
     python3 chip_smoke.py --p25     # phase 25 alone
     python3 chip_smoke.py --p26     # phase 26 alone
+    python3 chip_smoke.py --p27     # phase 27 alone
 
 From the root of a checkout, with no arguments:
 
@@ -407,7 +408,22 @@ From the root of a checkout, with no arguments:
     it takes the shape) and its bound.  ``--p26`` runs steps 1-2, F1 at world
     size 1 and P26 in two fresh gloo processes.  P17 plans ConvNeXt-T once
     (MSCAN-t twice) to pay for P26's time;
-27. prints one JSON line of kernel results (each kernel's entry lists the later
+27. P27, spatial sharding over (1 data x 2 model) as P24's two gloo
+    processes on the one card, after P26's runs: MSCAN-t d1+fix, the
+    headline surface and ConvNeXt-T r1 at b=64, 224^2, f32, each laid out by
+    ``parallel.spatial_module`` with the image rows over the model axis
+    (``shard_spatial``: 112 rows a rank) and held to the same model's whole
+    forward in that process: (a) logits within 1e-4 (max-abs over max
+    |logit|); (b) 13 ``msca_fused`` (18 ``parallel_cascade``) per forward on
+    each rank, each on a window of its rows and their halo; (c) every
+    kernel call of a forward on its window against its plain version
+    (``msca_fused`` within 1e-5, ``parallel_cascade`` bit for bit); (d) each
+    rank's peak device memory over the forward, beyond what was allocated
+    before it, at most 0.7 of the whole forward's; (e) records: each rank's
+    wall-clock ms per forward on the shared card beside the whole forward's
+    (rank 0 alone), the bytes and messages it sends and the halo's copies.
+    ``--p27`` runs steps 1-2 and P27 in two fresh gloo processes;
+28. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``, the bf16 ones among
     them), then ``{"ok": true, "device": ...}``.
 
@@ -423,7 +439,8 @@ checkpoint, P18's two ``export_model`` artifacts (the dodecomp AlexNet and
 the int8 ResNet-50) and then P23 alone, its ``serve --data-parallel`` loops
 P23_SCALING_BATCHES batches long: on a host with 2 or 4 cards it measures
 serving across them (the img/s of each world size against one card's).
-``--p24``, ``--p25`` and ``--p26`` run steps 1-2 and P24, P25 or P26 alone.
+``--p24``, ``--p25``, ``--p26`` and ``--p27`` run steps 1-2 and P24, P25, P26 or
+P27 alone.
 None of them prints the result lines.
 """
 
@@ -7037,8 +7054,8 @@ def p24_rank(rank: int, world: int, port: int, backend: str, then: tuple = (),
              p26: bool = False):
     """One of ``world`` ranks: gloo ranks all on this card, NCCL ranks one per
     card.  P24's runs, saved for the first process to compare; then P25's runs
-    ``then`` and, with ``p26``, P26's in the same group (its processes have
-    trained MSCAN-t: warm)."""
+    ``then`` and, with ``p26``, P26's and P27's in the same group (its
+    processes have trained MSCAN-t: warm)."""
     import torch
     import torch.distributed as dist
 
@@ -7057,6 +7074,7 @@ def p24_rank(rank: int, world: int, port: int, backend: str, then: tuple = (),
         p25_runs(rank, world, backend, then)
         if p26:
             p26_runs(rank, world, tag)
+            p27_runs(rank, world, tag)
     finally:
         dist.destroy_process_group()
 
@@ -7819,6 +7837,241 @@ def run_p26(one_f1=None) -> dict:
     return dict(ranks=ranks, rows=rows)
 
 
+# -- P27: spatial sharding across processes --------------------------------------
+P27_DIR = os.path.join(REPO, "build", "chip_smoke_p27")
+P27_LOGITS = 1e-4       # (a) logits against the whole forward, max-abs over max |logit|
+P27_FUSED = 1e-5        # (c) msca_fused on each window against msca_fused_ref (max-abs over max)
+P27_MEMORY = 0.7        # (d) a rank's peak beyond what is allocated, over the whole forward's
+P27_ITERS = 5           # (e) timed forwards of each form
+# each model of the slice, its port kernel and that kernel's calls per forward
+P27_KERNELS = {"MSCAN-t d1+fix": ("msca_fused", MSCA_BLOCKS),
+               "MSCAN-t headline surface": ("msca_fused", MSCA_BLOCKS),
+               "ConvNeXt-T r1": ("parallel_cascade", 18)}
+
+
+def p27_models():
+    """The slice's three models at full width, random weights, one at a time:
+    MSCAN-t d1+fix and the headline surface from ``mscan_base(random_norms=True)``
+    through ``serving_surface``, and ConvNeXt-T (seed 0, layer scales 1) with
+    DwSepRep r1 on its 18 depthwise convs."""
+    import torch
+
+    from convnet_approximater_tpu_torch.core import DwSepRep
+    from convnet_approximater_tpu_torch.deploy_planner import apply_app
+    from convnet_approximater_tpu_torch.filters import DepthwiseConvFilter
+    from convnet_approximater_tpu_torch.models import ConvNeXt
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+
+    plain, surface = serving_surface(mscan_base(random_norms=True), decomp_conv0=False)
+    yield "MSCAN-t d1+fix", plain
+    del plain
+    yield "MSCAN-t headline surface", surface
+    del surface
+    model = ConvNeXt(num_classes=1000)
+    init_weights(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("gamma.gamma"):
+                p.fill_(1.0)  # the 1e-6 layer scales would hide the blocks
+    model = channels_last(model.cuda()).eval()
+    sites = apply_app(model, DwSepRep(ranks=1), [DepthwiseConvFilter()],
+                      torch.Generator().manual_seed(2))
+    if sites != 18:
+        fail(f"P27: DwSepRep r1 rewrote {sites} depthwise convs of ConvNeXt-T, expected 18")
+    yield "ConvNeXt-T r1", model.eval()
+
+
+def p27_wall_ms(fn) -> float:
+    """Median wall-clock ms of ``fn()`` over P27_ITERS runs, each synchronized
+    (a spatial forward waits on its exchanges' host round trips), after one."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(P27_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def p27_peak(fn):
+    """(``fn()``, its peak device bytes beyond what was allocated before it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y = fn()
+    torch.cuda.synchronize()
+    return y, torch.cuda.max_memory_allocated() - base
+
+
+def p27_one(name: str, model, rank: int) -> dict:
+    """One model of P27 on this rank: the whole forward (the reference, its
+    peak and, on rank 0 while rank 1 waits, its ms), then the model laid out
+    over (1 data x 2 model) by ``spatial_module``: its forward on this rank's
+    rows (logits, launches, peak, bytes sent, ms), and each kernel call of a
+    forward on its window against the plain version."""
+    import torch
+    import torch.distributed as dist
+
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.parallel import spatial
+
+    kname, _ = P27_KERNELS[name]
+    ops = fused_ops if kname == "msca_fused" else cascade_ops
+    kernel = getattr(ops, kname)
+    mesh = p26_mesh()
+    x = seeded_batch(270)
+    forward = torch.no_grad()(lambda: model(x))
+    forward()  # the kernels' caches
+    reset_counts()
+    ref, whole_peak = p27_peak(forward)
+    whole_launches = kernel.launches
+    whole_ms = p27_wall_ms(forward) if rank == 0 else None  # rank 1 waits: the card is rank 0's
+    dist.barrier()
+    parallel.spatial_module(model, mesh)
+    xs = parallel.shard_spatial(x, mesh)
+    sharded = torch.no_grad()(lambda: model(xs))
+    sharded()  # each layer's layout, the windows' border strips
+    reset_counts()
+    spatial.stats.reset()
+    y, peak = p27_peak(sharded)
+    launches = kernel.launches
+    stats = dict(sent=spatial.stats.sent_bytes, messages=spatial.stats.sent_messages,
+                 copies=spatial.stats.copies)
+    # (c) each kernel call of one forward on its window, against the plain version
+    calls, real = [], kernel
+
+    def recording(window, *args, **kwargs):
+        out = real(window, *args, **kwargs)
+        calls.append((window, args, kwargs, out))
+        return out
+
+    recording.launches = 0
+    with uncounted(), mock.patch.object(ops, kname, recording):
+        sharded()
+        plain = getattr(ops, f"{kname}_ref")
+        errs = []
+        with torch.no_grad():
+            for window, args, kwargs, out in calls:
+                want = plain(window, *args, **kwargs)
+                errs.append(max_rel(out, want) if kname == "msca_fused"
+                            else float(not torch.equal(out, want)))
+    windows = sorted({tuple(c[0].shape[:3]) for c in calls})
+    del calls
+    ms = p27_wall_ms(sharded)
+    out = dict(err=max_rel(y, ref), finite=bool(torch.isfinite(y).all()), shape=tuple(y.shape),
+               launches=launches, whole_launches=whole_launches, peak=peak,
+               whole_peak=whole_peak, ms=ms, whole_ms=whole_ms, window_err=max(errs),
+               window_calls=len(errs), windows=windows, **stats)
+    parallel.unspatial_module(model)
+    return out
+
+
+def p27_runs(rank: int, world: int, tag: str):
+    """P27's three models on the two gloo ranks this process is one of, saved
+    for the first process."""
+    import torch
+
+    os.makedirs(P27_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    res = {}
+    for name, model in p27_models():
+        res[name] = p27_one(name, model, rank)
+        del model
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(P27_DIR, f"{tag}_rank{rank}.pt"))
+
+
+def p27_rank(rank: int, world: int, port: int):
+    """One of two gloo ranks on this card running P27 alone (``--p27``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    if rank:
+        sys.stdout = open(os.path.join(P27_DIR, f"gloo{world}_rank{rank}.log"), "w")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        p27_runs(rank, world, f"gloo{world}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_p27(after_p24: bool = False) -> dict:
+    """P27: spatial sharding over (1 data x 2 model) as two gloo ranks on this
+    card, each model against its whole forward in the same process.
+    ``after_p24``: the ranks ran in P24's processes after P26's runs; else two
+    fresh gloo ranks run it here."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    tag = "gloo2"
+    if not after_p24:
+        shutil.rmtree(P27_DIR, ignore_errors=True)
+        os.makedirs(P27_DIR)
+        try:
+            mp.start_processes(p27_rank, args=(2, free_port()), nprocs=2, join=True,
+                               start_method="spawn")
+        except mp.ProcessRaisedException as e:
+            fail(f"P27: a rank raised: {e}")
+        except mp.ProcessExitedException as e:
+            fail(f"P27: a rank died: {e}")
+    ranks = [torch.load(os.path.join(P27_DIR, f"{tag}_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    failed = []
+    for name, (kname, per) in P27_KERNELS.items():
+        for r, res in enumerate(ranks):
+            m = res[name]
+            ratio = m["peak"] / m["whole_peak"]
+            print(f"P27 {name}, b={BATCH}, 224^2, f32, over (1 data x 2 model), rank {r}: logits "
+                  f"{m['shape']} against the whole forward max-abs over max |logit| "
+                  f"{m['err']:.3e} (bound {P27_LOGITS}); {kname} per forward {m['launches']} "
+                  f"(expected {per}; the whole forward {m['whole_launches']}); on this rank's "
+                  f"{m['window_calls']} windows {m['windows']} (B, rows, W) against "
+                  f"{kname}_ref: " + (f"max-abs over max {m['window_err']:.3e} (bound "
+                                      f"{P27_FUSED})" if kname == "msca_fused" else
+                                      f"{'bit-equal' if m['window_err'] == 0 else 'NOT bit-equal'}")
+                  + f"; peak beyond what was allocated {m['peak'] / 2**20:.1f} MiB against the "
+                  f"whole forward's {m['whole_peak'] / 2**20:.1f} MiB ({ratio:.3f}, bound "
+                  f"{P27_MEMORY}); sends per forward {m['messages']} messages, {m['sent']} bytes; "
+                  f"halo copies per forward {m['copies']}")
+            if not m["finite"] or m["err"] > P27_LOGITS:
+                failed.append(f"{name} rank {r}: logits")
+            if m["launches"] != per or m["whole_launches"] != per:
+                failed.append(f"{name} rank {r}: {kname} {m['launches']} per forward, not {per}")
+            if (m["window_calls"] != per
+                    or m["window_err"] > (P27_FUSED if kname == "msca_fused" else 0.0)):
+                failed.append(f"{name} rank {r}: {kname} on its windows against {kname}_ref")
+            if ratio > P27_MEMORY:
+                failed.append(f"{name} rank {r}: peak {ratio:.3f} of the whole forward's")
+        rank_ms = ", ".join(f"{res[name]['ms']:.3f}" for res in ranks)
+        print(f"P27 {name} [{smi_line()}] eager wall-clock ms per forward, b={BATCH}, 224^2, f32: "
+              f"world size 1 (the whole forward, rank 0 alone on the card) "
+              f"{ranks[0][name]['whole_ms']:.3f}; spatially sharded over 2 gloo ranks sharing the "
+              f"card {rank_ms} (rank by rank)")
+    print(f"P27 in {max(r['seconds'] for r in ranks):.2f} s on the ranks, "
+          f"{time.perf_counter() - t0:.2f} s here")
+    if failed:
+        fail("P27: " + "; ".join(failed))
+    shutil.rmtree(P27_DIR, ignore_errors=True)
+    return dict(ranks=ranks)
+
+
 def bf16_path(name, rows, **counts):
     """A kernels-line path entry of a kernel's bf16 form: its P19a rows per
     forward of their path (calls per forward as weights), the bound at 2-byte
@@ -7945,6 +8198,18 @@ def main_p26():
     run_p26()
     lap("26. P26")
     print(f"P26 alone on {kind}, {torch.cuda.device_count()} device(s): done")
+
+
+def main_p27():
+    """``--p27``: steps 1-2, then P27 alone in two fresh gloo ranks."""
+    import torch
+
+    lap = Laps()
+    kind = card_and_build()
+    lap("1.-2. the card and the build")
+    run_p27()
+    lap("27. P27")
+    print(f"P27 alone on {kind}, {torch.cuda.device_count()} device(s): done")
 
 
 def main_p23():
@@ -8078,9 +8343,10 @@ def main():
     # -- 24. P24: training across processes, data-parallel ------------------
     import shutil
 
-    # P24's two gloo ranks then run P25's (a) and (b), and P26's (a), (a') and (b)
+    # P24's two gloo ranks then run P25's (a) and (b), P26's (a), (a') and (b), and P27's
     shutil.rmtree(P25_DIR, ignore_errors=True)
     shutil.rmtree(P26_DIR, ignore_errors=True)
+    shutil.rmtree(P27_DIR, ignore_errors=True)
     p24 = run_p24(f1_ms, p20["f32_ms"], then=("a", "b"), p26=True)
     lap("24. P24")
 
@@ -8091,6 +8357,10 @@ def main():
     # -- 26. P26: tensor parallelism across processes --------------------------
     p26 = run_p26(one_f1=p24["one"]["f1"])
     lap("26. P26")
+
+    # -- 27. P27: spatial sharding across processes -----------------------------
+    p27 = run_p27(after_p24=True)
+    lap("27. P27")
     print(f"wall time in all: {lap.total():.2f} s from the check for the card")
 
     # -- 18. results ------------------------------------------------------
@@ -8317,6 +8587,19 @@ def main():
         "rank (P26c)", p26["rows"], calls, p26["ranks"][0]["b"]["launches"], PEAK_INT8))
     kernels[3]["max_abs_err"] = max([kernels[3]["max_abs_err"]] +
                                     [r["max_abs_err"] for r in p26["rows"]])
+    # P27: spatial sharding over (1 data x 2 model), each rank's launches per forward on its
+    # windows of rows
+    for r, res in enumerate(p27["ranks"]):
+        for name, (kname, _) in P27_KERNELS.items():
+            k = 0 if kname == "msca_fused" else 2
+            kernels[k]["paths"].append(dict(
+                path=f"{name} spatially sharded over (1 data x 2 model), 2 gloo ranks on one card, "
+                     f"rank {r}: per eval forward on its windows of rows (P27)",
+                launches=res[name]["launches"]))
+    kernels[0]["max_abs_err"] = max(
+        [kernels[0]["max_abs_err"]] + [res[name]["window_err"] for res in p27["ranks"]
+                                       for name, (kname, _) in P27_KERNELS.items()
+                                       if kname == "msca_fused"])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -8331,7 +8614,9 @@ if __name__ == "__main__":
         main_p25()
     elif sys.argv[1:] == ["--p26"]:
         main_p26()
+    elif sys.argv[1:] == ["--p27"]:
+        main_p27()
     elif sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]} (none, --p23, --p24, --p25 or --p26)")
+        fail(f"unknown arguments {sys.argv[1:]} (none, --p23, --p24, --p25, --p26 or --p27)")
     else:
         main()

@@ -93,6 +93,7 @@ from convnet_approximater_tpu_torch.parallel.data_parallel import (pipe_axis, re
                                                                    sum_over, training_axis,
                                                                    training_mesh, world_axis)
 from convnet_approximater_tpu_torch.parallel.mesh import MODEL_AXIS, axis_ranks
+from convnet_approximater_tpu_torch.parallel.spatial import is_spatial, refuse_spatial
 from convnet_approximater_tpu_torch.parallel.tp import (gather_tensors, shard_module, summary,
                                                         tp_plan, unshard_module)
 from convnet_approximater_tpu_torch.utils import get_logger, get_rank, load_flat, unflatten_tree
@@ -192,6 +193,8 @@ class TrainHelper:
         if int(cfg.model_parallel or 1) > 1 and int(cfg.pipeline_parallel or 1) > 1:
             raise ValueError("model_parallel and pipeline_parallel both >1: they share the "
                              "mesh's model axis")
+        if is_spatial(model):
+            raise refuse_spatial("TrainHelper: training under spatial sharding")
         self.model = channels_last(model.to(self.device))
         self.shard: Optional[DataShard] = None  # the data axis, across processes
         self.carriers = []  # the stage engines of the model and the EMA, while pipelined

@@ -1230,8 +1230,14 @@ def compile_serving(model: nn.Module, *example_args: torch.Tensor):
     graph's memory pool is freed with the last reference to ``compiled``.
 
     On a CPU model ``compiled`` runs the eager forward under ``torch.no_grad()``,
-    with the same contract.
+    with the same contract.  A spatially sharded model (``parallel/spatial.py``)
+    raises ``NotImplementedError``: a graph cannot capture gloo's host round trips.
     """
+    from convnet_approximater_tpu_torch.parallel.spatial import is_spatial, refuse_spatial
+
+    if is_spatial(model):
+        raise refuse_spatial("compile_serving of a spatially sharded model (a CUDA graph "
+                             "cannot capture the halo exchanges' host round trips)")
     if model.training:
         model.eval()
     device = next(model.parameters()).device

@@ -104,6 +104,7 @@ from convnet_approximater_tpu_torch.parallel.data_parallel import (average_gradi
                                                                    broadcast_gradients, pipe_axis,
                                                                    replicate_from_root, sum_over,
                                                                    training_axis, training_mesh)
+from convnet_approximater_tpu_torch.parallel.spatial import is_spatial, refuse_spatial
 from convnet_approximater_tpu_torch.parallel.tp import (gather_tensor, gather_tensors, shard_module,
                                                         slice_tensor, summary, tp_plan,
                                                         unshard_module)
@@ -670,6 +671,12 @@ class L2Reconstruct(Hook):
         self.result = None
         self._guard = None
         self._bf16 = None  # the sym teacher's bf16 parameters under amp
+        self._refuse_spatial(getattr(runner, "model", None))
+
+    @staticmethod
+    def _refuse_spatial(model) -> None:
+        if model is not None and is_spatial(model):
+            raise refuse_spatial("L2Reconstruct: training under spatial sharding")
 
     @property
     def need_teacher(self) -> bool:
@@ -822,6 +829,7 @@ class L2Reconstruct(Hook):
         logger = get_logger()
         runner = self.runner
         model = runner.model
+        self._refuse_spatial(model)
         device = runner.device
         # across processes: each rank steps on its rows of every global batch, from the
         # first rank's weights; with a model axis, its ranks load the same rows

@@ -252,16 +252,19 @@ class FixPaddingBias2d(nn.Module):
         return m
 
     @torch.no_grad()
-    def _cached_correction(self, H: int, W: int) -> torch.Tensor:
-        """:meth:`correction`, one per map size, all built again after a weight
-        changed.  A map stays at its address while the weights stay, which a
-        captured CUDA graph relies on."""
+    def _cached_correction(self, H: int, W: int, rows=None) -> torch.Tensor:
+        """:meth:`correction`, one per map size (and per rows ``(lo, hi)`` of it,
+        a spatially sharded rank's: ``parallel/spatial.py``), all built again
+        after a weight changed.  A map stays at its address while the weights
+        stay, which a captured CUDA graph relies on."""
         key = params_key(self)
         if key != getattr(self, "_maps_key", None):
             self._maps, self._maps_key = {}, key
-        if (H, W) not in self._maps:
-            self._maps[(H, W)] = self.correction(H, W)
-        return self._maps[(H, W)]
+        size = (H, W) if rows is None else (H, W, rows)
+        if size not in self._maps:
+            m = self.correction(H, W)
+            self._maps[size] = m if rows is None else m[rows[0]:rows[1]].clone()
+        return self._maps[size]
 
     def drop_caches(self):
         self._maps = self._maps_key = None

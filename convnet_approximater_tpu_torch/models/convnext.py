@@ -19,6 +19,7 @@ from torch import nn
 from convnet_approximater_tpu_torch.layers import DropPath
 from convnet_approximater_tpu_torch.nn import GELU, Conv2d, LayerNorm, Linear
 from convnet_approximater_tpu_torch.parallel.pp_model import Tail, Unit, subtree, unit_from_module
+from convnet_approximater_tpu_torch.parallel.spatial import global_mean
 
 from .stage_exec import BlockStageExec
 from .switchable import MODEL, SwitchableModel
@@ -148,7 +149,7 @@ class ConvNeXt(BlockStageExec, SwitchableModel):
     def forward(self, x):
         for s, (down, stage) in enumerate(zip(self.downsample_layers, self.stages)):
             x = self._exec_stage(s, stage, down(x))
-        return self.head(self.norm(x.mean(dim=(2, 3))))
+        return self.head(self.norm(global_mean(x)))
 
 
 @MODEL.register_module()

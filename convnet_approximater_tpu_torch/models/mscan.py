@@ -19,6 +19,7 @@ from torch import nn
 from convnet_approximater_tpu_torch.layers import MSCA, DropPath
 from convnet_approximater_tpu_torch.nn import BatchNorm2d, Conv2d, Dropout, GELU, LayerNorm, Linear, gelu
 from convnet_approximater_tpu_torch.parallel.pp_model import Tail, Unit, unit_from_module
+from convnet_approximater_tpu_torch.parallel.spatial import global_mean
 
 from .stage_exec import BlockStageExec
 from .switchable import MODEL, SwitchableModel
@@ -216,4 +217,4 @@ class MSCAN_Classifier(SwitchableModel):
 
     def forward(self, x):
         x = self.backbone(x)[-1]
-        return self.head(x.mean(dim=(2, 3)))
+        return self.head(global_mean(x))

@@ -53,6 +53,7 @@ from convnet_approximater_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
 from convnet_approximater_tpu_torch.parallel.pp import (owned_range, pipeline_blocks,
                                                         pipeline_blocks_train, release, restore,
                                                         structure)
+from convnet_approximater_tpu_torch.parallel.spatial import is_spatial, refuse_spatial
 
 
 def is_stack(stage: nn.Sequential) -> bool:
@@ -98,6 +99,8 @@ class BlockStageExec:
             self._pipeline = None
         if mesh is None:
             return
+        if is_spatial(self):
+            raise refuse_spatial("a pipeline (pipeline_parallel > 1) of a spatially sharded model")
         axis = axis or MODEL_AXIS
         _, n, _, _ = axis_ranks(mesh, axis)
         pipelined, released = [], []

@@ -18,8 +18,11 @@ import torch.distributed as dist
 
 from convnet_approximater_tpu_torch.utils.logger import get_rank
 
-# what stays refused across processes (parallel/mesh.py::spatial_sharding)
-MESH_TODO = ("spatial sharding (JAX parallel/mesh.py:48) is ROADMAP.md queue 1 item 12b")
+# what spatial sharding (parallel/spatial.py) does not carry yet: training under it, spatial
+# sharding beside tensor parallelism or a pipeline, compile_serving, and the layers with no halo
+# form (pools, lowrank_conv, int8 im2col, resizes, the Ham head)
+MESH_TODO = ("spatial sharding serves eval forwards of MSCAN, the headline surface and ConvNeXt "
+             "alone; the rest is ROADMAP.md queue 1 item 12b")
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None,

@@ -9,20 +9,20 @@ weights are every rank's copy, broadcast from the data group's first rank.
 :func:`param_shardings` reads the tensor-parallel rules (``parallel/tp.py``)
 against the port's parameter names and gives, per parameter, the torch dim
 the ``model`` axis shards (``parallel/tp.py::shard_module`` then keeps each
-rank's slice).  ``spatial_sharding`` is still to be ported (ROADMAP.md
-queue 1, item 12b).
+rank's slice).  :func:`spatial_sharding` names the layout of
+``parallel/spatial.py``: the batch over ``data``, the image rows over ``model``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch import nn
 
-from .distributed import MESH_TODO, process_count
+from .distributed import process_count
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -63,10 +63,20 @@ def batch_sharding(mesh) -> Tuple[int, int]:
     return index, count
 
 
-def spatial_sharding(mesh):
-    """The JAX package's NHWC layout over the batch (data axis) and the image
-    rows (model axis), whose convolutions XLA gives halo exchanges: not ported."""
-    raise NotImplementedError(f"spatial_sharding: {MESH_TODO}")
+class SpatialSharding(NamedTuple):
+    """The layout of :func:`spatial_sharding`: an NCHW batch with its rows
+    (the leading axis) over ``spec[0]`` and its image rows over ``spec[1]``."""
+
+    mesh: object
+    spec: Tuple[str, str] = (DATA_AXIS, MODEL_AXIS)
+
+
+def spatial_sharding(mesh) -> SpatialSharding:
+    """The batch over the mesh's ``data`` axis and the image rows over its
+    ``model`` axis (JAX ``NamedSharding(mesh, P("data", "model"))`` on NHWC).
+    ``parallel/spatial.py`` lays a batch (``shard_spatial``) and a model
+    (``spatial_module``) out so; ``mesh`` None is one process holding it all."""
+    return SpatialSharding(mesh)
 
 
 def shard_rows(n: int, sharding: Tuple[int, int]) -> slice:

@@ -30,6 +30,7 @@ from torch import nn
 
 from .mesh import MODEL_AXIS, axis_ranks
 from .pp import gpipe, layout, release, restore
+from .spatial import is_spatial, refuse_spatial
 
 __all__ = ["Unit", "subtree", "unit_from_module", "partition_units", "build_model_pipeline",
            "ModelPipeline"]
@@ -149,6 +150,8 @@ def build_model_pipeline(model: nn.Module, x_shape, mesh, axis: str = MODEL_AXIS
 
     if not hasattr(model, "pipeline_units"):
         raise TypeError(f"{type(model).__name__} has no pipeline_units()")
+    if is_spatial(model):
+        raise refuse_spatial("a pipeline (pipeline_parallel > 1) of a spatially sharded model")
     _, n, _, _ = axis_ranks(mesh, axis)
     units = model.pipeline_units()
     M = int(num_microbatches or n)

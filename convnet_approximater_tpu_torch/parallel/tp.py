@@ -34,6 +34,7 @@ from torch import nn
 
 from . import tp_layers
 from .mesh import MODEL_AXIS, axis_ranks, param_shardings, replicate
+from .spatial import is_spatial, refuse_spatial
 
 
 def P(*axes) -> tuple:
@@ -301,6 +302,9 @@ def shard_module(model: nn.Module, mesh, model_parallel: int = 1, tp_rules=None,
     Every rank must call it with the same weights (``replicate`` first)."""
     if model_parallel <= 1:
         return replicate(model, mesh)
+    if is_spatial(model):
+        raise refuse_spatial("tensor parallelism (model_parallel > 1) of a spatially sharded "
+                             "model")
     if tp_plan(model) is not None:
         raise ValueError("shard_module: the model is sharded already")
     index, size, group, ranks = axis_ranks(mesh, MODEL_AXIS)

@@ -223,17 +223,22 @@ def test_what_stays_refused_names_the_rest_of_item_12b(setup):
         for name, (g, want) in got["grads"].items():
             np.testing.assert_allclose(g.numpy(), want.numpy(), rtol=1e-5, atol=1e-6,
                                        err_msg=name)
-    from convnet_approximater_tpu_torch.parallel import MESH_TODO, spatial_sharding
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.models import MSCAN_Classifier
+    from convnet_approximater_tpu_torch.parallel import MESH_TODO
 
     model = build_model(dict(type="TinyBNNet", num_classes=4))
     # tensor parallelism is ported (parallel/tp.py): the helper takes model_parallel
     assert TrainHelper(model, dict(model_parallel=2), device="cpu").cfg.model_parallel == 2
     with pytest.raises(ValueError, match="share the mesh's model axis"):
         TrainHelper(model, dict(model_parallel=2, pipeline_parallel=2), device="cpu")
-    # what stays refused is spatial sharding alone
+    # spatial sharding serves eval forwards (parallel/spatial.py): what stays refused is
+    # training under it, on the data axis as anywhere
+    spatial = parallel.spatial_module(MSCAN_Classifier(
+        num_channels=(8, 16), num_blocks=(1, 1), exp_ratios=(2, 2), num_classes=4), None)
     with pytest.raises(NotImplementedError) as e:
-        spatial_sharding(None)
+        TrainHelper(spatial, dict(use_mesh=True), device="cpu")
     msg = str(e.value)
-    assert MESH_TODO in msg
-    assert all(msg.count(word) == 1 for word in REST), msg
+    assert MESH_TODO in msg and "training under spatial sharding" in msg
+    assert all(word in msg for word in REST) and msg.count("item 12b") == 1, msg
     assert "pipeline" not in msg and "tp.py" not in msg and "tensor" not in msg

@@ -677,14 +677,20 @@ def test_unported_options_raise(tmp_path, other, match):
         with pytest.raises(ValueError, match="unknown ckpt backend"):
             ft.CheckpointSaver(str(tmp_path / "sv"), backend="orbax")
         return
-    from convnet_approximater_tpu_torch.parallel import MESH_TODO, spatial_sharding
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.models import MSCAN_Classifier
+    from convnet_approximater_tpu_torch.parallel import MESH_TODO
 
     # tensor parallelism is ported (parallel/tp.py): the hook takes model_parallel; one
     # process trains unsharded (tests/test_torch_tensor_parallel.py trains over ranks)
     assert ft.L2Reconstruct(runner, 50, other_args=other).other_args.model_parallel == 2
-    # what stays refused is spatial sharding alone
-    with pytest.raises(NotImplementedError, match=match):
-        spatial_sharding(None)
+    # spatial sharding serves eval forwards (parallel/spatial.py); training under it stays
+    # refused
+    runner.model = parallel.spatial_module(MSCAN_Classifier(
+        num_channels=(8, 16), num_blocks=(1, 1), exp_ratios=(2, 2), num_classes=4), None)
+    with pytest.raises(NotImplementedError, match=match) as e:
+        ft.L2Reconstruct(runner, 50, other_args=other)
+    assert "training under spatial sharding" in str(e.value)
     assert "spatial sharding" in MESH_TODO and "tp.py" not in MESH_TODO
 
 

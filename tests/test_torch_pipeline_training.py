@@ -287,11 +287,22 @@ def test_what_stays_refused(runs):
         TrainHelper(model, dict(model_parallel=2, pipeline_parallel=2), device="cpu")
     # tensor parallelism is ported (parallel/tp.py): model_parallel alone constructs
     assert TrainHelper(model, dict(model_parallel=2), device="cpu").cfg.model_parallel == 2
-    from convnet_approximater_tpu_torch.parallel import MESH_TODO, spatial_sharding
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.models import MSCAN_Classifier
+    from convnet_approximater_tpu_torch.parallel import MESH_TODO
 
+    # spatial sharding serves eval forwards (parallel/spatial.py); beside a pipeline, whose
+    # ranks hold only their own blocks' weights, it stays refused in either order
+    tiny = dict(num_channels=(8, 16), num_blocks=(2, 2), exp_ratios=(2, 2), num_classes=4)
+    piped = MSCAN_Classifier(**tiny)
+    parallel.release(piped.backbone.layers[1][1][1])  # a block another pipe rank owns
     with pytest.raises(NotImplementedError) as e:
-        spatial_sharding(None)
+        parallel.spatial_module(piped, None)
     assert MESH_TODO in str(e.value) and "tp.py" not in str(e.value)
-    assert "spatial sharding" in str(e.value)
-    assert "pipeline" not in str(e.value)
+    assert "spatial sharding beside a pipeline" in str(e.value)
+    spatial = parallel.spatial_module(MSCAN_Classifier(**tiny), None)
+    with pytest.raises(NotImplementedError, match="pipeline.*of a spatially sharded model"):
+        spatial.backbone.enable_pipeline(object())  # refused before the mesh is read
+    with pytest.raises(NotImplementedError, match="TrainHelper: training under spatial"):
+        TrainHelper(spatial, dict(pipeline_parallel=2), device="cpu")
 

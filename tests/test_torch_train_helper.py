@@ -210,15 +210,23 @@ def test_unported_options_raise(cfg, match):
         # ported (utils/sharded_ckpt.py): the helper takes the sharded backend
         assert TrainHelper(model, cfg, device="cpu").cfg.ckpt_backend == "sharded"
         return
-    from convnet_approximater_tpu_torch.parallel import MESH_TODO, spatial_sharding
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.models import MSCAN_Classifier
+    from convnet_approximater_tpu_torch.parallel import MESH_TODO
 
     # tensor parallelism is ported (parallel/tp.py): the helper takes model_parallel, and
-    # refuses it beside pipeline_parallel; what stays refused is spatial sharding alone
+    # refuses it beside pipeline_parallel; spatial sharding serves eval forwards
+    # (parallel/spatial.py), and training under it stays refused
     assert TrainHelper(model, cfg, device="cpu").cfg.model_parallel == 2
     with pytest.raises(ValueError, match="model axis"):
         TrainHelper(model, dict(cfg, pipeline_parallel=2), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        spatial_sharding(None)
+    with pytest.raises(NotImplementedError, match="no halo form"):
+        parallel.spatial_module(model, None)  # TinyNet's max pool
+    spatial = parallel.spatial_module(MSCAN_Classifier(
+        num_channels=(8, 16), num_blocks=(1, 1), exp_ratios=(2, 2), num_classes=4), None)
+    with pytest.raises(NotImplementedError, match=match) as e:
+        TrainHelper(spatial, cfg, device="cpu")
+    assert "training under spatial sharding" in str(e.value)
     assert "spatial sharding" in MESH_TODO and "tp.py" not in MESH_TODO
 
 

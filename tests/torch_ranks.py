@@ -59,9 +59,13 @@ def build(name: str):
 def randomized(name: str, seed: int):
     """A tiny model with random weights, layer scales 1 (ConvNeXt's 1e-6 would
     hide its blocks) and norm statistics of order 1, in eval mode."""
+    return randomize(build(name), seed)
+
+
+def randomize(model, seed: int):
+    """:func:`randomized`'s weights for ``model``."""
     from convnet_approximater_tpu_torch.nn import channels_last, init_weights
 
-    model = build(name)
     init_weights(model, torch.Generator().manual_seed(seed))
     rs = np.random.RandomState(seed)
     with torch.no_grad():
@@ -674,6 +678,21 @@ class Calls:
         setattr(self.module, self.attr, self.fn)
 
 
+class Numels(Calls):
+    """Keeps the element count of argument ``arg`` of each call of ``module.attr``."""
+
+    def __init__(self, module, attr, arg: int):
+        self.numels = []
+        super().__init__(module, attr)
+        fn = self.fn
+
+        def counted(*args, **kwargs):
+            self.numels.append(args[arg].numel())
+            return fn(*args, **kwargs)
+
+        setattr(module, attr, counted)
+
+
 def tp_family(name: str, path: str, x: np.ndarray, labels: np.ndarray, want: str, mesh,
               tol: dict) -> dict:
     """One family sharded by its preset over ``mesh``: its eval forward on the
@@ -843,7 +862,7 @@ def tp_job(families: dict, x: dict, labels: dict, tol: dict, data: int = 1,
     dropout masks (:func:`tp_dropout`), rules no preset has
     (:func:`tp_explicit`), the deploy surfaces
     (:func:`tp_deploy_surfaces`), a dim the model axis does not divide, and
-    ``spatial_sharding``'s refusal."""
+    spatial sharding's refusal beside tensor parallelism, in either order."""
     from convnet_approximater_tpu_torch import parallel
     from convnet_approximater_tpu_torch.nn import Linear
     from convnet_approximater_tpu_torch.parallel import tp
@@ -863,10 +882,18 @@ def tp_job(families: dict, x: dict, labels: dict, tol: dict, data: int = 1,
         tp.shard_module(head, mesh, 2, [("head/weight", (None, "model"))])
     except ValueError as e:
         out["uneven"] = str(e)
+    head = torch.nn.Module()
+    head.head = Linear(4, 6)
+    tp.shard_module(head, mesh, 2, [("head/weight", (None, "model"))])
     try:
-        parallel.spatial_sharding(mesh)
+        parallel.spatial_module(head, mesh)
     except NotImplementedError as e:
         out["spatial"] = str(e)
+    whole = parallel.spatial_module(randomized("mscan", 0), mesh)
+    try:
+        tp.shard_module(whole, mesh, 2, "mscan")
+    except NotImplementedError as e:
+        out["spatial_then_tp"] = str(e)
     return out
 
 
@@ -907,4 +934,83 @@ def tp_dp_job(families: dict, x: dict, labels: dict, tol: dict, helper: dict,
     out = tp_job(families, x, labels, tol, data=2, extras=False)
     out.update(tp_train_job(None, helper))
     out["resumed"] = helper_run(tp_model("resnet", resumed["weights"]).train(), resumed["cfg"])
+    return out
+
+
+# -- spatial sharding -----------------------------------------------------------
+def spatial_job(models: dict, x: np.ndarray, data: int, blocks: dict = None,
+                maps: np.ndarray = None, extras: bool = False) -> dict:
+    """Each model of ``models`` (name: an eval model with its weights) laid out
+    by ``spatial_module`` over a ``(data, world / data)`` mesh: its logits on
+    this rank's block of ``x`` (two forwards), the data axis's rows gathered;
+    the kernel calls and collectives of the second forward; each module of
+    ``blocks`` laid out alike, its output on this rank's block of the NCHW
+    ``maps`` gathered whole (``block/<name>``); and, with ``extras``, what
+    spatial sharding refuses."""
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import parallel_cascade as cascade_ops
+    from convnet_approximater_tpu_torch.parallel import spatial
+
+    n = dist.get_world_size()
+    mesh = parallel.make_mesh(data=data, model=n // data)
+    xt = nchw(x)
+    out = {}
+    for name, model in models.items():
+        parallel.spatial_module(model, mesh)
+        xs = parallel.shard_spatial(xt, mesh)
+        with torch.no_grad():
+            y = model(xs)
+            calls = [Calls(fused_ops, "msca_fused"), Calls(cascade_ops, "parallel_cascade")]
+            collectives = [Numels(dist, "all_gather", 1), Numels(dist, "all_reduce", 0)]
+            spatial.stats.reset()
+            try:
+                y2 = model(xs)
+            finally:
+                for c in calls + collectives:
+                    c.close()
+        out[name] = dict(y=parallel.gather_spatial(y, mesh), same=torch.equal(y, y2),
+                         rows=tuple(xs.shape), msca_fused=len(calls[0].shapes),
+                         parallel_cascade=len(calls[1].shapes),
+                         windows=calls[0].shapes + calls[1].shapes,
+                         all_gather=collectives[0].numels, all_reduce=collectives[1].numels,
+                         sent=spatial.stats.sent_bytes)
+    for name, block in (blocks or {}).items():
+        parallel.spatial_module(block, mesh)
+        with torch.no_grad():
+            y = block(parallel.shard_spatial(torch.from_numpy(maps).contiguous(
+                memory_format=torch.channels_last), mesh))
+        out[f"block/{name}"] = parallel.gather_spatial(y, mesh)
+    if extras:
+        out["refused"] = spatial_refusals(mesh, xt)
+    return out
+
+
+def spatial_refusals(mesh, xt: torch.Tensor) -> dict:
+    """What spatial sharding refuses over ``mesh``, each message by case."""
+    from convnet_approximater_tpu_torch import deploy, parallel
+    from convnet_approximater_tpu_torch.models import ResNet
+
+    out = {}
+
+    def refused(case, fn, error=NotImplementedError):
+        try:
+            fn()
+        except error as e:
+            out[case] = str(e)
+
+    model = parallel.spatial_module(randomized("mscan", 0), mesh)
+    xs = parallel.shard_spatial(xt, mesh)
+    with torch.no_grad():
+        refused("training", lambda: model.train()(xs))
+    model.eval()
+    refused("autograd", lambda: model(xs))
+    refused("compile_serving", lambda: deploy.compile_serving(model, xs))
+    refused("pipeline after", lambda: model.backbone.enable_pipeline(mesh))
+    piped = randomized("mscan", 0)
+    piped.backbone.enable_pipeline(mesh)
+    refused("pipeline before", lambda: parallel.spatial_module(piped, mesh))
+    refused("pools", lambda: parallel.spatial_module(ResNet(18, 10), mesh))
+    refused("uneven", lambda: parallel.shard_spatial(xt[:, :, :xt.shape[2] - 1], mesh),
+            ValueError)
     return out
