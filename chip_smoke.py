@@ -7,6 +7,7 @@
     python3 chip_smoke.py --p25     # phase 25 alone
     python3 chip_smoke.py --p26     # phase 26 alone
     python3 chip_smoke.py --p27     # phase 27 alone
+    python3 chip_smoke.py --p28     # phase 28 alone
 
 From the root of a checkout, with no arguments:
 
@@ -423,7 +424,24 @@ From the root of a checkout, with no arguments:
     wall-clock ms per forward on the shared card beside the whole forward's
     (rank 0 alone), the bytes and messages it sends and the halo's copies.
     ``--p27`` runs steps 1-2 and P27 in two fresh gloo processes;
-28. prints one JSON line of kernel results (each kernel's entry lists the later
+28. P28, spatial sharding of the other families and beside tensor
+    parallelism over (1 data x 2 model), in P24's two gloo processes after
+    P27's runs: scheme-1 ResNet-18 and VGG-16 and the dodecomp AlexNet (their
+    configs' apps, the SVD init and no ALS iterations), int8 ResNet-50
+    (``fold_batchnorm``, ``quantize_int8``) at b=64, 224^2, SegNeXt-T d1+fix
+    at b=16, 512^2, and MSCAN-t d1+fix sharded by the ``mscan`` preset before
+    ``spatial_module`` lays it out (its spatial forward on the whole weights,
+    gathered once), each held to its whole (replicated) forward in that
+    process: (a) logits within 1e-4 (int8 1e-3; SegNeXt's map by the rank's
+    rows); (b) 16, 12, 4 ``lowrank_conv``, 54 ``qmatmul``, 13 and 13
+    ``msca_fused`` per forward on each rank; (c) every kernel call of a
+    forward on its window against its plain version (``lowrank_conv`` and
+    ``msca_fused`` within 1e-5, ``qmatmul`` bit for bit); (d) each rank's
+    peak beyond what was allocated at most 0.7 of the whole forward's; (e)
+    records: ms per forward beside the whole forward's, bytes and messages
+    sent, the bytes of the one gathered map (VGG's and AlexNet's pooled map).
+    ``--p28`` runs steps 1-2 and P28 in two fresh gloo processes;
+29. prints one JSON line of kernel results (each kernel's entry lists the later
     paths' launches and sums per forward under ``paths``, the bf16 ones among
     them), then ``{"ok": true, "device": ...}``.
 
@@ -439,8 +457,8 @@ checkpoint, P18's two ``export_model`` artifacts (the dodecomp AlexNet and
 the int8 ResNet-50) and then P23 alone, its ``serve --data-parallel`` loops
 P23_SCALING_BATCHES batches long: on a host with 2 or 4 cards it measures
 serving across them (the img/s of each world size against one card's).
-``--p24``, ``--p25``, ``--p26`` and ``--p27`` run steps 1-2 and P24, P25, P26 or
-P27 alone.
+``--p24``, ``--p25``, ``--p26``, ``--p27`` and ``--p28`` run steps 1-2 and P24, P25,
+P26, P27 or P28 alone.
 None of them prints the result lines.
 """
 
@@ -7054,7 +7072,7 @@ def p24_rank(rank: int, world: int, port: int, backend: str, then: tuple = (),
              p26: bool = False):
     """One of ``world`` ranks: gloo ranks all on this card, NCCL ranks one per
     card.  P24's runs, saved for the first process to compare; then P25's runs
-    ``then`` and, with ``p26``, P26's and P27's in the same group (its
+    ``then`` and, with ``p26``, P26's, P27's and P28's in the same group (its
     processes have trained MSCAN-t: warm)."""
     import torch
     import torch.distributed as dist
@@ -7075,6 +7093,7 @@ def p24_rank(rank: int, world: int, port: int, backend: str, then: tuple = (),
         if p26:
             p26_runs(rank, world, tag)
             p27_runs(rank, world, tag)
+            p28_runs(rank, world, tag)
     finally:
         dist.destroy_process_group()
 
@@ -7881,14 +7900,14 @@ def p27_models():
     yield "ConvNeXt-T r1", model.eval()
 
 
-def p27_wall_ms(fn) -> float:
-    """Median wall-clock ms of ``fn()`` over P27_ITERS runs, each synchronized
+def p27_wall_ms(fn, iters: int = P27_ITERS) -> float:
+    """Median wall-clock ms of ``fn()`` over ``iters`` runs, each synchronized
     (a spatial forward waits on its exchanges' host round trips), after one."""
     import torch
 
     fn()
     times = []
-    for _ in range(P27_ITERS):
+    for _ in range(iters):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -8072,6 +8091,243 @@ def run_p27(after_p24: bool = False) -> dict:
     return dict(ranks=ranks)
 
 
+# -- P28: spatial sharding of the other families and beside tensor parallelism ----------
+P28_DIR = os.path.join(REPO, "build", "chip_smoke_p28")
+P28_LOGITS = 1e-4       # (a) float32 logits against the whole forward, max-abs over max |logit|
+P28_INT8 = 1e-3         # (a) int8 logits
+P28_WINDOW = 1e-5       # (c) lowrank_conv and msca_fused on each window (qmatmul: bit for bit)
+P28_MEMORY = 0.7        # (d) a rank's peak beyond what is allocated, over the whole forward's
+P28_ITERS = 3           # (e) timed forwards of each form
+# each model of the slice: its port kernel, that kernel's calls per forward, its batch and size
+P28_KERNELS = {"ResNet-18 scheme-1": ("lowrank_conv", 16, BATCH, 224),
+               "VGG-16 scheme-1": ("lowrank_conv", 12, BATCH, 224),
+               "AlexNet dodecomp": ("lowrank_conv", 4, BATCH, 224),
+               "int8 ResNet-50": ("qmatmul", 54, BATCH, 224),
+               "SegNeXt-T d1+fix": ("msca_fused", MSCA_BLOCKS, SEG_BATCH, 512),
+               "MSCAN-t d1+fix, mscan preset": ("msca_fused", MSCA_BLOCKS, BATCH, 224)}
+P28_TP = {"MSCAN-t d1+fix, mscan preset": "mscan"}  # sharded by tensor parallelism first
+
+
+def p28_config_model(config: str):
+    """A config's model (random weights from seed 0, on the card) with its app
+    applied to its filters' sites: the solve the config asks for (the scheme-1
+    configs: the SVD init, no ALS iterations)."""
+    import torch
+
+    from convnet_approximater_tpu_torch.core import build_app
+    from convnet_approximater_tpu_torch.deploy_planner import apply_app
+    from convnet_approximater_tpu_torch.filters import build_filter
+    from convnet_approximater_tpu_torch.models import build_model
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+    from convnet_approximater_tpu_torch.utils import get_cfg, init_cfg
+
+    init_cfg(config)
+    cfg = get_cfg()
+    model = build_model(cfg.model)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = channels_last(model.cuda()).eval()
+    apply_app(model, build_app(dict(cfg.app)),
+              [build_filter(dict(f)) for f in cfg.get("filters", [])],
+              torch.Generator().manual_seed(0))
+    return model.eval()
+
+
+def p28_models():
+    """The slice's six models at full width, one at a time."""
+    import torch
+
+    from convnet_approximater_tpu_torch import deploy
+    from convnet_approximater_tpu_torch.core import MscaRep
+    from convnet_approximater_tpu_torch.deploy_planner import apply_app
+    from convnet_approximater_tpu_torch.models import ResNet
+    from convnet_approximater_tpu_torch.nn import channels_last, init_weights
+
+    yield "ResNet-18 scheme-1", p28_config_model(RESNET18)
+    yield "VGG-16 scheme-1", p28_config_model(VGG16)
+    yield "AlexNet dodecomp", p28_config_model(ALEX_DODECOMP)
+    model = ResNet(50, 1000)
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = channels_last(model.cuda()).eval()
+    deploy.fold_batchnorm(model)
+    with uncounted():
+        deploy.quantize_int8(model, [seeded_batch(281 + i, batch=8) for i in range(2)])
+    yield "int8 ResNet-50", model
+    del model
+    yield "SegNeXt-T d1+fix", p28_config_model(SEG_CONFIG)
+    model = channels_last(mscan_t_model().cuda()).eval()
+    apply_app(model, MscaRep(decomp=1, fix=True), [], torch.Generator().manual_seed(0))
+    yield "MSCAN-t d1+fix, mscan preset", model.eval()
+
+
+def p28_one(name: str, model, rank: int) -> dict:
+    """One model of P28 on this rank: the whole forward (the reference, its
+    peak and, on rank 0 while rank 1 waits, its ms), then the model laid out
+    over (1 data x 2 model), sharded by its tensor-parallel preset first where
+    it has one: its forward on this rank's rows (logits, launches, peak,
+    bytes, ms), and each kernel call of a forward on its window against the
+    plain version, as it runs."""
+    import torch
+    import torch.distributed as dist
+
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.ops import lowrank_conv as lowrank_ops
+    from convnet_approximater_tpu_torch.ops import msca_fused as fused_ops
+    from convnet_approximater_tpu_torch.ops import qmatmul as qmatmul_ops
+    from convnet_approximater_tpu_torch.parallel import spatial, tp
+
+    kname, _, batch, size = P28_KERNELS[name]
+    ops = {"lowrank_conv": lowrank_ops, "qmatmul": qmatmul_ops, "msca_fused": fused_ops}[kname]
+    kernel, plain = getattr(ops, kname), getattr(ops, f"{kname}_ref")
+    mesh = p26_mesh()
+    x = seeded_batch(280, batch=batch, size=size)
+    forward = torch.no_grad()(lambda: model(x))
+    forward()  # the kernels' caches
+    reset_counts()
+    ref, whole_peak = p27_peak(forward)
+    whole_launches = kernel.launches
+    whole_ms = p27_wall_ms(forward, P28_ITERS) if rank == 0 else None
+    dist.barrier()
+    if name in P28_TP:
+        tp.shard_module(model, mesh, 2, P28_TP[name])
+    parallel.spatial_module(model, mesh)
+    xs = parallel.shard_spatial(x, mesh)
+    sharded = torch.no_grad()(lambda: model(xs))
+    sharded()  # each layer's layout, the border strips, the whole weights beside TP
+    reset_counts()
+    spatial.stats.reset()
+    y, peak = p27_peak(sharded)
+    launches = kernel.launches
+    stats = dict(sent=spatial.stats.sent_bytes, messages=spatial.stats.sent_messages,
+                 gathered=spatial.stats.gathered_bytes, copies=spatial.stats.copies)
+    errs, windows = [], set()
+
+    def recording(*args, **kwargs):  # (c) each call against its plain version as it runs
+        out = kernel(*args, **kwargs)
+        want = plain(*args, **{k: v for k, v in kwargs.items() if k != "packed"})
+        errs.append(float(not torch.equal(out, want)) if kname == "qmatmul"
+                    else max_rel(out, want))
+        windows.add(tuple(args[0].shape[:-1]))
+        return out
+
+    recording.launches = 0
+    with uncounted(), mock.patch.object(ops, kname, recording), torch.no_grad():
+        sharded()
+    ms = p27_wall_ms(sharded, P28_ITERS)
+    if y.dim() == 4:  # SegNeXt's logits: this rank's rows of the map
+        lo, hi = parallel.spatial.row_split(ref.shape[2], 2)[rank]
+        want = ref[:, :, lo:hi]
+    else:
+        want = ref
+    out = dict(err=float((y.float() - want.float()).abs().max() / ref.float().abs().max()),
+               finite=bool(torch.isfinite(y).all()), shape=tuple(y.shape), launches=launches,
+               whole_launches=whole_launches, peak=peak, whole_peak=whole_peak, ms=ms,
+               whole_ms=whole_ms, window_err=max(errs, default=float("inf")),
+               window_calls=len(errs), windows=sorted(windows), **stats)
+    parallel.unspatial_module(model)
+    return out
+
+
+def p28_runs(rank: int, world: int, tag: str):
+    """P28's six models on the two gloo ranks this process is one of, saved
+    for the first process."""
+    import torch
+
+    os.makedirs(P28_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    res = {}
+    for name, model in p28_models():
+        res[name] = p28_one(name, model, rank)
+        del model
+        torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    torch.save(res, os.path.join(P28_DIR, f"{tag}_rank{rank}.pt"))
+
+
+def p28_rank(rank: int, world: int, port: int):
+    """One of two gloo ranks on this card running P28 alone (``--p28``)."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    if rank:
+        sys.stdout = open(os.path.join(P28_DIR, f"gloo{world}_rank{rank}.log"), "w")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world,
+                            rank=rank)
+    try:
+        p28_runs(rank, world, f"gloo{world}")
+    finally:
+        dist.destroy_process_group()
+
+
+def run_p28(after_p24: bool = False) -> dict:
+    """P28: spatial sharding of the other families and beside tensor
+    parallelism over (1 data x 2 model) as two gloo ranks on this card, each
+    model against its whole forward in the same process.  ``after_p24``: the
+    ranks ran in P24's processes after P27's runs; else two fresh gloo ranks
+    run it here."""
+    import shutil
+
+    import torch
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    tag = "gloo2"
+    if not after_p24:
+        shutil.rmtree(P28_DIR, ignore_errors=True)
+        os.makedirs(P28_DIR)
+        try:
+            mp.start_processes(p28_rank, args=(2, free_port()), nprocs=2, join=True,
+                               start_method="spawn")
+        except mp.ProcessRaisedException as e:
+            fail(f"P28: a rank raised: {e}")
+        except mp.ProcessExitedException as e:
+            fail(f"P28: a rank died: {e}")
+    ranks = [torch.load(os.path.join(P28_DIR, f"{tag}_rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    failed = []
+    for name, (kname, per, batch, size) in P28_KERNELS.items():
+        bound = P28_INT8 if kname == "qmatmul" else P28_LOGITS
+        setting = f"b={batch}, {size}^2, f32"
+        for r, res in enumerate(ranks):
+            m = res[name]
+            ratio = m["peak"] / m["whole_peak"]
+            print(f"P28 {name}, {setting}, over (1 data x 2 model), rank {r}: logits "
+                  f"{m['shape']} against the whole forward max-abs over max |logit| "
+                  f"{m['err']:.3e} (bound {bound}); {kname} per forward {m['launches']} "
+                  f"(expected {per}; the whole forward {m['whole_launches']}); on this rank's "
+                  f"{m['window_calls']} windows {m['windows']} against {kname}_ref: "
+                  + (f"{'bit-equal' if m['window_err'] == 0 else 'NOT bit-equal'}"
+                     if kname == "qmatmul" else
+                     f"max-abs over max {m['window_err']:.3e} (bound {P28_WINDOW})")
+                  + f"; peak beyond what was allocated {m['peak'] / 2**20:.1f} MiB against the "
+                  f"whole forward's {m['whole_peak'] / 2**20:.1f} MiB ({ratio:.3f}, bound "
+                  f"{P28_MEMORY}); sends per forward {m['messages']} messages, {m['sent']} bytes; "
+                  f"gathered {m['gathered']} bytes; halo copies {m['copies']}")
+            if not m["finite"] or m["err"] > bound:
+                failed.append(f"{name} rank {r}: logits")
+            if m["launches"] != per or m["whole_launches"] != per:
+                failed.append(f"{name} rank {r}: {kname} {m['launches']} per forward, not {per}")
+            if m["window_calls"] != per or m["window_err"] > (0.0 if kname == "qmatmul"
+                                                              else P28_WINDOW):
+                failed.append(f"{name} rank {r}: {kname} on its windows against {kname}_ref")
+            if ratio > P28_MEMORY:
+                failed.append(f"{name} rank {r}: peak {ratio:.3f} of the whole forward's")
+        rank_ms = ", ".join(f"{res[name]['ms']:.3f}" for res in ranks)
+        print(f"P28 {name} [{smi_line()}] eager wall-clock ms per forward, {setting}: world "
+              f"size 1 (the whole forward, rank 0 alone on the card) "
+              f"{ranks[0][name]['whole_ms']:.3f}; spatially sharded over 2 gloo ranks sharing the "
+              f"card {rank_ms} (rank by rank)")
+    print(f"P28 in {max(r['seconds'] for r in ranks):.2f} s on the ranks, "
+          f"{time.perf_counter() - t0:.2f} s here")
+    if failed:
+        fail("P28: " + "; ".join(failed))
+    shutil.rmtree(P28_DIR, ignore_errors=True)
+    return dict(ranks=ranks)
+
+
 def bf16_path(name, rows, **counts):
     """A kernels-line path entry of a kernel's bf16 form: its P19a rows per
     forward of their path (calls per forward as weights), the bound at 2-byte
@@ -8212,6 +8468,18 @@ def main_p27():
     print(f"P27 alone on {kind}, {torch.cuda.device_count()} device(s): done")
 
 
+def main_p28():
+    """``--p28``: steps 1-2, then P28 alone in two fresh gloo ranks."""
+    import torch
+
+    lap = Laps()
+    kind = card_and_build()
+    lap("1.-2. the card and the build")
+    run_p28()
+    lap("28. P28")
+    print(f"P28 alone on {kind}, {torch.cuda.device_count()} device(s): done")
+
+
 def main_p23():
     """``--p23``: steps 1-2, the artifacts P23 serves, then P23 alone."""
     lap = Laps()
@@ -8343,10 +8611,11 @@ def main():
     # -- 24. P24: training across processes, data-parallel ------------------
     import shutil
 
-    # P24's two gloo ranks then run P25's (a) and (b), P26's (a), (a') and (b), and P27's
+    # P24's two gloo ranks then run P25's (a) and (b), P26's (a), (a') and (b), P27's and P28's
     shutil.rmtree(P25_DIR, ignore_errors=True)
     shutil.rmtree(P26_DIR, ignore_errors=True)
     shutil.rmtree(P27_DIR, ignore_errors=True)
+    shutil.rmtree(P28_DIR, ignore_errors=True)
     p24 = run_p24(f1_ms, p20["f32_ms"], then=("a", "b"), p26=True)
     lap("24. P24")
 
@@ -8361,6 +8630,10 @@ def main():
     # -- 27. P27: spatial sharding across processes -----------------------------
     p27 = run_p27(after_p24=True)
     lap("27. P27")
+
+    # -- 28. P28: spatial sharding of the other families and beside tensor parallelism
+    p28 = run_p28(after_p24=True)
+    lap("28. P28")
     print(f"wall time in all: {lap.total():.2f} s from the check for the card")
 
     # -- 18. results ------------------------------------------------------
@@ -8600,6 +8873,20 @@ def main():
         [kernels[0]["max_abs_err"]] + [res[name]["window_err"] for res in p27["ranks"]
                                        for name, (kname, _) in P27_KERNELS.items()
                                        if kname == "msca_fused"])
+    # P28: the other families spatially sharded, and MSCAN-t beside tensor parallelism, each
+    # rank's launches per forward on its windows of rows
+    k_of = {"msca_fused": 0, "lowrank_conv": 1, "qmatmul": 3}
+    for r, res in enumerate(p28["ranks"]):
+        for name, (kname, _, batch, size) in P28_KERNELS.items():
+            kernels[k_of[kname]]["paths"].append(dict(
+                path=f"{name} spatially sharded over (1 data x 2 model) at b={batch}, {size}^2, "
+                     f"2 gloo ranks on one card, rank {r}: per eval forward on its windows of "
+                     f"rows (P28)", launches=res[name]["launches"]))
+    for kname in ("msca_fused", "lowrank_conv"):
+        kernels[k_of[kname]]["max_abs_err"] = max(
+            [kernels[k_of[kname]]["max_abs_err"]] + [
+                res[name]["window_err"] for res in p28["ranks"]
+                for name, (k, *_) in P28_KERNELS.items() if k == kname])
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
@@ -8616,7 +8903,10 @@ if __name__ == "__main__":
         main_p26()
     elif sys.argv[1:] == ["--p27"]:
         main_p27()
+    elif sys.argv[1:] == ["--p28"]:
+        main_p28()
     elif sys.argv[1:]:
-        fail(f"unknown arguments {sys.argv[1:]} (none, --p23, --p24, --p25, --p26 or --p27)")
+        fail(f"unknown arguments {sys.argv[1:]} (none, --p23, --p24, --p25, --p26, --p27 or "
+             f"--p28)")
     else:
         main()

@@ -171,15 +171,20 @@ class QuantConv2d(_QuantBase):
             w = w.permute(0, 2, 3, 1)  # (N, kh, kw, C)
         return w.reshape(self.out_channels, -1)
 
-    def out_size(self, H: int, W: int) -> Tuple[int, int]:
+    def out_size(self, H: int, W: int, padding=None) -> Tuple[int, int]:
         (kh, kw), (sh, sw) = self.kernel_size, self.stride
-        (ph, pw), (dh, dw) = self.padding, self.dilation
+        (ph, pw), (dh, dw) = padding or self.padding, self.dilation
         return ((H + 2 * ph - dh * (kh - 1) - 1) // sh + 1,
                 (W + 2 * pw - dw * (kw - 1) - 1) // sw + 1)
 
     def forward(self, x):
+        return self.conv(x, self.padding)
+
+    def conv(self, x, padding):
+        """The layer on ``x`` zero-padded by ``padding`` (the spatial form's
+        window carries its rows' padding and passes ``(0, pw)``)."""
         B, C, H, W = x.shape
-        Ho, Wo = self.out_size(H, W)
+        Ho, Wo = self.out_size(H, W, padding)
         kh, kw = self.kernel_size
         if self.patchify:
             cols = x.permute(0, 2, 3, 1)[:, :Ho * kh, :Wo * kw]  # NHWC view
@@ -188,7 +193,7 @@ class QuantConv2d(_QuantBase):
             # keeps it, where a reshape at batch 1 could give a strided view
             cols = cols.contiguous().reshape(B * Ho * Wo, kh * kw * C)
         else:
-            cols = F.unfold(x, self.kernel_size, dilation=self.dilation, padding=self.padding,
+            cols = F.unfold(x, self.kernel_size, dilation=self.dilation, padding=padding,
                             stride=self.stride)  # (B, C kh kw, L)
             cols = cols.transpose(1, 2).contiguous().reshape(B * Ho * Wo, -1)
         y = self._matmul(cols).reshape(B, Ho, Wo, self.out_channels)

@@ -11,6 +11,7 @@ from torch import nn
 
 from convnet_approximater_tpu_torch.nn import (AdaptiveAvgPool2d, BatchNorm2d, Conv2d, Dropout,
                                                Linear, MaxPool2d, ReLU, flatten_hwc)
+from convnet_approximater_tpu_torch.parallel.spatial import gather_rows
 
 from .switchable import MODEL, SwitchableModel
 
@@ -56,7 +57,8 @@ class VGG(SwitchableModel):
         )
 
     def forward(self, x):
-        return self.classifier(flatten_hwc(self.avgpool(self.features(x))))
+        # spatially sharded, the pooled map's rows are gathered whole for the classifier
+        return self.classifier(flatten_hwc(gather_rows(self.avgpool(self.features(x)))))
 
 
 @MODEL.register_module()

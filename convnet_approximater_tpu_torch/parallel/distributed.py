@@ -18,11 +18,12 @@ import torch.distributed as dist
 
 from convnet_approximater_tpu_torch.utils.logger import get_rank
 
-# what spatial sharding (parallel/spatial.py) does not carry yet: training under it, spatial
-# sharding beside tensor parallelism or a pipeline, compile_serving, and the layers with no halo
-# form (pools, lowrank_conv, int8 im2col, resizes, the Ham head)
-MESH_TODO = ("spatial sharding serves eval forwards of MSCAN, the headline surface and ConvNeXt "
-             "alone; the rest is ROADMAP.md queue 1 item 12b")
+# what spatial sharding (parallel/spatial.py) does not carry: training and autograd under it, a
+# pipeline beside it, compile_serving of a spatial model.  The JAX package lays out eval forwards
+# alone this way (__graft_entry__.py's dryrun_multichip, tests/test_parallel.py)
+MESH_TODO = ("spatial sharding serves eval forwards of every model family; training or autograd "
+             "under it, a pipeline beside it and compile_serving of a spatial model are not owed "
+             "by the JAX package (ROADMAP.md queue 1 item 12b, closed)")
 
 
 def initialize_distributed(coordinator_address=None, num_processes=None, process_id=None,

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from convnet_approximater_tpu_torch.nn import Conv2d, Dropout, GroupNorm
+from convnet_approximater_tpu_torch.parallel.spatial import global_size, pixel_sums, resize_rows
 
 NMF_SEED = 42
 
@@ -54,7 +55,9 @@ def nmf2d(x: torch.Tensor, d0: torch.Tensor, iters: int, eps: float = 1e-6) -> t
     """Low-rank NMF reconstruction of ``x`` (B, N, C) -> (B, N, C), from the
     dictionary start ``d0`` (1, C, rank): ``iters`` multiplicative updates of
     R then D, one more update of R with the last D detached, and D @ R.
-    ``(D^T D) R`` and ``D (R R^T)`` are formed in that order."""
+    ``(D^T D) R`` and ``D (R R^T)`` are formed in that order.  R is per pixel;
+    ``X R^T`` and ``R R^T`` sum over every pixel (``parallel.pixel_sums``: over
+    the model ranks' rows inside a spatial forward)."""
     X = F.relu(x.float()).transpose(1, 2)  # (B, C, N)
     B, C, _ = X.shape
     D = d0.float()
@@ -69,7 +72,8 @@ def nmf2d(x: torch.Tensor, d0: torch.Tensor, iters: int, eps: float = 1e-6) -> t
     for _ in range(iters):
         R = update_r(D, R)
         Rt = R.transpose(1, 2)
-        D = D * (torch.bmm(X, Rt) / (torch.bmm(D, torch.bmm(R, Rt)) + eps))
+        XRt, RRt = pixel_sums(torch.bmm(X, Rt), torch.bmm(R, Rt))
+        D = D * (XRt / (torch.bmm(D, RRt) + eps))
     D = D.detach()
     Y = torch.bmm(D, update_r(D, R))  # (B, C, N)
     return Y.transpose(1, 2).to(x.dtype)
@@ -99,8 +103,9 @@ class Hamburger(nn.Module):
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     """Bilinear resize of an NCHW map to ``size`` (H, W), half-pixel centres.
     ``jax.image.resize(..., "bilinear")`` gives the same when it enlarges, as
-    on every path here (when it shrinks it antialiases, this does not)."""
-    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False)
+    on every path here (when it shrinks it antialiases, this does not).
+    Inside a spatial forward, this rank's rows (``parallel.resize_rows``)."""
+    return resize_rows(x, size)
 
 
 class LightHamHead(nn.Module):
@@ -121,7 +126,7 @@ class LightHamHead(nn.Module):
         self.cls = Conv2d(align_channels, num_classes, 1)
 
     def forward(self, feats):
-        target = feats[0].shape[2:]
+        target = global_size(feats[0])  # spatially sharded: the rows on stage 2's split
         x = torch.cat([feats[0]] + [resize_bilinear(f, target) for f in feats[1:]], dim=1)
         x = self.hamburger(F.relu(self.squeeze(x)))
         x = F.relu(self.align_norm(self.align(x)))
@@ -129,5 +134,7 @@ class LightHamHead(nn.Module):
 
 
 def upsample_logits(logits: torch.Tensor, size) -> torch.Tensor:
-    """Resize 1/8-scale logits to the labels' resolution (mmseg's convention)."""
+    """Resize 1/8-scale logits to the labels' resolution (mmseg's convention);
+    spatially sharded, ``size`` is the whole image's and the rows are the
+    input's split."""
     return resize_bilinear(logits, size)

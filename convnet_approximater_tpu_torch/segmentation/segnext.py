@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from convnet_approximater_tpu_torch.models.mscan import MSCAN
 from convnet_approximater_tpu_torch.models.switchable import MODEL, SwitchableModel
+from convnet_approximater_tpu_torch.parallel.spatial import global_size
 
 from .ham_head import LightHamHead, upsample_logits
 
@@ -55,5 +56,5 @@ class SegNeXt(SwitchableModel):
         feats = self.backbone(x)
         logits = self.decode_head([feats[i] for i in self.in_indices])
         if self.full_res:
-            logits = upsample_logits(logits, x.shape[2:])
+            logits = upsample_logits(logits, global_size(x))
         return logits

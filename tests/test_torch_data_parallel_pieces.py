@@ -241,4 +241,5 @@ def test_what_stays_refused_names_the_rest_of_item_12b(setup):
     msg = str(e.value)
     assert MESH_TODO in msg and "training under spatial sharding" in msg
     assert all(word in msg for word in REST) and msg.count("item 12b") == 1, msg
-    assert "pipeline" not in msg and "tp.py" not in msg and "tensor" not in msg
+    assert "tp.py" not in msg and "tensor" not in msg  # tensor parallelism composes with it
+    assert "a pipeline beside it" in msg and "compile_serving" in msg  # what stays refused

@@ -13,7 +13,8 @@ emulated by slicing the map as the exchange assembles it:
 * the conv forms (3x3 s2, 4x4 s4, 2x2 s2, depthwise 3x3 and 7x7 and a 21-row
   strip run on the rank's rows with their edges recomputed) against the
   whole conv's rows;
-* what stays refused in one process.
+* what stays refused in one process, and ResNet, VGG and AlexNet (their
+  pools and flattening heads) against their whole forwards.
 
 Over gloo ranks (``tests/torch_ranks.py::spatial_job``), on a (2 data x 2
 model) mesh at 32^2 and an uneven (1 x 3) mesh at 48^2 (stage 4 of MSCAN: 2
@@ -344,9 +345,18 @@ def test_what_stays_refused_in_one_process():
     assert MESH_TODO in str(e.value) and "item 12b" in str(e.value)
     with pytest.raises(NotImplementedError, match="TrainHelper: training"):
         TrainHelper(model, {}, device="cpu")
-    for net in (ResNet(18, 10), VGG(depth=11, num_classes=10), AlexNet(num_classes=10)):
-        with pytest.raises(NotImplementedError, match="no halo form"):
-            parallel.spatial_module(net, None)
+    # the pools, the flattening heads and the families refused before have row forms now
+    for net, hw in ((ResNet(18, 10), 32), (VGG(depth=11, num_classes=10), 32),
+                    (AlexNet(num_classes=10), 64)):
+        net = torch_ranks.randomize(net, 0)
+        xx = torch_ranks.nchw(np.random.RandomState(1).randn(2, hw, hw, 3).astype(np.float32))
+        with torch.no_grad():
+            want = net(xx)
+            got = parallel.spatial_module(net, None)(parallel.shard_spatial(xx, None))
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
+    with pytest.raises(NotImplementedError, match="no row form") as e:
+        parallel.spatial_module(torch.nn.Sequential(Conv2d(3, 4, 3), torch.nn.AvgPool2d(2)), None)
+    assert MESH_TODO in str(e.value)
     with pytest.raises(ValueError, match="spatially sharded already"):
         parallel.spatial_module(model, None)
 
@@ -431,10 +441,12 @@ def test_what_stays_refused_across_ranks(runs):
     for rank in runs["2x2"]["ranks"]:
         got = rank["refused"]
         assert set(got) == {"training", "autograd", "compile_serving", "pipeline after",
-                            "pipeline before", "pools", "uneven"}
+                            "pipeline before", "pools", "no row form", "uneven"}
         for case in ("training", "autograd", "compile_serving", "pipeline after",
-                     "pipeline before", "pools"):
+                     "pipeline before", "no row form"):
             assert MESH_TODO in got[case], case
+        y, want = got["pools"]  # ResNet-18's pools have row forms now: its whole logits
+        np.testing.assert_allclose(y.numpy(), want.numpy(), rtol=RTOL, atol=ATOL)
         assert "should be divisible by 2, but it is equal to 31" in got["uneven"]
     # JAX refuses the same layout at device_put
     with pytest.raises(ValueError, match="should be divisible by 2, but it is equal to 31"):

@@ -319,7 +319,7 @@ def test_dropout_masks_and_refusals(runs):
         assert got["slices"][0] is None  # on the replicated input
         msg = r["uneven"]
         assert "should be divisible by 2, but it is equal to 5" in msg
-        assert "spatial sharding" in r["spatial"] and "12b" in r["spatial"]
+        assert r["spatial"] == (True, True, True)  # laid out spatially, then its TP form again
         assert "spatially sharded model" in r["spatial_then_tp"] and "12b" in r["spatial_then_tp"]
     assert [r["dropout"]["slices"][3][1] for r in runs["ranks"]] == [0, 1]
     # JAX refuses the same layout at device_put

@@ -220,8 +220,7 @@ def test_unported_options_raise(cfg, match):
     assert TrainHelper(model, cfg, device="cpu").cfg.model_parallel == 2
     with pytest.raises(ValueError, match="model axis"):
         TrainHelper(model, dict(cfg, pipeline_parallel=2), device="cpu")
-    with pytest.raises(NotImplementedError, match="no halo form"):
-        parallel.spatial_module(model, None)  # TinyNet's max pool
+    assert parallel.is_spatial(parallel.spatial_module(model, None))  # its max pool has a row form
     spatial = parallel.spatial_module(MSCAN_Classifier(
         num_channels=(8, 16), num_blocks=(1, 1), exp_ratios=(2, 2), num_classes=4), None)
     with pytest.raises(NotImplementedError, match=match) as e:

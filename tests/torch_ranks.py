@@ -861,11 +861,12 @@ def tp_job(families: dict, x: dict, labels: dict, tol: dict, data: int = 1,
     ``(weights npz, JAX npz)``) by :func:`tp_family`; with ``extras``, the
     dropout masks (:func:`tp_dropout`), rules no preset has
     (:func:`tp_explicit`), the deploy surfaces
-    (:func:`tp_deploy_surfaces`), a dim the model axis does not divide, and
-    spatial sharding's refusal beside tensor parallelism, in either order."""
+    (:func:`tp_deploy_surfaces`), a dim the model axis does not divide, a
+    sharded model laid out spatially and back (its tensor-parallel form
+    again), and the refusal of tensor parallelism after spatial sharding."""
     from convnet_approximater_tpu_torch import parallel
     from convnet_approximater_tpu_torch.nn import Linear
-    from convnet_approximater_tpu_torch.parallel import tp
+    from convnet_approximater_tpu_torch.parallel import tp, tp_layers
 
     n = dist.get_world_size()
     mesh = parallel.make_mesh(data=data, model=n // data)
@@ -885,10 +886,10 @@ def tp_job(families: dict, x: dict, labels: dict, tol: dict, data: int = 1,
     head = torch.nn.Module()
     head.head = Linear(4, 6)
     tp.shard_module(head, mesh, 2, [("head/weight", (None, "model"))])
-    try:
-        parallel.spatial_module(head, mesh)
-    except NotImplementedError as e:
-        out["spatial"] = str(e)
+    parallel.spatial_module(head, mesh)  # spatial sharding beside tensor parallelism
+    laid_out = (parallel.is_spatial(head), "_tp" in head.head.__dict__)
+    parallel.unspatial_module(head)
+    out["spatial"] = laid_out + (head.head.__dict__["forward"].__func__ is tp_layers.tp_forward,)
     whole = parallel.spatial_module(randomized("mscan", 0), mesh)
     try:
         tp.shard_module(whole, mesh, 2, "mscan")
@@ -987,9 +988,9 @@ def spatial_job(models: dict, x: np.ndarray, data: int, blocks: dict = None,
 
 
 def spatial_refusals(mesh, xt: torch.Tensor) -> dict:
-    """What spatial sharding refuses over ``mesh``, each message by case."""
+    """What spatial sharding refuses over ``mesh``, each message by case, and
+    under ``pools`` ResNet-18's spatially sharded logits beside its whole ones."""
     from convnet_approximater_tpu_torch import deploy, parallel
-    from convnet_approximater_tpu_torch.models import ResNet
 
     out = {}
 
@@ -1010,7 +1011,69 @@ def spatial_refusals(mesh, xt: torch.Tensor) -> dict:
     piped = randomized("mscan", 0)
     piped.backbone.enable_pipeline(mesh)
     refused("pipeline before", lambda: parallel.spatial_module(piped, mesh))
-    refused("pools", lambda: parallel.spatial_module(ResNet(18, 10), mesh))
+    resnet = randomized("resnet", 0)
+    with torch.no_grad():
+        whole = resnet(xt)
+        parallel.spatial_module(resnet, mesh)
+        out["pools"] = (parallel.gather_spatial(resnet(xs), mesh), whole)
+    refused("no row form", lambda: parallel.spatial_module(
+        torch.nn.Sequential(torch.nn.Conv2d(3, 4, 3), torch.nn.AvgPool2d(2)), mesh))
     refused("uneven", lambda: parallel.shard_spatial(xt[:, :, :xt.shape[2] - 1], mesh),
             ValueError)
+    return out
+
+
+SPATIAL_KERNELS = ("lowrank_conv", "qmatmul", "msca_fused", "parallel_cascade")  # op modules
+
+
+def spatial_families_job(path: str, data: int = 1) -> dict:
+    """Each case of the file at ``path`` (name: ``model``, the NHWC input
+    ``x`` and ``tp``, a tensor-parallel preset or None) laid out over a
+    ``(data, world / data)`` mesh: sharded by ``tp.shard_module`` first where
+    ``tp`` names a preset, then by ``spatial_module``.  Its output on this
+    rank's block of ``x`` (two forwards), gathered whole; each port kernel's
+    calls and window shapes in the second forward, its collectives and the
+    bytes it moved; beside tensor parallelism, the bytes of parameters the
+    rank holds before and after and the tensor-parallel forward after
+    ``unspatial_module`` on the rank's batch rows."""
+    import importlib
+
+    from convnet_approximater_tpu_torch import parallel
+    from convnet_approximater_tpu_torch.parallel import spatial, tp
+
+    cases = torch.load(path, weights_only=False)
+    n = dist.get_world_size()
+    mesh = parallel.make_mesh(data=data, model=n // data)
+    ops = {name: importlib.import_module(f"convnet_approximater_tpu_torch.ops.{name}")
+           for name in SPATIAL_KERNELS}
+    out = {}
+    for name, case in cases.items():
+        model, xt = case["model"], nchw(case["x"])
+        res = {}
+        if case.get("tp"):
+            tp.shard_module(model, mesh, n // data, case["tp"], warn=False)
+            res["held"] = tp.shard_bytes(model)
+        parallel.spatial_module(model, mesh)
+        xs = parallel.shard_spatial(xt, mesh)
+        with torch.no_grad():
+            y = model(xs)
+            calls = {k: Calls(ops[k], k) for k in ops}
+            collectives = [Numels(dist, "all_gather", 1), Numels(dist, "all_reduce", 0)]
+            spatial.stats.reset()
+            try:
+                y2 = model(xs)
+            finally:
+                for c in list(calls.values()) + collectives:
+                    c.close()
+        res.update(y=parallel.gather_spatial(y, mesh), same=torch.equal(y, y2),
+                   rows=tuple(xs.shape), calls={k: c.shapes for k, c in calls.items()},
+                   all_gather=collectives[0].numels, all_reduce=collectives[1].numels,
+                   sent=spatial.stats.sent_bytes, gathered=spatial.stats.gathered_bytes)
+        if case.get("tp"):
+            res["held_after"] = tp.shard_bytes(model)
+            parallel.unspatial_module(model)
+            rows = parallel.shard_rows(len(case["x"]), parallel.batch_sharding(mesh))
+            with torch.no_grad():
+                res["tp_after"] = model(nchw(case["x"][rows]))
+        out[name] = res
     return out
